@@ -18,13 +18,17 @@ order; the first failure ends the run with a non-zero exit:
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line.
 
-Launch counts are zeroed just before phase 4 and read just after phase
-5; a kernel of the path that never launched fails the run. Nothing here
-imports JAX or the JAX package.
+Launch counts are zeroed just before one find_routes_collective call
+(phase 4) and just before one route_collective call (phase 5), and read
+just after each; a kernel of either path that did not launch in its
+call fails the run. The sampler call of that find_routes_collective is
+recorded and held bit for bit against the plain version on its own
+arguments. Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -221,33 +225,51 @@ def phase_kernels(p, device, report: dict) -> None:
         dst_nodes=p["dst_nodes"],
     )
     hops = sampled_hops(lv + 1)
-    src, dst, dist, dn = p["src"], p["dst"], p["dist"], p["dst_nodes"]
+    args = (weights, p["dist"], p["src"], p["dst"], hops)
     k2_err = 0.0
-    for name, nodes_arg in (("full", None), ("dst_nodes", dn)):
-        got = sampler.sample_slots(
-            weights, dist, src, dst, hops, salt=0, dst_nodes=nodes_arg
-        )
-        _, ref = sampler.sample_paths_dense(
-            weights, dist, src, dst, hops, salt=0, dst_nodes=nodes_arg
-        )
-        torch.cuda.synchronize()
-        n_bad = int((got != ref).sum())
-        if n_bad:
-            fail(f"K2 {name}: {n_bad} of {got.numel()} slots differ from "
-                 "the plain version")
-        k2_err = max(k2_err, float((got.int() - ref.int()).abs().max()))
-        log(f"K2 {name}: {got.numel()} slots bit-equal "
-            f"(F={src.shape[0]}, hops={hops})")
-    k2_ms = time_ms(lambda: sampler.sample_slots(
-        weights, dist, src, dst, hops, dst_nodes=dn))
-    k2_plain = time_ms(lambda: sampler.sample_paths_dense(
-        weights, dist, src, dst, hops, dst_nodes=dn), reps=5, warm=1)
-    k2_full = time_ms(lambda: sampler.sample_slots(weights, dist, src, dst, hops))
+    for name, dn in (("full", None), ("dst_nodes", p["dst_nodes"])):
+        kw = {"salt": 0, "dst_nodes": dn}
+        got = sampler.sample_slots(*args, **kw)
+        k2_err = max(k2_err, check_k2(args, kw, got, f"program {name}"))
+        measure_k2(args, kw, f"program {name}")
+    report["sample_slots"] = {"max_abs_err": k2_err}
+    kw = {"salt": 0, "dst_nodes": p["dst_nodes"]}
+    log_profile("K2 wrapper", *profile_device(
+        lambda: sampler.sample_slots(*args, **kw)))
+
+
+def check_k2(args: tuple, kw: dict, got, what: str) -> float:
+    """``got`` (K2's slots) must be bit-equal to the plain version on
+    the same arguments; returns the largest slot difference."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import sampler
+
+    _, ref = sampler.sample_paths_dense(*args, **kw)
+    torch.cuda.synchronize()
+    n_bad = int((got != ref).sum())
+    if n_bad:
+        fail(f"K2 {what}: {n_bad} of {got.numel()} slots differ from the "
+             "plain version")
+    src = args[2]
+    log(f"K2 {what}: {got.numel()} slots bit-equal (F={src.shape[0]}, "
+        f"V={args[0].shape[0]}, hops={args[4]})")
+    return float((got.int() - ref.int()).abs().max()) if got.numel() else 0.0
+
+
+def measure_k2(args: tuple, kw: dict, what: str) -> dict:
+    """Time K2 and its plain version on one call's arguments and work
+    out the bytes and operations the function needs for them."""
+    from sdnmpi_tpu_torch.kernels import sampler
+
+    weights, dist, src, dst, hops = args
+    dn = kw.get("dst_nodes")
+    ms = time_ms(lambda: sampler.sample_slots(*args, **kw))
+    plain = time_ms(lambda: sampler.sample_paths_dense(*args, **kw),
+                    reps=5, warm=1)
     # candidates this run's data makes the sampler score: two logs, a
     # subtract and an add each
-    nodes, _ = sampler.sample_paths_dense(
-        weights, dist, src, dst, hops, dst_nodes=dn
-    )
+    nodes, _ = sampler.sample_paths_dense(*args, **kw)
     d2t = sampler.dist_rows(dist).float()[dst.long()]  # [F, V]
     n_cand = 0
     for h in range(hops):
@@ -256,21 +278,66 @@ def phase_kernels(p, device, report: dict) -> None:
         nd = d2t.gather(1, node.clamp(min=0)[:, None])
         cand = (weights[node.clamp(min=0)] > 0) & (d2t == nd - 1.0)
         n_cand += int((cand & live[:, None]).sum())
+    del d2t
+    v = weights.shape[0]
     f = src.shape[0]
-    k2_bytes = 2 * v * v * 4 + 2 * f * 4 + dn.shape[0] * 4 + f * hops
-    log(f"K2 time (dst_nodes): kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain:.4f} ms; full layout kernel {k2_full:.4f} ms; "
-        f"{n_cand} candidates scored")
-    log_profile("K2 wrapper", *profile_device(lambda: sampler.sample_slots(
-        weights, dist, src, dst, hops, dst_nodes=dn)))
-    report["sample_slots"] = {
-        "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-        "bytes": k2_bytes, "ops": 4 * n_cand,
+    # weights read once; of the distances only the rows the flows'
+    # destinations select ([T, V] with dst_nodes); flows in, slots out
+    rows = v if dn is None else dn.shape[0]
+    n_bytes = v * v * 4 + rows * v * 4 + 2 * f * 4 + f * hops
+    if dn is not None:
+        n_bytes += dn.shape[0] * 4
+    log(f"K2 time ({what}, F={f}, distance rows {rows}): kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms; {n_cand} candidates scored; {n_bytes} bytes")
+    return {"ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": 4 * n_cand}
+
+
+@contextlib.contextmanager
+def recording_sampler(calls: list):
+    """Record ``(args, kwargs, slots)`` of every K2 call that
+    ``oracle.dag`` makes while the context is open."""
+    from sdnmpi_tpu_torch.kernels import sampler
+    from sdnmpi_tpu_torch.oracle import dag
+
+    def record(*args, **kw):
+        out = sampler.sample_slots(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    dag.sample_slots = record
+    try:
+        yield
+    finally:
+        dag.sample_slots = sampler.sample_slots
+
+
+def path_launches(fn) -> dict:
+    """Run ``fn()`` with every launch count zeroed just before it and
+    return the counts just after."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import bfs, sampler
+
+    bfs.bfs_distances.launches = 0
+    sampler.sample_slots.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {
+        "bfs_distances": bfs.bfs_distances.launches,
+        "sample_slots": sampler.sample_slots.launches,
     }
 
 
-def phase_slice(k: int, n_ranks: int, v_pad: int, device) -> None:
-    """The port's entry point: a whole alltoall through the TopologyDB."""
+def require_launched(counts: dict, names: tuple, what: str) -> None:
+    log(f"launches, one {what} call: {counts}")
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"kernel {name} did not launch in the {what} call")
+
+
+def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
+    """The port's entry point: a whole alltoall through the TopologyDB.
+    Returns the launch counts of its first call."""
     import torch
 
     from sdnmpi_tpu_torch.collectives import alltoall_pairs
@@ -282,13 +349,34 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device) -> None:
     pairs = alltoall_pairs(len(macs))
     src_idx, dst_idx = pairs[:, 0], pairs[:, 1]
     calls = []
-    routes = None
-    for _ in range(4):
+    out = {}
+    k2_calls: list = []
+
+    def route():
         t0 = time.perf_counter()
-        routes = db.find_routes_collective(macs, src_idx, dst_idx, policy="balanced")
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        out["routes"] = db.find_routes_collective(
+            macs, src_idx, dst_idx, policy="balanced"
+        )
+        torch.cuda.synchronize()
         calls.append((time.perf_counter() - t0) * 1e3)
+
+    with recording_sampler(k2_calls):
+        counts = path_launches(route)
+    require_launched(counts, ("sample_slots",), "find_routes_collective")
+    # the sampler call of the entry point, on the arguments it was given
+    if len(k2_calls) != counts["sample_slots"]:
+        fail(f"slice: {len(k2_calls)} sampler calls recorded for "
+             f"{counts['sample_slots']} launches")
+    args, kw, got = k2_calls[0]
+    err = check_k2(args, kw, got, "slice (find_routes_collective)")
+    report["sample_slots"] = {
+        **measure_k2(args, kw, "slice"),
+        "max_abs_err": max(err, report["sample_slots"]["max_abs_err"]),
+    }
+    del k2_calls, args, kw, got
+    for _ in range(3):
+        route()
+    routes = out["routes"]
     log(f"slice: {len(pairs):,} pairs -> {routes.n_subflows:,} sub-flows; "
         f"first call {calls[0]:.1f} ms (includes refresh), steady "
         f"{', '.join(f'{c:.1f}' for c in calls[1:])} ms (median "
@@ -309,10 +397,9 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device) -> None:
     log(f"slice split (median of 3): dispatch "
         f"{statistics.median(d for d, _ in split):.1f} ms, reap "
         f"{statistics.median(r for _, r in split):.1f} ms")
-    if device.type == "cuda":
-        log_profile("slice", *profile_device(
-            lambda: db.find_routes_collective(macs, src_idx, dst_idx)
-        ))
+    log_profile("slice", *profile_device(
+        lambda: db.find_routes_collective(macs, src_idx, dst_idx)
+    ))
     t = oracle.refresh(db)
     dist_h = oracle._dist
     # every pair routed, from its source's edge switch to its
@@ -343,10 +430,12 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device) -> None:
         fail("slice: a route's out-port is not its link's port")
     log(f"slice: all {len(pairs):,} pairs routed over shortest real paths; "
         f"max_congestion {routes.max_congestion}")
+    return counts
 
 
-def phase_program(p, device) -> float:
-    """One route_collective with dist=None: K1, balancing and K2."""
+def phase_program(p, device) -> dict:
+    """One route_collective with dist=None: K1, balancing and K2.
+    Returns the launch counts of its first call."""
     import torch
 
     from sdnmpi_tpu_torch.oracle.dag import route_collective, slots_to_nodes
@@ -357,7 +446,7 @@ def phase_program(p, device) -> float:
     ).to(device)
     kw = dict(
         levels=p["levels"], rounds=ROUNDS, max_len=p["levels"] + 1,
-        max_degree=t.max_degree, dst_nodes=p["dst_nodes"],
+        dst_nodes=p["dst_nodes"],
     )
 
     def run(dist=None):
@@ -366,7 +455,11 @@ def phase_program(p, device) -> float:
             dist=dist, **kw,
         )
 
-    slots, maxc = run()
+    out = {}
+    counts = path_launches(lambda: out.update(first=run()))
+    require_launched(counts, ("bfs_distances", "sample_slots"),
+                     "route_collective(dist=None)")
+    slots, maxc = out["first"]
     cached, maxc_c = run(p["dist"])
     if not torch.equal(slots, cached) or float(maxc) != float(maxc_c):
         fail("program: dist=None and the cached distances route differently")
@@ -380,13 +473,12 @@ def phase_program(p, device) -> float:
         nodes, p["src"].cpu().numpy(), p["dst"].cpu().numpy(),
         p["dist"].cpu().numpy(), t.host_adj(), "program",
     )
-    ms = time_ms(lambda: run(), reps=10, warm=1) if device.type == "cuda" else 0.0
+    ms = time_ms(lambda: run(), reps=10, warm=1)
     log(f"program: {n:,} flows on valid shortest paths, fractional max "
         f"congestion {float(maxc):.3f}; {ms:.3f} ms per collective (dist=None, "
         "median of 10)")
-    if device.type == "cuda":
-        log_profile("program", *profile_device(run))
-    return ms
+    log_profile("program", *profile_device(run))
+    return counts
 
 
 def main() -> int:
@@ -406,7 +498,7 @@ def main() -> int:
     log(smi)
 
     # phase 2: build
-    from sdnmpi_tpu_torch.kernels import _build, bfs, sampler
+    from sdnmpi_tpu_torch.kernels import _build
 
     secs = _build.build()
     log(f"build: {secs:.1f} s for {len(_build.BUILD_LOG)} kernel(s) "
@@ -426,21 +518,10 @@ def main() -> int:
     report: dict = {}
     phase_kernels(p, device, report)
 
-    # phases 4 and 5: the main path, with the launch counts
-    bfs.bfs_distances.launches = 0
-    sampler.sample_slots.launches = 0
-    phase_slice(FATTREE_K, N_RANKS, V_PAD, device)
-    slice_counts = (bfs.bfs_distances.launches, sampler.sample_slots.launches)
-    phase_program(p, device)
-    launches = {
-        "bfs_distances": bfs.bfs_distances.launches,
-        "sample_slots": sampler.sample_slots.launches,
-    }
-    log(f"launches: slice bfs={slice_counts[0]} sampler={slice_counts[1]}; "
-        f"slice+program {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} never launched on the main path")
+    # phases 4 and 5: the two main paths, each with its launch counts
+    slice_counts = phase_slice(FATTREE_K, N_RANKS, V_PAD, device, report)
+    program_counts = phase_program(p, device)
+    launches = {n: slice_counts[n] + program_counts[n] for n in slice_counts}
 
     # phase 6: report
     meta = {

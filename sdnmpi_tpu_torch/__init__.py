@@ -14,7 +14,7 @@ Package map:
   core/         TopologyDB (backends "torch" and "py")
   oracle/       APSP, DAG balancer, route oracle, result arrays
   kernels/      CUDA kernels K1 (BFS) and K2 (path sampler), csrc/ sources
-  topogen/      topology generators (linear, fat-tree, torus, dragonfly)
+  topogen/      topology generators (linear, ring, fat-tree, torus)
   collectives/  MPI collective rank-pair generators
   protocol/     OpenFlow constants and flow batches, virtual MAC codec
   utils/        MAC helpers, metrics registry

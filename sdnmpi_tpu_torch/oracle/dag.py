@@ -307,7 +307,6 @@ def route_collective(
     levels: int,
     rounds: int,
     max_len: int,
-    max_degree: int,
     salt: int = 0,
     dist: torch.Tensor | None = None,
     dst_nodes: torch.Tensor | None = None,  # [T] int32 destination set (-1 pad)
@@ -326,10 +325,9 @@ def route_collective(
     row must be in it) restricts the balancing products and the
     sampler's distance table to the destination set, with the same
     result. ``levels`` must bound the diameter: without a cached
-    ``dist``, pairs farther apart read unreachable. ``max_degree`` is
-    kept for the reference's signature; the kernels walk full sorted
+    ``dist``, pairs farther apart read unreachable. The reference's
+    ``max_degree`` argument is gone: the kernels walk full sorted
     neighbour rows."""
-    del max_degree
     v = adj.shape[0]
     base = torch.zeros((v, v), dtype=torch.float32, device=adj.device)
     base[link_src.long(), link_dst.long()] = link_util.to(torch.float32)

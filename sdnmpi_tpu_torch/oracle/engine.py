@@ -345,7 +345,6 @@ class RouteOracle:
             adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
             put(util), put(traffic), put(src_p), put(dst_p),
             levels=max_len - 1, rounds=rounds, max_len=max_len,
-            max_degree=t.max_degree,
             dist=dist_eff,  # cached at this topology version: no BFS
             dst_nodes=put(dn) if len(dn) < v_eff else None,
         )
