@@ -1,4 +1,4 @@
-"""Drive sdnmpi_tpu_torch's collective path on one NVIDIA GPU.
+"""Drive sdnmpi_tpu_torch's collective paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and builds the
@@ -6,8 +6,9 @@ package's kernels from ``sdnmpi_tpu_torch/kernels/csrc``. Phases, in
 order; the first failure ends the run with a non-zero exit:
 
 1. device   — a CUDA card is present; print its name and power limit.
-2. build    — build kernels K1 (BFS) and K2 (path sampler), in parallel.
-3. kernels  — hold each kernel against its plain PyTorch version on the
+2. build    — build kernels K1 (BFS), K2 (path sampler) and K3 (ring
+               all-gather), one nvcc per source, in parallel.
+3. kernels  — hold K1 and K2 against their plain PyTorch versions on the
                card at the main path's shapes (K1 exactly, K2 bit for
                bit, in both sampler layouts); time both with CUDA events.
 4. slice    — a 4096-rank alltoall over a k=28 fat-tree (980 switches,
@@ -16,14 +17,28 @@ order; the first failure ends the run with a non-zero exit:
 5. program  — one route_collective call with no cached distances at the
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
-6. report   — one JSON line of per-kernel numbers, then the result line.
+6. report   — one JSON line of per-kernel numbers, then the result line;
+               printed last, after phases 7 to 9.
+7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
+               bf16/int16/int32/f32 words, exactly), timed at the distance
+               exchange's shape beside torch.cat.
+8. sharded  — config 13's primary shape: an 8192-rank alltoall over a
+               k=56 fat-tree (3,920 switches, V=3,968) through
+               TopologyDB(mesh_devices=8, shard_oracle=True,
+               ring_exchange=True), all 8 shards on this card; every pair
+               checked, routes bit-equal to a single-device TopologyDB.
+9. sharded program — route_collective_sharded on config 13's edge flows
+               in ring and gather modes, slots bit-equal to the
+               single-device route_collective.
 
-Launch counts are zeroed just before one find_routes_collective call
-(phase 4) and just before one route_collective call (phase 5), and read
-just after each; a kernel of either path that did not launch in its
-call fails the run. The sampler call of that find_routes_collective is
-recorded and held bit for bit against the plain version on its own
-arguments. Nothing here imports JAX or the JAX package.
+Launch counts are zeroed just before one call of each path and read just
+after it: find_routes_collective (phase 4), route_collective(dist=None)
+(phase 5), one steady sharded find_routes_collective and one sharded
+refresh (phase 8), one route_collective_sharded call per mode (phase 9).
+A kernel of a path that did not launch in its call fails the run. The
+sampler call of phase 4 is recorded and held bit for bit against the
+plain version on its own arguments. Nothing here imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
@@ -45,6 +60,13 @@ ROUNDS = 2
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and
 #: non-tensor f32 FLOP/s, for the per-kernel lower bounds
 PEAK_BYTES_S = 3.35e12
+#: config 13's primary shape: fat-tree k=56 (3,920 switches, V = 3,968),
+#: an 8192-rank alltoall, 8 shards on one card
+SHARD_K = 56
+SHARD_PAD = 128
+SHARD_RANKS = 8192
+SHARD_V = 3968
+N_SHARDS = 8
 PEAK_F32_S = 67e12
 
 
@@ -316,15 +338,17 @@ def path_launches(fn) -> dict:
     return the counts just after."""
     import torch
 
-    from sdnmpi_tpu_torch.kernels import bfs, sampler
+    from sdnmpi_tpu_torch.kernels import bfs, ring, sampler
 
     bfs.bfs_distances.launches = 0
     sampler.sample_slots.launches = 0
+    ring.ring_all_gather.launches = 0
     fn()
     torch.cuda.synchronize()
     return {
         "bfs_distances": bfs.bfs_distances.launches,
         "sample_slots": sampler.sample_slots.launches,
+        "ring_all_gather": ring.ring_all_gather.launches,
     }
 
 
@@ -387,28 +411,39 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
     # where a steady call goes: the dispatch (pair grouping and deal, hop
     # budget, device enqueue) and the reap (device wait, slot decode,
     # fdb materialization, discrete congestion)
+    log_split("slice", oracle, db, macs, src_idx, dst_idx)
+    log_profile("slice", *profile_device(
+        lambda: db.find_routes_collective(macs, src_idx, dst_idx)
+    ))
+    check_routes("slice", spec, db, macs, src_idx, dst_idx, routes)
+    return counts
+
+
+def log_split(what: str, oracle, db, macs, src_idx, dst_idx, n: int = 3) -> None:
+    """Median dispatch and reap wall times of ``n`` steady calls."""
     split = []
-    for _ in range(3):
+    for _ in range(n):
         t0 = time.perf_counter()
         window = oracle.routes_collective_dispatch(db, macs, src_idx, dst_idx)
         t1 = time.perf_counter()
         window.reap()
         split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
-    log(f"slice split (median of 3): dispatch "
+    log(f"{what} split (median of {n}): dispatch "
         f"{statistics.median(d for d, _ in split):.1f} ms, reap "
         f"{statistics.median(r for _, r in split):.1f} ms")
-    log_profile("slice", *profile_device(
-        lambda: db.find_routes_collective(macs, src_idx, dst_idx)
-    ))
+
+
+def check_routes(what: str, spec, db, macs, src_idx, dst_idx, routes) -> None:
+    """Every pair routed, from its source's edge switch to its
+    destination's, over real links, on a shortest path."""
+    oracle = db._oracle_engine()
     t = oracle.refresh(db)
     dist_h = oracle._dist
-    # every pair routed, from its source's edge switch to its
-    # destination's, over real links, shortest
-    host_dpid = {m: d for m, d, _ in spec.hosts[:n_ranks]}
+    host_dpid = {m: d for m, d, _ in spec.hosts}
     edge_row = np.array([t.index[host_dpid[m]] for m in macs], np.int64)
     sub = routes.pair_sub
     if (sub < 0).any() or (routes.hop_len[sub] == 0).any():
-        fail("slice: a pair is unrouted")
+        fail(f"{what}: a pair is unrouted")
     row_of = np.full(int(t.dpids.max()) + 2, -1, np.int64)
     row_of[t.dpids] = np.arange(len(t.dpids))
     hop_rows = np.where(routes.hop_dpid >= 0, row_of[routes.hop_dpid], -1)
@@ -418,19 +453,18 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
     s_edge = edge_row[src_idx]
     d_edge = edge_row[dst_idx]
     if (first[sub] != s_edge).any() or (last[sub] != d_edge).any():
-        fail("slice: a route does not join its pair's edge switches")
+        fail(f"{what}: a route does not join its pair's edge switches")
     if (length[sub] != dist_h[s_edge, d_edge] + 1).any():
-        fail("slice: a route is not a shortest path")
+        fail(f"{what}: a route is not a shortest path")
     a, b = hop_rows[:, :-1], hop_rows[:, 1:]
     hop = (a >= 0) & (b >= 0)
     port_h = t.host_port()
     if not (port_h[a[hop], b[hop]] >= 0).all():
-        fail("slice: a route uses a link the fabric lacks")
+        fail(f"{what}: a route uses a link the fabric lacks")
     if not (routes.hop_port[:, :-1][hop] == port_h[a[hop], b[hop]]).all():
-        fail("slice: a route's out-port is not its link's port")
-    log(f"slice: all {len(pairs):,} pairs routed over shortest real paths; "
+        fail(f"{what}: a route's out-port is not its link's port")
+    log(f"{what}: all {len(src_idx):,} pairs routed over shortest real paths; "
         f"max_congestion {routes.max_congestion}")
-    return counts
 
 
 def phase_program(p, device) -> dict:
@@ -481,6 +515,251 @@ def phase_program(p, device) -> dict:
     return counts
 
 
+def check_k3(blocks: list, mesh, what: str) -> list:
+    """K3 on ``blocks`` must equal its plain version on the same blocks
+    (and the gathered matrix) exactly on every shard; returns K3's output."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    got = ring.ring_all_gather(blocks, mesh)
+    padded, _, r = ring._padded_blocks(blocks)
+    want = [o[:r] for o in ring.ring_all_gather_plain(padded)]
+    whole = torch.cat(blocks)
+    torch.cuda.synchronize()
+    for q, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.equal(g, w) or not torch.equal(g, whole):
+            fail(f"K3 {what}: shard {q} differs from the plain version")
+    return got
+
+
+def phase_ring(device, report: dict) -> None:
+    """K3 against its plain version: s in {2, 3, 8}, uneven R, bf16,
+    int16 and int32 words, the sharded path's shapes; then timed at the
+    distance exchange's shape (V = 3968 int16 wire, 8 shards)."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+    from sdnmpi_tpu_torch.shardplane import make_mesh
+
+    rng = np.random.default_rng(5)
+    v = SHARD_V
+    cases = [
+        (2, 1000, 256, torch.int16), (3, 1001, 130, torch.bfloat16),
+        (3, 64, 3, torch.int16), (8, 1001, 384, torch.int32),
+        (8, 77, 5, torch.bfloat16), (8, v, v // 2, torch.int16),
+        (8, v, v, torch.float32),
+    ]
+    for s, r, c, dt in cases:
+        mesh = make_mesh(s, device)
+        x = torch.as_tensor(rng.integers(-30000, 30000, (r, c))).to(device, dt)
+        b = -(-r // s)
+        blocks = [x[q * b:(q + 1) * b] for q in range(s)]
+        for _ in range(3):  # repeated calls ride the flags' epochs
+            check_k3(blocks, mesh, f"s={s} R={r} C={c} {dt}")
+        log(f"K3 s={s} R={r} C={c} {dt}: equal to the plain version, 3 calls")
+    mesh = make_mesh(N_SHARDS, device)
+    x = torch.as_tensor(rng.integers(-1, 5, (v, v))).to(device, torch.int16)
+    rp = v // N_SHARDS
+    blocks = [x[q * rp:(q + 1) * rp] for q in range(N_SHARDS)]
+    check_k3(blocks, mesh, "exchange shape")
+    padded = ring._padded_blocks(blocks)[0]
+    ms = time_ms(lambda: ring.ring_all_gather(blocks, mesh), reps=20)
+    plain = time_ms(lambda: ring.ring_all_gather_plain(padded), reps=10)
+    lib = time_ms(lambda: torch.cat(blocks), reps=20)
+    # each block read once, each shard's [V, V] copy written once
+    n_bytes = v * v * 2 + N_SHARDS * v * v * 2
+    log(f"K3 time (V={v} int16 wire, {N_SHARDS} shards, all on one card): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.cat {lib:.4f} ms; "
+        f"{n_bytes} bytes, exchange_bytes per shard "
+        f"{ring.exchange_bytes(v, v, N_SHARDS)}")
+    log_profile("K3 wrapper", *profile_device(
+        lambda: ring.ring_all_gather(blocks, mesh)))
+    report["ring_all_gather"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bytes": n_bytes,
+        "ops": 0, "library_ms": lib,
+    }
+
+
+def phase_sharded_entry(device) -> dict:
+    """The sharded entry point: an 8192-rank alltoall over fat-tree k=56
+    through TopologyDB(mesh_devices=8, shard_oracle, ring_exchange), held
+    against a single-device TopologyDB. Returns the launch counts of one
+    steady call."""
+    import torch
+
+    from sdnmpi_tpu_torch.collectives import alltoall_pairs
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(SHARD_K)
+    flags = dict(mesh_devices=N_SHARDS, shard_oracle=True, ring_exchange=True)
+    db = spec.to_topology_db(backend="torch", device=device,
+                             pad_multiple=SHARD_PAD, **flags)
+    macs = [m for m, _, _ in spec.hosts[:SHARD_RANKS]]
+    pairs = alltoall_pairs(len(macs))
+    src_idx, dst_idx = pairs[:, 0], pairs[:, 1]
+    del pairs
+    calls = []
+    out = {}
+
+    def route():
+        t0 = time.perf_counter()
+        out["routes"] = db.find_routes_collective(
+            macs, src_idx, dst_idx, policy="balanced"
+        )
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+
+    first = path_launches(route)
+    log(f"launches, first sharded call (refresh included): {first}")
+    counts = path_launches(route)
+    require_launched(counts, ("sample_slots", "ring_all_gather"),
+                     "steady sharded find_routes_collective")
+    route()
+    routes = out["routes"]
+    oracle = db._oracle_engine()
+    t = oracle.refresh(db)
+    log(f"sharded slice: fattree-k{SHARD_K} V={t.v}, {oracle.mesh_devices} "
+        f"shards on {device}; {len(src_idx):,} pairs -> {routes.n_subflows:,} "
+        f"sub-flows; first call {calls[0]:.1f} ms (includes refresh), steady "
+        f"{', '.join(f'{c:.1f}' for c in calls[1:])} ms (median "
+        f"{statistics.median(calls[1:]):.1f})")
+    if not np.isfinite(routes.max_congestion) or routes.max_congestion <= 0:
+        fail(f"sharded slice: max_congestion {routes.max_congestion}")
+    log_split("sharded slice", oracle, db, macs, src_idx, dst_idx, n=2)
+    log_profile("sharded slice", *profile_device(
+        lambda: db.find_routes_collective(macs, src_idx, dst_idx)))
+    db._version += 1  # one more full refresh, counted alone
+    t0 = time.perf_counter()
+    refresh = path_launches(lambda: oracle.refresh(db))
+    log(f"sharded refresh: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    require_launched(refresh, ("ring_all_gather",), "sharded refresh")
+    check_routes("sharded slice", spec, db, macs, src_idx, dst_idx, routes)
+    # the same fabric and collective on one device: the same routes
+    single = spec.to_topology_db(backend="torch", device=device,
+                                 pad_multiple=SHARD_PAD)
+    ref = single.find_routes_collective(macs, src_idx, dst_idx, policy="balanced")
+    for field in ("pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len"):
+        a, b = getattr(routes, field), getattr(ref, field)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            n_bad = int((a != b).any(axis=-1).sum()) if a.shape == b.shape else -1
+            fail(f"sharded slice: {field} differs from the single-device "
+                 f"TopologyDB ({n_bad} rows)")
+    np.testing.assert_array_equal(oracle._next, single._oracle_engine()._next)
+    log(f"sharded slice: routes bit-equal to the single-device TopologyDB; "
+        f"max_congestion {routes.max_congestion} / {ref.max_congestion}; "
+        f"fractional {oracle.last_fractional_congestion} / "
+        f"{single._oracle_engine().last_fractional_congestion}")
+    return counts
+
+
+def shard_problem(device) -> dict:
+    """Config 13's primary problem: alltoall of 8192 ranks on fat-tree
+    k=56 aggregated to edge-switch flows (as benchmarks/common's
+    alltoall_problem builds it), end-padded to the shard count; an idle
+    fabric."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
+    from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes
+    from sdnmpi_tpu_torch.oracle.engine import tensorize
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(SHARD_K)
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD)
+    t = tensorize(db, pad_multiple=SHARD_PAD, device=device)
+    host_edge = np.array(
+        [t.index[d] for _, d, _ in spec.hosts[:SHARD_RANKS]], np.int32
+    )
+    edges, counts = np.unique(host_edge, return_counts=True)
+    ga, gb = np.meshgrid(edges, edges, indexing="ij")
+    wa, wb = np.meshgrid(counts, counts, indexing="ij")
+    off = ga != gb
+    usrc, udst = ga[off].astype(np.int32), gb[off].astype(np.int32)
+    weight = (wa[off] * wb[off]).astype(np.float32)
+    pad = (-len(usrc)) % N_SHARDS
+    usrc = np.concatenate([usrc, np.full(pad, -1, np.int32)])
+    udst = np.concatenate([udst, np.full(pad, -1, np.int32)])
+    live = usrc >= 0
+    v = t.v
+    traffic = np.zeros((v, v), np.float32)
+    np.add.at(traffic, (udst[live], usrc[live]), weight)
+    li, lj = (a.astype(np.int32) for a in np.nonzero(t.host_adj() > 0))
+    dist = apsp_distances(t.adj)
+    dist_h = dist.cpu().numpy()
+    levels = int(dist_h[np.isfinite(dist_h)].max())
+    put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    return {
+        "t": t, "dist": dist, "dist_h": dist_h, "levels": levels,
+        "args": [t.adj, put(li), put(lj), put(np.zeros(len(li), np.float32)),
+                 put(traffic), put(usrc), put(udst)],
+        "dst_nodes": put(make_dst_nodes(udst[live])), "src": usrc, "dst": udst,
+    }
+
+
+def phase_sharded_program(device) -> dict:
+    """route_collective_sharded on config 13's edge flows with cached
+    distances and a destination set, in ring and gather modes, against
+    the single-device route_collective. Returns the launch counts of
+    one ring-mode call."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.dag import route_collective, slots_to_nodes
+    from sdnmpi_tpu_torch.shardplane import make_mesh, route_collective_sharded
+
+    p = shard_problem(device)
+    mesh = make_mesh(N_SHARDS, device)
+    v = p["t"].v
+    rp = v // N_SHARDS
+    dist_sh = [p["dist"][q * rp:(q + 1) * rp] for q in range(N_SHARDS)]
+    kw = dict(levels=p["levels"], rounds=ROUNDS, max_len=p["levels"] + 1,
+              dst_nodes=p["dst_nodes"])
+    single, single_maxc = route_collective(*p["args"], dist=p["dist"], **kw)
+    ms = time_ms(lambda: route_collective(*p["args"], dist=p["dist"], **kw),
+                 reps=5, warm=1)
+    log(f"single-device program at this shape: {ms:.3f} ms per collective "
+        "(CUDA events, median of 5)")
+    counts = {}
+    for ring_mode in (True, False):
+        what = "ring" if ring_mode else "gather"
+
+        def run():
+            return route_collective_sharded(
+                *p["args"], mesh, dist=dist_sh, ring_exchange=ring_mode, **kw
+            )
+
+        out = {}
+        got = path_launches(lambda: out.update(r=run()))
+        require_launched(got, ("sample_slots", "ring_all_gather"),
+                         f"route_collective_sharded ({what})")
+        if ring_mode:
+            counts = got
+        slots_sh, maxc = out["r"]
+        slots = torch.cat(slots_sh)
+        if not torch.equal(slots, single):
+            fail(f"sharded program ({what}): "
+                 f"{int((slots != single).any(dim=1).sum())} flows differ "
+                 "from the single-device route_collective")
+        rel = abs(float(maxc) - float(single_maxc)) / abs(float(single_maxc))
+        if not rel <= 1e-5:
+            fail(f"sharded program ({what}): maxc {float(maxc)} vs "
+                 f"{float(single_maxc)}")
+        ms = time_ms(run, reps=5, warm=1)
+        log(f"sharded program ({what}): {len(p['src']):,} flows, slots "
+            f"bit-equal to one device, maxc {float(maxc):.3f} vs "
+            f"{float(single_maxc):.3f} (rel {rel:.2e}); {ms:.3f} ms per "
+            f"collective (CUDA events, median of 5); launches {got}")
+        log_profile(f"sharded program ({what})", *profile_device(run))
+    live = p["src"] >= 0
+    nodes = slots_to_nodes(p["t"].host_adj(), p["src"][live],
+                           single.cpu().numpy()[live], dst=p["dst"][live],
+                           complete=True)
+    n = check_paths(nodes, p["src"][live], p["dst"][live], p["dist_h"],
+                    p["t"].host_adj(), "sharded program")
+    log(f"sharded program: {n:,} flows on valid shortest paths")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -521,12 +800,20 @@ def main() -> int:
     # phases 4 and 5: the two main paths, each with its launch counts
     slice_counts = phase_slice(FATTREE_K, N_RANKS, V_PAD, device, report)
     program_counts = phase_program(p, device)
-    launches = {n: slice_counts[n] + program_counts[n] for n in slice_counts}
+    del p
+
+    # phases 7 to 9: K3, then the sharded entry point and one program
+    phase_ring(device, report)
+    entry_counts = phase_sharded_entry(device)
+    shard_counts = phase_sharded_program(device)
+    paths = (slice_counts, program_counts, entry_counts, shard_counts)
+    launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report
     meta = {
         "bfs_distances": ("csrc/bfs.cu", "sdnmpi_tpu/kernels/bfs.py:130"),
         "sample_slots": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:245"),
+        "ring_all_gather": ("csrc/ring.cu", "sdnmpi_tpu/kernels/ring.py:365"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -540,7 +827,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

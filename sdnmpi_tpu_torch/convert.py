@@ -3,7 +3,9 @@
 The port keeps no copy of the JAX package's objects: a topology crosses
 as the plain dict ``TopologyDB.to_dict()`` returns, tensors cross as
 numpy arrays. Tests use both so that the two packages route the same
-fabric.
+fabric. A row-sharded tensor crosses as the numpy ``[R, C]`` array that
+:func:`shard_rows` cuts into the port's per-shard blocks and
+:func:`gather_rows` reassembles.
 """
 
 from __future__ import annotations
@@ -20,12 +22,17 @@ def _port(d: dict) -> Port:
 
 
 def topology_from_dict(
-    d: dict, backend: str = "torch", device="cuda", pad_multiple: int = 8
+    d: dict, backend: str = "torch", device="cuda", pad_multiple: int = 8,
+    **db_kwargs,
 ) -> TopologyDB:
     """A port :class:`TopologyDB` holding the switches, links and hosts
     of a ``TopologyDB.to_dict()`` snapshot (``{"switches": [{"dpid",
-    "ports"}], "links": [{"src", "dst"}], "hosts": [{"mac", "port"}]}``)."""
-    db = TopologyDB(backend=backend, device=device, pad_multiple=pad_multiple)
+    "ports"}], "links": [{"src", "dst"}], "hosts": [{"mac", "port"}]}``);
+    ``db_kwargs`` (``mesh_devices=``, ``shard_oracle=``, ...) go to its
+    constructor."""
+    db = TopologyDB(
+        backend=backend, device=device, pad_multiple=pad_multiple, **db_kwargs
+    )
     for s in d["switches"]:
         db.add_switch(Switch.make(int(s["dpid"]), [_port(p) for p in s.get("ports", [])]))
     for link in d["links"]:
@@ -55,3 +62,22 @@ def tensors_from_numpy(dpids, adj, port, device="cuda") -> TopoTensors:
         port_host=port,
         n_links=int((adj > 0).sum()),
     )
+
+
+def shard_rows(arr, mesh) -> list:
+    """The port's row-sharded form of a numpy ``[R, C]`` array: shard q
+    of ``mesh`` holds rows ``[q*b, (q+1)*b)``, ``b = ceil(R / s)`` (the
+    final blocks may be short or empty), on its device."""
+    arr = np.asarray(arr)
+    s = mesh.n_shards
+    b = -(-arr.shape[0] // s)
+    return [
+        torch.tensor(arr[q * b:(q + 1) * b]).to(dev)
+        for q, dev in enumerate(mesh.devices)
+    ]
+
+
+def gather_rows(shards) -> np.ndarray:
+    """The numpy ``[R, C]`` array of per-shard row blocks, each copied
+    to the host (no on-card exchange)."""
+    return np.concatenate([x.cpu().numpy() for x in shards], axis=0)

@@ -98,9 +98,21 @@ class TopologyDB:
         pad_multiple: int = 8,
         max_diameter: int = 0,
         device="cuda",
+        mesh_devices: int = 0,
+        shard_oracle: bool = False,
+        ring_exchange: bool = False,
+        hier_oracle: bool = False,
+        hier_pod_target: int = 0,
+        hier_fused: bool = True,
+        hier_warm: bool = True,
     ) -> None:
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+        if hier_oracle or hier_pod_target or not (hier_fused and hier_warm):
+            raise NotImplementedError(
+                "the hierarchical oracle (hier_oracle and its hier_* "
+                "arguments) is ROADMAP A13"
+            )
         # dpid -> switch entity
         self.switches: dict[int, Any] = {}
         # src dpid -> dst dpid -> link entity (directed; the discovery layer
@@ -112,6 +124,12 @@ class TopologyDB:
         self.pad_multiple = pad_multiple
         self.max_diameter = max_diameter
         self.device = device
+        #: shards of the oracle's mesh (0 = one device), the full
+        #: shardplane refresh, and the ring exchange on its legs; the
+        #: oracle's rules apply (oracle/engine.RouteOracle)
+        self.mesh_devices = mesh_devices
+        self.shard_oracle = shard_oracle
+        self.ring_exchange = ring_exchange
         if backend == "torch":
             from sdnmpi_tpu_torch.oracle.engine import resolve_device
 
@@ -341,7 +359,11 @@ class TopologyDB:
             from sdnmpi_tpu_torch.oracle.engine import RouteOracle
 
             self._oracle = RouteOracle(
-                self.pad_multiple, self.max_diameter, device=self.device
+                self.pad_multiple, self.max_diameter,
+                mesh_devices=self.mesh_devices,
+                shard_oracle=self.shard_oracle,
+                ring_exchange=self.ring_exchange,
+                device=self.device,
             )
         return self._oracle
 

@@ -24,7 +24,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "build"
 
 #: kernel name -> its CUDA source in csrc/
-SOURCES = {"bfs": "bfs.cu", "sampler": "sampler.cu"}
+SOURCES = {"bfs": "bfs.cu", "ring": "ring.cu", "sampler": "sampler.cu"}
 
 #: no --use_fast_math: the sampler's logf must round like torch.log
 FLAGS = (

@@ -8,7 +8,9 @@
 // marks the end of the path. The noise is the reference's hash chain
 // over (flow id, neighbour, hop, salt) turned into a uniform by a
 // mantissa bitcast, so the kernel draws the same numbers as the plain
-// version.
+// version. The flow id is the flow's index plus `fid_base` (mod 2^32), so
+// a shard of a flow-sharded batch draws the noise of its flows' global
+// ids.
 //
 // The Pallas kernel gathers the current node's log-weight row and the
 // flow's distance row with one-hot [B, V] x [V, V] matmuls, the TPU's way
@@ -54,7 +56,7 @@ __global__ void sample_slots(const int* __restrict__ neigh,
                              const int* __restrict__ dst,
                              const int* __restrict__ drow, int n_flows, int v,
                              int d, int hops, uint32_t salt,
-                             int8_t* __restrict__ out) {
+                             uint32_t fid_base, int8_t* __restrict__ out) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_flows) return;
   const int s = src[f];
@@ -64,7 +66,7 @@ __global__ void sample_slots(const int* __restrict__ neigh,
   const bool alive =
       s >= 0 && t >= 0 && r >= 0 && __bfloat162float(dist[s]) < kUnreach;
   int node = alive ? s : -1;
-  const uint32_t fid_mix = (uint32_t)f * 2654435761u;
+  const uint32_t fid_mix = ((uint32_t)f + fid_base) * 2654435761u;
   int8_t* row_out = out + (size_t)f * hops;
   for (int h = 0; h < hops; ++h) {
     int nxt = -1;
@@ -104,12 +106,13 @@ __global__ void sample_slots(const int* __restrict__ neigh,
 extern "C" int sampler_launch(const int* neigh, const void* lw,
                               const void* dtab, const int* src, const int* dst,
                               const int* drow, int n_flows, int v, int d,
-                              int hops, unsigned int salt, int8_t* out,
+                              int hops, unsigned int salt,
+                              unsigned int fid_base, int8_t* out,
                               void* stream) {
   const int threads = 128;
   const int blocks = (n_flows + threads - 1) / threads;
   sample_slots<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       neigh, (const __nv_bfloat16*)lw, (const __nv_bfloat16*)dtab, src, dst,
-      drow, n_flows, v, d, hops, (uint32_t)salt, out);
+      drow, n_flows, v, d, hops, (uint32_t)salt, (uint32_t)fid_base, out);
   return (int)cudaGetLastError();
 }

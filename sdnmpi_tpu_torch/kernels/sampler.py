@@ -199,6 +199,7 @@ def sample_slots(
     hops: int,
     salt: int = 0,
     dst_nodes: torch.Tensor | None = None,  # [T] int32 destination set (-1 pad)
+    fid_base: int = 0,  # global index of flow 0 (a shard's offset)
 ) -> torch.Tensor:
     """Sampled slot streams ``[F, hops]`` int8, the slots output of
     :func:`sample_paths_dense` with the same arguments.
@@ -216,7 +217,8 @@ def sample_slots(
         raise ValueError(f"hops must be >= 0, got {hops}")
     if weights.device.type == "cpu":
         return sample_paths_dense(
-            weights, dist, src, dst, hops, salt=salt, dst_nodes=dst_nodes
+            weights, dist, src, dst, hops, salt=salt, fid_base=fid_base,
+            dst_nodes=dst_nodes,
         )[1]
     if weights.device.type != "cuda":
         raise ValueError(f"sample_slots runs on cpu or cuda, not {weights.device}")
@@ -238,14 +240,14 @@ def sample_slots(
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     err = fn(
         neigh.data_ptr(), lw.data_ptr(), table.data_ptr(), src32.data_ptr(),
         dst32.data_ptr(), row.data_ptr(), f, v, v, hops, salt & _MASK,
-        out.data_ptr(), _build.stream_ptr(weights.device),
+        fid_base & _MASK, out.data_ptr(), _build.stream_ptr(weights.device),
     )
     _build.check(err, "sampler")
     sample_slots.launches += 1

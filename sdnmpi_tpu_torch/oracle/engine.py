@@ -8,15 +8,24 @@ topology version, and a whole collective is routed by one call of
 decoded on the host. Every tensor lives on the oracle's ``device``;
 nothing moves to another device behind the caller's back.
 
+With ``mesh_devices=n`` the oracle builds a shard mesh
+(``shardplane/mesh.py``) and routes collectives through
+``shardplane.route_collective_sharded``; with ``shard_oracle`` the
+refresh row-shards distances and next hops over it too, and with
+``ring_exchange`` the sharded legs stream distances through the ring
+kernel K3 instead of replicating them first.
+
 Not ported yet, and raising ``NotImplementedError`` where a caller asks
-for them: the incremental repair, the shardplane and mesh legs, the
-hierarchical oracle, the utilization plane, the greedy/shortest/
-adaptive collective policies and phase scheduling (ROADMAP A5-A13).
+for them: the incremental repair, the hierarchical oracle, the
+utilization plane, the greedy/shortest/adaptive collective policies and
+phase scheduling (ROADMAP A5-A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import math
 from typing import TYPE_CHECKING, Optional
 
 import numpy as np
@@ -41,6 +50,9 @@ _m_frac_congestion = REGISTRY.gauge(
     "the DAG balancer's fractional max-link-load bound of the last "
     "balanced pass (the relaxation the discrete sampler rounds)",
 )
+_m_shard_mesh = REGISTRY.gauge(
+    "shard_mesh_devices", "shards of the sharded oracle's mesh (0 = single device)"
+)
 _m_congestion_ratio = REGISTRY.gauge(
     "congestion_discrete_over_fractional",
     "discrete / fractional max-congestion of the last DAG-balanced pass "
@@ -59,6 +71,15 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def _host(x) -> np.ndarray:
+    """A tensor, or a row-sharded list of them, as one host array."""
+    if isinstance(x, list):
+        from sdnmpi_tpu_torch.convert import gather_rows
+
+        return gather_rows(x)
+    return x.cpu().numpy()
 
 
 def _pad(n: int, multiple: int = 8) -> int:
@@ -162,15 +183,44 @@ class RouteOracle:
     occ_bucket_multiple: int = 128
 
     def __init__(
-        self, pad_multiple: int = 8, max_diameter: int = 0, device="cuda"
+        self,
+        pad_multiple: int = 8,
+        max_diameter: int = 0,
+        mesh_devices: int = 0,
+        shard_oracle: bool = False,
+        ring_exchange: bool = False,
+        device="cuda",
     ) -> None:
+        log = logging.getLogger(__name__)
+        self.device = resolve_device(device)
+        if shard_oracle and not mesh_devices:
+            log.warning("shard_oracle needs mesh_devices > 0; staying single-device")
+            shard_oracle = False
+        #: the shard mesh, built here so that a mesh that cannot exist
+        #: raises at construction (there is no fallback to one device)
+        self._mesh = None
+        if mesh_devices:
+            from sdnmpi_tpu_torch.shardplane.mesh import make_mesh
+
+            self._mesh = make_mesh(mesh_devices, self.device)
+            # the sharded DAG step splits V rows and flows over the mesh
+            pad_multiple = math.lcm(pad_multiple, mesh_devices)
+            _m_shard_mesh.set(mesh_devices)
         self.pad_multiple = pad_multiple
         self.max_diameter = max_diameter
-        self.device = resolve_device(device)
+        self.mesh_devices = mesh_devices
+        #: the refresh row-shards distances and next hops over the mesh
+        self.shard_oracle = bool(shard_oracle)
+        if ring_exchange and not self.shard_oracle:
+            log.warning("ring_exchange needs shard_oracle; staying on the gather path")
+        #: the sharded legs stream distances through the ring (kernel K3)
+        self.ring_exchange = bool(ring_exchange) and self.shard_oracle
         self._version: Optional[int] = None
         self._tensors: Optional[TopoTensors] = None
-        self._dist_d: Optional[torch.Tensor] = None
-        self._next_d: Optional[torch.Tensor] = None
+        #: distances and next hops: [V, V] tensors, or row-sharded lists
+        #: of per-shard blocks under shard_oracle
+        self._dist_d = None
+        self._next_d = None
         self._dist_h: Optional[np.ndarray] = None  # lazy host twin
         self._next_h: Optional[np.ndarray] = None  # lazy host twin
         self._port: Optional[np.ndarray] = None
@@ -197,10 +247,57 @@ class RouteOracle:
             tensors = tensorize(db, self.pad_multiple, self.device)
             v_occ = self._occ_v(tensors)
             n_occ = 0 if v_occ >= tensors.v else v_occ
-            dist = apsp_distances(tensors.adj, self.max_diameter, n_occ=n_occ)
-            nxt = apsp_next_hops(
-                tensors.adj, dist, max_degree=tensors.max_degree, n_occ=n_occ
-            )
+            mesh = self._dag_mesh()
+            if (
+                self.shard_oracle
+                and self.max_diameter == 0  # the sharded BFS has no cap
+                and tensors.v % self.mesh_devices == 0
+            ):
+                # shardplane refresh: BFS sources and next-hop rows
+                # row-shard over every shard; under ring_exchange the
+                # argmin consumes the distance blocks off the ring
+                from sdnmpi_tpu_torch.shardplane import (
+                    apsp_distances_rowsharded,
+                    apsp_next_hops_ringed,
+                    apsp_next_hops_rowsharded,
+                )
+
+                dist = apsp_distances_rowsharded(tensors.adj, mesh)
+                next_fn = (
+                    apsp_next_hops_ringed if self.ring_exchange
+                    else apsp_next_hops_rowsharded
+                )
+                nxt = next_fn(
+                    tensors.adj, dist, mesh, tensors.max_degree, n_occ=n_occ
+                )
+            elif (
+                mesh is not None
+                and self.max_diameter == 0
+                and mesh.shape["v"] > 1  # v = 1 would just replicate
+                and tensors.v % mesh.shape["v"] == 0
+            ):
+                # mesh-only refresh: the BFS row-shards over the "v" axis,
+                # K3 replicates it, the next hops run on one device
+                from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
+                from sdnmpi_tpu_torch.shardplane import (
+                    ShardMesh,
+                    apsp_distances_sharded,
+                )
+
+                nv = mesh.shape["v"]
+                dist = ring_all_gather(
+                    apsp_distances_sharded(tensors.adj, mesh),
+                    ShardMesh(mesh.devices[:nv]),
+                )[0]
+                nxt = apsp_next_hops(
+                    tensors.adj, dist, max_degree=tensors.max_degree,
+                    n_occ=n_occ,
+                )
+            else:
+                dist = apsp_distances(tensors.adj, self.max_diameter, n_occ=n_occ)
+                nxt = apsp_next_hops(
+                    tensors.adj, dist, max_degree=tensors.max_degree, n_occ=n_occ
+                )
             self._tensors = tensors
             self._dist_d = dist
             self._next_d = nxt
@@ -216,16 +313,42 @@ class RouteOracle:
     @property
     def _dist(self) -> Optional[np.ndarray]:
         """Host twin of the distance matrix, copied on first use per
-        topology version."""
+        topology version (shard by shard when row-sharded)."""
         if self._dist_h is None and self._dist_d is not None:
-            self._dist_h = self._dist_d.cpu().numpy()
+            self._dist_h = _host(self._dist_d)
         return self._dist_h
 
     @property
     def _next(self) -> Optional[np.ndarray]:
         if self._next_h is None and self._next_d is not None:
-            self._next_h = self._next_d.cpu().numpy()
+            self._next_h = _host(self._next_d)
         return self._next_h
+
+    def _dist_full(self) -> torch.Tensor:
+        """The distance matrix as one ``[V, V]`` tensor on the oracle's
+        device; row-sharded distances are replicated by kernel K3."""
+        if isinstance(self._dist_d, list):
+            from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
+
+            return ring_all_gather(self._dist_d, self._dag_mesh())[0]
+        return self._dist_d
+
+    def _dag_mesh(self):
+        """The shard mesh of the sharded DAG engine, or None."""
+        return self._mesh
+
+    def _shard_mesh(self):
+        """The mesh when the full shardplane (shard_oracle) is on."""
+        return self._mesh if self.shard_oracle else None
+
+    def _pad_flows(self, src_idx, dst_idx):
+        """End-pad a flow batch to a multiple of the shard count with -1
+        endpoints (dead flows); the real flows keep their global ids, and
+        so their noise. Callers trim back with ``[: len(src_idx)]``."""
+        pad = (-len(src_idx)) % self.mesh_devices
+        src_p = np.concatenate([src_idx, np.full(pad, -1, np.int32)])
+        dst_p = np.concatenate([dst_idx, np.full(pad, -1, np.int32)])
+        return src_p.astype(np.int32), dst_p.astype(np.int32)
 
     # -- queries ----------------------------------------------------------
 
@@ -325,7 +448,7 @@ class RouteOracle:
         v_eff = self._occ_v(t)
         if v_eff < t.v:
             adj_eff = t.adj[:v_eff, :v_eff]
-            dist_eff = self._dist_d[:v_eff, :v_eff]
+            dist_eff = self._dist_full()[:v_eff, :v_eff]
         else:
             adj_eff, dist_eff = t.adj, self._dist_d
         traffic = np.zeros((v_eff, v_eff), np.float32)
@@ -334,13 +457,37 @@ class RouteOracle:
         # sampler's distance table; where its 128 pad floor reaches V it
         # would do more work than the full contraction, so skip it
         dn = make_dst_nodes(dst_idx)
-        src_p, dst_p = pad_flow_batch(
-            np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32)
-        )
 
         def put(a):
             return torch.as_tensor(a).to(dev, non_blocking=True)
 
+        mesh = self._dag_mesh()
+        if mesh is not None and v_eff % self.mesh_devices == 0:
+            from sdnmpi_tpu_torch.shardplane import route_collective_sharded
+
+            src_p, dst_p = self._pad_flows(src_idx, dst_idx)
+            use_dn = len(dn) < v_eff and len(dn) % self.mesh_devices == 0
+            slots_sh, maxc_d = route_collective_sharded(
+                adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
+                put(util), put(traffic), put(src_p), put(dst_p), mesh,
+                levels=max_len - 1, rounds=rounds, max_len=max_len,
+                dist=dist_eff, dst_nodes=put(dn) if use_dn else None,
+                ring_exchange=self.ring_exchange,
+            )
+
+            def reap_sharded() -> np.ndarray:
+                self.last_fractional_congestion = float(maxc_d)
+                _m_frac_congestion.set(self.last_fractional_congestion)
+                slots = _host(slots_sh)[: len(src_idx)]
+                return self._decode(slots, src_idx, dst_idx)
+
+            return reap_sharded
+
+        if isinstance(dist_eff, list):
+            dist_eff = self._dist_full()
+        src_p, dst_p = pad_flow_batch(
+            np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32)
+        )
         slots_d, maxc_d = route_collective(
             adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
             put(util), put(traffic), put(src_p), put(dst_p),

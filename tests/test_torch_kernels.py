@@ -55,11 +55,13 @@ def np_hash_u32(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> np.uint32(16))
 
 
-def np_uniform(f: int, v: int, hop: int, salt: int) -> np.ndarray:
-    """The sampler's f32 uniforms of hop ``hop`` for flows 0..f-1 over
-    nodes 0..v-1, from numpy uint32 arithmetic (independent of torch)."""
+def np_uniform(f: int, v: int, hop: int, salt: int, fid_base: int = 0) -> np.ndarray:
+    """The sampler's f32 uniforms of hop ``hop`` for flows fid_base ..
+    fid_base+f-1 over nodes 0..v-1, from numpy uint32 arithmetic
+    (independent of torch)."""
     with np.errstate(over="ignore"):
-        fid = np.arange(f, dtype=np.uint32) * np.uint32(2654435761)
+        ids = (np.arange(f, dtype=np.uint64) + np.uint64(fid_base)) & np.uint64(0xFFFFFFFF)
+        fid = ids.astype(np.uint32) * np.uint32(2654435761)
         node = np.arange(v, dtype=np.uint32) * np.uint32(0x85EBCA77)
         hh = np.uint32(((hop + 1) * 0x9E3779B1 + (salt & 0xFFFFFFFF)) & 0xFFFFFFFF)
         u = np_hash_u32(fid[:, None] ^ node[None, :] ^ hh)
@@ -67,7 +69,8 @@ def np_uniform(f: int, v: int, hop: int, salt: int) -> np.ndarray:
     return bits.view(np.float32) - np.float32(1.0)
 
 
-def near_ties(lw_bf, dist, src, dst, ref_nodes, hops, salt, dst_nodes=None):
+def near_ties(lw_bf, dist, src, dst, ref_nodes, hops, salt, dst_nodes=None,
+              fid_base=0):
     """Walk the reference's paths and return ``(first near-tie hop per
     flow (hops = none), number of scored multi-candidate decisions)``.
 
@@ -88,7 +91,7 @@ def near_ties(lw_bf, dist, src, dst, ref_nodes, hops, salt, dst_nodes=None):
         lwrow = lw[safe]
         cand = (lwrow > -1e3) & (d2t == d2t[np.arange(f), safe][:, None] - 1.0)
         cand &= live[:, None]
-        un = np_uniform(f, v, h, salt).astype(np.float64)
+        un = np_uniform(f, v, h, salt, fid_base).astype(np.float64)
         score = np.where(cand, lwrow - np.log(-np.log(un)), -np.inf)
         top2 = -np.sort(-score, axis=1)[:, :2]
         multi = cand.sum(axis=1) >= 2
