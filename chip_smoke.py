@@ -29,7 +29,8 @@ order; the first failure ends the run with a non-zero exit:
                checked, routes bit-equal to a single-device TopologyDB.
 9. sharded program — route_collective_sharded on config 13's edge flows
                in ring and gather modes, slots bit-equal to the
-               single-device route_collective.
+               single-device route_collective; K2 timed at one shard's
+               share of the flows.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -37,7 +38,9 @@ after it: find_routes_collective (phase 4), route_collective(dist=None)
 refresh (phase 8), one route_collective_sharded call per mode (phase 9).
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
-plain version on its own arguments. Nothing here imports JAX or the JAX
+plain version on its own arguments, and so is every shard's sampler call
+(with its ``fid_base``) of the steady sharded call and of each
+route_collective_sharded call. Nothing here imports JAX or the JAX
 package.
 """
 
@@ -68,6 +71,14 @@ SHARD_RANKS = 8192
 SHARD_V = 3968
 N_SHARDS = 8
 PEAK_F32_S = 67e12
+
+
+def bound_ms(r: dict) -> tuple[float, str]:
+    """The least time for ``r``'s bytes and operations on the card, and
+    which of the two sets it."""
+    bytes_ms = r["bytes"] / PEAK_BYTES_S * 1e3
+    ops_ms = r["ops"] / PEAK_F32_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def log(msg: str) -> None:
@@ -317,20 +328,36 @@ def measure_k2(args: tuple, kw: dict, what: str) -> dict:
 @contextlib.contextmanager
 def recording_sampler(calls: list):
     """Record ``(args, kwargs, slots)`` of every K2 call that
-    ``oracle.dag`` makes while the context is open."""
+    ``oracle.dag`` (one device) or ``shardplane.routes`` (one call per
+    shard) makes while the context is open."""
     from sdnmpi_tpu_torch.kernels import sampler
     from sdnmpi_tpu_torch.oracle import dag
+    from sdnmpi_tpu_torch.shardplane import routes
 
     def record(*args, **kw):
         out = sampler.sample_slots(*args, **kw)
         calls.append((args, kw, out))
         return out
 
-    dag.sample_slots = record
+    dag.sample_slots = routes.sample_slots = record
     try:
         yield
     finally:
-        dag.sample_slots = sampler.sample_slots
+        dag.sample_slots = routes.sample_slots = sampler.sample_slots
+
+
+def check_k2_calls(calls: list, launches: int, what: str) -> float:
+    """Every recorded K2 call of one path's run, its ``fid_base``
+    included, bit-equal to the plain version on its own arguments;
+    returns the largest slot difference."""
+    if len(calls) != launches:
+        fail(f"{what}: {len(calls)} sampler calls recorded for {launches} "
+             "launches")
+    err = 0.0
+    for args, kw, got in calls:
+        err = max(err, check_k2(
+            args, kw, got, f"{what}, fid_base {kw.get('fid_base', 0)}"))
+    return err
 
 
 def path_launches(fn) -> dict:
@@ -388,16 +415,14 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
         counts = path_launches(route)
     require_launched(counts, ("sample_slots",), "find_routes_collective")
     # the sampler call of the entry point, on the arguments it was given
-    if len(k2_calls) != counts["sample_slots"]:
-        fail(f"slice: {len(k2_calls)} sampler calls recorded for "
-             f"{counts['sample_slots']} launches")
-    args, kw, got = k2_calls[0]
-    err = check_k2(args, kw, got, "slice (find_routes_collective)")
+    err = check_k2_calls(k2_calls, counts["sample_slots"],
+                         "slice (find_routes_collective)")
+    args, kw, _ = k2_calls[0]
     report["sample_slots"] = {
         **measure_k2(args, kw, "slice"),
         "max_abs_err": max(err, report["sample_slots"]["max_abs_err"]),
     }
-    del k2_calls, args, kw, got
+    del k2_calls, args, kw
     for _ in range(3):
         route()
     routes = out["routes"]
@@ -612,9 +637,15 @@ def phase_sharded_entry(device) -> dict:
 
     first = path_launches(route)
     log(f"launches, first sharded call (refresh included): {first}")
-    counts = path_launches(route)
+    k2_calls: list = []
+    with recording_sampler(k2_calls):
+        counts = path_launches(route)
     require_launched(counts, ("sample_slots", "ring_all_gather"),
                      "steady sharded find_routes_collective")
+    # each shard's sampler call of the steady call, fid_base included
+    err = check_k2_calls(k2_calls, counts["sample_slots"],
+                         "steady sharded find_routes_collective")
+    del k2_calls
     route()
     routes = out["routes"]
     oracle = db._oracle_engine()
@@ -650,7 +681,7 @@ def phase_sharded_entry(device) -> dict:
         f"max_congestion {routes.max_congestion} / {ref.max_congestion}; "
         f"fractional {oracle.last_fractional_congestion} / "
         f"{single._oracle_engine().last_fractional_congestion}")
-    return counts
+    return counts, err
 
 
 def shard_problem(device) -> dict:
@@ -700,8 +731,10 @@ def shard_problem(device) -> dict:
 def phase_sharded_program(device) -> dict:
     """route_collective_sharded on config 13's edge flows with cached
     distances and a destination set, in ring and gather modes, against
-    the single-device route_collective. Returns the launch counts of
-    one ring-mode call."""
+    the single-device route_collective; every shard's K2 call held
+    against the plain version, and the last shard's timed. Returns the
+    launch counts of one ring-mode call and the K2 check's largest
+    slot difference."""
     import torch
 
     from sdnmpi_tpu_torch.oracle.dag import route_collective, slots_to_nodes
@@ -720,6 +753,7 @@ def phase_sharded_program(device) -> dict:
     log(f"single-device program at this shape: {ms:.3f} ms per collective "
         "(CUDA events, median of 5)")
     counts = {}
+    err = 0.0
     for ring_mode in (True, False):
         what = "ring" if ring_mode else "gather"
 
@@ -729,11 +763,23 @@ def phase_sharded_program(device) -> dict:
             )
 
         out = {}
-        got = path_launches(lambda: out.update(r=run()))
+        k2_calls: list = []
+        with recording_sampler(k2_calls):
+            got = path_launches(lambda: out.update(r=run()))
         require_launched(got, ("sample_slots", "ring_all_gather"),
                          f"route_collective_sharded ({what})")
+        err = max(err, check_k2_calls(
+            k2_calls, got["sample_slots"],
+            f"route_collective_sharded ({what})"))
         if ring_mode:
             counts = got
+            # K2 at the sharded shape: one shard's flows, fid_base != 0
+            k2_args, k2_kw, _ = k2_calls[-1]
+            k2 = measure_k2(k2_args, k2_kw, f"sharded program, shard "
+                                            f"{N_SHARDS - 1}")
+            log(f"K2 sharded shape: kernel {k2['ms']:.4f} ms, bound "
+                f"{bound_ms(k2)[0]:.5f} ms ({bound_ms(k2)[1]})")
+        del k2_calls
         slots_sh, maxc = out["r"]
         slots = torch.cat(slots_sh)
         if not torch.equal(slots, single):
@@ -757,7 +803,7 @@ def phase_sharded_program(device) -> dict:
     n = check_paths(nodes, p["src"][live], p["dst"][live], p["dist_h"],
                     p["t"].host_adj(), "sharded program")
     log(f"sharded program: {n:,} flows on valid shortest paths")
-    return counts
+    return counts, err
 
 
 def main() -> int:
@@ -804,8 +850,10 @@ def main() -> int:
 
     # phases 7 to 9: K3, then the sharded entry point and one program
     phase_ring(device, report)
-    entry_counts = phase_sharded_entry(device)
-    shard_counts = phase_sharded_program(device)
+    entry_counts, entry_err = phase_sharded_entry(device)
+    shard_counts, shard_err = phase_sharded_program(device)
+    report["sample_slots"]["max_abs_err"] = max(
+        report["sample_slots"]["max_abs_err"], entry_err, shard_err)
     paths = (slice_counts, program_counts, entry_counts, shard_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
@@ -818,15 +866,13 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in meta.items():
         r = report[name]
-        bytes_ms = r["bytes"] / PEAK_BYTES_S * 1e3
-        ops_ms = r["ops"] / PEAK_F32_S * 1e3
+        bound, bound_by = bound_ms(r)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"sdnmpi_tpu_torch/kernels/{src}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": r.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,10 @@ order, double-buffered, in ceil((s-1)/2) steps.
   tensors launch ``csrc/ring.cu``, one launch playing every shard of a
   mesh placed on one card, or raise.
 - :func:`ring_stream` runs one gather of the shards' wire blocks and then
-  hands every block to a consumer in the reference's arrival order.
+  hands every block to a consumer in the reference's arrival order. The
+  shardplane's consumers do not need that order while the exchange is
+  not overlapped with them, so they gather and unpack whole matrices
+  (:func:`exchange_distances`, one launch and one unpack per shard).
 - Wire packing: hop counts ride as bf16 while V - 1 fits bf16's exact
   integers, else as int16 with -1 for inf (exact while V <= 2**15), else
   unpacked f32; next hops ride as int16.

@@ -82,6 +82,22 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy()
 
 
+def _gather_dist(blocks: list, mesh) -> torch.Tensor:
+    """Row-sharded f32 hop counts -> one replicated ``[V, V]`` copy: the
+    blocks ride kernel K3 on the 2-byte wire and only the first shard's
+    gathered copy is unpacked."""
+    from sdnmpi_tpu_torch.kernels.ring import (
+        pack_dist_wire,
+        ring_all_gather,
+        unpack_dist_wire,
+    )
+
+    v = blocks[0].shape[1]
+    return unpack_dist_wire(
+        ring_all_gather([pack_dist_wire(d, v) for d in blocks], mesh)[0]
+    )
+
+
 def _pad(n: int, multiple: int = 8) -> int:
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
 
@@ -221,6 +237,8 @@ class RouteOracle:
         #: of per-shard blocks under shard_oracle
         self._dist_d = None
         self._next_d = None
+        #: replicated copy of row-sharded distances, gathered on first use
+        self._dist_full_d: Optional[torch.Tensor] = None
         self._dist_h: Optional[np.ndarray] = None  # lazy host twin
         self._next_h: Optional[np.ndarray] = None  # lazy host twin
         self._port: Optional[np.ndarray] = None
@@ -278,17 +296,16 @@ class RouteOracle:
             ):
                 # mesh-only refresh: the BFS row-shards over the "v" axis,
                 # K3 replicates it, the next hops run on one device
-                from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
                 from sdnmpi_tpu_torch.shardplane import (
                     ShardMesh,
                     apsp_distances_sharded,
                 )
 
                 nv = mesh.shape["v"]
-                dist = ring_all_gather(
+                dist = _gather_dist(
                     apsp_distances_sharded(tensors.adj, mesh),
                     ShardMesh(mesh.devices[:nv]),
-                )[0]
+                )
                 nxt = apsp_next_hops(
                     tensors.adj, dist, max_degree=tensors.max_degree,
                     n_occ=n_occ,
@@ -301,6 +318,7 @@ class RouteOracle:
             self._tensors = tensors
             self._dist_d = dist
             self._next_d = nxt
+            self._dist_full_d = None
             self._dist_h = None
             self._next_h = None
             self._port = tensors.host_port()
@@ -326,12 +344,14 @@ class RouteOracle:
 
     def _dist_full(self) -> torch.Tensor:
         """The distance matrix as one ``[V, V]`` tensor on the oracle's
-        device; row-sharded distances are replicated by kernel K3."""
-        if isinstance(self._dist_d, list):
-            from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
-
-            return ring_all_gather(self._dist_d, self._dag_mesh())[0]
-        return self._dist_d
+        device. Row-sharded distances are gathered once per topology
+        version, by kernel K3 on the 2-byte wire, and only the first
+        shard's copy is unpacked."""
+        if not isinstance(self._dist_d, list):
+            return self._dist_d
+        if self._dist_full_d is None:
+            self._dist_full_d = _gather_dist(self._dist_d, self._dag_mesh())
+        return self._dist_full_d
 
     def _dag_mesh(self):
         """The shard mesh of the sharded DAG engine, or None."""
@@ -449,6 +469,12 @@ class RouteOracle:
         if v_eff < t.v:
             adj_eff = t.adj[:v_eff, :v_eff]
             dist_eff = self._dist_full()[:v_eff, :v_eff]
+            if isinstance(self._dist_d, list) and v_eff % self.mesh_devices == 0:
+                # the occupied block, row-sharded again: each shard's rows
+                # of the copy gathered once for this topology version
+                rp = v_eff // self.mesh_devices
+                dist_eff = [dist_eff[q * rp:(q + 1) * rp]
+                            for q in range(self.mesh_devices)]
         else:
             adj_eff, dist_eff = t.adj, self._dist_d
         traffic = np.zeros((v_eff, v_eff), np.float32)

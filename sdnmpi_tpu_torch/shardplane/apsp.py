@@ -11,8 +11,8 @@ The next-hop argmin needs every node's distances: in gather mode
 (``apsp_next_hops_rowsharded``) the f32 blocks are replicated by the ring
 all-gather (kernel K3, where the reference left an implicit XLA
 all-gather); in ring mode (``apsp_next_hops_ringed``) destination-column
-slices of the blocks ride the ring as 2-byte wire words and the argmin
-consumes them as they arrive.
+slices of the blocks ride the ring as 2-byte wire words, one gather per
+slice, and the argmin runs on each slice once it is unpacked.
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import torch
 from sdnmpi_tpu_torch.kernels.ring import (
     pack_dist_wire,
     ring_all_gather,
-    ring_stream,
     unpack_dist_wire,
 )
 from sdnmpi_tpu_torch.oracle.apsp import (
@@ -126,11 +125,11 @@ def apsp_next_hops_ringed(
     """Ring-exchanged twin of :func:`apsp_next_hops_rowsharded`, the same
     result: each destination-column block of every shard's distances is
     packed to the wire, gathered by one K3 launch (the column slices are
-    made contiguous first) and consumed in arrival order into the
-    block's replicated f32 columns, then the argmin runs on them. The
-    column split follows ``apsp.py:215-220``: at least two blocks where
-    the width allows, so a later slice can overlap block c+1's exchange
-    with block c's argmin."""
+    made contiguous first) and unpacked to the block's replicated f32
+    columns, then the argmin runs on them. The column split follows
+    ``apsp.py:215-220``: at least two blocks where the width allows, so
+    a later slice can overlap block c+1's exchange with block c's
+    argmin."""
     v = adj.shape[0]
     rp, tables = _tables(adj, mesh, max_degree)
     n_cols = v if n_occ <= 0 else min(v, n_occ)
@@ -139,20 +138,13 @@ def apsp_next_hops_ringed(
         block = n_cols // 2
     # hop counts are bounded by the FULL matrix's V, not the slice
     wire = [pack_dist_wire(d[:, :n_cols], v) for d in dist]
-
-    def consume(buf, blk, src, _step):
-        buf[src * rp:(src + 1) * rp] = unpack_dist_wire(blk)
-        return buf
-
     cores: list[list] = [[] for _ in tables]
     for c in range(0, n_cols, block):
-        bufs = ring_stream(
-            mesh, [w[:, c:c + block].contiguous() for w in wire], consume,
-            [torch.empty((v, block), dtype=torch.float32, device=d.device)
-             for d in dist],
-        )
+        cols = ring_all_gather([w[:, c:c + block] for w in wire], mesh)
         for q, (valid_b, safe_b) in enumerate(tables):
-            cores[q].append(_degree_compact_block(valid_b, safe_b, bufs[q]))
+            cores[q].append(_degree_compact_block(
+                valid_b, safe_b, unpack_dist_wire(cols[q])
+            ))
     return [
         _finish(torch.cat(cores[q], dim=1), dist[q], q * rp)
         for q in range(len(tables))

@@ -7,7 +7,7 @@ samples its slice of the flows; the per-link loads are summed over the
 shards in shard order (the reference's ``psum``), so every shard
 reweights on the same global load. Distances reach every shard through
 the ring all-gather (kernel K3): in gather mode as f32 rows, in ring
-mode as 2-byte wire blocks consumed in arrival order. Either way the
+mode packed to the 2-byte wire (``exchange_distances``). Either way the
 slots are those of ``oracle/dag.route_collective`` on the same inputs
 where the loads sum alike.
 
@@ -20,12 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from sdnmpi_tpu_torch.kernels.ring import (
-    pack_dist_wire,
-    ring_all_gather,
-    ring_stream,
-    unpack_dist_wire,
-)
+from sdnmpi_tpu_torch.kernels.ring import exchange_distances, ring_all_gather
+from sdnmpi_tpu_torch.kernels.sampler import sample_slots
 from sdnmpi_tpu_torch.shardplane.apsp import apsp_distances_rowsharded
 from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, mesh_shards
 
@@ -92,7 +88,6 @@ def route_collective_sharded(
     of ``[F/s, sampled_hops(max_len)]`` int8 blocks (flow-sharded; read
     them back with ``convert.gather_rows``) and the fractional max link
     load, a scalar tensor."""
-    from sdnmpi_tpu_torch.kernels.sampler import sample_slots
     from sdnmpi_tpu_torch.oracle.dag import (
         _full_f32,
         congestion_weights,
@@ -131,16 +126,7 @@ def route_collective_sharded(
     # dist-independent prep first: in ring mode the exchange follows it
     weights = congestion_weights(adj_f, base)
     if ring_exchange:
-
-        def consume(buf, blk, srcq, _step):
-            buf[srcq * rp:(srcq + 1) * rp] = unpack_dist_wire(blk)
-            return buf
-
-        d_full = ring_stream(
-            mesh, [pack_dist_wire(d, v) for d in _row_blocks(dist, mesh)],
-            consume,
-            [torch.empty((v, v), dtype=torch.float32, device=d) for d in mesh.devices],
-        )
+        d_full = exchange_distances(_row_blocks(dist, mesh), mesh)
     else:
         d_full = _replicated(dist, mesh)
     d_t_loc = []

@@ -309,6 +309,35 @@ def test_mesh_only_and_gather_refresh_match(mode):
     assert a.max_congestion == b.max_congestion
 
 
+@pytest.mark.parametrize("ring_exchange", [True, False])
+def test_sharded_occupancy_bucket_dispatch(ring_exchange):
+    """A padded fabric routes on its occupied block: the sharded
+    dispatch cuts the occupied rows from the distances gathered once per
+    topology version and routes as the single-device oracle does."""
+    spec = p_fattree(4)
+    macs = [m for m, _, _ in spec.hosts[:8]]
+    src_idx = np.repeat(np.arange(8), 8).astype(np.int32)
+    dst_idx = np.tile(np.arange(8), 8).astype(np.int32)
+    single = spec.to_topology_db(device="cpu", pad_multiple=256)
+    sharded = spec.to_topology_db(
+        device="cpu", pad_multiple=256, mesh_devices=N_VIRTUAL_DEVICES,
+        shard_oracle=True, ring_exchange=ring_exchange,
+    )
+    ref = single.find_routes_collective(macs, src_idx, dst_idx)
+    got = sharded.find_routes_collective(macs, src_idx, dst_idx)
+    oracle = sharded._oracle_engine()
+    t = oracle.refresh(sharded)
+    assert oracle._occ_v(t) == 128 < t.v == 256
+    gathered = oracle._dist_full_d
+    assert gathered is not None
+    np.testing.assert_array_equal(gathered.numpy(), single._oracle_engine()._dist)
+    for field in ("pair_sub", "hop_dpid", "hop_port", "hop_len"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(ref, field))
+    assert got.max_congestion == ref.max_congestion
+    sharded.find_routes_collective(macs, src_idx, dst_idx)
+    assert oracle._dist_full_d is gathered  # one gather per version
+
+
 # -- K2 with a flow-id base -------------------------------------------------
 
 
