@@ -6,11 +6,15 @@ package's kernels from ``sdnmpi_tpu_torch/kernels/csrc``. Phases, in
 order; the first failure ends the run with a non-zero exit:
 
 1. device   — a CUDA card is present; print its name and power limit.
-2. build    — build kernels K1 (BFS), K2 (path sampler) and K3 (ring
-               all-gather), one nvcc per source, in parallel.
+2. build    — build kernels K1 (BFS), K2 (path sampler and its set-up)
+               and K3 (all-gather), one nvcc per source, in parallel.
 3. kernels  — hold K1 and K2 against their plain PyTorch versions on the
                card at the main path's shapes (K1 exactly, K2 bit for
-               bit, in both sampler layouts); time both with CUDA events.
+               bit, in both sampler layouts, with K2's tables built by
+               the wrapper and with the topology table of tensorize);
+               time both with CUDA events and the profiler, K2 as its
+               per-call set-up and its kernel apart, and the one-time
+               topology table apart from both.
 4. slice    — a 4096-rank alltoall over a k=28 fat-tree (980 switches,
                padded to V=1024) through TopologyDB.find_routes_collective;
                every routed pair is checked against the fabric.
@@ -20,8 +24,10 @@ order; the first failure ends the run with a non-zero exit:
 6. report   — one JSON line of per-kernel numbers, then the result line;
                printed last, after phases 7 to 9.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
-               bf16/int16/int32/f32 words, exactly), timed at the distance
-               exchange's shape beside torch.cat.
+               bf16/int16/int32/f32 words, exactly, three calls each),
+               timed at the distance exchange's shape beside
+               torch.cat(blocks * s), which writes the same s copies, and
+               torch.cat(blocks), one copy.
 8. sharded  — config 13's primary shape: an 8192-rank alltoall over a
                k=56 fat-tree (3,920 switches, V=3,968) through
                TopologyDB(mesh_devices=8, shard_oracle=True,
@@ -30,7 +36,7 @@ order; the first failure ends the run with a non-zero exit:
 9. sharded program — route_collective_sharded on config 13's edge flows
                in ring and gather modes, slots bit-equal to the
                single-device route_collective; K2 timed at one shard's
-               share of the flows.
+               share of the flows, set-up and kernel apart.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -40,8 +46,11 @@ A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so is every shard's sampler call
 (with its ``fid_base``) of the steady sharded call and of each
-route_collective_sharded call. Nothing here imports JAX or the JAX
-package.
+route_collective_sharded call, and the tables its set-up kernels
+(``sampler_tables``) built for it against the plain set-up. The set-up
+has a launch count of its own: every call must launch it once for its
+one device, however many shards sample, and the profiles of the entry
+points and the programs must show no sort kernel. Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -111,7 +120,8 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
 
 def profile_device(fn) -> tuple[float, float, list]:
     """Run ``fn()`` once under torch.profiler: (wall ms, summed device
-    time ms of the kernels and copies it ran, top (ms, name, count))."""
+    time ms of the kernels and copies it ran, every (ms, name, count) by
+    time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,18 +139,39 @@ def profile_device(fn) -> tuple[float, float, list]:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(((ms, name, n) for name, (ms, n) in by_name.items()), reverse=True)
-    return wall, sum(r[0] for r in rows), rows[:6]
+    return wall, sum(r[0] for r in rows), rows
 
 
-def log_profile(what: str, wall: float, busy: float, top: list) -> None:
-    if not top:
+def log_profile(what: str, wall: float, busy: float, rows: list,
+                top: int = 6) -> list:
+    """Log a profile's wall, device busy time and its ``top`` kernels;
+    returns ``rows``."""
+    if not rows:
         log(f"{what} profile: wall {wall:.3f} ms; the profiler recorded no "
             "device time")
-        return
+        return rows
     log(f"{what} profile: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}% of wall)")
-    for ms, name, n in top:
+    for ms, name, n in rows[:top]:
         log(f"  {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    return rows
+
+
+def device_ms(rows: list, name: str) -> float:
+    """Summed device time of the profiled kernels whose name holds
+    ``name``."""
+    return sum(ms for ms, n, _ in rows if name in n)
+
+
+def require_no_sort(rows: list, what: str) -> None:
+    """K2's per-call path builds no ``[V, V]`` sorted table any more: a
+    sort kernel in ``what``'s profile fails the run."""
+    if not rows:
+        fail(f"{what}: the profiler recorded no kernels to check for sorts")
+    sorts = [n for _, n, _ in rows if "sort" in n.lower()]
+    if sorts:
+        fail(f"{what}: the profile shows sort kernels: {sorts[:3]}")
+    log(f"{what}: no sort kernel among {len(rows)} profiled kernels")
 
 
 def build_problem(k: int, n_ranks: int, v_pad: int, device):
@@ -237,14 +268,29 @@ def phase_kernels(p, device, report: dict) -> None:
         k1_err = max(k1_err, float(diff.max()))
         log(f"K1 {name}: exact ({adj.shape[0]}x{adj.shape[0]})")
     v = t.v
-    adj, lv = t.adj, p["levels"]
-    k1_ms = time_ms(lambda: bfs.bfs_distances(adj, lv))
+    adj, lv, neigh = t.adj, p["levels"], t.neigh
+    got = bfs.bfs_distances(adj, lv, neigh=neigh)
+    torch.cuda.synchronize()
+    if not torch.equal(got, bfs.bfs_distances_plain(adj, lv)):
+        fail("K1 with tensorize's neighbour table differs from the plain version")
+    # the one-time topology build (per topology version) of the compact
+    # table that K1 and K2 walk
+    topo = time_ms(lambda: bfs.neighbor_rows(adj > 0, t.max_degree))
+    log(f"topology table [V={v}, D={t.max_degree}]: {topo:.4f} ms per "
+        "build (once per topology version, CUDA events)")
+    log_profile("topology table", *profile_device(
+        lambda: bfs.neighbor_rows(adj > 0, t.max_degree)))
+    k1_ms = time_ms(lambda: bfs.bfs_distances(adj, lv, neigh=neigh))
+    k1_own = time_ms(lambda: bfs.bfs_distances(adj, lv))
     k1_plain = time_ms(lambda: bfs.bfs_distances_plain(adj, lv))
     k1_bytes = 2 * v * v * 4  # adjacency in, distances out (f32)
     e = int((adj > 0).sum())
     k1_ops = v * e  # every source relaxes every link once
-    log(f"K1 time: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms")
-    log_profile("K1 wrapper", *profile_device(lambda: bfs.bfs_distances(adj, lv)))
+    rows = log_profile("K1 wrapper", *profile_device(
+        lambda: bfs.bfs_distances(adj, lv, neigh=neigh)))
+    log(f"K1 time: wrapper with the topology table {k1_ms:.4f} ms (bare "
+        f"kernel {device_ms(rows, 'bfs_rows'):.4f} ms), wrapper building "
+        f"its own table {k1_own:.4f} ms, plain {k1_plain:.4f} ms")
     report["bfs_distances"] = {
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
         "bytes": k1_bytes, "ops": k1_ops,
@@ -262,13 +308,15 @@ def phase_kernels(p, device, report: dict) -> None:
     k2_err = 0.0
     for name, dn in (("full", None), ("dst_nodes", p["dst_nodes"])):
         kw = {"salt": 0, "dst_nodes": dn}
-        got = sampler.sample_slots(*args, **kw)
-        k2_err = max(k2_err, check_k2(args, kw, got, f"program {name}"))
-        measure_k2(args, kw, f"program {name}")
+        for how, tabs in (
+            ("tables built by the wrapper", None),
+            ("tensorize's table", sampler.sampler_tables(
+                weights, p["dist"], dn, neigh=neigh)),
+        ):
+            got = sampler.sample_slots(*args, **kw, tables=tabs)
+            k2_err = max(k2_err, check_k2(args, kw, got, f"program {name}, {how}"))
+        measure_k2(args, kw, f"program {name}", neigh)
     report["sample_slots"] = {"max_abs_err": k2_err}
-    kw = {"salt": 0, "dst_nodes": p["dst_nodes"]}
-    log_profile("K2 wrapper", *profile_device(
-        lambda: sampler.sample_slots(*args, **kw)))
 
 
 def check_k2(args: tuple, kw: dict, got, what: str) -> float:
@@ -278,6 +326,9 @@ def check_k2(args: tuple, kw: dict, got, what: str) -> float:
 
     from sdnmpi_tpu_torch.kernels import sampler
 
+    if kw.get("tables") is not None:
+        check_tables(args, kw, what)
+    kw = {k: x for k, x in kw.items() if k != "tables"}
     _, ref = sampler.sample_paths_dense(*args, **kw)
     torch.cuda.synchronize()
     n_bad = int((got != ref).sum())
@@ -290,16 +341,102 @@ def check_k2(args: tuple, kw: dict, got, what: str) -> float:
     return float((got.int() - ref.int()).abs().max()) if got.numel() else 0.0
 
 
-def measure_k2(args: tuple, kw: dict, what: str) -> dict:
-    """Time K2 and its plain version on one call's arguments and work
-    out the bytes and operations the function needs for them."""
+def check_tables(args: tuple, kw: dict, what: str) -> float:
+    """The tables that K2's set-up kernels built for a call must be
+    bit-equal to the plain set-up on the same inputs; returns the largest
+    difference (0.0)."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import sampler
+
+    got = kw["tables"]
+    ref = sampler.sampler_tables_plain(args[0], args[1], kw.get("dst_nodes"),
+                                       got.neigh)
+    torch.cuda.synchronize()
+    for field in ("neigh", "lw", "dtab", "row_of"):
+        a, b = getattr(got, field), getattr(ref, field)
+        if (a is None) != (b is None) or (
+                a is not None and (a.shape != b.shape or not torch.equal(a, b))):
+            fail(f"K2 set-up {what}: {field} differs from the plain set-up")
+    return max(float((got.lw.float() - ref.lw.float()).abs().max()),
+               float((got.dtab.float() - ref.dtab.float()).abs().max()))
+
+
+def sweep_lane_groups(args: tuple, kw: dict, tabs, what: str) -> float:
+    """K2's bare kernel at each lanes-per-flow width on one call's
+    tables (CUDA events over 50 launches of the C launcher, each width
+    checked bit-equal to the wrapper's slots), beside the width the
+    wrapper picks: the evidence for ``sampler.lane_group``. Returns the
+    bare time at the wrapper's width."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import _build, sampler
+
+    weights, _, src, dst, hops = args
+    dev = weights.device
+    want = sampler.sample_slots(*args, **kw, tables=tabs)
+    fn = _build.load("sampler").sampler_launch  # signature set by the call
+    src32, dst32 = src.int().contiguous(), dst.int().contiguous()
+    f, v, d = src.shape[0], weights.shape[0], tabs.neigh.shape[1]
+    out = torch.empty_like(want)
+    row_of = None if tabs.row_of is None else tabs.row_of.data_ptr()
+
+    def launch(g):
+        _build.check(fn(
+            tabs.neigh.data_ptr(), tabs.lw.data_ptr(), tabs.dtab.data_ptr(),
+            row_of, src32.data_ptr(), dst32.data_ptr(), f, v, d, hops,
+            kw.get("salt", 0) & 0xFFFFFFFF, kw.get("fid_base", 0) & 0xFFFFFFFF,
+            g, out.data_ptr(), _build.stream_ptr(dev)), "sampler")
+
+    times = {}
+    for g in (4, 8, 16, 32):
+        out.fill_(99)
+        launch(g)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            fail(f"K2 {what}: {g} lanes per flow differ from the wrapper's slots")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(50):
+            launch(g)
+        end.record()
+        end.synchronize()
+        times[g] = start.elapsed_time(end) / 50
+    pick = sampler.lane_group(f, sampler._sm_count(dev))
+    log(f"K2 bare kernel by lanes per flow ({what}, F={f}, D={d}): "
+        + ", ".join(f"{g}: {ms:.4f} ms" for g, ms in times.items())
+        + f"; the wrapper picks {pick}")
+    return times[pick]
+
+
+def measure_k2(args: tuple, kw: dict, what: str, neigh) -> dict:
+    """Time K2 on one call's arguments as the main path runs it (the
+    topology table ``neigh`` given: the per-call set-up, then the
+    kernel), each of the two alone, the wrapper building everything
+    itself, and the plain version; work out the bytes and operations the
+    function needs for them. ``ms`` is set-up plus kernel."""
     from sdnmpi_tpu_torch.kernels import sampler
 
     weights, dist, src, dst, hops = args
+    kw = {k: x for k, x in kw.items() if k != "tables"}
     dn = kw.get("dst_nodes")
-    ms = time_ms(lambda: sampler.sample_slots(*args, **kw))
+
+    def set_up():
+        return sampler.sampler_tables(weights, dist, dn, neigh=neigh)
+
+    tabs = set_up()
+    setup_err = check_tables(args, {**kw, "tables": tabs}, what)
+    setup_ms = time_ms(set_up)
+    setup_plain = time_ms(
+        lambda: sampler.sampler_tables_plain(weights, dist, dn, neigh))
+    kernel_ms = time_ms(lambda: sampler.sample_slots(*args, **kw, tables=tabs))
+    ms = time_ms(lambda: sampler.sample_slots(*args, **kw, tables=set_up()))
+    own = time_ms(lambda: sampler.sample_slots(*args, **kw))
     plain = time_ms(lambda: sampler.sample_paths_dense(*args, **kw),
                     reps=5, warm=1)
+    _, setup_busy, _ = profile_device(set_up)
+    bare = sweep_lane_groups(args, kw, tabs, what)
     # candidates this run's data makes the sampler score: two logs, a
     # subtract and an add each
     nodes, _ = sampler.sample_paths_dense(*args, **kw)
@@ -320,9 +457,24 @@ def measure_k2(args: tuple, kw: dict, what: str) -> dict:
     n_bytes = v * v * 4 + rows * v * 4 + 2 * f * 4 + f * hops
     if dn is not None:
         n_bytes += dn.shape[0] * 4
-    log(f"K2 time ({what}, F={f}, distance rows {rows}): kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms; {n_cand} candidates scored; {n_bytes} bytes")
-    return {"ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": 4 * n_cand}
+    # the set-up: the table in, each link's weight, the distance columns
+    # the rows name (and the set); log weights, rows (and row_of) out
+    d = neigh.shape[1]
+    links = int((neigh < v).sum())
+    setup_bytes = v * d * 4 + links * 4 + rows * v * 4 + v * d * 2 + rows * v * 2
+    if dn is not None:
+        setup_bytes += dn.shape[0] * 4 + v * 4
+    log(f"K2 time ({what}, F={f}, distance rows {rows}, table width "
+        f"{tabs.neigh.shape[1]}): set-up + kernel {ms:.4f} ms = set-up "
+        f"{setup_ms:.4f} ms (device {setup_busy:.4f} ms, plain "
+        f"{setup_plain:.4f} ms) + kernel "
+        f"{kernel_ms:.4f} ms (bare {bare:.4f} ms); wrapper building its own "
+        f"tables {own:.4f} ms; plain {plain:.4f} ms; {n_cand} candidates "
+        f"scored; {n_bytes} bytes")
+    return {"ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": 4 * n_cand,
+            "setup": {"ms": setup_ms, "plain_ms": setup_plain,
+                      "bytes": setup_bytes, "ops": 2 * links,
+                      "max_abs_err": setup_err}}
 
 
 @contextlib.contextmanager
@@ -370,13 +522,24 @@ def path_launches(fn) -> dict:
     bfs.bfs_distances.launches = 0
     sampler.sample_slots.launches = 0
     ring.ring_all_gather.launches = 0
+    sampler.sampler_tables.launches = 0
     fn()
     torch.cuda.synchronize()
     return {
         "bfs_distances": bfs.bfs_distances.launches,
+        "sampler_tables": sampler.sampler_tables.launches,
         "sample_slots": sampler.sample_slots.launches,
         "ring_all_gather": ring.ring_all_gather.launches,
     }
+
+
+def require_one_set_up(counts: dict, what: str) -> None:
+    """K2's set-up runs once per device per call (one card here), however
+    many shards launch the sampler."""
+    if counts["sampler_tables"] != 1:
+        fail(f"{what}: {counts['sampler_tables']} K2 set-ups for "
+             f"{counts['sample_slots']} launches on one device")
+    log(f"{what}: 1 K2 set-up for {counts['sample_slots']} sampler launches")
 
 
 def require_launched(counts: dict, names: tuple, what: str) -> None:
@@ -413,14 +576,17 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
 
     with recording_sampler(k2_calls):
         counts = path_launches(route)
-    require_launched(counts, ("sample_slots",), "find_routes_collective")
+    require_launched(counts, ("sampler_tables", "sample_slots"),
+                     "find_routes_collective")
     # the sampler call of the entry point, on the arguments it was given
     err = check_k2_calls(k2_calls, counts["sample_slots"],
                          "slice (find_routes_collective)")
+    require_one_set_up(counts, "find_routes_collective")
     args, kw, _ = k2_calls[0]
+    k2 = measure_k2(args, kw, "slice", kw["tables"].neigh)
+    report["sampler_tables"] = k2.pop("setup")
     report["sample_slots"] = {
-        **measure_k2(args, kw, "slice"),
-        "max_abs_err": max(err, report["sample_slots"]["max_abs_err"]),
+        **k2, "max_abs_err": max(err, report["sample_slots"]["max_abs_err"]),
     }
     del k2_calls, args, kw
     for _ in range(3):
@@ -437,9 +603,9 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
     # budget, device enqueue) and the reap (device wait, slot decode,
     # fdb materialization, discrete congestion)
     log_split("slice", oracle, db, macs, src_idx, dst_idx)
-    log_profile("slice", *profile_device(
+    require_no_sort(log_profile("slice", *profile_device(
         lambda: db.find_routes_collective(macs, src_idx, dst_idx)
-    ))
+    )), "slice")
     check_routes("slice", spec, db, macs, src_idx, dst_idx, routes)
     return counts
 
@@ -505,7 +671,7 @@ def phase_program(p, device) -> dict:
     ).to(device)
     kw = dict(
         levels=p["levels"], rounds=ROUNDS, max_len=p["levels"] + 1,
-        dst_nodes=p["dst_nodes"],
+        dst_nodes=p["dst_nodes"], neigh=t.neigh,
     )
 
     def run(dist=None):
@@ -516,8 +682,9 @@ def phase_program(p, device) -> dict:
 
     out = {}
     counts = path_launches(lambda: out.update(first=run()))
-    require_launched(counts, ("bfs_distances", "sample_slots"),
+    require_launched(counts, ("bfs_distances", "sampler_tables", "sample_slots"),
                      "route_collective(dist=None)")
+    require_one_set_up(counts, "route_collective(dist=None)")
     slots, maxc = out["first"]
     cached, maxc_c = run(p["dist"])
     if not torch.equal(slots, cached) or float(maxc) != float(maxc_c):
@@ -536,7 +703,7 @@ def phase_program(p, device) -> dict:
     log(f"program: {n:,} flows on valid shortest paths, fractional max "
         f"congestion {float(maxc):.3f}; {ms:.3f} ms per collective (dist=None, "
         "median of 10)")
-    log_profile("program", *profile_device(run))
+    require_no_sort(log_profile("program", *profile_device(run)), "program")
     return counts
 
 
@@ -580,7 +747,7 @@ def phase_ring(device, report: dict) -> None:
         x = torch.as_tensor(rng.integers(-30000, 30000, (r, c))).to(device, dt)
         b = -(-r // s)
         blocks = [x[q * b:(q + 1) * b] for q in range(s)]
-        for _ in range(3):  # repeated calls ride the flags' epochs
+        for _ in range(3):  # repeated calls reuse nothing of the last
             check_k3(blocks, mesh, f"s={s} R={r} C={c} {dt}")
         log(f"K3 s={s} R={r} C={c} {dt}: equal to the plain version, 3 calls")
     mesh = make_mesh(N_SHARDS, device)
@@ -591,15 +758,19 @@ def phase_ring(device, report: dict) -> None:
     padded = ring._padded_blocks(blocks)[0]
     ms = time_ms(lambda: ring.ring_all_gather(blocks, mesh), reps=20)
     plain = time_ms(lambda: ring.ring_all_gather_plain(padded), reps=10)
-    lib = time_ms(lambda: torch.cat(blocks), reps=20)
+    # one PyTorch call writing the same s copies, and one copy
+    lib = time_ms(lambda: torch.cat(blocks * N_SHARDS), reps=20)
+    one = time_ms(lambda: torch.cat(blocks), reps=20)
     # each block read once, each shard's [V, V] copy written once
     n_bytes = v * v * 2 + N_SHARDS * v * v * 2
-    log(f"K3 time (V={v} int16 wire, {N_SHARDS} shards, all on one card): "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.cat {lib:.4f} ms; "
-        f"{n_bytes} bytes, exchange_bytes per shard "
-        f"{ring.exchange_bytes(v, v, N_SHARDS)}")
-    log_profile("K3 wrapper", *profile_device(
+    rows = log_profile("K3 wrapper", *profile_device(
         lambda: ring.ring_all_gather(blocks, mesh)))
+    log(f"K3 time (V={v} int16 wire, {N_SHARDS} shards, all on one card): "
+        f"wrapper {ms:.4f} ms (bare kernel "
+        f"{device_ms(rows, 'broadcast_gather'):.4f} ms), plain {plain:.4f} ms, "
+        f"torch.cat(blocks * {N_SHARDS}) {lib:.4f} ms, torch.cat(blocks) "
+        f"(one copy) {one:.4f} ms; {n_bytes} bytes, exchange_bytes per shard "
+        f"{ring.exchange_bytes(v, v, N_SHARDS)}")
     report["ring_all_gather"] = {
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bytes": n_bytes,
         "ops": 0, "library_ms": lib,
@@ -640,11 +811,12 @@ def phase_sharded_entry(device) -> dict:
     k2_calls: list = []
     with recording_sampler(k2_calls):
         counts = path_launches(route)
-    require_launched(counts, ("sample_slots", "ring_all_gather"),
+    require_launched(counts, ("sampler_tables", "sample_slots", "ring_all_gather"),
                      "steady sharded find_routes_collective")
     # each shard's sampler call of the steady call, fid_base included
     err = check_k2_calls(k2_calls, counts["sample_slots"],
                          "steady sharded find_routes_collective")
+    require_one_set_up(counts, "steady sharded find_routes_collective")
     del k2_calls
     route()
     routes = out["routes"]
@@ -658,8 +830,8 @@ def phase_sharded_entry(device) -> dict:
     if not np.isfinite(routes.max_congestion) or routes.max_congestion <= 0:
         fail(f"sharded slice: max_congestion {routes.max_congestion}")
     log_split("sharded slice", oracle, db, macs, src_idx, dst_idx, n=2)
-    log_profile("sharded slice", *profile_device(
-        lambda: db.find_routes_collective(macs, src_idx, dst_idx)))
+    require_no_sort(log_profile("sharded slice", *profile_device(
+        lambda: db.find_routes_collective(macs, src_idx, dst_idx))), "sharded slice")
     db._version += 1  # one more full refresh, counted alone
     t0 = time.perf_counter()
     refresh = path_launches(lambda: oracle.refresh(db))
@@ -746,7 +918,7 @@ def phase_sharded_program(device) -> dict:
     rp = v // N_SHARDS
     dist_sh = [p["dist"][q * rp:(q + 1) * rp] for q in range(N_SHARDS)]
     kw = dict(levels=p["levels"], rounds=ROUNDS, max_len=p["levels"] + 1,
-              dst_nodes=p["dst_nodes"])
+              dst_nodes=p["dst_nodes"], neigh=p["t"].neigh)
     single, single_maxc = route_collective(*p["args"], dist=p["dist"], **kw)
     ms = time_ms(lambda: route_collective(*p["args"], dist=p["dist"], **kw),
                  reps=5, warm=1)
@@ -766,17 +938,18 @@ def phase_sharded_program(device) -> dict:
         k2_calls: list = []
         with recording_sampler(k2_calls):
             got = path_launches(lambda: out.update(r=run()))
-        require_launched(got, ("sample_slots", "ring_all_gather"),
+        require_launched(got, ("sampler_tables", "sample_slots", "ring_all_gather"),
                          f"route_collective_sharded ({what})")
         err = max(err, check_k2_calls(
             k2_calls, got["sample_slots"],
             f"route_collective_sharded ({what})"))
+        require_one_set_up(got, f"route_collective_sharded ({what})")
         if ring_mode:
             counts = got
             # K2 at the sharded shape: one shard's flows, fid_base != 0
             k2_args, k2_kw, _ = k2_calls[-1]
             k2 = measure_k2(k2_args, k2_kw, f"sharded program, shard "
-                                            f"{N_SHARDS - 1}")
+                                            f"{N_SHARDS - 1}", p["t"].neigh)
             log(f"K2 sharded shape: kernel {k2['ms']:.4f} ms, bound "
                 f"{bound_ms(k2)[0]:.5f} ms ({bound_ms(k2)[1]})")
         del k2_calls
@@ -795,7 +968,9 @@ def phase_sharded_program(device) -> dict:
             f"bit-equal to one device, maxc {float(maxc):.3f} vs "
             f"{float(single_maxc):.3f} (rel {rel:.2e}); {ms:.3f} ms per "
             f"collective (CUDA events, median of 5); launches {got}")
-        log_profile(f"sharded program ({what})", *profile_device(run))
+        require_no_sort(log_profile(f"sharded program ({what})",
+                                    *profile_device(run), top=12),
+                        f"sharded program ({what})")
     live = p["src"] >= 0
     nodes = slots_to_nodes(p["t"].host_adj(), p["src"][live],
                            single.cpu().numpy()[live], dst=p["dst"][live],
@@ -830,7 +1005,7 @@ def main() -> int:
         f"({', '.join(_build.SOURCES)})")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "stack" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 3: kernels against their plain versions
@@ -860,6 +1035,8 @@ def main() -> int:
     # phase 6: report
     meta = {
         "bfs_distances": ("csrc/bfs.cu", "sdnmpi_tpu/kernels/bfs.py:130"),
+        # K2's set-up: the XLA prep inside sample_slots_pallas
+        "sampler_tables": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:270"),
         "sample_slots": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:245"),
         "ring_all_gather": ("csrc/ring.cu", "sdnmpi_tpu/kernels/ring.py:365"),
     }

@@ -103,6 +103,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes: list):
+    """``symbol`` of kernel ``name``'s library with its C signature
+    (``argtypes``, an int return) set once."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(err: int, name: str) -> None:
     """Raise on the CUDA error code a launcher returned."""
     if err != 0:

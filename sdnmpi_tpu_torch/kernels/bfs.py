@@ -6,8 +6,8 @@ exactly ``levels`` frontier steps: pairs farther apart than ``levels``
 read inf, and the diagonal is 0 even for padding rows. On a CPU tensor it
 runs :func:`bfs_distances_plain`, the reference's level loop as torch
 ops; on a CUDA tensor it launches the hand-written kernel in
-``csrc/bfs.cu`` (one block per source row over a padded CSR of the
-adjacency) or raises.
+``csrc/bfs.cu`` (one block per source row over the compact sorted
+neighbour table of :func:`neighbor_rows`) or raises.
 """
 
 from __future__ import annotations
@@ -22,14 +22,31 @@ from sdnmpi_tpu_torch.kernels import _build
 MAX_V = 65535
 
 
-def neighbor_rows(mask: torch.Tensor) -> torch.Tensor:
-    """Padded CSR of a ``[V, V]`` bool matrix: ``[V, V]`` int32 whose
-    row i lists i's out-neighbours in ascending order, padded with V
-    past i's degree (the sorted-neighbour order every slot refers to)."""
+def neighbor_rows(mask: torch.Tensor, width: int) -> torch.Tensor:
+    """Compact sorted out-neighbour table of a ``[V, V]`` bool matrix:
+    ``[V, width]`` int32 whose row i lists i's first ``width``
+    out-neighbours in ascending order, padded with V past i's degree
+    (the order every sampler slot refers to). A prefix count over each
+    row gives every neighbour its rank and one scatter puts it there: no
+    sort and no host sync. ``width`` must be >= the largest out-degree
+    or rows are cut."""
     v = mask.shape[0]
     idx = torch.arange(v, dtype=torch.int32, device=mask.device)
-    fill = torch.full_like(idx, v)
-    return torch.sort(torch.where(mask, idx[None, :], fill[None, :]), dim=1).values
+    rank = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
+    # entries that are not neighbours, or past the width, land in a
+    # spare column that is dropped
+    col = torch.where(mask & (rank < width), rank, width)
+    out = torch.full((v, width + 1), v, dtype=torch.int32, device=mask.device)
+    out.scatter_(1, col.long(), idx[None, :].expand(v, v))
+    return out[:, :width].contiguous()
+
+
+def neighbor_rows_of(mat: torch.Tensor) -> torch.Tensor:
+    """:func:`neighbor_rows` of ``mat > 0`` at its largest out-degree
+    (one host sync): the table of a caller that holds no topology
+    table."""
+    mask = mat > 0
+    return neighbor_rows(mask, int(mask.sum(dim=1).max()) if mask.shape[0] else 0)
 
 
 def bfs_distances_plain(adj: torch.Tensor, levels: int) -> torch.Tensor:
@@ -48,12 +65,18 @@ def bfs_distances_plain(adj: torch.Tensor, levels: int) -> torch.Tensor:
     return dist
 
 
-def bfs_distances(adj: torch.Tensor, levels: int) -> torch.Tensor:
+def bfs_distances(
+    adj: torch.Tensor, levels: int, neigh: torch.Tensor | None = None
+) -> torch.Tensor:
     """Hop-count distance matrix ``[V, V]`` f32 of the directed adjacency
     ``adj`` (rows are sources, nonzero = link), ``levels`` BFS steps.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel K1
-    (V up to :data:`MAX_V`, else it raises)."""
+    ``neigh`` is the topology's compact neighbour table
+    (:func:`neighbor_rows` of ``adj > 0``, any width >= the largest
+    out-degree; entries >= V are padding), built once per topology
+    version by the caller; without it the wrapper builds one. CPU tensors
+    take the plain version; CUDA tensors launch kernel K1 (V up to
+    :data:`MAX_V`, else it raises)."""
     if adj.dim() != 2 or adj.shape[0] != adj.shape[1]:
         raise ValueError(f"adj must be square [V, V], got {tuple(adj.shape)}")
     if levels < 0:
@@ -68,18 +91,19 @@ def bfs_distances(adj: torch.Tensor, levels: int) -> torch.Tensor:
     out = torch.empty((v, v), dtype=torch.float32, device=adj.device)
     if v == 0:
         return out
-    neigh = neighbor_rows(adj > 0).contiguous()
-    lib = _build.load("bfs")
-    fn = lib.bfs_launch
-    fn.argtypes = [
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    if (neigh.dim() != 2 or neigh.shape[0] != v or neigh.dtype != torch.int32
+            or neigh.device != adj.device or not neigh.is_contiguous()):
+        raise ValueError("neigh must be a contiguous [V, D] int32 table on adj's device")
+    fn = _build.function("bfs", "bfs_launch", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ])
     # more than V - 1 levels reach nothing new
     steps = min(int(levels), v - 1)
     err = fn(
-        neigh.data_ptr(), v, v, steps, out.data_ptr(),
+        neigh.data_ptr(), v, neigh.shape[1], steps, out.data_ptr(),
         _build.stream_ptr(adj.device),
     )
     _build.check(err, "bfs")

@@ -10,9 +10,10 @@
 //
 // What bounds it on an H100: the [V, V] f32 output write (4 MiB at
 // V=1024) against 3.35 TB/s, about 1.3 us; the adjacency the caller hands
-// in is read once more to build the neighbour table. The per-row work is
-// V x levels shared-memory probes plus one read of each reached node's
-// neighbour row, which the 50 MB L2 serves after the first blocks.
+// in was read once, per topology version, to build the neighbour table.
+// The per-row work is V x levels shared-memory probes plus one read of
+// each reached node's neighbour row, which the 50 MB L2 serves after the
+// first blocks.
 //
 // Design: the distance row lives in shared memory as uint16 (2V bytes, so
 // V=1024 needs 2 KiB and any V up to 65535 fits the 227 KB a block may
@@ -23,8 +24,10 @@
 // nothing new, which cannot change the result. The finished row is
 // written to device memory once, as f32.
 //
-// Neighbour rows come from a padded CSR built with torch ops: row i holds
-// i's out-neighbours in ascending order, padded with V past its degree.
+// Neighbour rows come from the topology's compact table [V, D], built once
+// per topology version without a sort (kernels/bfs.py neighbor_rows): row
+// i holds i's out-neighbours in ascending order, padded with V past its
+// degree, D the fabric's largest out-degree rounded up.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -1,16 +1,18 @@
-"""Bidirectional ring all-gather over the port's shard mesh: kernel K3.
+"""All-gather over the port's shard mesh: kernel K3 and its plain version.
 
 Counterpart of ``sdnmpi_tpu/kernels/ring.py``. A sharded tensor is a
-list of per-shard row blocks (``shardplane/mesh.py``); the ring
-all-gather leaves every shard with the whole ``[R, C]`` matrix, moved by
-the reference's schedule: a cw and a ccw leg over the flattened shard
-order, double-buffered, in ceil((s-1)/2) steps.
+list of per-shard row blocks (``shardplane/mesh.py``); the all-gather
+leaves every shard with the whole ``[R, C]`` matrix.
 
 - :func:`ring_all_gather` is the wrapper: CPU tensors take
-  :func:`ring_all_gather_plain` (the schedule as torch ``copy_`` calls
-  between per-shard buffers, ``_ring_gather_xla_fn``'s semantics); CUDA
-  tensors launch ``csrc/ring.cu``, one launch playing every shard of a
-  mesh placed on one card, or raise.
+  :func:`ring_all_gather_plain` (the reference's schedule, a cw and a ccw
+  leg over the flattened shard order, double-buffered, in ceil((s-1)/2)
+  steps, as torch ``copy_`` calls between per-shard buffers:
+  ``_ring_gather_xla_fn``'s semantics); CUDA tensors launch
+  ``csrc/ring.cu``, one broadcast copy that stores every shard's block
+  straight into every shard's output (a mesh placed on one card), or
+  raise. Both compute the same function; the ring is what a TPU's
+  neighbour-only links need, and a card reaches every output directly.
 - :func:`ring_stream` runs one gather of the shards' wire blocks and then
   hands every block to a consumer in the reference's arrival order. The
   shardplane's consumers do not need that order while the exchange is
@@ -39,12 +41,8 @@ WIRE_EXACT_MAX_HOPS = 256
 #: largest V the int16 wire formats cover exactly
 NEXT_WIRE_MAX_V = 1 << 15
 
-#: most shards one launch of the kernel plays (its pointer table)
+#: most shards one launch of the kernel serves (its pointer table)
 MAX_SHARDS = 64
-#: threads per block of the kernel (csrc/ring.cu kThreads)
-_THREADS = 256
-#: units each thread copies per block slice, for sizing the grid
-_UNITS_PER_THREAD = 8
 
 
 def dist_wire_dtype(v: int) -> torch.dtype:
@@ -158,10 +156,6 @@ def ring_all_gather_plain(blocks: list) -> list:
     return out
 
 
-#: per (device, stream, shards, slices): [flag words, calls so far]
-_FLAGS: dict = {}
-
-
 def _unit(nbytes: int, ptrs: list) -> int:
     """Widest copy unit (16, 8, 4 or 2 bytes) that divides the block and
     every pointer; 2- and 4-byte elements always allow 2."""
@@ -173,74 +167,41 @@ def _unit(nbytes: int, ptrs: list) -> int:
 
 def _launch(blocks: list, b: int) -> list:
     """One launch of kernel K3 over equal contiguous ``[b, C]`` blocks of
-    one card. The grid is sized from the occupancy the card reports, so
-    every block is resident (the launch is cooperative)."""
+    one card."""
     dev = blocks[0].device
     s = len(blocks)
     c = blocks[0].shape[1]
-    es = blocks[0].element_size()
-    nbytes = b * c * es
-    out = [torch.empty((s * b, c), dtype=blocks[0].dtype, device=dev)
-           for _ in range(s)]
-    comm = torch.empty((s, 2, 2, nbytes), dtype=torch.uint8, device=dev)
+    nbytes = b * c * blocks[0].element_size()
+    # one allocation for every shard's copy (one host call, not s)
+    out = list(torch.empty((s, s * b, c), dtype=blocks[0].dtype, device=dev))
+    if nbytes == 0:
+        return out
     ptrs = [x.data_ptr() for x in blocks] + [o.data_ptr() for o in out]
-    unit = _unit(nbytes, ptrs + [comm.data_ptr()])
-    n_units = nbytes // unit
-    n_cw, n_ccw = ring_legs(s)
-    lib = _build.load("ring")
-    with torch.cuda.device(dev):
-        cap_fn = lib.ring_capacity
-        cap_fn.argtypes = [ctypes.c_int]
-        cap_fn.restype = ctypes.c_int
-        cap = cap_fn(unit)
-        if cap < 0:
-            _build.check(-cap, "ring")
-        if cap < s:
-            raise RuntimeError(
-                f"ring kernel: {s} shards need {s} co-resident blocks, the "
-                f"card holds {cap}"
-            )
-        want = -(-n_units // (_THREADS * _UNITS_PER_THREAD))
-        nblk = max(1, min(want, cap // s))
-        stream = _build.stream_ptr(dev)
-        key = (dev, stream.value, s, nblk)
-        entry = _FLAGS.get(key)
-        if entry is None:
-            entry = _FLAGS[key] = [
-                torch.zeros(s * 2 * 2 * nblk, dtype=torch.int32, device=dev), 0
-            ]
-        flags, epoch = entry
-        fn = lib.ring_launch
-        fn.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        in_arr = (ctypes.c_void_p * s)(*ptrs[:s])
-        out_arr = (ctypes.c_void_p * s)(*ptrs[s:])
-        err = fn(
-            in_arr, out_arr, s, comm.data_ptr(), flags.data_ptr(), nblk,
-            n_units, unit, epoch & 0xFFFFFFFF, n_cw, n_ccw, stream,
-        )
-        _build.check(err, "ring")
-        entry[1] = epoch + 1
+    unit = _unit(nbytes, ptrs)
+    fn = _build.function("ring", "ring_launch", [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ])
+    in_arr = (ctypes.c_void_p * s)(*ptrs[:s])
+    out_arr = (ctypes.c_void_p * s)(*ptrs[s:])
+    err = fn(in_arr, out_arr, s, nbytes // unit, unit, _build.stream_ptr(dev))
+    _build.check(err, "ring")
     ring_all_gather.launches += 1
     return out
 
 
 def ring_all_gather(blocks: list, mesh) -> list:
-    """All-gather the row-sharded blocks of ``mesh`` over its
-    bidirectional ring: returns one ``[R, C]`` tensor per shard.
+    """All-gather the row-sharded blocks of ``mesh``: returns one
+    ``[R, C]`` tensor per shard.
 
     ``blocks[q]`` is shard q's row block, rows ``[q*b, (q+1)*b)`` of the
     ``[R, C]`` matrix with ``b = ceil(R / s)`` (the final blocks may be
     short, as ``convert.shard_rows`` cuts them): short blocks are padded
     onto the wire and the result trimmed, as ``ring.py:386-400`` does.
     Strided blocks are made contiguous first. s = 1 returns the block and
-    launches nothing. CPU tensors take the plain version; CUDA tensors
-    launch kernel K3 (every shard on one card) or raise."""
+    launches nothing. CPU tensors take the plain version (the ring
+    schedule); CUDA tensors launch kernel K3 (every shard on one card) or
+    raise."""
     s = mesh.n_shards
     if len(blocks) != s:
         raise ValueError(f"{len(blocks)} blocks for a {s}-shard mesh")

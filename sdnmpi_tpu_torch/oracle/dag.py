@@ -22,12 +22,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdnmpi_tpu_torch.kernels.bfs import bfs_distances, neighbor_rows
+from sdnmpi_tpu_torch.kernels.bfs import bfs_distances, neighbor_rows, neighbor_rows_of
 from sdnmpi_tpu_torch.kernels.sampler import (
     _hash_u32,
     _mul32,
     sample_paths_dense,
     sample_slots,
+    sampler_tables,
 )
 
 __all__ = [
@@ -142,9 +143,10 @@ def neighbor_table(
     """Compact per-node out-neighbour table ``(neigh, valid, safe)``,
     each ``[V, min(max_degree, V)]``: sorted neighbour indices (V past
     the degree), a validity mask, and indices clamped to a safe gather
-    range. ``max_degree`` must be >= the true out-degree."""
+    range. ``max_degree`` must be >= the true out-degree. Built without
+    a sort (``kernels.bfs.neighbor_rows``)."""
     v = adj_or_weights.shape[0]
-    neigh = neighbor_rows(adj_or_weights > 0)[:, : min(max_degree, v)]
+    neigh = neighbor_rows(adj_or_weights > 0, min(max_degree, v))
     return neigh, neigh < v, torch.clamp(neigh, max=v - 1)
 
 
@@ -310,6 +312,7 @@ def route_collective(
     salt: int = 0,
     dist: torch.Tensor | None = None,
     dst_nodes: torch.Tensor | None = None,  # [T] int32 destination set (-1 pad)
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """End-to-end collective routing on the tensors' device.
 
@@ -325,20 +328,24 @@ def route_collective(
     row must be in it) restricts the balancing products and the
     sampler's distance table to the destination set, with the same
     result. ``levels`` must bound the diameter: without a cached
-    ``dist``, pairs farther apart read unreachable. The reference's
-    ``max_degree`` argument is gone: the kernels walk full sorted
-    neighbour rows."""
+    ``dist``, pairs farther apart read unreachable. ``neigh`` is the
+    compact sorted neighbour table of ``adj`` that the oracle builds once
+    per topology version (``TopoTensors.neigh``); without it one is built
+    here. It takes the place of the reference's ``max_degree``."""
     v = adj.shape[0]
     base = torch.zeros((v, v), dtype=torch.float32, device=adj.device)
     base[link_src.long(), link_dst.long()] = link_util.to(torch.float32)
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
     if dist is None:
-        dist = bfs_distances(adj, levels)
+        dist = bfs_distances(adj, levels, neigh=neigh)
     weights, _, maxc = balance_rounds(
         adj, dist, base, traffic, levels=levels, rounds=rounds,
         dst_nodes=dst_nodes,
     )
+    tables = sampler_tables(weights, dist, dst_nodes, neigh=neigh)
     slots = sample_slots(
         weights, dist, src, dst, sampled_hops(max_len), salt=salt,
-        dst_nodes=dst_nodes,
+        dst_nodes=dst_nodes, tables=tables,
     )
     return slots, maxc

@@ -31,6 +31,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows
 from sdnmpi_tpu_torch.oracle.apsp import apsp_distances, apsp_next_hops, occ_bucket
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 
@@ -122,6 +123,14 @@ class TopoTensors:
     port_host: np.ndarray | None = None
     #: directed-link count; -1 = unknown
     n_links: int = -1
+    #: [V, max_degree] int32 sorted out-neighbours (V past the degree),
+    #: on the device: the table kernels K1 and K2 walk, built with the
+    #: tensors, so once per topology version
+    neigh: torch.Tensor | None = None
+
+    def __post_init__(self) -> None:
+        if self.neigh is None:
+            self.neigh = neighbor_rows(self.adj > 0, min(self.max_degree, self.v))
 
     def link_count(self) -> int:
         if self.n_links < 0:
@@ -466,6 +475,9 @@ class RouteOracle:
         li, lj = np.nonzero(t.host_adj() > 0)
         util = np.ascontiguousarray(base[li, lj], dtype=np.float32)
         v_eff = self._occ_v(t)
+        # rows of the occupied block: its links all lie inside it, and
+        # entries >= v_eff read as padding
+        neigh_eff = t.neigh[:v_eff]
         if v_eff < t.v:
             adj_eff = t.adj[:v_eff, :v_eff]
             dist_eff = self._dist_full()[:v_eff, :v_eff]
@@ -498,7 +510,7 @@ class RouteOracle:
                 put(util), put(traffic), put(src_p), put(dst_p), mesh,
                 levels=max_len - 1, rounds=rounds, max_len=max_len,
                 dist=dist_eff, dst_nodes=put(dn) if use_dn else None,
-                ring_exchange=self.ring_exchange,
+                ring_exchange=self.ring_exchange, neigh=neigh_eff,
             )
 
             def reap_sharded() -> np.ndarray:
@@ -519,7 +531,7 @@ class RouteOracle:
             put(util), put(traffic), put(src_p), put(dst_p),
             levels=max_len - 1, rounds=rounds, max_len=max_len,
             dist=dist_eff,  # cached at this topology version: no BFS
-            dst_nodes=put(dn) if len(dn) < v_eff else None,
+            dst_nodes=put(dn) if len(dn) < v_eff else None, neigh=neigh_eff,
         )
 
         def reap() -> np.ndarray:

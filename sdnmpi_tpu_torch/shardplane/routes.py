@@ -9,7 +9,8 @@ reweights on the same global load. Distances reach every shard through
 the ring all-gather (kernel K3): in gather mode as f32 rows, in ring
 mode packed to the 2-byte wire (``exchange_distances``). Either way the
 slots are those of ``oracle/dag.route_collective`` on the same inputs
-where the loads sum alike.
+where the loads sum alike. The sampler's set-up (kernel K2's tables) is
+built once per device and shared by the shards' launches there.
 
 The reference's other sharded legs (``batch_fdb_sharded/ringed``,
 ``route_flows_sharded``, ``route_adaptive_sharded``,
@@ -21,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from sdnmpi_tpu_torch.kernels.ring import exchange_distances, ring_all_gather
-from sdnmpi_tpu_torch.kernels.sampler import sample_slots
+from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
+from sdnmpi_tpu_torch.kernels.sampler import sample_slots, sampler_tables
 from sdnmpi_tpu_torch.shardplane.apsp import apsp_distances_rowsharded
 from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, mesh_shards
 
@@ -69,6 +71,7 @@ def route_collective_sharded(
     dist=None,  # cached distances: [V, V] tensor or row-sharded list
     dst_nodes: torch.Tensor | None = None,  # [T] int32 destination set (-1 pad)
     ring_exchange: bool = False,
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
 ) -> tuple[list, torch.Tensor]:
     """``oracle.dag.route_collective`` sharded over every shard of the
     mesh. Shard q propagates the traffic of destination block q (of the
@@ -81,8 +84,9 @@ def route_collective_sharded(
     computes them over the "v" axis only and reshards: the values are
     the same). ``ring_exchange`` streams the distance rows through the
     ring as wire words (``_dag_step_ringed``); otherwise row-sharded
-    distances are replicated as f32 by the same kernel. V, F and T must
-    divide by the shard count.
+    distances are replicated as f32 by the same kernel. ``neigh`` is the
+    compact neighbour table of ``adj`` (``TopoTensors.neigh``); without
+    it one is built here. V, F and T must divide by the shard count.
 
     Returns ``(slots, max_congestion)``: the slots as the per-shard list
     of ``[F/s, sampled_hops(max_len)]`` int8 blocks (flow-sharded; read
@@ -150,15 +154,22 @@ def route_collective_sharded(
         weights = congestion_weights(adj_f, base + load)
         load = load_of(weights)
     maxc = load.max()
-    slots = [
-        sample_slots(
-            weights.to(dev), d_full[q], src[q * f_per:(q + 1) * f_per].to(dev),
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    # K2's set-up once per device, shared by the launches of its shards;
+    # one launch per shard, each with its own flows and fid_base
+    tables = {}
+    slots = []
+    for q, dev in enumerate(mesh.devices):
+        w_q = weights.to(dev)
+        dn_q = dst_nodes.to(dev) if have_dst else None
+        if dev not in tables:
+            tables[dev] = sampler_tables(w_q, d_full[q], dn_q, neigh=neigh.to(dev))
+        slots.append(sample_slots(
+            w_q, d_full[q], src[q * f_per:(q + 1) * f_per].to(dev),
             dst[q * f_per:(q + 1) * f_per].to(dev), hops, salt=salt,
-            dst_nodes=dst_nodes.to(dev) if have_dst else None,
-            fid_base=q * f_per,
-        )
-        for q, dev in enumerate(mesh.devices)
-    ]
+            dst_nodes=dn_q, fid_base=q * f_per, tables=tables[dev],
+        ))
     return slots, maxc
 
 
