@@ -118,6 +118,26 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, n: int = 50) -> float:
+    """Device time per call of ``fn()`` in ms: ``n`` calls queued behind
+    a spin kernel, so that the host's launch time between them does not
+    show, with CUDA events around the ``n`` calls. When ``fn`` launches
+    one kernel, this is the bare kernel's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # some 25 ms, longer than the enqueueing
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def profile_device(fn) -> tuple[float, float, list]:
     """Run ``fn()`` once under torch.profiler: (wall ms, summed device
     time ms of the kernels and copies it ran, every (ms, name, count) by
@@ -283,14 +303,20 @@ def phase_kernels(p, device, report: dict) -> None:
     k1_ms = time_ms(lambda: bfs.bfs_distances(adj, lv, neigh=neigh))
     k1_own = time_ms(lambda: bfs.bfs_distances(adj, lv))
     k1_plain = time_ms(lambda: bfs.bfs_distances_plain(adj, lv))
-    k1_bytes = 2 * v * v * 4  # adjacency in, distances out (f32)
+    # the topology table in, distances out (f32); the [V, V] adjacency is
+    # not read when the table is given
+    k1_bytes = v * neigh.shape[1] * 4 + v * v * 4
     e = int((adj > 0).sum())
     k1_ops = v * e  # every source relaxes every link once
-    rows = log_profile("K1 wrapper", *profile_device(
+    log_profile("K1 wrapper", *profile_device(
         lambda: bfs.bfs_distances(adj, lv, neigh=neigh)))
+    k1_bare = queued_ms(lambda: bfs.bfs_distances(adj, lv, neigh=neigh))
     log(f"K1 time: wrapper with the topology table {k1_ms:.4f} ms (bare "
-        f"kernel {device_ms(rows, 'bfs_rows'):.4f} ms), wrapper building "
-        f"its own table {k1_own:.4f} ms, plain {k1_plain:.4f} ms")
+        f"kernel {k1_bare:.4f} ms, queued), wrapper building "
+        f"its own table {k1_own:.4f} ms, plain {k1_plain:.4f} ms; bound "
+        f"{bound_ms({'bytes': k1_bytes, 'ops': k1_ops})[0]:.5f} ms for "
+        f"{k1_bytes} bytes (dense yardstick, [V, V] adjacency in: "
+        f"{bound_ms({'bytes': 2 * v * v * 4, 'ops': k1_ops})[0]:.5f} ms)")
     report["bfs_distances"] = {
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
         "bytes": k1_bytes, "ops": k1_ops,
@@ -364,45 +390,32 @@ def check_tables(args: tuple, kw: dict, what: str) -> float:
 
 def sweep_lane_groups(args: tuple, kw: dict, tabs, what: str) -> float:
     """K2's bare kernel at each lanes-per-flow width on one call's
-    tables (CUDA events over 50 launches of the C launcher, each width
+    tables (:func:`queued_ms` over 50 uncounted launches, each width
     checked bit-equal to the wrapper's slots), beside the width the
     wrapper picks: the evidence for ``sampler.lane_group``. Returns the
     bare time at the wrapper's width."""
     import torch
 
-    from sdnmpi_tpu_torch.kernels import _build, sampler
+    from sdnmpi_tpu_torch.kernels import sampler
 
     weights, _, src, dst, hops = args
     dev = weights.device
     want = sampler.sample_slots(*args, **kw, tables=tabs)
-    fn = _build.load("sampler").sampler_launch  # signature set by the call
-    src32, dst32 = src.int().contiguous(), dst.int().contiguous()
-    f, v, d = src.shape[0], weights.shape[0], tabs.neigh.shape[1]
+    f, d = src.shape[0], tabs.neigh.shape[1]
     out = torch.empty_like(want)
-    row_of = None if tabs.row_of is None else tabs.row_of.data_ptr()
+    salt, fid_base = kw.get("salt", 0), kw.get("fid_base", 0)
 
     def launch(g):
-        _build.check(fn(
-            tabs.neigh.data_ptr(), tabs.lw.data_ptr(), tabs.dtab.data_ptr(),
-            row_of, src32.data_ptr(), dst32.data_ptr(), f, v, d, hops,
-            kw.get("salt", 0) & 0xFFFFFFFF, kw.get("fid_base", 0) & 0xFFFFFFFF,
-            g, out.data_ptr(), _build.stream_ptr(dev)), "sampler")
+        sampler.launch_kernel(tabs, src, dst, hops, salt, fid_base, g, out)
 
     times = {}
-    for g in (4, 8, 16, 32):
+    for g in (4, 8):
         out.fill_(99)
         launch(g)
         torch.cuda.synchronize()
         if not torch.equal(out, want):
             fail(f"K2 {what}: {g} lanes per flow differ from the wrapper's slots")
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(50):
-            launch(g)
-        end.record()
-        end.synchronize()
-        times[g] = start.elapsed_time(end) / 50
+        times[g] = queued_ms(lambda: launch(g))
     pick = sampler.lane_group(f, sampler._sm_count(dev))
     log(f"K2 bare kernel by lanes per flow ({what}, F={f}, D={d}): "
         + ", ".join(f"{g}: {ms:.4f} ms" for g, ms in times.items())
@@ -416,6 +429,8 @@ def measure_k2(args: tuple, kw: dict, what: str, neigh) -> dict:
     kernel), each of the two alone, the wrapper building everything
     itself, and the plain version; work out the bytes and operations the
     function needs for them. ``ms`` is set-up plus kernel."""
+    import torch
+
     from sdnmpi_tpu_torch.kernels import sampler
 
     weights, dist, src, dst, hops = args
@@ -451,27 +466,47 @@ def measure_k2(args: tuple, kw: dict, what: str, neigh) -> dict:
     del d2t
     v = weights.shape[0]
     f = src.shape[0]
-    # weights read once; of the distances only the rows the flows'
-    # destinations select ([T, V] with dst_nodes); flows in, slots out
-    rows = v if dn is None else dn.shape[0]
-    n_bytes = v * v * 4 + rows * v * 4 + 2 * f * 4 + f * hops
-    if dn is not None:
-        n_bytes += dn.shape[0] * 4
-    # the set-up: the table in, each link's weight, the distance columns
-    # the rows name (and the set); log weights, rows (and row_of) out
     d = neigh.shape[1]
     links = int((neigh < v).sum())
+    t = 0 if dn is None else dn.shape[0]
+    rows = v if dn is None else t  # rows of the set-up's distance table
+    # the distance rows this run's flows read: one per distinct destination
+    n_dst = int(torch.unique(dst[dst >= 0]).numel())
+    flows = 2 * f * 4 + f * hops  # src and dst in, slots out
+    # set-up + kernel (the path's ``ms``): the topology table and its
+    # links' f32 weights, the f32 distance columns of the destinations the
+    # flows name and the set, once each
+    n_bytes = v * d * 4 + links * 4 + n_dst * v * 4 + t * 4 + flows
+    # the kernel alone: the table, its bf16 log weights, the bf16 rows the
+    # flows read (and each destination's row)
+    kernel_bytes = v * d * 6 + n_dst * v * 2 + (0 if dn is None else n_dst * 4) + flows
+    # the dense yardstick, [V, V] f32 weights and the set-up's f32
+    # distance rows read once (what a [V, V] formulation moves)
+    dense_bytes = v * v * 4 + rows * v * 4 + t * 4 + flows
+    # the set-up: the table in, each link's weight, the distance columns
+    # the rows name (and the set); log weights, rows (and row_of) out
     setup_bytes = v * d * 4 + links * 4 + rows * v * 4 + v * d * 2 + rows * v * 2
     if dn is not None:
-        setup_bytes += dn.shape[0] * 4 + v * 4
+        setup_bytes += t * 4 + v * 4
+    ops = 4 * n_cand + 2 * links
     log(f"K2 time ({what}, F={f}, distance rows {rows}, table width "
-        f"{tabs.neigh.shape[1]}): set-up + kernel {ms:.4f} ms = set-up "
+        f"{d}): set-up + kernel {ms:.4f} ms = set-up "
         f"{setup_ms:.4f} ms (device {setup_busy:.4f} ms, plain "
         f"{setup_plain:.4f} ms) + kernel "
         f"{kernel_ms:.4f} ms (bare {bare:.4f} ms); wrapper building its own "
         f"tables {own:.4f} ms; plain {plain:.4f} ms; {n_cand} candidates "
-        f"scored; {n_bytes} bytes")
-    return {"ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": 4 * n_cand,
+        f"scored")
+    bounds = {name: bound_ms({"bytes": b, "ops": o})[0] for name, b, o in (
+        ("path", n_bytes, ops), ("kernel", kernel_bytes, 4 * n_cand),
+        ("set-up", setup_bytes, 2 * links), ("dense", dense_bytes, ops))}
+    log(f"K2 bounds ({what}, {n_dst} distinct destinations): set-up + kernel "
+        f"{bounds['path']:.5f} ms ({n_bytes} bytes; {ms / bounds['path']:.1f}x); "
+        f"kernel alone {bounds['kernel']:.5f} ms ({kernel_bytes} bytes; bare "
+        f"{bare / bounds['kernel']:.1f}x); set-up alone {bounds['set-up']:.5f} "
+        f"ms ({setup_bytes} bytes; device time {setup_busy / bounds['set-up']:.1f}x "
+        f"it); dense yardstick ([V, V] weights read once) "
+        f"{bounds['dense']:.5f} ms ({dense_bytes} bytes)")
+    return {"ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": ops,
             "setup": {"ms": setup_ms, "plain_ms": setup_plain,
                       "bytes": setup_bytes, "ops": 2 * links,
                       "max_abs_err": setup_err}}
@@ -950,8 +985,8 @@ def phase_sharded_program(device) -> dict:
             k2_args, k2_kw, _ = k2_calls[-1]
             k2 = measure_k2(k2_args, k2_kw, f"sharded program, shard "
                                             f"{N_SHARDS - 1}", p["t"].neigh)
-            log(f"K2 sharded shape: kernel {k2['ms']:.4f} ms, bound "
-                f"{bound_ms(k2)[0]:.5f} ms ({bound_ms(k2)[1]})")
+            log(f"K2 sharded shape: set-up + kernel {k2['ms']:.4f} ms, "
+                f"bound {bound_ms(k2)[0]:.5f} ms ({bound_ms(k2)[1]})")
         del k2_calls
         slots_sh, maxc = out["r"]
         slots = torch.cat(slots_sh)

@@ -23,9 +23,10 @@
 // each of those links [V, D], the bf16 distance rows the flows read
 // [R, V] and, with a destination set, each destination's row [V].
 //
-// What bounds it on an H100: bytes. The function needs the split weights
-// and the distance rows the flows read, once each, against 3.35 TB/s (a
-// few microseconds); the arithmetic (two logf per candidate) is far below
+// What bounds it on an H100: bytes. The function needs the neighbour
+// table, the weights of its links, the distance rows the flows read and
+// the flows in and slots out, once each, against 3.35 TB/s (a few
+// microseconds, never the [V, V] weights); the arithmetic (two logf per candidate) is far below
 // the card's f32 rate. What held the thread-per-flow design back was
 // latency: the 32 flows of a warp walked 32 nodes, each lane a chain of
 // dependent scattered loads per candidate, and the wrapper rebuilt
@@ -34,12 +35,12 @@
 // node's row, so the row and its log weights are read coalesced and the
 // candidates' distance reads and hashes overlap; the argmax is a
 // butterfly within the group over (score, then lowest slot), which keeps
-// the first-index tie-break of argmax over an ascending walk. A whole
-// warp per flow (G = 32) spends most of its issue slots on the butterfly
-// and on lanes past the node's degree, so a large batch runs fastest with
-// G = 4 (8 flows a warp); a small batch needs more lanes per flow to keep
-// enough warps in flight. The wrapper picks G from the flow count and the
-// SM count (kernels/sampler.py lane_group). The tables are small enough
+// the first-index tie-break of argmax over an ascending walk. Wider
+// groups spend their issue slots on the butterfly and on lanes past the
+// node's degree, so a large batch runs fastest with G = 4 (8 flows a
+// warp); a batch too small to fill the card at 4 lanes takes G = 8 to
+// keep more loads in flight. The wrapper picks G from the flow count and
+// the SM count (kernels/sampler.py lane_group). The tables are small enough
 // to stay in L2 (0.9 MB of neighbours and 3 MB of [T, V] rows at
 // V = 3,968, T = 384). Slots go out as int8 [F, hops] with no limit on
 // hops.
@@ -85,7 +86,7 @@ __device__ __forceinline__ bool beats(float s, int k, float bs, int bk) {
   return k >= 0 && (bk < 0 || s > bs || (s == bs && k < bk));
 }
 
-// One flow per group of G lanes (G = 4, 8, 16 or 32): lane l of a group
+// One flow per group of G lanes (G = 4 or 8): lane l of a group
 // scores entries l, l + G, ... of the node's row.
 template <int G>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -257,8 +258,8 @@ extern "C" int sampler_setup_launch(const int* neigh, const float* weights,
 
 // neigh [v, d] int32, lw [v, d] bf16, dtab [rows, v] bf16, row_of [v]
 // int32 or null (a flow reads row dst), src/dst [n_flows] int32, out
-// [n_flows, hops] int8; all device pointers. `group` (4, 8, 16 or 32) is
-// the lanes per flow. Returns the CUDA error of the launch (0 on
+// [n_flows, hops] int8; all device pointers. `group` (4 or 8) is the
+// lanes per flow. Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int sampler_launch(const int* neigh, const void* lw,
                               const void* dtab, const int* row_of,
@@ -274,12 +275,6 @@ extern "C" int sampler_launch(const int* neigh, const void* lw,
     case 8:
       return launch_sampler<8>(neigh, lw, dtab, row_of, src, dst, n_flows, v,
                                d, hops, salt, fid_base, out, st);
-    case 16:
-      return launch_sampler<16>(neigh, lw, dtab, row_of, src, dst, n_flows,
-                                v, d, hops, salt, fid_base, out, st);
-    case 32:
-      return launch_sampler<32>(neigh, lw, dtab, row_of, src, dst, n_flows,
-                                v, d, hops, salt, fid_base, out, st);
   }
   return (int)cudaErrorInvalidValue;
 }

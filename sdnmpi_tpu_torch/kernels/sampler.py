@@ -23,8 +23,8 @@ out-neighbours; -1 marks the end of the path.
   :func:`sampler_tables_plain` (torch ops), a CUDA tensor launches the
   set-up kernels of ``csrc/sampler.cu``.
 - :func:`sample_slots` is the wrapper: a CPU tensor takes
-  :func:`sample_slots_plain` (the kernel's walk over those tables as
-  torch ops), a CUDA tensor launches ``csrc/sampler.cu`` or raises.
+  :func:`sample_paths_dense`, a CUDA tensor launches ``csrc/sampler.cu``
+  over the tables or raises.
 
 A slot is a position in the neighbour table. It equals the dense
 version's rank among ``weights > 0`` because the balancer's weights are
@@ -103,14 +103,6 @@ def dist_table(
     )
     row_of = torch.where(first[:v] < t, first[:v], -1).to(torch.int32)
     return table.contiguous(), row_of
-
-
-def flow_rows(row_of: torch.Tensor | None, dst: torch.Tensor) -> torch.Tensor:
-    """Each flow's row of the distance table, -1 for a dead flow (``dst``
-    < 0, or missing from the destination set)."""
-    dst = dst.long()
-    row = dst if row_of is None else row_of.long()[dst.clamp(min=0)]
-    return torch.where(dst >= 0, row, -1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,11 +263,14 @@ def sample_paths_lw(
     f = src.shape[0]
     dev = lw_bf.device
     table, row_of = dist_table(dist, dst_nodes)
-    row = flow_rows(row_of, dst)
-    d2t = table[row.clamp(min=0)].to(torch.float32)  # [F, V]
-
     src = src.long()
     dst = dst.long()
+    # each flow's row of the table, -1 for a dead flow (dst < 0, or
+    # missing from the destination set)
+    row = dst if row_of is None else row_of.long()[dst.clamp(min=0)]
+    row = torch.where(dst >= 0, row, -1)
+    d2t = table[row.clamp(min=0)].to(torch.float32)  # [F, V]
+
     iota = torch.arange(v, dtype=torch.int64, device=dev)
     fid = (torch.arange(f, dtype=torch.int64, device=dev) + fid_base) & _MASK
     mix = _mul32(fid, 2654435761)[:, None] ^ _mul32(iota, 0x85EBCA77)[None, :]
@@ -311,64 +306,14 @@ def sample_paths_lw(
     )
 
 
-def sample_slots_plain(
-    tables: SamplerTables,
-    src: torch.Tensor,  # [F] int32 (-1 pad)
-    dst: torch.Tensor,  # [F] int32
-    hops: int,
-    salt: int = 0,
-    fid_base: int = 0,
-) -> torch.Tensor:
-    """The kernel's walk as torch ops: each flow scores only the ``D``
-    entries of its node's neighbour row (``[F, D]``, not ``[F, V]``) and
-    takes the first best entry, whose position is the slot. Returns
-    ``[F, hops]`` int8, equal to :func:`sample_paths_dense`'s slots."""
-    neigh, lw = tables.neigh, tables.lw
-    v = neigh.shape[0]
-    f = src.shape[0]
-    dev = neigh.device
-    dflat = tables.dtab.reshape(-1)
-    row = flow_rows(tables.row_of, dst)
-    base = row.clamp(min=0) * v  # this flow's row of the distance table
-    src = src.long()
-    dst = dst.long()
-    fid = (torch.arange(f, dtype=torch.int64, device=dev) + fid_base) & _MASK
-    fid_mix = _mul32(fid, 2654435761)
-    dsrc = dflat[base + src.clamp(min=0)].to(torch.float32)
-    alive = (src >= 0) & (row >= 0) & (dsrc < UNREACH)
-    node = torch.where(alive, src, -1)
-    slots = []
-    for h in range(hops):
-        moving = (node >= 0) & (node != dst)
-        safe = node.clamp(min=0)
-        nb = neigh[safe].long()  # [F, D]
-        nbs = torch.where(nb < v, nb, 0)
-        lwk = lw[safe].to(torch.float32)
-        want = dflat[base + safe].to(torch.float32) - 1.0
-        dk = dflat[base[:, None] + nbs].to(torch.float32)
-        cand = (nb < v) & (lwk > -1e3) & (dk == want[:, None])
-        mix = fid_mix[:, None] ^ _mul32(nbs, 0x85EBCA77)
-        score = torch.where(cand, lwk + gumbel_noise(mix, h, salt), float("-inf"))
-        k = score.argmax(dim=1)
-        ok = moving & cand.any(dim=1)
-        slots.append(torch.where(ok, k, -1))
-        node = torch.where(ok, nb.gather(1, k[:, None])[:, 0], -1)
-    if not slots:
-        return torch.empty((f, 0), dtype=torch.int8, device=dev)
-    return torch.stack(slots, dim=1).to(torch.int8)
-
-
 def lane_group(n_flows: int, n_sms: int) -> int:
-    """Lanes per flow of kernel K2: the fewest of 4, 8, 16 and 32 whose
-    warps still fill :data:`WARPS_PER_SM` warps on each of ``n_sms``
-    SMs. Fewer lanes issue fewer instructions per flow (a large batch is
+    """Lanes per flow of kernel K2: 4 where the batch's warps at 4 lanes
+    fill :data:`WARPS_PER_SM` warps on each of ``n_sms`` SMs, else 8.
+    Fewer lanes issue fewer instructions per flow (a large batch is
     issue-bound); more lanes hide the latency of a small batch's
     dependent loads. On an H100 (PERF.md) 4 lanes were fastest at
-    config 4's 85,556 flows and 8-16 at config 13's 10,695 per shard."""
-    for g in (4, 8, 16):
-        if n_flows * g >= 32 * WARPS_PER_SM * n_sms:
-            return g
-    return 32
+    config 4's 85,556 flows and 8 at config 13's 10,695 per shard."""
+    return 4 if n_flows * 4 >= 32 * WARPS_PER_SM * n_sms else 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -411,7 +356,7 @@ def sample_slots(
     as unroutable). ``tables`` is :func:`sampler_tables` of these
     weights, distances and destination set, shared between calls;
     without it the wrapper builds it. CPU tensors take
-    :func:`sample_slots_plain`; CUDA tensors launch kernel K2."""
+    :func:`sample_paths_dense`; CUDA tensors launch kernel K2."""
     v = weights.shape[0]
     if weights.shape != (v, v) or dist.shape != (v, v):
         raise ValueError("weights and dist must both be [V, V]")
@@ -429,31 +374,50 @@ def sample_slots(
     out = torch.empty((f, hops), dtype=torch.int8, device=weights.device)
     if f == 0 or hops == 0 or v == 0:
         return out
+    if tables is not None:
+        _check_tables(tables, v, weights.device)
+    if weights.device.type == "cpu":
+        return sample_paths_dense(
+            weights, dist, src, dst, hops, salt=salt, fid_base=fid_base,
+            dst_nodes=dst_nodes,
+        )[1]
     if tables is None:
         tables = sampler_tables(weights, dist, dst_nodes)
-    _check_tables(tables, v, weights.device)
-    if weights.device.type == "cpu":
-        return sample_slots_plain(tables, src, dst, hops, salt, fid_base)
-    src32 = src.to(torch.int32).contiguous()
-    dst32 = dst.to(torch.int32).contiguous()
+    launch_kernel(tables, src, dst, hops, salt, fid_base,
+                  lane_group(f, _sm_count(weights.device)), out)
+    sample_slots.launches += 1
+    return out
+
+
+def launch_kernel(
+    tables: SamplerTables,
+    src: torch.Tensor,  # [F] int32 (-1 pad), on the tables' card
+    dst: torch.Tensor,  # [F] int32
+    hops: int,
+    salt: int,
+    fid_base: int,
+    lanes: int,  # lanes per flow: 4 or 8
+    out: torch.Tensor,  # [F, hops] int8, written
+) -> None:
+    """Launch kernel K2 once over ``tables`` at ``lanes`` lanes per flow,
+    without counting the launch (:func:`sample_slots` counts its own)."""
     fn = _build.function("sampler", "sampler_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ])
-    d = tables.neigh.shape[1]
+    src32 = src.to(torch.int32).contiguous()
+    dst32 = dst.to(torch.int32).contiguous()
+    v, d = tables.neigh.shape
     row_of = tables.row_of
     err = fn(
         tables.neigh.data_ptr(), tables.lw.data_ptr(), tables.dtab.data_ptr(),
         None if row_of is None else row_of.data_ptr(), src32.data_ptr(),
-        dst32.data_ptr(), f, v, d, hops, salt & _MASK, fid_base & _MASK,
-        lane_group(f, _sm_count(weights.device)), out.data_ptr(),
-        _build.stream_ptr(weights.device),
+        dst32.data_ptr(), src.shape[0], v, d, hops, salt & _MASK,
+        fid_base & _MASK, lanes, out.data_ptr(), _build.stream_ptr(out.device),
     )
     _build.check(err, "sampler")
-    sample_slots.launches += 1
-    return out
 
 
 #: kernel launches of :func:`sample_slots` (CPU calls do not count)

@@ -168,14 +168,14 @@ def test_compact_sampler_equals_dense(layout, fid_base):
 
 def test_lane_group_fills_the_card():
     """K2's lanes per flow: 4 for a batch that fills 16 warps per SM on
-    132 SMs (config 4's 85,556 flows), more for a small one (config 13's
-    10,695 per shard), a whole warp for a tiny one."""
+    132 SMs (config 4's 85,556 flows), 8 for a smaller one (config 13's
+    10,695 per shard) however small."""
     assert sampler.lane_group(85_556, 132) == 4
     assert sampler.lane_group(42_925, 132) == 4
     assert sampler.lane_group(10_695, 132) == 8
-    assert sampler.lane_group(100, 132) == 32
-    assert [sampler.lane_group(f, 132) for f in (0, 3000, 6000, 10000, 20000)] == [
-        32, 32, 16, 8, 4]
+    assert sampler.lane_group(100, 132) == 8
+    assert [sampler.lane_group(f, 132) for f in (0, 3000, 16895, 16896, 20000)] == [
+        8, 8, 8, 4, 4]
 
 
 def test_set_up_refuses_other_devices():
