@@ -8,13 +8,18 @@ order; the first failure ends the run with a non-zero exit:
 1. device   — a CUDA card is present; print its name and power limit.
 2. build    — build kernels K1 (BFS), K2 (path sampler and its set-up)
                and K3 (all-gather), one nvcc per source, in parallel.
-3. kernels  — hold K1 and K2 against their plain PyTorch versions on the
-               card at the main path's shapes (K1 exactly, K2 bit for
-               bit, in both sampler layouts, with K2's tables built by
-               the wrapper and with the topology table of tensorize);
-               time both with CUDA events and the profiler, K2 as its
-               per-call set-up and its kernel apart, and the one-time
-               topology table apart from both.
+3. kernels  — K1 exactly against its plain version at every sources-per-
+               block width that fits (config 4's fat-tree at its
+               diameter, 2 and 0 levels; an asymmetric random digraph
+               and a directed chain of 1000 nodes at 999 levels; config
+               13's k=56 fat-tree at V=3,968), timed at both fat-trees'
+               shapes beside its bound and swept over the widths; K2
+               against its plain version on the card at the main path's
+               shapes (bit for bit, in both sampler layouts, with K2's
+               tables built by the wrapper and with the topology table
+               of tensorize), timed with CUDA events and the profiler,
+               as its per-call set-up and its kernel apart, and the
+               one-time topology table apart from both.
 4. slice    — a 4096-rank alltoall over a k=28 fat-tree (980 switches,
                padded to V=1024) through TopologyDB.find_routes_collective;
                every routed pair is checked against the fabric.
@@ -80,6 +85,8 @@ SHARD_RANKS = 8192
 SHARD_V = 3968
 N_SHARDS = 8
 PEAK_F32_S = 67e12
+#: nodes of K1's asymmetric random digraph and directed chain
+DIGRAPH_V = 1000
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -256,72 +263,159 @@ def check_paths(nodes: np.ndarray, src, dst, dist_h, adj_h, what: str) -> int:
     return int(ok.sum())
 
 
-def phase_kernels(p, device, report: dict) -> None:
-    """K1 and K2 against their plain versions, at the main path's shapes."""
+def fattree_tensors(k: int, v_pad: int, device):
+    """A k-ary fat-tree's TopoTensors (the compact table included), padded
+    as the TopologyDB pads it, and its diameter."""
+    from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
+    from sdnmpi_tpu_torch.oracle.engine import tensorize
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    db = fattree(k).to_topology_db(backend="torch", device=device,
+                                   pad_multiple=v_pad)
+    t = tensorize(db, pad_multiple=v_pad, device=device)
+    dist = apsp_distances(t.adj).cpu().numpy()
+    return t, int(dist[np.isfinite(dist)].max())
+
+
+def check_k1(adj, levels: int, neigh, what: str):
+    """K1 through its wrapper must equal the plain version exactly;
+    returns the plain distances and the largest difference (0.0)."""
     import torch
 
-    from sdnmpi_tpu_torch.kernels import bfs, sampler
+    from sdnmpi_tpu_torch.kernels import bfs
+
+    got = bfs.bfs_distances(adj, levels, neigh=neigh)
+    ref = bfs.bfs_distances_plain(adj, levels)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        fail(f"K1 {what}: {int((got != ref).sum())} entries differ from the "
+             "plain version")
+    fin = ref[torch.isfinite(ref)]
+    log(f"K1 {what}: exact ({adj.shape[0]}x{adj.shape[0]}, {levels} levels, "
+        f"largest distance {int(fin.max()) if fin.numel() else 0})")
+    return ref, float(torch.where(got == ref, 0.0, (got - ref).abs()).max())
+
+
+def time_k1(adj, levels: int, neigh, what: str, widths: dict) -> dict:
+    """K1 at one shape: the wrapper with the topology table (CUDA events),
+    the bare kernel (:func:`queued_ms`), the wrapper building its own
+    table and the plain version, and the bare kernel at each width of
+    ``widths`` (:func:`sweep_k1`'s times), beside the bound: the table in
+    and the [V, V] f32 distances out, once each."""
+    from sdnmpi_tpu_torch.kernels import bfs
+
+    v = adj.shape[0]
+    ms = time_ms(lambda: bfs.bfs_distances(adj, levels, neigh=neigh))
+    bare = queued_ms(lambda: bfs.bfs_distances(adj, levels, neigh=neigh))
+    own = time_ms(lambda: bfs.bfs_distances(adj, levels))
+    plain = time_ms(lambda: bfs.bfs_distances_plain(adj, levels))
+    n_bytes = v * neigh.shape[1] * 4 + v * v * 4
+    ops = v * int((neigh < v).sum())  # every source relaxes every link once
+    bound = bound_ms({"bytes": n_bytes, "ops": ops})[0]
+    log(f"K1 time ({what}, V={v}, D={neigh.shape[1]}, {levels} levels): "
+        f"wrapper with the topology table {ms:.4f} ms, bare kernel "
+        f"{bare:.4f} ms (queued), wrapper building its own table "
+        f"{own:.4f} ms, plain {plain:.4f} ms; bound {bound:.5f} ms for "
+        f"{n_bytes} bytes (wrapper {100 * bound / ms:.1f}%, bare "
+        f"{100 * bound / bare:.1f}% of it); bare by sources per block "
+        + ", ".join(f"{s}: {t:.4f} ms ({100 * bound / t:.1f}%)"
+                    for s, t in widths.items()))
+    return {"ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": ops}
+
+
+def sweep_k1(neigh, levels: int, ref, what: str) -> dict:
+    """K1's bare kernel at every sources-per-block width whose block fits
+    shared memory, each launch exact against ``ref``, each width timed
+    (:func:`queued_ms` over 50 uncounted launches) beside the width the
+    wrapper picks: the evidence for ``bfs.sources_per_block``. Returns
+    the times by width."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import _build, bfs
+
+    v = neigh.shape[0]
+    steps = min(levels, v - 1)
+    out = torch.empty_like(ref)
+    times = {}
+    for s in bfs.SOURCE_WIDTHS:
+        if bfs.smem_bytes(v, s, steps) > bfs.SMEM_LIMIT:
+            continue
+        out.fill_(-1.0)
+        bfs.launch_kernel(neigh, steps, s, out)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"K1 {what}: {s} sources per block: "
+                 f"{int((out != ref).sum())} entries differ from the plain version")
+        times[s] = queued_ms(lambda: bfs.launch_kernel(neigh, steps, s, out))
+    pick = bfs.sources_per_block(v, steps, _build.sm_count(neigh.device))
+    log(f"K1 bare kernel by sources per block ({what}, exact at each): "
+        + ", ".join(f"{s}: {ms:.4f} ms" for s, ms in times.items())
+        + f"; {sorted(set(bfs.SOURCE_WIDTHS) - set(times))} do not fit shared "
+        f"memory; the wrapper picks {pick}")
+    return times
+
+
+def phase_bfs(device, report: dict) -> None:
+    """K1 exactly against its plain version: config 4's fat-tree (k=28,
+    V=1024) at its diameter, at 2 levels and at 0, an asymmetric random
+    digraph and a directed chain (V=1000, V-1 levels: distances up to
+    999), and config 13's fat-tree (k=56, V=3,968) with its topology
+    table; then timed at both fat-trees' shapes."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import bfs
+
+    t4, lv4 = fattree_tensors(FATTREE_K, V_PAD, device)
+    t13, lv13 = fattree_tensors(SHARD_K, SHARD_PAD, device)
+    rng = np.random.default_rng(0)
+    v_r = DIGRAPH_V
+    rand = (rng.random((v_r, v_r)) < 0.004).astype(np.float32)
+    np.fill_diagonal(rand, 0.0)
+    chain = np.zeros((v_r, v_r), np.float32)
+    chain[np.arange(v_r - 1), np.arange(1, v_r)] = 1.0
+    put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    cases = [
+        (f"fattree-k{FATTREE_K} levels=diameter", t4.adj, lv4, t4.neigh),
+        (f"fattree-k{FATTREE_K} levels=2", t4.adj, 2, t4.neigh),
+        (f"fattree-k{FATTREE_K} levels=0", t4.adj, 0, t4.neigh),
+        ("random digraph V=1000 levels=V-1", put(rand), v_r - 1, None),
+        ("directed chain V=1000 levels=V-1", put(chain), v_r - 1, None),
+        (f"fattree-k{SHARD_K} levels=diameter", t13.adj, lv13, t13.neigh),
+    ]
+    widths = {}
+    err = 0.0
+    for what, adj, levels, neigh in cases:
+        ref, case_err = check_k1(adj, levels, neigh, what)
+        err = max(err, case_err)
+        if what.startswith("directed chain") and float(ref[0, v_r - 1]) != v_r - 1:
+            fail(f"K1 {what}: the chain's far end reads {float(ref[0, -1])}")
+        widths[what] = sweep_k1(
+            bfs.neighbor_rows_of(adj) if neigh is None else neigh, levels, ref, what)
+    # the one-time topology build (per topology version) of the compact
+    # table that K1 and K2 walk
+    adj, d = t4.adj, t4.max_degree
+    topo = time_ms(lambda: bfs.neighbor_rows(adj > 0, d))
+    log(f"topology table [V={t4.v}, D={d}]: {topo:.4f} ms per build (once "
+        "per topology version, CUDA events)")
+    log_profile("topology table", *profile_device(
+        lambda: bfs.neighbor_rows(adj > 0, d)))
+    log_profile("K1 wrapper", *profile_device(
+        lambda: bfs.bfs_distances(adj, lv4, neigh=t4.neigh)))
+    for t, lv, k in ((t4, lv4, FATTREE_K), (t13, lv13, SHARD_K)):
+        what = f"fattree-k{k}"
+        r = time_k1(t.adj, lv, t.neigh, what, widths[f"{what} levels=diameter"])
+        report.setdefault("bfs_distances", {**r, "max_abs_err": err})
+
+
+def phase_kernels(p, device, report: dict) -> None:
+    """K2 against its plain version, at the main path's shapes."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import sampler
     from sdnmpi_tpu_torch.oracle.dag import balance_rounds, sampled_hops
 
     t = p["t"]
-    # K1: the fat-tree at its diameter, a random digraph whose V is not a
-    # multiple of 128, and a truncating level budget
-    rng = np.random.default_rng(0)
-    v_r = 1000
-    rand = (rng.random((v_r, v_r)) < 0.004).astype(np.float32)
-    np.fill_diagonal(rand, 0.0)
-    rand_t = torch.as_tensor(rand).to(device)
-    cases = [
-        ("fattree-k28 levels=diameter", t.adj, p["levels"]),
-        ("random V=1000 levels=V-1", rand_t, v_r - 1),
-        ("fattree-k28 levels=2", t.adj, 2),
-    ]
-    k1_err = 0.0
-    for name, adj, levels in cases:
-        got = bfs.bfs_distances(adj, levels)
-        ref = bfs.bfs_distances_plain(adj, levels)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            n_bad = int((got != ref).sum())
-            fail(f"K1 {name}: {n_bad} entries differ from the plain version")
-        diff = torch.where(got == ref, 0.0, (got - ref).abs())
-        k1_err = max(k1_err, float(diff.max()))
-        log(f"K1 {name}: exact ({adj.shape[0]}x{adj.shape[0]})")
-    v = t.v
-    adj, lv, neigh = t.adj, p["levels"], t.neigh
-    got = bfs.bfs_distances(adj, lv, neigh=neigh)
-    torch.cuda.synchronize()
-    if not torch.equal(got, bfs.bfs_distances_plain(adj, lv)):
-        fail("K1 with tensorize's neighbour table differs from the plain version")
-    # the one-time topology build (per topology version) of the compact
-    # table that K1 and K2 walk
-    topo = time_ms(lambda: bfs.neighbor_rows(adj > 0, t.max_degree))
-    log(f"topology table [V={v}, D={t.max_degree}]: {topo:.4f} ms per "
-        "build (once per topology version, CUDA events)")
-    log_profile("topology table", *profile_device(
-        lambda: bfs.neighbor_rows(adj > 0, t.max_degree)))
-    k1_ms = time_ms(lambda: bfs.bfs_distances(adj, lv, neigh=neigh))
-    k1_own = time_ms(lambda: bfs.bfs_distances(adj, lv))
-    k1_plain = time_ms(lambda: bfs.bfs_distances_plain(adj, lv))
-    # the topology table in, distances out (f32); the [V, V] adjacency is
-    # not read when the table is given
-    k1_bytes = v * neigh.shape[1] * 4 + v * v * 4
-    e = int((adj > 0).sum())
-    k1_ops = v * e  # every source relaxes every link once
-    log_profile("K1 wrapper", *profile_device(
-        lambda: bfs.bfs_distances(adj, lv, neigh=neigh)))
-    k1_bare = queued_ms(lambda: bfs.bfs_distances(adj, lv, neigh=neigh))
-    log(f"K1 time: wrapper with the topology table {k1_ms:.4f} ms (bare "
-        f"kernel {k1_bare:.4f} ms, queued), wrapper building "
-        f"its own table {k1_own:.4f} ms, plain {k1_plain:.4f} ms; bound "
-        f"{bound_ms({'bytes': k1_bytes, 'ops': k1_ops})[0]:.5f} ms for "
-        f"{k1_bytes} bytes (dense yardstick, [V, V] adjacency in: "
-        f"{bound_ms({'bytes': 2 * v * v * 4, 'ops': k1_ops})[0]:.5f} ms)")
-    report["bfs_distances"] = {
-        "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-        "bytes": k1_bytes, "ops": k1_ops,
-    }
-
+    v, lv, neigh = t.v, p["levels"], t.neigh
     # K2 at the phase-5 shape: the balanced split weights of the
     # collective, both sampler layouts
     base = torch.zeros((v, v), dtype=torch.float32, device=device)
@@ -396,7 +490,7 @@ def sweep_lane_groups(args: tuple, kw: dict, tabs, what: str) -> float:
     bare time at the wrapper's width."""
     import torch
 
-    from sdnmpi_tpu_torch.kernels import sampler
+    from sdnmpi_tpu_torch.kernels import _build, sampler
 
     weights, _, src, dst, hops = args
     dev = weights.device
@@ -416,7 +510,7 @@ def sweep_lane_groups(args: tuple, kw: dict, tabs, what: str) -> float:
         if not torch.equal(out, want):
             fail(f"K2 {what}: {g} lanes per flow differ from the wrapper's slots")
         times[g] = queued_ms(lambda: launch(g))
-    pick = sampler.lane_group(f, sampler._sm_count(dev))
+    pick = sampler.lane_group(f, _build.sm_count(dev))
     log(f"K2 bare kernel by lanes per flow ({what}, F={f}, D={d}): "
         + ", ".join(f"{g}: {ms:.4f} ms" for g, ms in times.items())
         + f"; the wrapper picks {pick}")
@@ -1051,6 +1145,7 @@ def main() -> int:
         f"flows, T={p['dst_nodes'].shape[0]} "
         f"[{time.perf_counter() - t0:.1f} s]")
     report: dict = {}
+    phase_bfs(device, report)
     phase_kernels(p, device, report)
 
     # phases 4 and 5: the two main paths, each with its launch counts

@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -316,11 +315,6 @@ def lane_group(n_flows: int, n_sms: int) -> int:
     return 4 if n_flows * 4 >= 32 * WARPS_PER_SM * n_sms else 8
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check_tables(tables: SamplerTables, v: int, device) -> None:
     """Raise on tables the kernel does not take."""
     n, lw, dtab, row_of = tables.neigh, tables.lw, tables.dtab, tables.row_of
@@ -384,7 +378,7 @@ def sample_slots(
     if tables is None:
         tables = sampler_tables(weights, dist, dst_nodes)
     launch_kernel(tables, src, dst, hops, salt, fid_base,
-                  lane_group(f, _sm_count(weights.device)), out)
+                  lane_group(f, _build.sm_count(weights.device)), out)
     sample_slots.launches += 1
     return out
 
