@@ -1,4 +1,4 @@
-"""Drive sdnmpi_tpu_torch's collective paths on one NVIDIA GPU.
+"""Drive sdnmpi_tpu_torch's routing paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and builds the
@@ -27,7 +27,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 9.
+               printed last, after phases 7 to 12.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -42,14 +42,34 @@ order; the first failure ends the run with a non-zero exit:
                in ring and gather modes, slots bit-equal to the
                single-device route_collective; K2 timed at one shard's
                share of the flows, set-up and kernel apart.
+10. UGAL program — config 5's route_adaptive with no cached distances: a
+               dragonfly of 8 groups of 32 routers (V=256), 10,000 flows
+               in the adversarial +1-group shift, the direct global links
+               loaded; K1 exact at V=256, both K2 segment launches (one
+               shared set-up) bit-equal to their plain versions, packed
+               and unpacked results, two calls identical, every segment a
+               shortest path, forced-minimal beside adaptive.
+11. pair batches — TopologyDB.find_routes_batch_adaptive,
+               find_routes_batch_balanced (DAG and greedy legs),
+               find_routes_batch (device and host chase) and
+               find_routes_batch_dispatch on that fabric with the same
+               flows as host pairs; every fdb checked, the shortest legs
+               against find_route.
+12. collective policies — find_routes_collective(policy="shortest" and
+               "adaptive") over phase 4's fat-tree and alltoall, every
+               pair checked.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
 (phase 5), one steady sharded find_routes_collective and one sharded
-refresh (phase 8), one route_collective_sharded call per mode (phase 9).
+refresh (phase 8), one route_collective_sharded call per mode (phase 9),
+route_adaptive(dist=None) (phase 10, exactly K1 1, set-up 1, K2 2), each
+pair-batch entry point (phase 11) and each collective policy (phase 12),
+the last two against the counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
-plain version on its own arguments, and so is every shard's sampler call
+plain version on its own arguments, and so are both of phase 10's and
+every shard's sampler call
 (with its ``fid_base``) of the steady sharded call and of each
 route_collective_sharded call, and the tables its set-up kernels
 (``sampler_tables``) built for it against the plain set-up. The set-up
@@ -87,6 +107,16 @@ N_SHARDS = 8
 PEAK_F32_S = 67e12
 #: nodes of K1's asymmetric random digraph and directed chain
 DIGRAPH_V = 1000
+#: config 5 (benchmarks/config5_dragonfly.py): a dragonfly of 8 groups of
+#: 32 routers, 10,000 flows, 8.0 flow units on the direct global links,
+#: route_adaptive(levels=4, rounds=2, max_len=8, n_candidates=8)
+DFLY_GROUPS = 8
+DFLY_ROUTERS = 32
+DFLY_FLOWS = 10_000
+DFLY_UTIL = 8.0
+DFLY_LEVELS = 4
+DFLY_MAX_LEN = 8
+DFLY_CANDIDATES = 8
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -537,6 +567,7 @@ def measure_k2(args: tuple, kw: dict, what: str, neigh) -> dict:
     tabs = set_up()
     setup_err = check_tables(args, {**kw, "tables": tabs}, what)
     setup_ms = time_ms(set_up)
+    setup_bare = queued_ms(set_up)
     setup_plain = time_ms(
         lambda: sampler.sampler_tables_plain(weights, dist, dn, neigh))
     kernel_ms = time_ms(lambda: sampler.sample_slots(*args, **kw, tables=tabs))
@@ -585,7 +616,8 @@ def measure_k2(args: tuple, kw: dict, what: str, neigh) -> dict:
     ops = 4 * n_cand + 2 * links
     log(f"K2 time ({what}, F={f}, distance rows {rows}, table width "
         f"{d}): set-up + kernel {ms:.4f} ms = set-up "
-        f"{setup_ms:.4f} ms (device {setup_busy:.4f} ms, plain "
+        f"{setup_ms:.4f} ms (bare {setup_bare:.4f} ms queued, device "
+        f"{setup_busy:.4f} ms profiled, plain "
         f"{setup_plain:.4f} ms) + kernel "
         f"{kernel_ms:.4f} ms (bare {bare:.4f} ms); wrapper building its own "
         f"tables {own:.4f} ms; plain {plain:.4f} ms; {n_cand} candidates "
@@ -609,10 +641,11 @@ def measure_k2(args: tuple, kw: dict, what: str, neigh) -> dict:
 @contextlib.contextmanager
 def recording_sampler(calls: list):
     """Record ``(args, kwargs, slots)`` of every K2 call that
-    ``oracle.dag`` (one device) or ``shardplane.routes`` (one call per
-    shard) makes while the context is open."""
+    ``oracle.dag`` (one device), ``oracle.adaptive`` (two segments) or
+    ``shardplane.routes`` (one call per shard) makes while the context is
+    open."""
     from sdnmpi_tpu_torch.kernels import sampler
-    from sdnmpi_tpu_torch.oracle import dag
+    from sdnmpi_tpu_torch.oracle import adaptive, dag
     from sdnmpi_tpu_torch.shardplane import routes
 
     def record(*args, **kw):
@@ -620,11 +653,12 @@ def recording_sampler(calls: list):
         calls.append((args, kw, out))
         return out
 
-    dag.sample_slots = routes.sample_slots = record
+    dag.sample_slots = routes.sample_slots = adaptive.sample_slots = record
     try:
         yield
     finally:
         dag.sample_slots = routes.sample_slots = sampler.sample_slots
+        adaptive.sample_slots = sampler.sample_slots
 
 
 def check_k2_calls(calls: list, launches: int, what: str) -> float:
@@ -739,12 +773,14 @@ def phase_slice(k: int, n_ranks: int, v_pad: int, device, report: dict) -> dict:
     return counts
 
 
-def log_split(what: str, oracle, db, macs, src_idx, dst_idx, n: int = 3) -> None:
+def log_split(what: str, oracle, db, macs, src_idx, dst_idx, n: int = 3,
+              policy: str = "balanced") -> None:
     """Median dispatch and reap wall times of ``n`` steady calls."""
     split = []
     for _ in range(n):
         t0 = time.perf_counter()
-        window = oracle.routes_collective_dispatch(db, macs, src_idx, dst_idx)
+        window = oracle.routes_collective_dispatch(db, macs, src_idx, dst_idx,
+                                                   policy)
         t1 = time.perf_counter()
         window.reap()
         split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
@@ -1110,6 +1146,319 @@ def phase_sharded_program(device) -> dict:
     return counts, err
 
 
+def dragonfly_problem(device) -> dict:
+    """Config 5's problem (``benchmarks/config5_dragonfly.py``): the
+    dragonfly of 8 groups of 32 routers (one host each, 2 global links per
+    router; V = 256), 10,000 flows in the adversarial +1-group shift drawn
+    from ``default_rng(0)`` as the config draws them, and 8.0 flow units
+    of measured load on every direct next-group global link."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.engine import tensorize
+    from sdnmpi_tpu_torch.topogen import dragonfly
+
+    spec = dragonfly(DFLY_GROUPS, DFLY_ROUTERS, hosts_per_router=1, global_links=2)
+    db = spec.to_topology_db(backend="torch", device=device)
+    t = tensorize(db, device=device)
+    v = t.v
+    adj = t.host_adj()
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, spec.n_switches, DFLY_FLOWS).astype(np.int32)
+    grp = src // DFLY_ROUTERS
+    dst = (((grp + 1) % DFLY_GROUPS) * DFLY_ROUTERS
+           + rng.integers(0, DFLY_ROUTERS, DFLY_FLOWS)).astype(np.int32)
+    weight = np.ones(DFLY_FLOWS, np.float32)
+    groups_idx = np.arange(v) // DFLY_ROUTERS
+    direct = (groups_idx[None, :] == (groups_idx[:, None] + 1) % DFLY_GROUPS) & (adj > 0)
+    util = np.where(direct, DFLY_UTIL, 0.0).astype(np.float32)
+    put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    return {"spec": spec, "t": t, "src": src, "dst": dst, "weight": weight,
+            "util": util, "direct": direct, "src_d": put(src), "dst_d": put(dst),
+            "w_d": put(weight), "util_d": put(util)}
+
+
+def check_segments(adj_h, dist_h, src, dst, inter, n1, n2, what: str) -> np.ndarray:
+    """Every flow's two segments are shortest paths over real links (the
+    second only for detours) and stitch into one path from src to dst;
+    returns the stitched paths."""
+    from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
+
+    detour = inter >= 0
+    mid = np.where(detour, inter, dst)
+    check_paths(n1, src, mid, dist_h, adj_h, f"{what} segment 1")
+    if detour.any():
+        check_paths(n2[detour], mid[detour], dst[detour], dist_h, adj_h,
+                    f"{what} segment 2")
+    if (n2[~detour] >= 0).any():
+        fail(f"{what}: a minimal flow has a second segment")
+    paths = stitch_paths(n1, n2, inter)
+    length = (paths >= 0).sum(axis=1)
+    last = paths[np.arange(len(paths)), np.maximum(length - 1, 0)]
+    if (paths[:, 0] != src).any() or (last != dst).any():
+        fail(f"{what}: a stitched path does not join its flow's endpoints")
+    a, b = paths[:, :-1], paths[:, 1:]
+    hop = (a >= 0) & (b >= 0)
+    if not (adj_h[a[hop], b[hop]] > 0).all():
+        fail(f"{what}: a stitched path uses a link the fabric lacks")
+    return paths
+
+
+def phase_ugal_program(device, report: dict) -> dict:
+    """Config 5's UGAL program, ``route_adaptive`` with no cached
+    distances: K1 exactly against its plain version at V = 256, four
+    levels and 33-wide rows; both of K2's segment launches and their one
+    shared set-up recorded and held bit for bit against the plain
+    versions; launches K1 1, set-up 1, K2 2 per call; packed and unpacked
+    results, two calls identical, every segment a shortest path over real
+    links; forced-minimal (bias 1e9) detours nothing. Reports the detour
+    share, the discrete max link load against forced-minimal, the program
+    time and the device busy share. Returns the launch counts of one
+    call."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import bfs
+    from sdnmpi_tpu_torch.oracle.adaptive import (
+        decode_segments,
+        link_loads,
+        route_adaptive,
+        stitch_paths,
+    )
+
+    p = dragonfly_problem(device)
+    t = p["t"]
+    v = t.v
+    adj_h = t.host_adj()
+    kw = dict(levels=DFLY_LEVELS, rounds=ROUNDS, max_len=DFLY_MAX_LEN,
+              n_candidates=DFLY_CANDIDATES, neigh=t.neigh)
+
+    def run(bias=1.0, packed=False):
+        return route_adaptive(t.adj, p["util_d"], p["src_d"], p["dst_d"], p["w_d"],
+                              t.n_real, bias=bias, packed=packed, **kw)
+
+    log(f"dragonfly g{DFLY_GROUPS}a{DFLY_ROUTERS}: V={v}, "
+        f"{int((adj_h > 0).sum())} directed links, table width "
+        f"{t.neigh.shape[1]} ({int((adj_h > 0).sum(axis=1).max())} links per "
+        f"router), {DFLY_FLOWS:,} flows, {int(p['direct'].sum())} loaded links")
+    # K1 on the inputs the program gives it
+    dist, k1_err = check_k1(t.adj, DFLY_LEVELS, t.neigh, f"dragonfly V={v} levels=4")
+    widths = sweep_k1(t.neigh, DFLY_LEVELS, dist, f"dragonfly V={v} levels=4")
+    time_k1(t.adj, DFLY_LEVELS, t.neigh, f"dragonfly V={v}", widths)
+    report["bfs_distances"]["max_abs_err"] = max(
+        report["bfs_distances"]["max_abs_err"], k1_err)
+
+    out = {}
+    k2_calls: list = []
+    with recording_sampler(k2_calls):
+        counts = path_launches(lambda: out.update(r=run()))
+    require_launched(counts, ("bfs_distances", "sampler_tables", "sample_slots"),
+                     "route_adaptive(dist=None)")
+    want = {"bfs_distances": 1, "sampler_tables": 1, "sample_slots": 2,
+            "ring_all_gather": 0}
+    if counts != want:
+        fail(f"route_adaptive: launches {counts}, want {want}")
+    err = check_k2_calls(k2_calls, 2, "UGAL program")
+    if k2_calls[0][1]["tables"] is not k2_calls[1][1]["tables"]:
+        fail("UGAL program: the two segment launches did not share one set-up")
+    dead = int((k2_calls[1][0][2] < 0).sum())
+    log(f"UGAL program: segment 2 has {dead:,} dead flows of {DFLY_FLOWS:,}")
+    for seg, (args, skw, _) in enumerate(k2_calls, 1):
+        k2 = measure_k2(args, skw, f"UGAL segment {seg}", t.neigh)
+        log(f"K2 UGAL segment {seg}: set-up + kernel {k2['ms']:.4f} ms, bound "
+            f"{bound_ms(k2)[0]:.5f} ms ({bound_ms(k2)[1]}); set-up bound "
+            f"{bound_ms(k2['setup'])[0]:.5f} ms")
+    report["sample_slots"]["max_abs_err"] = max(report["sample_slots"]["max_abs_err"], err)
+    del k2_calls
+
+    inter, n1, n2, load = out["r"]
+    again = run()
+    if not all(torch.equal(a, b) for a, b in zip(out["r"], again)):
+        fail("UGAL program: two calls on the same inputs differ")
+    p_inter, s1, s2, p_load = run(packed=True)
+    if not torch.equal(p_inter, inter) or not torch.equal(p_load, load):
+        fail("UGAL program: packed and unpacked calls differ")
+    inter_h, n1_h, n2_h = inter.cpu().numpy(), n1.cpu().numpy(), n2.cpu().numpy()
+    d1, d2 = decode_segments(adj_h, p["src"], p["dst"], inter_h, s1.cpu().numpy(),
+                             s2.cpu().numpy(), DFLY_MAX_LEN)
+    if not (np.array_equal(d1, n1_h) and np.array_equal(d2, n2_h)):
+        fail("UGAL program: decode_segments of the packed slots differs from the "
+             "unpacked nodes")
+    dist_h = dist.cpu().numpy()
+    paths_a = check_segments(adj_h, dist_h, p["src"], p["dst"], inter_h, n1_h, n2_h,
+                             "UGAL program")
+    m_inter, m1, m2, _ = run(bias=1e9)
+    m_inter = m_inter.cpu().numpy()
+    if (m_inter != -1).any():
+        fail(f"UGAL program: bias 1e9 detoured {int((m_inter >= 0).sum())} flows")
+    paths_m = check_segments(adj_h, dist_h, p["src"], p["dst"], m_inter,
+                             m1.cpu().numpy(), m2.cpu().numpy(), "forced-minimal")
+    load_a = link_loads(paths_a, p["weight"], v).max()
+    load_m = link_loads(paths_m, p["weight"], v).max()
+    detours = float((inter_h >= 0).mean())
+    if not 0.0 < detours < 1.0 or load_a <= 0:
+        fail(f"UGAL program: detour share {detours}, max load {load_a}")
+    ms = time_ms(run, reps=10, warm=1)
+    ms_packed = time_ms(lambda: run(packed=True), reps=10, warm=1)
+    wall, busy, rows = profile_device(lambda: run(packed=True))
+    log_profile("UGAL program (packed)", wall, busy, rows, top=10)
+    require_no_sort(rows, "UGAL program")
+    log(f"UGAL program: {100 * detours:.2f}% of {DFLY_FLOWS:,} flows detoured; "
+        f"discrete max link load adaptive {load_a:.0f}, forced-minimal "
+        f"{load_m:.0f} ({load_m / load_a:.3f}x flatter); fractional max "
+        f"{float(load.max()):.3f}; {ms:.3f} ms per call unpacked, "
+        f"{ms_packed:.3f} ms packed (dist=None, CUDA events, median of 10); "
+        f"device busy {busy:.3f} ms of a {wall:.3f} ms call "
+        f"({100 * busy / wall:.1f}%)")
+    return counts
+
+
+def check_fdbs(db, pairs, fdbs, what: str) -> None:
+    """Every fdb runs hop by hop over real links with their ports, from
+    the source host's switch to the destination host's port."""
+    for (a, b), fdb in zip(pairs, fdbs):
+        if not fdb:
+            fail(f"{what}: {a} -> {b} is unrouted")
+        if fdb[0][0] != db.hosts[a].port.dpid or fdb[-1] != (
+                db.hosts[b].port.dpid, db.hosts[b].port.port_no):
+            fail(f"{what}: {a} -> {b} does not join its hosts: {fdb}")
+        for (d1, p1), (d2, _) in zip(fdb, fdb[1:]):
+            link = db.links.get(d1, {}).get(d2)
+            if link is None or link.src.port_no != p1:
+                fail(f"{what}: {a} -> {b} leaves {d1} by port {p1} toward {d2}")
+    log(f"{what}: all {len(pairs):,} fdbs valid hop by hop")
+
+
+def timed_calls(fn, n: int = 3) -> tuple:
+    """``fn()`` once (the first call) and ``n`` more times: (last result,
+    first ms, steady median ms, steady times)."""
+    import torch
+
+    times = []
+    out = None
+    for _ in range(n + 1):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times[0], statistics.median(times[1:]), times[1:]
+
+
+def phase_pair_batches(device) -> list:
+    """The pair-batch entry points of ``TopologyDB(backend="torch")`` on
+    config 5's fabric with its 10,000 flows as host pairs: the adaptive
+    batch (the same links loaded, as a Monitor dict), the balanced batch
+    on its DAG leg and, 64 pairs, on its greedy leg, the shortest batch
+    on the device chase and, 100 pairs, on the host chase, and the
+    split-phase window. Every fdb checked hop by hop, the shortest legs
+    against ``find_route`` on 1,000 pairs, launch counts per call held.
+    Returns the launch counts of each call."""
+    p = dragonfly_problem(device)
+    spec, t = p["spec"], p["t"]
+    db = spec.to_topology_db(backend="torch", device=device)
+    mac_of = {dpid: mac for mac, dpid, _ in spec.hosts}
+    macs = [mac_of[int(d)] for d in t.dpids]
+    pairs = [(macs[s], macs[d]) for s, d in zip(p["src"], p["dst"])]
+    port = t.host_port()
+    n_links = int((t.host_adj() > 0).sum())
+    # bps whose normalized cost is the program's 8.0 flow units
+    share = max(1.0, len(pairs) / n_links)
+    bps = DFLY_UTIL * 10e9 / share
+    link_util = {(int(t.dpids[i]), int(port[i, j])): bps
+                 for i, j in zip(*np.nonzero(p["direct"]))}
+    sample = np.random.default_rng(2).choice(len(pairs), 1000, replace=False)
+    calls = [
+        ("find_routes_batch_adaptive", lambda: db.find_routes_batch_adaptive(
+            pairs, link_util=link_util, ugal_candidates=DFLY_CANDIDATES),
+         {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 2}, pairs),
+        ("find_routes_batch_balanced (DAG leg)", lambda: db.find_routes_batch_balanced(
+            pairs, link_util=link_util),
+         {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1}, pairs),
+        ("find_routes_batch_balanced (greedy leg, 64 pairs)",
+         lambda: db.find_routes_batch_balanced(pairs[:64], link_util=link_util),
+         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs[:64]),
+        ("find_routes_batch (device chase)", lambda: db.find_routes_batch(pairs),
+         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs),
+        ("find_routes_batch (host chase, 100 pairs)",
+         lambda: db.find_routes_batch(pairs[:100]),
+         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs[:100]),
+        ("find_routes_batch_dispatch().reap()",
+         lambda: db.find_routes_batch_dispatch(pairs).reap().fdbs(),
+         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs),
+    ]
+    all_counts = []
+    for what, fn, want, these in calls:
+        out, first, steady, times = timed_calls(fn)
+        res = {}
+        counts = path_launches(lambda: res.update(r=fn()))
+        if any(counts[k] != n for k, n in want.items()) or counts["ring_all_gather"]:
+            fail(f"{what}: launches {counts}, want {want}")
+        all_counts.append(counts)
+        fdbs = out if isinstance(out, list) else out[0]
+        if res["r"] != out:
+            fail(f"{what}: two calls on the same inputs differ")
+        check_fdbs(db, these, fdbs, what)
+        extra = ""
+        if what.startswith("find_routes_batch_adaptive"):
+            extra = f"; {out[1]:,} pairs detoured, max congestion {out[2]}"
+        elif what.startswith("find_routes_batch_balanced"):
+            extra = f"; max congestion {out[1]}"
+        else:
+            for k in sample if len(these) == len(pairs) else range(len(these)):
+                if fdbs[k] != db.find_route(*these[k]):
+                    fail(f"{what}: pair {k} differs from find_route")
+            extra = "; equal to find_route on the sampled pairs"
+        log(f"{what}: {len(these):,} pairs, first call {first:.1f} ms, steady "
+            f"{', '.join(f'{x:.1f}' for x in times)} ms (median {steady:.1f}); "
+            f"launches {counts}{extra}")
+    return all_counts
+
+
+def phase_collective_policies(device) -> list:
+    """``find_routes_collective`` with the shortest and adaptive policies
+    over config 4's fat-tree (k=28, V=1024) and its 4096-rank alltoall:
+    every pair checked (``check_routes``; the fabric is idle, so UGAL
+    keeps every route minimal), two calls identical, first and steady
+    calls, the dispatch/reap split, launches shortest 0 / 0 / 0 and
+    adaptive K1 0, set-up 1, K2 2.
+    Returns the launch counts of one call of each."""
+    from sdnmpi_tpu_torch.collectives import alltoall_pairs
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(FATTREE_K)
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=V_PAD)
+    macs = [m for m, _, _ in spec.hosts[:N_RANKS]]
+    pairs = alltoall_pairs(len(macs))
+    src_idx, dst_idx = pairs[:, 0], pairs[:, 1]
+    del pairs
+    wants = {
+        "shortest": {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0},
+        "adaptive": {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 2},
+    }
+    all_counts = []
+    for policy, want in wants.items():
+        what = f"collective {policy}"
+
+        def route():
+            return db.find_routes_collective(macs, src_idx, dst_idx, policy=policy)
+
+        routes, first, steady, times = timed_calls(route)
+        res = {}
+        counts = path_launches(lambda: res.update(r=route()))
+        if any(counts[k] != n for k, n in want.items()) or counts["ring_all_gather"]:
+            fail(f"{what}: launches {counts}, want {want}")
+        all_counts.append(counts)
+        for field in ("pair_sub", "hop_dpid", "hop_port", "hop_len"):
+            if not np.array_equal(getattr(res["r"], field), getattr(routes, field)):
+                fail(f"{what}: two calls on the same inputs differ in {field}")
+        log(f"{what}: {len(src_idx):,} pairs -> {routes.n_subflows:,} sub-flows; "
+            f"first call {first:.1f} ms{' (includes refresh)' if policy == 'shortest' else ''}, "
+            f"steady {', '.join(f'{x:.1f}' for x in times)} ms (median "
+            f"{steady:.1f}); {routes.n_detours} detoured pairs; launches {counts}")
+        log_split(what, db._oracle_engine(), db, macs, src_idx, dst_idx,
+                  policy=policy)
+        check_routes(what, spec, db, macs, src_idx, dst_idx, routes)
+    return all_counts
+
+
 def main() -> int:
     import torch
 
@@ -1159,7 +1508,14 @@ def main() -> int:
     shard_counts, shard_err = phase_sharded_program(device)
     report["sample_slots"]["max_abs_err"] = max(
         report["sample_slots"]["max_abs_err"], entry_err, shard_err)
-    paths = (slice_counts, program_counts, entry_counts, shard_counts)
+
+    # phases 10 to 12: the UGAL program, the pair batches, the collective
+    # policies
+    ugal_counts = phase_ugal_program(device, report)
+    batch_counts = phase_pair_batches(device)
+    policy_counts = phase_collective_policies(device)
+    paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
+             *batch_counts, *policy_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report

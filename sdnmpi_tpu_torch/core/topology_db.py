@@ -3,8 +3,10 @@
 Counterpart of ``sdnmpi_tpu/core/topology_db.py``: dictionaries of
 switches (dpid -> switch), directed links (src dpid -> dst dpid -> link)
 and hosts (MAC -> host), plus ``find_route(src_mac, dst_mac)`` returning
-an "fdb" — a list of ``(dpid, out_port)`` hops — and the array-native
-``find_routes_collective``.
+an "fdb" — a list of ``(dpid, out_port)`` hops — the pair-batch APIs
+(``find_routes_batch``, ``find_routes_batch_dispatch``,
+``find_routes_batch_balanced``, ``find_routes_batch_adaptive``) and the
+array-native ``find_routes_collective``.
 
 The path computation is pluggable: ``backend="torch"`` (the default)
 routes through the torch oracle (``oracle/engine.py``) on ``device``,
@@ -263,17 +265,111 @@ class TopologyDB:
             self._route_to_fdb(r, dst_mac, dst_dpid, is_local_dst) for r in routes
         ], truncated
 
-    def find_routes_batch(self, pairs, *args, **kwargs):
-        raise NotImplementedError("batched pair routing is ROADMAP A5")
+    def find_routes_batch(
+        self, pairs: list[tuple[str, str]]
+    ) -> list[list[tuple[int, int]]]:
+        """Batched single-path routing: on the torch backend the whole
+        batch resolves against the cached next-hop matrix; on the
+        pure-Python backend it loops."""
+        if self.backend == "torch":
+            return self._oracle_engine().routes_batch(self, pairs)
+        return [self.find_route(s, d) for s, d in pairs]
 
-    def find_routes_batch_balanced(self, pairs, *args, **kwargs):
-        raise NotImplementedError("balanced pair batches are ROADMAP A8")
+    def find_routes_batch_balanced(
+        self,
+        pairs: list[tuple[str, str]],
+        link_util: Optional[dict[tuple[int, int], float]] = None,
+        alpha: float = 1.0,
+        chunk: int = 4096,
+        link_capacity: float = 10e9,
+        ecmp_ways: int = 4,
+        rounds: int = 2,
+        dag_threshold: Optional[int] = None,
+    ) -> tuple[list[list[tuple[int, int]]], float]:
+        """Load-aware batched routing: the batch spreads across
+        equal-cost paths on the device, seeded with measured link
+        utilization (a ``(dpid, port) -> bps`` dict). Returns ``(fdbs,
+        max_congestion)``. Batches of at least ``dag_threshold``
+        sub-flows use the DAG balancer and kernel K2, smaller ones the
+        greedy scanner (``RouteOracle.routes_batch_balanced``).
 
-    def find_routes_batch_adaptive(self, pairs, *args, **kwargs):
-        raise NotImplementedError("adaptive pair batches are ROADMAP A8")
+        The pure-Python backend has no balancing: it routes the plain
+        batch and reports the congestion of the chosen paths."""
+        if self.backend == "torch":
+            return self._oracle_engine().routes_batch_balanced(
+                self, pairs, link_util, alpha, chunk, link_capacity,
+                ecmp_ways, rounds, dag_threshold,
+            )
+        fdbs = [self.find_route(s, d) for s, d in pairs]
+        return fdbs, _fdb_congestion(fdbs)
 
-    def find_routes_batch_dispatch(self, pairs, *args, **kwargs):
-        raise NotImplementedError("split-phase pair batches are ROADMAP A5")
+    def find_routes_batch_adaptive(
+        self,
+        pairs: list[tuple[str, str]],
+        link_util: Optional[dict[tuple[int, int], float]] = None,
+        ugal_candidates: int = 4,
+        ugal_bias: float = 1.0,
+        alpha: float = 1.0,
+        link_capacity: float = 10e9,
+        ecmp_ways: int = 4,
+    ) -> tuple[list[list[tuple[int, int]]], int, float]:
+        """UGAL adaptive min/non-min batched routing
+        (``oracle/adaptive.py``): flows may detour through a Valiant
+        intermediate when measured congestion makes their hop-minimal
+        routes expensive. Returns ``(fdbs, n_detoured_pairs,
+        max_congestion)``.
+
+        The pure-Python backend has no adaptive machinery: it routes the
+        plain batch with zero detours."""
+        if self.backend == "torch":
+            return self._oracle_engine().routes_batch_adaptive(
+                self,
+                pairs,
+                link_util=link_util,
+                ugal_candidates=ugal_candidates,
+                ugal_bias=ugal_bias,
+                alpha=alpha,
+                link_capacity=link_capacity,
+                ecmp_ways=ecmp_ways,
+            )
+        return [self.find_route(s, d) for s, d in pairs], 0, 0.0
+
+    def find_routes_batch_dispatch(
+        self,
+        pairs: list[tuple[str, str]],
+        policy: str = "shortest",
+        **kwargs,
+    ):
+        """Split-phase batch routing: launch the oracle's device work and
+        return a :class:`~sdnmpi_tpu_torch.oracle.batch.RouteWindow` at
+        once; ``reap()`` yields the window's ``WindowRoutes``.
+
+        ``kwargs`` are the knobs of the blocking API of ``policy``
+        (``"balanced"`` or ``"adaptive"``; any other policy routes
+        shortest paths). The adaptive policy and the pure-Python backend
+        come back as completed windows."""
+        from sdnmpi_tpu_torch.oracle.batch import RouteWindow, WindowRoutes
+
+        if policy == "balanced":
+            if self.backend == "torch":
+                return self._oracle_engine().routes_batch_balanced_dispatch(
+                    self, pairs, **kwargs
+                )
+            fdbs, maxc = self.find_routes_batch_balanced(pairs, **kwargs)
+            return RouteWindow(result=WindowRoutes.from_fdbs(
+                fdbs, max_congestion=maxc,
+            ))
+        if policy == "adaptive":
+            fdbs, n_detours, maxc = self.find_routes_batch_adaptive(
+                pairs, **kwargs
+            )
+            return RouteWindow(result=WindowRoutes.from_fdbs(
+                fdbs, max_congestion=maxc, n_detours=n_detours,
+            ))
+        if self.backend == "torch":
+            return self._oracle_engine().routes_batch_dispatch(self, pairs)
+        fdbs = [self.find_route(s, d) for s, d in pairs]
+        return RouteWindow(result=WindowRoutes.from_fdbs(fdbs))
 
     def find_routes_batch_delta_dispatch(self, pairs, dirty_dpids):
         raise NotImplementedError("delta-narrowed batches are ROADMAP A7")
@@ -321,10 +417,6 @@ class TopologyDB:
             if fdb:
                 final_port[k] = fdb[-1][1]
                 hop_port[k, len(fdb) - 1] = -1  # per-pair placeholder
-        load: dict[tuple[int, int], float] = {}
-        for fdb in fdbs:
-            for (a, _), (b, _) in zip(fdb, fdb[1:]):
-                load[(a, b)] = load.get((a, b), 0.0) + 1.0
         endpoint_port = np.full(len(macs), -1, np.int32)
         for i, mac in enumerate(macs):
             host = self.hosts.get(mac)
@@ -334,7 +426,7 @@ class TopologyDB:
                 endpoint_port[i] = OFPP_LOCAL
         return CollectiveRoutes(
             np.arange(f, dtype=np.int32), final_port, hop_dpid, hop_port,
-            hop_len, max_congestion=max(load.values(), default=0.0),
+            hop_len, max_congestion=_fdb_congestion(fdbs),
             endpoint_port=endpoint_port,
         )
 
@@ -369,6 +461,17 @@ class TopologyDB:
 
 
 # -- pure-Python backend -------------------------------------------------
+
+
+def _fdb_congestion(fdbs: list[list[tuple[int, int]]]) -> float:
+    """Max discrete link load of fdbs: each adds 1 to every link of its
+    path."""
+    load: dict[tuple[int, int], float] = {}
+    for fdb in fdbs:
+        for (a, _), (b, _) in zip(fdb, fdb[1:]):
+            load[(a, b)] = load.get((a, b), 0.0) + 1.0
+    return max(load.values(), default=0.0)
+
 #
 # Chosen to match the torch oracle exactly: distances-to-destination via
 # reverse BFS, then a greedy forward walk picking the lowest-dpid neighbor

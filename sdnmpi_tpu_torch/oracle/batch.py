@@ -24,6 +24,17 @@ def bucket_len(n: int, multiple: int = 8) -> int:
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
 
 
+def bucket_pow2(n: int, floor: int = 8) -> int:
+    """Round a batch length up to the next power of two (floor 8), the
+    coarse bucket tier of workloads whose batch sizes vary freely per
+    event (the delta-narrowed churn path, ROADMAP A7, pads with it). A
+    smaller ``floor`` is honored."""
+    out = max(1, floor)
+    while out < n:
+        out *= 2
+    return out
+
+
 def pad_flow_batch(
     *arrays: np.ndarray, multiple: int = 8, fill: int = -1,
 ) -> tuple[np.ndarray, ...]:
@@ -58,7 +69,8 @@ class RouteWindow:
     decode and blocks only on THIS window's results, so a caller that
     dispatches window k+1 before reaping window k overlaps k+1's device
     compute with k's host decode. Entry points with no device leg
-    (empty batches) return an already-completed window; ``reap`` is
+    (host chase, pure-Python backend, empty batches) return an
+    already-completed window; ``reap`` is
     idempotent either way.
     """
 
@@ -78,6 +90,81 @@ class RouteWindow:
             self._result = self._reap()
             self._reap = None
         return self._result
+
+
+@dataclasses.dataclass
+class WindowRoutes:
+    """One resolved route window in struct-of-arrays form: the reap
+    result :class:`RouteWindow` yields for the pair-batch entry points.
+    Row k is input pair k: ``hop_len[k] == 0`` marks an
+    unroutable/unresolved pair, otherwise ``hop_dpid[k, :hop_len[k]]`` /
+    ``hop_port[k, :hop_len[k]]`` are its fdb hops with the final hop's
+    port already the destination's attachment port. ``fdbs()`` is the
+    list form of the scalar API.
+    """
+
+    hop_dpid: np.ndarray  # [F, L] int64, -1 padded
+    hop_port: np.ndarray  # [F, L] int32, -1 padded
+    hop_len: np.ndarray  # [F] int32 (0 = unroutable)
+    #: max discrete link load of the window's chosen paths (balanced)
+    max_congestion: float = 0.0
+    #: pairs detoured through a Valiant intermediate (adaptive policy)
+    n_detours: int = 0
+    #: [F] bool, True where the pair's new path crosses a dirtied switch
+    #: set; set only by the delta-narrowed entry points (ROADMAP A7),
+    #: None everywhere else
+    touched: np.ndarray | None = None
+
+    @property
+    def n_pairs(self) -> int:
+        return self.hop_len.shape[0]
+
+    def fdb(self, k: int) -> list[tuple[int, int]]:
+        n = int(self.hop_len[k])
+        return [
+            (int(self.hop_dpid[k, h]), int(self.hop_port[k, h]))
+            for h in range(n)
+        ]
+
+    def fdbs(self) -> list[list[tuple[int, int]]]:
+        return [self.fdb(k) for k in range(self.n_pairs)]
+
+    def set_fdb(self, k: int, fdb: list[tuple[int, int]]) -> None:
+        """Overlay one pair's fdb list onto the arrays; the hop axis grows
+        when the list outruns it."""
+        need = len(fdb)
+        f, l = self.hop_dpid.shape
+        if need > l:
+            grow_d = np.full((f, need), -1, self.hop_dpid.dtype)
+            grow_p = np.full((f, need), -1, self.hop_port.dtype)
+            grow_d[:, :l] = self.hop_dpid
+            grow_p[:, :l] = self.hop_port
+            self.hop_dpid, self.hop_port = grow_d, grow_p
+        self.hop_len[k] = need
+        for h, (dpid, port) in enumerate(fdb):
+            self.hop_dpid[k, h] = dpid
+            self.hop_port[k, h] = port
+
+    @classmethod
+    def from_fdbs(
+        cls, fdbs: list[list[tuple[int, int]]], max_congestion: float = 0.0,
+        n_detours: int = 0,
+    ) -> "WindowRoutes":
+        """Array form of a list-of-fdb-lists result (host chase, py
+        backend)."""
+        f = len(fdbs)
+        l = max((len(fdb) for fdb in fdbs), default=0) or 1
+        out = cls(
+            np.full((f, l), -1, np.int64),
+            np.full((f, l), -1, np.int32),
+            np.zeros(f, np.int32),
+            max_congestion=max_congestion,
+            n_detours=n_detours,
+        )
+        for k, fdb in enumerate(fdbs):
+            if fdb:
+                out.set_fdb(k, fdb)
+        return out
 
 
 @dataclasses.dataclass

@@ -1,15 +1,32 @@
-"""Load-aware routing helpers: pair aggregation and the utilization
-matrix.
+"""Load-aware ECMP routing over the shortest-path DAG.
 
-Counterpart of the host-side parts of ``sdnmpi_tpu/oracle/congestion.py``.
-The greedy balanced scanner (``route_flows_balanced``) is not ported yet
-(ROADMAP A8); the collective path balances with the DAG engine
-(``oracle/dag.py``).
+Counterpart of ``sdnmpi_tpu/oracle/congestion.py``:
+
+- :func:`aggregate_pairs` collapses rank flows to weighted switch pairs.
+- :func:`route_flows_balanced` is the greedy scanner: flows are
+  processed in fixed-size chunks, and each hop of each flow picks the
+  lowest-loaded equal-cost next hop given the load every earlier chunk
+  and hop placed (an online assignment that spreads a batch over the
+  fabric), seeded with the measured utilization of
+  :func:`utilization_matrix`. The reference's two nested ``lax.scan``s
+  (chunks, then hops) are host loops over device tensors here, with no
+  host sync inside them.
+- :func:`link_loads_from_paths` recomputes the load of chosen paths.
+
+Loads accumulate in float64 and are cast to float32 where they are read.
+Scatter-adds with repeated links then give one exact sum in any order
+(on the card the adds are atomics), so the card routes the same inputs
+the same way every time. With integer weights the float32 values are
+the reference's exactly; with fractional ones the reference's sequential
+float32 sums may differ from them in the last place.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
 
 
 def aggregate_pairs(
@@ -27,6 +44,105 @@ def aggregate_pairs(
         (uniq % v).astype(np.int32),
         counts.astype(np.float32),
     )
+
+
+def route_flows_balanced(
+    adj: torch.Tensor,  # [V, V] 0/1
+    dist: torch.Tensor,  # [V, V] f32 hop counts (inf unreachable)
+    base_cost: torch.Tensor,  # [V, V] f32 measured link utilization (scaled)
+    src: torch.Tensor,  # [U] int32 (padded with -1)
+    dst: torch.Tensor,  # [U] int32
+    weight: torch.Tensor,  # [U] f32 (0 for padding)
+    max_len: int,
+    chunk: int = 4096,
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy load-balanced routing of weighted flows.
+
+    Returns ``(nodes [U, max_len] int32 chosen switch sequence padded
+    with -1, load [V, V] f32 directed-link load, max_congestion scalar)``.
+
+    Flows go in ``chunk``-sized groups, one after the other; within a
+    group each hop step picks, per flow, the equal-cost next hop
+    minimizing ``base_cost + load``. Flows deciding in the same step
+    cannot see each other's choice, so flows whose minimal-score
+    candidate set ties exactly are dealt round-robin by flow id across
+    the tied candidates (flow k takes the ``k mod m``-th). The candidates
+    of a hop are the node's out-neighbours in ``neigh``, the compact
+    sorted table of ``adj`` (``TopoTensors.neigh``; built here when
+    absent), which takes the place of the reference's ``max_degree``.
+    """
+    v = adj.shape[0]
+    dev = adj.device
+    u = src.shape[0]
+    n_chunks = -(-u // chunk)
+    pad = n_chunks * chunk - u
+    src = torch.cat([src.long(), torch.full((pad,), -1, dtype=torch.int64, device=dev)])
+    dst = torch.cat([dst.long(), torch.full((pad,), -1, dtype=torch.int64, device=dev)])
+    weight = torch.cat([
+        weight.to(torch.float64), torch.zeros(pad, dtype=torch.float64, device=dev)
+    ])
+    flow_id = torch.arange(n_chunks * chunk, dtype=torch.int64, device=dev)
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    neigh_valid = neigh < v
+    neigh_safe = neigh.long().clamp(max=v - 1)
+    dist_flat = dist.reshape(-1)
+    base_flat = base_cost.to(torch.float32).reshape(-1)
+    load = torch.zeros(v * v, dtype=torch.float64, device=dev)
+
+    chunks = []
+    for c in range(n_chunks):
+        part = slice(c * chunk, (c + 1) * chunk)
+        c_src, c_dst, c_w, c_id = src[part], dst[part], weight[part], flow_id[part]
+        safe_dst = c_dst.clamp(min=0)
+        # flows whose pair is unreachable never place load
+        alive = (c_src >= 0) & (c_dst >= 0) & torch.isfinite(
+            dist_flat[c_src.clamp(min=0) * v + safe_dst])
+        node = torch.where(alive, c_src, -1)
+        rows = []
+        for _ in range(max_len):
+            rows.append(node)
+            safe_node = node.clamp(min=0)
+            moving = alive & (node != c_dst) & (node >= 0)
+            nbrs = neigh_safe[safe_node]  # [C, D]
+            dcur = dist_flat[safe_node * v + safe_dst]
+            dn = dist_flat[nbrs * v + safe_dst[:, None]]
+            cand = neigh_valid[safe_node] & (dn == dcur[:, None] - 1.0)
+            lidx = safe_node[:, None] * v + nbrs  # link flat index [C, D]
+            score = torch.where(
+                cand, base_flat[lidx] + load[lidx].to(torch.float32), float("inf"))
+            # round-robin deal of same-step flows across the tied minima
+            is_min = cand & (score == score.min(dim=1, keepdim=True).values)
+            m = is_min.sum(dim=1).clamp(min=1)
+            pos = torch.cumsum(is_min, dim=1) - 1
+            pick = is_min & (pos == (c_id % m)[:, None])
+            j = torch.argmax(pick.to(torch.int32), dim=1)  # first index
+            nxt = torch.where(moving, nbrs.gather(1, j[:, None])[:, 0], -1)
+            load.index_add_(
+                0, safe_node * v + nxt.clamp(min=0), torch.where(moving, c_w, 0.0))
+            # a flow that has emitted its destination parks at -1
+            node = nxt
+        chunks.append(torch.stack(rows, dim=1))
+    load32 = load.to(torch.float32).reshape(v, v)
+    nodes = torch.cat(chunks)[:u].to(torch.int32)
+    max_congestion = torch.where(adj > 0, load32, 0.0).max()
+    return nodes, load32, max_congestion
+
+
+def link_loads_from_paths(
+    nodes: torch.Tensor, v: int, weight: torch.Tensor
+) -> torch.Tensor:
+    """The ``[V, V]`` f32 load matrix of chosen paths (for validation):
+    each flow adds its weight to every link of its path."""
+    a = nodes[:, :-1].long()
+    b = nodes[:, 1:].long()
+    valid = (a >= 0) & (b >= 0)
+    wts = torch.where(valid, weight.to(torch.float64)[:, None], 0.0)
+    load = torch.zeros(v * v, dtype=torch.float64, device=nodes.device)
+    load.index_add_(
+        0, (a.clamp(min=0) * v + b.clamp(min=0)).reshape(-1), wts.reshape(-1))
+    return load.to(torch.float32).reshape(v, v)
 
 
 def utilization_matrix(

@@ -1,24 +1,37 @@
 """Route oracle: tensorized topology + cached APSP on a torch device.
 
-Counterpart of ``sdnmpi_tpu/oracle/engine.py``, trimmed to the
-single-device collective path: the topology becomes dense ``[V, V]``
-tensors, all-pairs distances and next hops are computed once per
-topology version, and a whole collective is routed by one call of
-``oracle/dag.route_collective`` (the DAG balancer plus kernel K2) and
-decoded on the host. Every tensor lives on the oracle's ``device``;
-nothing moves to another device behind the caller's back.
+Counterpart of ``sdnmpi_tpu/oracle/engine.py`` on one device: the
+topology becomes dense ``[V, V]`` tensors, all-pairs distances and next
+hops are computed once per topology version, and the routing entry
+points answer from them:
+
+- pair batches (``routes_batch*``): the shortest policy chases the
+  next-hop matrix (on the host for small batches, by
+  ``oracle/paths.batch_fdb`` on the device otherwise); the balanced
+  policy routes its ECMP sub-flows with the DAG balancer and kernel K2
+  (``oracle/dag.route_collective``) at or above ``dag_flow_threshold``
+  sub-flows and with the greedy scanner
+  (``oracle/congestion.route_flows_balanced``) below it; the adaptive
+  policy runs the UGAL program (``oracle/adaptive.route_adaptive``);
+- whole collectives (``routes_collective*``) in compressed array form,
+  with the ``"balanced"``, ``"shortest"`` and ``"adaptive"`` policies.
+
+Every tensor lives on the oracle's ``device``; nothing moves to another
+device behind the caller's back.
 
 With ``mesh_devices=n`` the oracle builds a shard mesh
-(``shardplane/mesh.py``) and routes collectives through
+(``shardplane/mesh.py``) and routes balanced collectives through
 ``shardplane.route_collective_sharded``; with ``shard_oracle`` the
 refresh row-shards distances and next hops over it too, and with
 ``ring_exchange`` the sharded legs stream distances through the ring
-kernel K3 instead of replicating them first.
+kernel K3 instead of replicating them first. The sharded shortest and
+adaptive legs raise (ROADMAP A12 item 3); nothing routes on one device
+in their place.
 
 Not ported yet, and raising ``NotImplementedError`` where a caller asks
 for them: the incremental repair, the hierarchical oracle, the
-utilization plane, the greedy/shortest/adaptive collective policies and
-phase scheduling (ROADMAP A5-A13).
+utilization plane, the delta-narrowed batches and phase scheduling
+(ROADMAP A7-A13).
 """
 
 from __future__ import annotations
@@ -206,6 +219,13 @@ class RouteOracle:
     #: occupied switch count by a bucket, the APSP computes only the
     #: occupied block (the padding block is analytic); 0 disables
     occ_bucket_multiple: int = 128
+    #: pair batches of at most this many hops (pairs x hop budget) chase
+    #: the cached next hops on the host; larger ones run on the device
+    host_chase_hop_budget: int = 4096
+    #: balanced pair batches of at least this many sub-flows route with
+    #: the DAG balancer and kernel K2, smaller ones with the greedy
+    #: scanner (the reference's ``Config.dag_flow_threshold``)
+    dag_flow_threshold: int = 512
 
     def __init__(
         self,
@@ -252,6 +272,9 @@ class RouteOracle:
         self._next_h: Optional[np.ndarray] = None  # lazy host twin
         self._port: Optional[np.ndarray] = None
         self._order: Optional[np.ndarray] = None  # sorted-neighbour table
+        #: mac -> (row index, final out-port) | None, valid for one
+        #: topology version (refresh clears it)
+        self._endpoint_memo: dict[str, Optional[tuple[int, int]]] = {}
         self.full_refresh_count: int = 0
         self.last_fractional_congestion: float = 0.0
         self.last_discrete_congestion: float = 0.0
@@ -332,6 +355,7 @@ class RouteOracle:
             self._next_h = None
             self._port = tensors.host_port()
             self._order = native.neighbor_order(tensors.host_adj())
+            self._endpoint_memo = {}
             self._version = db.version
             self.full_refresh_count += 1
             _m_full_refreshes.inc()
@@ -398,6 +422,489 @@ class RouteOracle:
             node = int(self._next[node, di])
             route.append(int(t.dpids[node]))
         return route
+
+    def _next_full(self) -> torch.Tensor:
+        """The next-hop matrix as one ``[V, V]`` tensor on the oracle's
+        device. Row-sharded next hops (``shard_oracle``) feed only the
+        sharded chase, which is not ported (ROADMAP A12 item 3)."""
+        if isinstance(self._next_d, list):
+            raise NotImplementedError(
+                "the device chase of row-sharded next hops "
+                "(shardplane.batch_fdb_sharded) is not ported yet "
+                "(ROADMAP A12 item 3)"
+            )
+        return self._next_d
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the oracle's device."""
+        return torch.as_tensor(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
+
+    # -- pair batches -----------------------------------------------------
+
+    def _resolve_rows(
+        self,
+        db: "TopologyDB",
+        pairs: list[tuple[str, str]],
+        t: TopoTensors,
+        results: list,
+    ) -> list[tuple[int, int, int, int]]:
+        """Map (src_mac, dst_mac) pairs to (pair idx, src idx, dst idx,
+        final out-port) rows. Unresolvable pairs keep their [] in
+        ``results``; a pair whose dpid escaped tensorization takes the
+        scalar path. Endpoint resolution is memoized per topology
+        version."""
+        memo = self._endpoint_memo
+        rows: list[tuple[int, int, int, int]] = []
+        for k, (src_mac, dst_mac) in enumerate(pairs):
+            src = (
+                memo[src_mac] if src_mac in memo
+                else self._memo_endpoint(db, t, src_mac)
+            )
+            dst = (
+                memo[dst_mac] if dst_mac in memo
+                else self._memo_endpoint(db, t, dst_mac)
+            )
+            if src is None or dst is None:
+                continue
+            si, di, port = src[0], dst[0], dst[1]
+            if si < 0 or di < 0:
+                results[k] = db.find_route(src_mac, dst_mac)
+                continue
+            rows.append((k, si, di, port))
+        return rows
+
+    def _memo_endpoint(
+        self, db: "TopologyDB", t: TopoTensors, mac: str
+    ) -> Optional[tuple[int, int]]:
+        """Resolve one MAC to (row index, final out-port); a -1 row index
+        marks a dpid that escaped tensorization (scalar path). Cached
+        until the next topology version."""
+        from sdnmpi_tpu_torch.protocol.openflow import OFPP_LOCAL
+
+        resolved = db._resolve_endpoint(mac)
+        if resolved is None:
+            value = None
+        else:
+            dpid, is_local = resolved
+            idx = t.index.get(dpid)
+            if idx is None:
+                value = (-1, -1)
+            else:
+                port = OFPP_LOCAL if is_local else db.hosts[mac].port.port_no
+                value = (idx, port)
+        self._endpoint_memo[mac] = value
+        return value
+
+    @staticmethod
+    def _group_ecmp_subflows(
+        rows: list[tuple[int, int, int, int]], ecmp_ways: int
+    ) -> tuple[dict, dict, np.ndarray, np.ndarray, np.ndarray]:
+        """Aggregate resolved pairs by (src, dst) transit and split each
+        group into up to ``ecmp_ways`` weighted sub-flows, members dealt
+        round-robin. Returns (groups, group_subs, src, dst, weight) where
+        ``group_subs[key] = (first sub-flow index, n)``."""
+        groups: dict[tuple[int, int], list[tuple[int, int]]] = {}
+        for k, si, di, final_port in rows:
+            groups.setdefault((si, di), []).append((k, final_port))
+        sub_src: list[int] = []
+        sub_dst: list[int] = []
+        sub_w: list[float] = []
+        group_subs: dict[tuple[int, int], tuple[int, int]] = {}
+        for key in sorted(groups):
+            members = groups[key]
+            nsub = max(1, min(ecmp_ways, len(members)))
+            group_subs[key] = (len(sub_src), nsub)
+            for _ in range(nsub):
+                sub_src.append(key[0])
+                sub_dst.append(key[1])
+                sub_w.append(len(members) / nsub)
+        return (
+            groups,
+            group_subs,
+            np.array(sub_src, dtype=np.int32),
+            np.array(sub_dst, dtype=np.int32),
+            np.array(sub_w, dtype=np.float32),
+        )
+
+    def _subflow_fdbs(self, t: TopoTensors, group_subs: dict, paths: np.ndarray):
+        """Per-sub-flow fdb arrays of node rows (native batch decode):
+        ``(dpid, port, length)``; a path that does not end at its
+        group's destination switch gets length 0."""
+        from sdnmpi_tpu_torch import native
+
+        n_sub = paths.shape[0]
+        dst_sw = np.full(n_sub, -1, np.int32)
+        for key, (first, nsub) in group_subs.items():
+            dst_sw[first : first + nsub] = key[1]
+        return native.materialize_fdbs(
+            paths, self._port, t.dpids, dst_sw, np.zeros(n_sub, np.int32)
+        )
+
+    def _materialize_fdbs(
+        self,
+        t: TopoTensors,
+        groups: dict,
+        group_subs: dict,
+        paths: np.ndarray,
+        results: list,
+    ) -> list[tuple[int, int]]:
+        """Per-sub-flow node rows ``[S, L]`` -> installed per-pair fdbs in
+        ``results``. Each pair is dealt onto its group's sub-flows
+        round-robin; members share the transit hops and differ in the
+        final (host) port. Returns the ``(pair index, sub-flow index)``
+        of every installed pair."""
+        od, op, ln = self._subflow_fdbs(t, group_subs, paths)
+        hop_lists: list[Optional[list[tuple[int, int]]]] = [None] * paths.shape[0]
+        installed: list[tuple[int, int]] = []
+        for key, members in groups.items():
+            first, nsub = group_subs[key]
+            for j, (k, final_port) in enumerate(members):
+                g = first + j % nsub
+                n = int(ln[g])
+                if n == 0:
+                    continue
+                hops = hop_lists[g]
+                if hops is None:
+                    hops = [(int(od[g, h]), int(op[g, h])) for h in range(n - 1)]
+                    hop_lists[g] = hops
+                results[k] = hops + [(int(od[g, n - 1]), final_port)]
+                installed.append((k, g))
+        return installed
+
+    def _materialize_window(
+        self,
+        t: TopoTensors,
+        groups: dict,
+        group_subs: dict,
+        paths: np.ndarray,
+        n_pairs: int,
+        results: list,
+    ):
+        """Array twin of :meth:`_materialize_fdbs`: the whole window as a
+        :class:`~sdnmpi_tpu_torch.oracle.batch.WindowRoutes`, pairs dealt
+        onto their group's sub-flows round-robin as the list form does,
+        each final hop's port the pair's own attachment port. The
+        congestion figure counts each installed pair once per link of its
+        sub-flow's path (:meth:`_installed_congestion`)."""
+        from sdnmpi_tpu_torch.oracle.adaptive import link_loads
+        from sdnmpi_tpu_torch.oracle.batch import WindowRoutes
+
+        od, op, ln = self._subflow_fdbs(t, group_subs, paths)
+        g_of_pair = np.full(n_pairs, -1, np.int64)
+        fport = np.full(n_pairs, -1, np.int32)
+        for key, members in groups.items():
+            first, nsub = group_subs[key]
+            for j, (k, final_port) in enumerate(members):
+                g_of_pair[k] = first + j % nsub
+                fport[k] = final_port
+        ok = g_of_pair >= 0
+        g_safe = np.where(ok, g_of_pair, 0)
+        ln_p = np.where(ok, ln[g_safe], 0).astype(np.int32)
+        od_p = od[g_safe]  # fancy index: owned copies
+        op_p = op[g_safe]
+        good = ln_p > 0
+        rows = np.nonzero(good)[0]
+        op_p[rows, ln_p[rows] - 1] = fport[rows]
+        od_p[~good] = -1
+        op_p[~good] = -1
+        counts = np.bincount(g_of_pair[rows], minlength=paths.shape[0]).astype(
+            np.float32
+        )
+        wr = WindowRoutes(
+            od_p, op_p, ln_p,
+            max_congestion=float(link_loads(paths, counts, t.v).max(initial=0.0)),
+        )
+        for k, fdb in enumerate(results):
+            if fdb:  # merge the scalar-path pairs back in
+                wr.set_fdb(k, fdb)
+        return wr
+
+    @staticmethod
+    def _installed_congestion(
+        paths: np.ndarray, installed: list[tuple[int, int]], v: int
+    ) -> float:
+        """Max discrete link load of the routes actually installed: each
+        installed pair adds 1 to every link of its sub-flow's path."""
+        from sdnmpi_tpu_torch.oracle.adaptive import link_loads
+
+        counts = np.bincount(
+            np.fromiter((g for _, g in installed), np.int64, len(installed)),
+            minlength=paths.shape[0],
+        ).astype(np.float32)
+        return float(link_loads(paths, counts, v).max(initial=0.0))
+
+    def routes_batch(
+        self, db: "TopologyDB", pairs: list[tuple[str, str]]
+    ) -> list[list[tuple[int, int]]]:
+        """Resolve a batch of (src_mac, dst_mac) pairs to shortest-path
+        fdbs: :meth:`routes_batch_dispatch` and its reap back to back,
+        as per-pair fdb lists."""
+        return self.routes_batch_dispatch(db, pairs).reap().fdbs()
+
+    def routes_batch_dispatch(self, db: "TopologyDB", pairs: list[tuple[str, str]]):
+        """Split-phase shortest-path batch routing: returns a
+        :class:`~sdnmpi_tpu_torch.oracle.batch.RouteWindow` whose
+        ``reap()`` yields the window's
+        :class:`~sdnmpi_tpu_torch.oracle.batch.WindowRoutes`.
+
+        Endpoints resolve on the host. A batch of at most
+        :attr:`host_chase_hop_budget` hops chases the cached next hops on
+        the host and comes back completed; a larger one is one
+        ``oracle/paths.batch_fdb`` call on the device, padded to a
+        multiple of 8, that ``reap()`` copies back. Under
+        ``shard_oracle`` the reference chases row-sharded next hops, which
+        is not ported (ROADMAP A12 item 3): a large batch raises."""
+        from sdnmpi_tpu_torch.oracle.batch import (
+            RouteWindow,
+            WindowRoutes,
+            pad_flow_batch,
+        )
+        from sdnmpi_tpu_torch.oracle.paths import batch_fdb
+
+        t = self.refresh(db)
+        results: list[list[tuple[int, int]]] = [[] for _ in pairs]
+        rows = self._resolve_rows(db, pairs, t, results)
+        if not rows:
+            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+
+        src_idx = np.array([r[1] for r in rows], dtype=np.int32)
+        dst_idx = np.array([r[2] for r in rows], dtype=np.int32)
+        final_port = np.array([r[3] for r in rows], dtype=np.int32)
+        max_len = self._batch_max_len(src_idx, dst_idx)
+        if max_len == 0:
+            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+
+        if len(rows) * max_len <= self.host_chase_hop_budget:
+            dist, nxt_h, port_h, dpids = self._dist, self._next, self._port, t.dpids
+            for k, si, di, fport in rows:
+                if not np.isfinite(dist[si, di]):
+                    continue
+                fdb: list[tuple[int, int]] = []
+                node = si
+                while node != di:
+                    nxt = int(nxt_h[node, di])
+                    fdb.append((int(dpids[node]), int(port_h[node, nxt])))
+                    node = nxt
+                fdb.append((int(dpids[di]), int(fport)))
+                results[k] = fdb
+            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+
+        if self._shard_mesh() is not None:
+            chase = "batch_fdb_ringed" if self.ring_exchange else "batch_fdb_sharded"
+            raise NotImplementedError(
+                f"the sharded chase (shardplane.{chase}) is not ported yet "
+                "(ROADMAP A12 item 3)"
+            )
+        src_p, dst_p, fport_p = pad_flow_batch(src_idx, dst_idx, final_port)
+        nodes_d, ports_d, length_d = batch_fdb(
+            self._next_full(), t.port, self._put(src_p), self._put(dst_p),
+            self._put(fport_p), max_len,
+        )
+        pair_rows = np.array([r[0] for r in rows], dtype=np.int64)
+        n_pairs = len(pairs)
+        dpids = t.dpids
+
+        def reap() -> WindowRoutes:
+            n_rows = len(pair_rows)
+            nodes = nodes_d.cpu().numpy()[:n_rows]
+            ports = ports_d.cpu().numpy()[:n_rows]
+            length = length_d.cpu().numpy()[:n_rows]
+            # the hop axis covers the device's and any scalar-path fdb
+            width = max([nodes.shape[1]] + [len(f) for f in results if f])
+            od = np.full((n_pairs, width), -1, np.int64)
+            op = np.full((n_pairs, width), -1, np.int32)
+            ln = np.zeros(n_pairs, np.int32)
+            safe = np.clip(nodes, 0, len(dpids) - 1)
+            od[pair_rows, : nodes.shape[1]] = np.where(nodes >= 0, dpids[safe], -1)
+            op[pair_rows, : ports.shape[1]] = ports
+            ln[pair_rows] = length
+            wr = WindowRoutes(od, op, ln)
+            for k, fdb in enumerate(results):
+                if fdb:  # merge the scalar-path pairs back in
+                    wr.set_fdb(k, fdb)
+            return wr
+
+        return RouteWindow(reap)
+
+    def routes_batch_balanced(
+        self,
+        db: "TopologyDB",
+        pairs: list[tuple[str, str]],
+        link_util: Optional[dict[tuple[int, int], float]] = None,
+        alpha: float = 1.0,
+        chunk: int = 4096,
+        link_capacity: float = 10e9,
+        ecmp_ways: int = 4,
+        rounds: int = 2,
+        dag_threshold: Optional[int] = None,
+    ) -> tuple[list[list[tuple[int, int]]], float]:
+        """Load-aware batch routing: spreads the batch across equal-cost
+        paths, seeded with measured utilization. Returns ``(fdbs,
+        max_congestion)``, the max discrete link load of the installed
+        fdbs (each pair counts 1 per link of its path).
+
+        Pairs sharing an (edge, edge) transit aggregate and split into up
+        to ``ecmp_ways`` weighted sub-flows. Batches of at least
+        ``dag_threshold`` (default :attr:`dag_flow_threshold`) sub-flows
+        route through the DAG balancer and kernel K2
+        (``oracle/dag.route_collective``), smaller ones through the greedy
+        scanner (``oracle/congestion.route_flows_balanced``)."""
+        wr = self.routes_batch_balanced_dispatch(
+            db, pairs, link_util, alpha, chunk, link_capacity, ecmp_ways,
+            rounds, dag_threshold,
+        ).reap()
+        return wr.fdbs(), wr.max_congestion
+
+    def routes_batch_balanced_dispatch(
+        self,
+        db: "TopologyDB",
+        pairs: list[tuple[str, str]],
+        link_util: Optional[dict[tuple[int, int], float]] = None,
+        alpha: float = 1.0,
+        chunk: int = 4096,
+        link_capacity: float = 10e9,
+        ecmp_ways: int = 4,
+        rounds: int = 2,
+        dag_threshold: Optional[int] = None,
+    ):
+        """Split-phase twin of :meth:`routes_batch_balanced`: the device
+        work (DAG leg or greedy scanner, same rule) is enqueued and a
+        :class:`~sdnmpi_tpu_torch.oracle.batch.RouteWindow` returned;
+        ``reap()`` decodes and materializes the window's
+        ``WindowRoutes``."""
+        from sdnmpi_tpu_torch.oracle.batch import RouteWindow, WindowRoutes
+        from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
+
+        t = self.refresh(db)
+        results: list[list[tuple[int, int]]] = [[] for _ in pairs]
+        rows = self._resolve_rows(db, pairs, t, results)
+        if not rows:
+            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+
+        groups, group_subs, src_idx, dst_idx, sub_w = self._group_ecmp_subflows(
+            rows, ecmp_ways
+        )
+        base = self._normalized_base(
+            db, t, link_util, alpha, link_capacity, len(rows)
+        )
+        threshold = self.dag_flow_threshold if dag_threshold is None else dag_threshold
+        used_dag = len(src_idx) >= threshold
+        max_len = self._batch_max_len(src_idx, dst_idx, multiple=1 if used_dag else 8)
+        if max_len == 0:
+            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+        if used_dag:
+            paths_reap = self._dag_paths_dispatch(
+                t, src_idx, dst_idx, sub_w, base, max_len, rounds
+            )
+        else:
+            nodes_d, _, _ = route_flows_balanced(
+                t.adj, self._dist_full(), self._put(base.astype(np.float32)),
+                self._put(src_idx), self._put(dst_idx), self._put(sub_w),
+                max_len, chunk=chunk, neigh=t.neigh,
+            )
+
+            def paths_reap() -> np.ndarray:
+                return nodes_d.cpu().numpy()
+
+        n_pairs = len(pairs)
+
+        def reap():
+            wr = self._materialize_window(
+                t, groups, group_subs, paths_reap(), n_pairs, results
+            )
+            self._note_congestion(wr.max_congestion, dag=used_dag)
+            return wr
+
+        return RouteWindow(reap)
+
+    def routes_batch_adaptive(
+        self,
+        db: "TopologyDB",
+        pairs: list[tuple[str, str]],
+        link_util: Optional[dict[tuple[int, int], float]] = None,
+        ugal_candidates: int = 4,
+        ugal_bias: float = 1.0,
+        rounds: int = 2,
+        alpha: float = 1.0,
+        link_capacity: float = 10e9,
+        ecmp_ways: int = 4,
+    ) -> tuple[list[list[tuple[int, int]]], int, float]:
+        """UGAL adaptive min/non-min batch routing
+        (``oracle/adaptive.route_adaptive``): like
+        :meth:`routes_batch_balanced`, but each sub-flow may detour
+        through a Valiant intermediate when measured congestion makes its
+        hop-minimal routes expensive. Returns ``(fdbs, n_detoured_pairs,
+        max_congestion)``, the last the max discrete link load of the
+        installed routes."""
+        from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
+
+        t = self.refresh(db)
+        results: list[list[tuple[int, int]]] = [[] for _ in pairs]
+        rows = self._resolve_rows(db, pairs, t, results)
+        if not rows:
+            return results, 0, 0.0
+
+        groups, group_subs, src_idx, dst_idx, weight = self._group_ecmp_subflows(
+            rows, ecmp_ways
+        )
+        max_len = self._batch_max_len(src_idx, dst_idx)
+        if max_len == 0:
+            return results, 0, 0.0
+        base = self._normalized_base(
+            db, t, link_util, alpha, link_capacity, len(rows)
+        )
+        inter, n1, n2 = self._adaptive_paths(
+            t, src_idx, dst_idx, weight, base, max_len, rounds,
+            ugal_candidates, ugal_bias,
+        )
+        paths = stitch_paths(n1, n2, inter)
+        installed = self._materialize_fdbs(t, groups, group_subs, paths, results)
+        n_detours = sum(1 for _, g in installed if inter[g] >= 0)
+        return results, n_detours, self._installed_congestion(
+            paths, installed, t.v
+        )
+
+    def _adaptive_paths(
+        self, t, src_idx, dst_idx, weight, base, max_len, rounds,
+        ugal_candidates, ugal_bias,
+    ):
+        """The UGAL program for a sub-flow batch, end-padded to a multiple
+        of 8 with dead flows (their ids, hence the real flows' hash
+        streams, unchanged), on the cached distances (so no K1), with the
+        packed slot streams decoded on the host. Returns ``(inter, n1,
+        n2)`` numpy arrays trimmed to the batch. With a shard mesh the
+        reference runs the sharded program, which is not ported (ROADMAP
+        A12 item 3): it raises."""
+        from sdnmpi_tpu_torch.oracle.adaptive import decode_segments, route_adaptive
+        from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+
+        n = len(src_idx)
+        kwargs = dict(
+            levels=max_len - 1, rounds=rounds, max_len=max_len,
+            n_candidates=ugal_candidates, bias=ugal_bias,
+        )
+        if self._dag_mesh() is not None:
+            raise NotImplementedError(
+                "the sharded UGAL program (shardplane.route_adaptive_sharded) "
+                "is not ported yet (ROADMAP A12 item 3)"
+            )
+        src_a, dst_a = pad_flow_batch(
+            np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32)
+        )
+        w_a = np.zeros(len(src_a), np.float32)
+        w_a[:n] = np.asarray(weight, np.float32)
+        inter_d, s1_d, s2_d, _ = route_adaptive(
+            t.adj, self._put(base.astype(np.float32)), self._put(src_a),
+            self._put(dst_a), self._put(w_a), t.n_real, packed=True,
+            dist=self._dist_full(), neigh=t.neigh, **kwargs,
+        )
+        inter = inter_d.cpu().numpy()
+        n1, n2 = decode_segments(
+            t.host_adj(), src_a, dst_a, inter, s1_d.cpu().numpy(),
+            s2_d.cpu().numpy(), max_len, order=self._order,
+        )
+        return inter[:n], n1[:n], n2[:n]
 
     def _resolve_endpoints_array(
         self, db: "TopologyDB", t: TopoTensors, macs: list[str]
@@ -471,7 +978,6 @@ class RouteOracle:
         from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
         from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes, route_collective
 
-        dev = self.device
         li, lj = np.nonzero(t.host_adj() > 0)
         util = np.ascontiguousarray(base[li, lj], dtype=np.float32)
         v_eff = self._occ_v(t)
@@ -495,10 +1001,7 @@ class RouteOracle:
         # sampler's distance table; where its 128 pad floor reaches V it
         # would do more work than the full contraction, so skip it
         dn = make_dst_nodes(dst_idx)
-
-        def put(a):
-            return torch.as_tensor(a).to(dev, non_blocking=True)
-
+        put = self._put
         mesh = self._dag_mesh()
         if mesh is not None and v_eff % self.mesh_devices == 0:
             from sdnmpi_tpu_torch.shardplane import route_collective_sharded
@@ -552,16 +1055,25 @@ class RouteOracle:
             slots, self._order, src_idx, dst_idx, complete=True
         )
 
-    def _note_congestion(self, discrete: float) -> None:
-        """Record a reaped balanced pass's discrete max-congestion beside
-        the DAG balancer's fractional bound and publish their ratio."""
+    def _note_congestion(self, discrete: float, dag: bool) -> None:
+        """Record a reaped pass's discrete max-congestion. When the DAG
+        balancer routed this pass (``dag``), publish it beside the
+        balancer's fractional bound with their ratio; any other pass (the
+        greedy scanner, the shortest and adaptive policies) has no
+        fractional bound, and clears the pair rather than leave a stale
+        one beside its figure."""
         self.last_discrete_congestion = float(discrete)
         _m_disc_congestion.set(self.last_discrete_congestion)
-        if discrete > 0 and self.last_fractional_congestion > 0:
+        if dag and discrete > 0 and self.last_fractional_congestion > 0:
             self.last_congestion_ratio = (
                 discrete / self.last_fractional_congestion
             )
             _m_congestion_ratio.set(self.last_congestion_ratio)
+        elif not dag:
+            self.last_fractional_congestion = 0.0
+            self.last_congestion_ratio = 0.0
+            _m_frac_congestion.set(0.0)
+            _m_congestion_ratio.set(0.0)
 
     def routes_collective(
         self,
@@ -590,6 +1102,8 @@ class RouteOracle:
         link_capacity: float = 10e9,
         ecmp_ways: int = 4,
         rounds: int = 2,
+        ugal_candidates: int = 4,
+        ugal_bias: float = 1.0,
         schedule: Optional[int] = None,
     ):
         """Route an entire collective given in compressed array form,
@@ -600,9 +1114,12 @@ class RouteOracle:
         ``macs`` lists the N unique endpoints once; ``src_idx``/``dst_idx``
         are [F] int32 indices into it. Pairs aggregate to (edge, edge)
         groups, each split into up to ``ecmp_ways`` weighted sub-flows
-        whose members are dealt by endpoint hash; the sub-flows are
-        balanced and sampled on the device. Only ``policy="balanced"``
-        is ported."""
+        (one for ``"shortest"``) whose members are dealt by endpoint hash.
+        ``policy`` routes the sub-flows: ``"balanced"`` with the DAG
+        balancer and kernel K2, ``"shortest"`` by the device next-hop
+        chase (``oracle/paths.batch_paths``), ``"adaptive"`` with the
+        UGAL program, whose window completes its device work and decode
+        here (only the materialization waits for ``reap()``)."""
         from sdnmpi_tpu_torch import native
         from sdnmpi_tpu_torch.oracle.adaptive import link_loads
         from sdnmpi_tpu_torch.oracle.batch import CollectiveRoutes, RouteWindow
@@ -611,10 +1128,9 @@ class RouteOracle:
             raise NotImplementedError(
                 "phase-scheduled collectives are ROADMAP A10"
             )
-        if policy != "balanced":
-            raise NotImplementedError(
-                f"collective policy {policy!r} is not ported yet "
-                "(ROADMAP A5: shortest; A8: adaptive)"
+        if policy not in ("balanced", "shortest", "adaptive"):
+            raise ValueError(
+                f"policy must be 'balanced', 'shortest' or 'adaptive', got {policy!r}"
             )
 
         t = self.refresh(db)
@@ -671,7 +1187,8 @@ class RouteOracle:
 
         g_src = (uniq // t.v).astype(np.int32)
         g_dst = (uniq % t.v).astype(np.int32)
-        nsub = np.minimum(max(1, ecmp_ways), counts).astype(np.int32)
+        ways = 1 if policy == "shortest" else max(1, ecmp_ways)
+        nsub = np.minimum(ways, counts).astype(np.int32)
         sub_base = np.zeros(len(uniq), np.int64)
         np.cumsum(nsub[:-1], out=sub_base[1:])
         n_sub = int(nsub.sum())
@@ -705,10 +1222,36 @@ class RouteOracle:
             return unrouted(n_sub, 1)
 
         base = self._normalized_base(db, t, link_util, alpha, link_capacity, f)
-        paths_reap = self._dag_paths_dispatch(
-            t, sub_src.astype(np.int32), sub_dst.astype(np.int32), sub_w,
-            base, max_len, rounds,
-        )
+        inter_h = None
+        if policy == "adaptive":
+            from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
+
+            inter_h, n1, n2 = self._adaptive_paths(
+                t, sub_src, sub_dst, sub_w, base, max_len, rounds,
+                ugal_candidates, ugal_bias,
+            )
+            stitched = stitch_paths(n1, n2, inter_h)
+
+            def paths_reap() -> np.ndarray:
+                return stitched
+        elif policy == "shortest":
+            from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+            from sdnmpi_tpu_torch.oracle.paths import batch_paths
+
+            ssrc_p, sdst_p = pad_flow_batch(
+                sub_src.astype(np.int32), sub_dst.astype(np.int32)
+            )
+            nodes_d, _ = batch_paths(
+                self._next_full(), self._put(ssrc_p), self._put(sdst_p), max_len
+            )
+
+            def paths_reap() -> np.ndarray:
+                return nodes_d.cpu().numpy()[:n_sub]
+        else:
+            paths_reap = self._dag_paths_dispatch(
+                t, sub_src.astype(np.int32), sub_dst.astype(np.int32), sub_w,
+                base, max_len, rounds,
+            )
         sub_dst32 = sub_dst.astype(np.int32)
 
         def reap():
@@ -729,7 +1272,9 @@ class RouteOracle:
             routes.max_congestion = float(
                 link_loads(paths, counts_sub, t.v).max(initial=0.0)
             )
-            self._note_congestion(routes.max_congestion)
+            self._note_congestion(routes.max_congestion, dag=policy == "balanced")
+            if inter_h is not None:
+                routes.n_detours = int(counts_sub[inter_h >= 0].sum())
             return routes
 
         return RouteWindow(reap)

@@ -175,7 +175,7 @@ def route_collective_sharded(
 
 def _not_ported(name: str):
     def raise_(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP A12)")
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP A12 item 3)")
 
     raise_.__name__ = name
     return raise_

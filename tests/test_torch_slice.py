@@ -251,13 +251,13 @@ def test_single_routes_and_mutation_match():
 def test_unported_surface_raises():
     pdb = topology_from_dict(j_fattree(4).to_topology_db(backend="jax").to_dict(), device="cpu")
     macs = list(pdb.hosts)[:4]
-    with pytest.raises(NotImplementedError, match="A5"):
-        pdb.find_routes_collective(macs, [0], [1], policy="shortest")
     with pytest.raises(NotImplementedError, match="A10"):
         pdb.find_routes_collective(macs, [0], [1], schedule=2)
+    with pytest.raises(NotImplementedError, match="A10"):
+        pdb.find_routes_collective_phased(macs, [0], [1])
+    with pytest.raises(NotImplementedError, match="A7"):
+        pdb.find_routes_batch_delta_dispatch([(macs[0], macs[1])], [1])
     with pytest.raises(NotImplementedError, match="A5"):
-        pdb.find_routes_batch([(macs[0], macs[1])])
-    with pytest.raises(NotImplementedError):
         pdb.find_route(macs[0], macs[1], multiple=True)
 
 
