@@ -671,8 +671,25 @@ def check_k2_calls(calls: list, launches: int, what: str) -> float:
     err = 0.0
     for args, kw, got in calls:
         err = max(err, check_k2(
-            args, kw, got, f"{what}, fid_base {kw.get('fid_base', 0)}"))
+            args, kw, got, f"{what}, fid_base {kw.get('fid_base', 0)}, salt "
+            f"{kw.get('salt', 0):#x}"))
     return err
+
+
+def checked_launches(fn, what: str, report: dict) -> dict:
+    """:func:`path_launches` of ``fn()`` with every K2 call recorded and
+    held, its set-up's tables included, against the plain versions
+    (:func:`check_k2_calls`, folded into ``report``); two launches in one
+    call (UGAL's segments) must share one set-up."""
+    k2_calls: list = []
+    with recording_sampler(k2_calls):
+        counts = path_launches(fn)
+    report["sample_slots"]["max_abs_err"] = max(
+        report["sample_slots"]["max_abs_err"],
+        check_k2_calls(k2_calls, counts["sample_slots"], what))
+    if len(k2_calls) == 2 and k2_calls[0][1]["tables"] is not k2_calls[1][1]["tables"]:
+        fail(f"{what}: the two segment launches did not share one set-up")
+    return counts
 
 
 def path_launches(fn) -> dict:
@@ -1342,15 +1359,18 @@ def timed_calls(fn, n: int = 3) -> tuple:
     return out, times[0], statistics.median(times[1:]), times[1:]
 
 
-def phase_pair_batches(device) -> list:
+def phase_pair_batches(device, report: dict) -> list:
     """The pair-batch entry points of ``TopologyDB(backend="torch")`` on
     config 5's fabric with its 10,000 flows as host pairs: the adaptive
     batch (the same links loaded, as a Monitor dict), the balanced batch
     on its DAG leg and, 64 pairs, on its greedy leg, the shortest batch
     on the device chase and, 100 pairs, on the host chase, and the
     split-phase window. Every fdb checked hop by hop, the shortest legs
-    against ``find_route`` on 1,000 pairs, launch counts per call held.
-    Returns the launch counts of each call."""
+    against ``find_route`` on 1,000 pairs, launch counts per call held,
+    and every K2 call of the counted run (the adaptive batch's two
+    segments, the DAG leg's one) recorded and held bit for bit, its
+    set-up's tables included, against the plain versions. Returns the
+    launch counts of each call."""
     p = dragonfly_problem(device)
     spec, t = p["spec"], p["t"]
     db = spec.to_topology_db(backend="torch", device=device)
@@ -1388,7 +1408,7 @@ def phase_pair_batches(device) -> list:
     for what, fn, want, these in calls:
         out, first, steady, times = timed_calls(fn)
         res = {}
-        counts = path_launches(lambda: res.update(r=fn()))
+        counts = checked_launches(lambda: res.update(r=fn()), what, report)
         if any(counts[k] != n for k, n in want.items()) or counts["ring_all_gather"]:
             fail(f"{what}: launches {counts}, want {want}")
         all_counts.append(counts)
@@ -1412,14 +1432,16 @@ def phase_pair_batches(device) -> list:
     return all_counts
 
 
-def phase_collective_policies(device) -> list:
+def phase_collective_policies(device, report: dict) -> list:
     """``find_routes_collective`` with the shortest and adaptive policies
     over config 4's fat-tree (k=28, V=1024) and its 4096-rank alltoall:
     every pair checked (``check_routes``; the fabric is idle, so UGAL
     keeps every route minimal), two calls identical, first and steady
     calls, the dispatch/reap split, launches shortest 0 / 0 / 0 and
-    adaptive K1 0, set-up 1, K2 2.
-    Returns the launch counts of one call of each."""
+    adaptive K1 0, set-up 1, K2 2, the adaptive policy's two K2 segment
+    launches recorded and held bit for bit, their shared set-up's tables
+    included, against the plain versions. Returns the launch counts of
+    one call of each."""
     from sdnmpi_tpu_torch.collectives import alltoall_pairs
     from sdnmpi_tpu_torch.topogen import fattree
 
@@ -1442,7 +1464,7 @@ def phase_collective_policies(device) -> list:
 
         routes, first, steady, times = timed_calls(route)
         res = {}
-        counts = path_launches(lambda: res.update(r=route()))
+        counts = checked_launches(lambda: res.update(r=route()), what, report)
         if any(counts[k] != n for k, n in want.items()) or counts["ring_all_gather"]:
             fail(f"{what}: launches {counts}, want {want}")
         all_counts.append(counts)
@@ -1512,8 +1534,8 @@ def main() -> int:
     # phases 10 to 12: the UGAL program, the pair batches, the collective
     # policies
     ugal_counts = phase_ugal_program(device, report)
-    batch_counts = phase_pair_batches(device)
-    policy_counts = phase_collective_policies(device)
+    batch_counts = phase_pair_batches(device, report)
+    policy_counts = phase_collective_policies(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}

@@ -541,37 +541,6 @@ class RouteOracle:
             paths, self._port, t.dpids, dst_sw, np.zeros(n_sub, np.int32)
         )
 
-    def _materialize_fdbs(
-        self,
-        t: TopoTensors,
-        groups: dict,
-        group_subs: dict,
-        paths: np.ndarray,
-        results: list,
-    ) -> list[tuple[int, int]]:
-        """Per-sub-flow node rows ``[S, L]`` -> installed per-pair fdbs in
-        ``results``. Each pair is dealt onto its group's sub-flows
-        round-robin; members share the transit hops and differ in the
-        final (host) port. Returns the ``(pair index, sub-flow index)``
-        of every installed pair."""
-        od, op, ln = self._subflow_fdbs(t, group_subs, paths)
-        hop_lists: list[Optional[list[tuple[int, int]]]] = [None] * paths.shape[0]
-        installed: list[tuple[int, int]] = []
-        for key, members in groups.items():
-            first, nsub = group_subs[key]
-            for j, (k, final_port) in enumerate(members):
-                g = first + j % nsub
-                n = int(ln[g])
-                if n == 0:
-                    continue
-                hops = hop_lists[g]
-                if hops is None:
-                    hops = [(int(od[g, h]), int(op[g, h])) for h in range(n - 1)]
-                    hop_lists[g] = hops
-                results[k] = hops + [(int(od[g, n - 1]), final_port)]
-                installed.append((k, g))
-        return installed
-
     def _materialize_window(
         self,
         t: TopoTensors,
@@ -580,13 +549,17 @@ class RouteOracle:
         paths: np.ndarray,
         n_pairs: int,
         results: list,
+        detour: Optional[np.ndarray] = None,
     ):
-        """Array twin of :meth:`_materialize_fdbs`: the whole window as a
-        :class:`~sdnmpi_tpu_torch.oracle.batch.WindowRoutes`, pairs dealt
-        onto their group's sub-flows round-robin as the list form does,
-        each final hop's port the pair's own attachment port. The
-        congestion figure counts each installed pair once per link of its
-        sub-flow's path (:meth:`_installed_congestion`)."""
+        """Per-sub-flow node rows ``[S, L]`` -> the whole window as a
+        :class:`~sdnmpi_tpu_torch.oracle.batch.WindowRoutes`. Each pair is
+        dealt onto its group's sub-flows round-robin; members share the
+        transit hops and differ in the final hop's port, the pair's own
+        attachment port. Scalar-path pairs already in ``results`` are
+        merged in. ``max_congestion`` is the max discrete link load of the
+        installed pairs (each adds 1 to every link of its sub-flow's path);
+        ``n_detours`` counts the installed pairs whose sub-flow is marked
+        in ``detour`` ([S] bool, the adaptive policy's)."""
         from sdnmpi_tpu_torch.oracle.adaptive import link_loads
         from sdnmpi_tpu_torch.oracle.batch import WindowRoutes
 
@@ -614,25 +587,12 @@ class RouteOracle:
         wr = WindowRoutes(
             od_p, op_p, ln_p,
             max_congestion=float(link_loads(paths, counts, t.v).max(initial=0.0)),
+            n_detours=0 if detour is None else int(detour[g_of_pair[rows]].sum()),
         )
         for k, fdb in enumerate(results):
             if fdb:  # merge the scalar-path pairs back in
                 wr.set_fdb(k, fdb)
         return wr
-
-    @staticmethod
-    def _installed_congestion(
-        paths: np.ndarray, installed: list[tuple[int, int]], v: int
-    ) -> float:
-        """Max discrete link load of the routes actually installed: each
-        installed pair adds 1 to every link of its sub-flow's path."""
-        from sdnmpi_tpu_torch.oracle.adaptive import link_loads
-
-        counts = np.bincount(
-            np.fromiter((g for _, g in installed), np.int64, len(installed)),
-            minlength=paths.shape[0],
-        ).astype(np.float32)
-        return float(link_loads(paths, counts, v).max(initial=0.0))
 
     def routes_batch(
         self, db: "TopologyDB", pairs: list[tuple[str, str]]
@@ -858,12 +818,11 @@ class RouteOracle:
             t, src_idx, dst_idx, weight, base, max_len, rounds,
             ugal_candidates, ugal_bias,
         )
-        paths = stitch_paths(n1, n2, inter)
-        installed = self._materialize_fdbs(t, groups, group_subs, paths, results)
-        n_detours = sum(1 for _, g in installed if inter[g] >= 0)
-        return results, n_detours, self._installed_congestion(
-            paths, installed, t.v
+        wr = self._materialize_window(
+            t, groups, group_subs, stitch_paths(n1, n2, inter), len(pairs),
+            results, detour=inter >= 0,
         )
+        return wr.fdbs(), wr.n_detours, wr.max_congestion
 
     def _adaptive_paths(
         self, t, src_idx, dst_idx, weight, base, max_len, rounds,
