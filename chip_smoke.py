@@ -27,7 +27,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 12.
+               printed last, after phases 7 to 14.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -58,14 +58,29 @@ order; the first failure ends the run with a non-zero exit:
 12. collective policies — find_routes_collective(policy="shortest" and
                "adaptive") over phase 4's fat-tree and alltoall, every
                pair checked.
+13. controller collective — config 4 through the Controller: the k=28
+               fat-tree as a simulated fabric, 4096 ranks announced, one
+               kickoff packet; the 16.7M-pair alltoall takes the block
+               install (K2's set-up and K2 once each). Kickoff to
+               EventCollectiveInstalled timed (first and steady), the
+               install's max congestion against a direct
+               find_routes_collective, its block paths shortest, 1,000
+               seeded rank pairs delivered through the switch tables.
+14. controller packet-in — config 5 through the Controller with the
+               route coalescer: 10,000 unicast packet-ins in windows
+               (packet-in to FlowMods p50/p99), a 64-rank alltoall on
+               the adaptive window install (K2's set-up once, K2 twice),
+               then one loaded global link failed and revalidated.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
 (phase 5), one steady sharded find_routes_collective and one sharded
 refresh (phase 8), one route_collective_sharded call per mode (phase 9),
 route_adaptive(dist=None) (phase 10, exactly K1 1, set-up 1, K2 2), each
-pair-batch entry point (phase 11) and each collective policy (phase 12),
-the last two against the counts each path must launch.
+pair-batch entry point (phase 11), each collective policy (phase 12),
+one controller block install (phase 13, K1 0, set-up 1, K2 1), and the
+packet-in burst, the adaptive window install (K1 0, set-up 1, K2 2) and
+the link failure of phase 14, against the counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so are both of phase 10's and
@@ -81,6 +96,7 @@ points and the programs must show no sort kernel. Nothing here imports JAX or th
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -117,6 +133,11 @@ DFLY_UTIL = 8.0
 DFLY_LEVELS = 4
 DFLY_MAX_LEN = 8
 DFLY_CANDIDATES = 8
+#: rank pairs phase 13 delivers through the switch tables, and the ranks
+#: of phase 14's adaptive window install (4,032 pairs, below
+#: Config.block_install_threshold)
+CTL_DELIVER = 1000
+CTL_WINDOW_RANKS = 64
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -867,6 +888,10 @@ def phase_program(p, device) -> dict:
     require_launched(counts, ("bfs_distances", "sampler_tables", "sample_slots"),
                      "route_collective(dist=None)")
     require_one_set_up(counts, "route_collective(dist=None)")
+    # dist=None on the card runs K1 once for `levels` steps, as the
+    # reference's Pallas path does (the CPU computes exact distances)
+    if counts["bfs_distances"] != 1:
+        fail(f"program: dist=None launched K1 {counts['bfs_distances']} times")
     slots, maxc = out["first"]
     cached, maxc_c = run(p["dist"])
     if not torch.equal(slots, cached) or float(maxc) != float(maxc_c):
@@ -1481,6 +1506,439 @@ def phase_collective_policies(device, report: dict) -> list:
     return all_counts
 
 
+# -- phases 13 and 14: the controller, from packet-in to FlowMods ---------
+
+
+def controller_stack(spec, device, **config_kw):
+    """The port's controller over ``spec``'s simulated fabric on
+    ``device``, every plane at the port's defaults, and the list its
+    EventCollectiveInstalled events land in, each with its time."""
+    from sdnmpi_tpu_torch import Config, Controller
+    from sdnmpi_tpu_torch.control import events as ev
+
+    fabric = spec.to_fabric()
+    ctl = Controller(fabric, Config(oracle_backend="torch", device=str(device),
+                                    **config_kw))
+    ctl.attach()
+    installed: list = []
+    ctl.bus.subscribe(ev.EventCollectiveInstalled,
+                      lambda e: installed.append((time.perf_counter(), e)))
+    return fabric, ctl, installed
+
+
+def launch_ranks(fabric, macs: list) -> None:
+    """Rank i announces itself from ``macs[i]`` (one LAUNCH each)."""
+    from sdnmpi_tpu_torch.protocol import openflow as of
+    from sdnmpi_tpu_torch.protocol.announcement import Announcement, AnnouncementType
+
+    for rank, mac in enumerate(macs):
+        fabric.hosts[mac].send(of.Packet(
+            eth_src=mac, eth_dst="ff:ff:ff:ff:ff:ff", eth_type=of.ETH_TYPE_IP,
+            ip_proto=of.IPPROTO_UDP, udp_dst=61000,
+            payload=Announcement(AnnouncementType.LAUNCH, rank).encode(),
+        ))
+
+
+def send_mpi(fabric, macs: list, s: int, d: int) -> None:
+    """One alltoall packet from rank ``s`` to rank ``d``'s virtual MAC."""
+    from sdnmpi_tpu_torch.protocol import openflow as of
+    from sdnmpi_tpu_torch.protocol.vmac import CollectiveType, VirtualMac
+
+    vmac = VirtualMac(CollectiveType.ALLTOALL, s, d).encode()
+    fabric.hosts[macs[s]].send(
+        of.Packet(eth_src=macs[s], eth_dst=vmac, eth_type=of.ETH_TYPE_IP))
+
+
+def timed_handler(ctl, request_type, walls: list) -> None:
+    """Time every call of the bus handler of ``request_type``."""
+    handler = ctl.bus._request_handlers[request_type]
+
+    def timed(req):
+        t0 = time.perf_counter()
+        try:
+            return handler(req)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    ctl.bus._request_handlers[request_type] = timed
+
+
+def deliver_pairs(fabric, macs: list, pairs, what: str) -> int:
+    """Send one packet per rank pair through the installed switch tables;
+    each must reach its destination host with the virtual destination
+    MAC rewritten to the host's own."""
+    for s, d in pairs:
+        inbox = fabric.hosts[macs[d]].received
+        before = len(inbox)
+        send_mpi(fabric, macs, int(s), int(d))
+        if len(inbox) != before + 1 or inbox[-1].eth_dst != macs[d]:
+            fail(f"{what}: rank {s} -> {d} was not delivered with the MAC "
+                 "rewrite")
+    return len(pairs)
+
+
+def phase_controller_collective(device, report: dict) -> list:
+    """Config 4 through the controller: ``fattree(28).to_fabric()``
+    (980 switches, 5,488 hosts), 4096 ranks announced (rank i on host i),
+    one kickoff packet to ``VirtualMac(ALLTOALL, 0, 1)``; its 16,773,120
+    pairs take the block install with the balanced policy. Reports the
+    time from the kickoff packet-in to EventCollectiveInstalled, the
+    first install (refresh included) and three steady re-installs, the
+    router's share apart from the oracle call and the device's busy
+    share. Holds launches K1 0, set-up 1, K2 1 per install, the K2 call
+    and its tables against the plain versions, the install's pair count,
+    its max congestion against a direct ``find_routes_collective`` of
+    the same arguments, and 1,000 seeded rank pairs delivered through
+    the switch tables on shortest paths. Returns the launch counts of
+    one install."""
+    import torch
+
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(FATTREE_K)
+    t0 = time.perf_counter()
+    fabric, ctl, installed = controller_stack(spec, device)
+    macs = [m for m, _, _ in spec.hosts[:N_RANKS]]
+    launch_ranks(fabric, macs)
+    log(f"controller collective: fat-tree k={FATTREE_K}, {len(fabric.switches)} "
+        f"switches, {len(fabric.hosts):,} hosts, {N_RANKS} ranks announced "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    oracle_ms: list = []
+    timed_handler(ctl, ev.FindCollectiveRoutesRequest, oracle_ms)
+    router = ctl.router
+
+    def kickoff(s: int, d: int) -> float:
+        n0 = len(installed)
+        t_send = time.perf_counter()
+        send_mpi(fabric, macs, s, d)
+        torch.cuda.synchronize()
+        if len(installed) != n0 + 1:
+            fail(f"controller collective: kickoff {s} -> {d} installed "
+                 f"{len(installed) - n0} collectives")
+        return (installed[-1][0] - t_send) * 1e3
+
+    out: dict = {}
+    counts = checked_launches(lambda: out.update(first=kickoff(0, 1)),
+                              "controller collective (block install)", report)
+    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+            "ring_all_gather": 0}
+    if counts != want:
+        fail(f"controller collective: launches {counts}, want {want}")
+    install = next(iter(router.collectives))
+    n_pairs = N_RANKS * (N_RANKS - 1)
+    if install.n_pairs != n_pairs:
+        fail(f"controller collective: {install.n_pairs:,} pairs installed, "
+             f"want {n_pairs:,}")
+    first, first_oracle = out["first"], oracle_ms[-1]
+    steady, steady_oracle = [], []
+    for s in (2, 4, 6):
+        router._remove_collective(next(iter(router.collectives)))
+        steady.append(kickoff(s, s + 1))
+        steady_oracle.append(oracle_ms[-1])
+    router._remove_collective(next(iter(router.collectives)))
+    wall, busy, rows = profile_device(lambda: kickoff(8, 9))
+    log_profile("controller collective (steady install)", wall, busy, rows)
+    router._remove_collective(next(iter(router.collectives)))
+    log_host_profile("controller collective (steady install)",
+                     lambda: kickoff(10, 11))
+    med, med_oracle = statistics.median(steady), statistics.median(steady_oracle)
+    log(f"controller collective: kickoff -> EventCollectiveInstalled first "
+        f"{first:.1f} ms (oracle {first_oracle:.1f} ms, refresh included), "
+        f"steady {', '.join(f'{x:.1f}' for x in steady)} ms (median {med:.1f}; "
+        f"oracle call {med_oracle:.1f} ms, router install {med - med_oracle:.1f} "
+        f"ms, {100 * (med - med_oracle) / med:.1f}%); device busy "
+        f"{busy:.3f} ms of a {wall:.1f} ms profiled install "
+        f"({100 * busy / wall:.2f}%); {install.n_flows:,} switch-level flow "
+        f"entries in {len(install.switches)} switches")
+
+    # the install against a direct call of the oracle with the router's
+    # arguments: its src-major deduplicated pairs, the manager's knobs
+    install = next(iter(router.collectives))
+    tm = ctl.topology_manager
+    cfg = ctl.config
+    key = np.flatnonzero(~np.eye(N_RANKS, dtype=bool))
+    src_idx, dst_idx = (a.astype(np.int32) for a in np.divmod(key, N_RANKS))
+    direct = tm.topologydb.find_routes_collective(
+        list(install.macs), src_idx, dst_idx, policy="balanced",
+        link_util=tm.routing_util(), alpha=cfg.congestion_alpha,
+        link_capacity=cfg.link_capacity_bps, ecmp_ways=cfg.ecmp_ways,
+        rounds=cfg.balance_rounds,
+    )
+    if float(install.max_congestion) != float(direct.max_congestion):
+        fail(f"controller collective: max congestion {install.max_congestion} "
+             f"against {direct.max_congestion} from the direct call")
+    check_routes("controller collective (direct call)", spec, tm.topologydb,
+                 list(install.macs), src_idx, dst_idx, direct)
+    del direct, src_idx, dst_idx, key
+    rng = np.random.default_rng(0)
+    pairs = rng.choice(N_RANKS, (CTL_DELIVER + 100, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]][:CTL_DELIVER]
+    t0 = time.perf_counter()
+    n = deliver_pairs(fabric, macs, pairs, "controller collective")
+    check_block_paths(ctl, "controller collective")
+    from sdnmpi_tpu_torch.utils.devprof import sample_memory
+
+    rss = sample_memory("cpu")
+    log(f"controller collective: max congestion {install.max_congestion} equal "
+        f"to the direct call's; {n} seeded rank pairs delivered through the "
+        f"switch tables with the MAC rewrite [{time.perf_counter() - t0:.1f} s]; "
+        f"host memory {rss['in_use'] / 2**30:.1f} GiB in use, peak "
+        f"{rss['peak'] / 2**30:.1f} GiB")
+    # the fabric's block tables and their member indexes are a heap of
+    # ~10^8 Python objects in reference cycles: free them here, so that
+    # the collector's pass over them is not billed to the next phase
+    del fabric, ctl, router, tm, install, installed
+    t0 = time.perf_counter()
+    gc.collect()
+    log(f"controller collective: gc.collect() of the phase's fabric and "
+        f"controller took {time.perf_counter() - t0:.1f} s")
+    return [counts]
+
+
+def log_host_profile(what: str, fn, top: int = 14) -> None:
+    """Run ``fn()`` once under cProfile and log its ``top`` functions by
+    own time (cProfile slows Python calls, not native code: the shares
+    are leads, the wall times above are the measurement)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    log(f"{what} host profile (cProfile, own time):")
+    for (path, line, name), (_, ncalls, own, cum, _) in rows:
+        log(f"  {own * 1e3:9.1f} ms own {cum * 1e3:9.1f} ms cum x{ncalls:<7d} "
+            f"{os.path.basename(path)}:{line} {name}")
+
+
+def check_block_paths(ctl, what: str) -> None:
+    """Every block path of the installed collectives is a shortest path
+    over the fabric's links, with each hop's port that link's port."""
+    db = ctl.topology_manager.topologydb
+    t, dist, _ = db._oracle_engine().matrices(db)
+    port_h = t.host_port()
+    row_of = np.full(int(t.dpids.max()) + 2, -1, np.int64)
+    row_of[t.dpids] = np.arange(len(t.dpids))
+    n = 0
+    for install in ctl.router.collectives:
+        blocks = {id(e.block): e.block for sw in ctl.southbound.switches.values()
+                  for e in sw.block_table if e.block.cookie == install.cookie}
+        for b in blocks.values():
+            hop_len = np.asarray(b.hop_len).astype(np.int64)
+            live = hop_len > 0
+            rows = np.where(np.asarray(b.hop_dpid) >= 0,
+                            row_of[np.asarray(b.hop_dpid)], -1)[live]
+            length = hop_len[live]
+            last = rows[np.arange(len(rows)), length - 1]
+            if (dist[rows[:, 0], last] != length - 1).any():
+                fail(f"{what}: a block path is not a shortest path")
+            a, c = rows[:, :-1], rows[:, 1:]
+            hop = (a >= 0) & (c >= 0)
+            if not (port_h[a[hop], c[hop]] == np.asarray(b.hop_port)[live][:, :-1][hop]).all():
+                fail(f"{what}: a block hop leaves by a port that is not its link's")
+            n += len(rows)
+    log(f"{what}: {n:,} block paths are shortest paths over real links")
+
+
+def fdb_path(ctl, fabric, src: str, dst: str) -> list:
+    """The switch path of one installed (src, dst) unicast flow, walked
+    hop by hop through the router's SwitchFDB from the source host's
+    switch; fails when it does not end on the destination host's port."""
+    fdb = ctl.router.fdb.fdb
+    peer = {}
+    for a, pa, b, pb in fabric.links:
+        peer[(a, pa)] = b
+        peer[(b, pb)] = a
+    host = fabric.hosts[dst]
+    node = fabric.hosts[src].dpid
+    path = [node]
+    while True:
+        port = fdb.get(node, {}).get((src, dst))
+        if port is None:
+            fail(f"walk {src} -> {dst}: no flow at switch {node}")
+        if node == host.dpid and port == host.port_no:
+            return path
+        node = peer.get((node, port))
+        if node is None or len(path) > 64:
+            fail(f"walk {src} -> {dst}: port {port} leads nowhere")
+        path.append(node)
+
+
+def check_unicast_paths(ctl, fabric, pairs, what: str) -> int:
+    """Every installed pair of ``pairs`` rides a shortest path."""
+    db = ctl.topology_manager.topologydb
+    t, dist, _ = db._oracle_engine().matrices(db)
+    for src, dst in pairs:
+        path = fdb_path(ctl, fabric, src, dst)
+        if len(path) - 1 != dist[t.index[path[0]], t.index[path[-1]]]:
+            fail(f"{what}: {src} -> {dst} rides {path}, not a shortest path")
+    return len(pairs)
+
+
+def phase_controller_packet_in(device, report: dict) -> list:
+    """Config 5 through the controller: ``dragonfly(8, 32).to_fabric()``
+    (256 routers, one host each) with ``coalesce_routes=True`` and
+    ``collective_policy="adaptive"``. (a) Config 5's 10,000 host pairs
+    arrive as IP packet-ins from their source hosts' ports, a burst the
+    coalescer parks and resolves in windows (the sim's idle edge flushes
+    the rest, as ``control/loadgen.py`` drives it); reports the latency
+    from each parked packet-in to its window's FlowMods, the windows and
+    the packets delivered, every installed path a shortest path. (b) A
+    64-rank alltoall kickoff (4,032 pairs, below the block threshold)
+    takes the adaptive window install: launches K1 0, set-up 1, K2 2,
+    both K2 calls held against the plain version, kickoff to the last
+    FlowMod timed. (c) One loaded global link fails: the time until the
+    revalidation has re-installed every affected pair, none on the dead
+    link. Returns the launch counts of (a), (b) and (c)."""
+    import torch
+
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.protocol import openflow as of
+    from sdnmpi_tpu_torch.protocol.vmac import CollectiveType, VirtualMac
+
+    p = dragonfly_problem(device)
+    spec, t = p["spec"], p["t"]
+    fabric, ctl, _ = controller_stack(spec, device, coalesce_routes=True,
+                                      collective_policy="adaptive")
+    router = ctl.router
+    mac_of = {dpid: mac for mac, dpid, _ in spec.hosts}
+    host_macs = [mac_of[int(d)] for d in t.dpids[: t.n_real]]
+    pairs = [(host_macs[s], host_macs[d]) for s, d in zip(p["src"], p["dst"])]
+    windows: list = []
+    timed_handler(ctl, ev.DispatchRoutesBatchRequest, windows)
+    # each parked packet-in's latency: from its park (Router's
+    # monotonic t_parked) to the end of its window's FlowMod install
+    sizes: list = []
+    stamp = [0.0]
+    latency: list = []
+    done: list = []
+    install_window, finish_batch = router._install_window, router._finish_batch
+
+    def stamped_install(*args, **kw):
+        out = install_window(*args, **kw)
+        stamp[0] = time.monotonic()
+        return out
+
+    def timed_finish(batch, *args, **kw):
+        finish_batch(batch, *args, **kw)
+        sizes.append(len(batch))
+        latency.extend(stamp[0] - q.t_parked for q in batch)
+        done.append(stamp[0])
+
+    router._install_window, router._finish_batch = stamped_install, timed_finish
+
+    def burst_of(these):
+        for src, dst in these:
+            h = fabric.hosts[src]
+            ctl.bus.publish(ev.EventPacketIn(h.dpid, h.port_no, of.Packet(
+                eth_src=src, eth_dst=dst, eth_type=of.ETH_TYPE_IP, payload=b"p",
+            ), of.OFP_NO_BUFFER))
+        router.flush_routes()  # the idle edge after the burst
+
+    def burst():
+        burst_of(pairs)
+
+    t0 = time.perf_counter()
+    t_mono = time.monotonic()
+    counts_a = path_launches(burst)
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    gaps = np.diff([t_mono, *done]) * 1e3
+    if len(latency) != len(pairs):
+        fail(f"packet-in burst: {len(latency)} of {len(pairs)} packets finished")
+    delivered = sum(len(h.received) for h in fabric.hosts.values())
+    if delivered != len(pairs):
+        fail(f"packet-in burst: {delivered} of {len(pairs)} packets delivered")
+    unique = sorted(set(pairs))
+    check_unicast_paths(ctl, fabric, unique, "packet-in burst")
+    lat = np.array(latency) * 1e3
+    log(f"packet-in burst: {len(pairs):,} packet-ins ({len(unique):,} distinct "
+        f"pairs) in {len(windows)} windows (sizes {min(sizes)}-{max(sizes)}, "
+        f"median {statistics.median(sizes):.0f}; window dispatch median "
+        f"{statistics.median(windows):.2f} ms) over {burst_ms:.1f} ms; "
+        f"packet-in -> FlowMods p50 {np.percentile(lat, 50):.2f} ms, p99 "
+        f"{np.percentile(lat, 99):.2f} ms, max {lat.max():.2f} ms; "
+        f"{delivered:,} packets delivered; every path shortest; launches "
+        f"{counts_a}; window to window: median {np.median(gaps):.1f} ms, "
+        f"max {gaps.max():.1f} ms (window {int(gaps.argmax())})")
+    log_host_profile("packet-in burst, 2,000 more packet-ins",
+                     lambda: burst_of(pairs[:2000]))
+    if any(counts_a.values()):
+        fail(f"packet-in burst: the shortest windows launched {counts_a}")
+
+    # (b) the adaptive window install of a 64-rank alltoall
+    ranks = [m for m, _, _ in spec.hosts[:CTL_WINDOW_RANKS]]
+    launch_ranks(fabric, ranks)
+    mods: list = []
+    flow_mods_window = fabric.flow_mods_window
+
+    def stamped_mods(dpids, batch):
+        out = flow_mods_window(dpids, batch)
+        mods.append(time.perf_counter())
+        return out
+
+    fabric.flow_mods_window = stamped_mods
+    out: dict = {}
+
+    def kickoff():
+        t_send = time.perf_counter()
+        send_mpi(fabric, ranks, 0, 1)
+        torch.cuda.synchronize()
+        out["ms"] = (mods[-1] - t_send) * 1e3
+
+    counts_b = checked_launches(kickoff, "adaptive window install", report)
+    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 2,
+            "ring_all_gather": 0}
+    if counts_b != want:
+        fail(f"adaptive window install: launches {counts_b}, want {want}")
+    n_pairs = CTL_WINDOW_RANKS * (CTL_WINDOW_RANKS - 1)
+    fdb_pairs = router.fdb.pairs()
+    missing = [(s, d) for s in range(CTL_WINDOW_RANKS)
+               for d in range(CTL_WINDOW_RANKS) if s != d
+               and (ranks[s], VirtualMac(CollectiveType.ALLTOALL, s, d).encode())
+               not in fdb_pairs]
+    if missing:
+        fail(f"adaptive window install: {len(missing)} of {n_pairs} pairs "
+             "have no flows")
+    n_del = deliver_pairs(fabric, ranks, [(s, d) for s in range(0, 64, 7)
+                                          for d in range(0, 64, 5) if s != d],
+                          "adaptive window install")
+    log(f"adaptive window install: {n_pairs:,} pairs, kickoff -> last FlowMod "
+        f"{out['ms']:.1f} ms; launches {counts_b}; {n_del} pairs delivered")
+
+    # (c) one loaded global link fails
+    group = spec.podmap.pod_of
+    fdb = router.fdb.fdb
+    loaded = [c for c in fabric.links if group[c[0]] != group[c[2]]
+              and any(port == c[1] for port in fdb.get(c[0], {}).values())]
+    cable = loaded[0]
+    a, pa, b, pb = cable
+    affected = sorted(k for k, port in fdb.get(a, {}).items() if port == pa)
+    affected += sorted(k for k, port in fdb.get(b, {}).items() if port == pb)
+    out = {}
+
+    def fail_link():
+        t0 = time.perf_counter()
+        fabric.remove_link(*cable)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+
+    counts_c = path_launches(fail_link)
+    if any(port == pa for port in fdb.get(a, {}).values()) or any(
+            port == pb for port in fdb.get(b, {}).values()):
+        fail("link failure: a flow still rides the dead link")
+    unicast = [(s, d) for s, d in affected if d in fabric.hosts]
+    check_unicast_paths(ctl, fabric, unicast, "link failure")
+    log(f"link failure: global link {a}:{pa} - {b}:{pb} carried "
+        f"{len(affected)} flows ({len(unicast)} unicast pairs); revalidation "
+        f"re-installed them in {out['ms']:.1f} ms, none on the dead link, the "
+        f"unicast ones on shortest paths; launches {counts_c}")
+    return [counts_a, counts_b, counts_c]
+
+
 def main() -> int:
     import torch
 
@@ -1536,8 +1994,12 @@ def main() -> int:
     ugal_counts = phase_ugal_program(device, report)
     batch_counts = phase_pair_batches(device, report)
     policy_counts = phase_collective_policies(device, report)
+
+    # phases 13 and 14: the controller, from packet-in to FlowMods
+    ctl_counts = phase_controller_collective(device, report)
+    packet_in_counts = phase_controller_packet_in(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
-             *batch_counts, *policy_counts)
+             *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report

@@ -1,8 +1,11 @@
-"""sdnmpi_tpu_torch: the SDN-MPI route oracle in PyTorch, for NVIDIA Hopper.
+"""sdnmpi_tpu_torch: the SDN-MPI controller and route oracle in PyTorch,
+for NVIDIA Hopper.
 
 A port of ``sdnmpi_tpu`` (the JAX package beside it, which stays the
-reference) that imports neither JAX nor the JAX package. This package
-holds the route oracle: the topology store, the tensorized fabric,
+reference) that imports neither JAX nor the JAX package. It holds the
+control plane (event bus, topology manager, router, process manager,
+monitor, LLDP discovery, the simulated fabric and the recovery plane)
+on the route oracle: the topology store, the tensorized fabric,
 all-pairs distances and next hops, whole collectives and pair batches
 routed by the shortest, balanced (DAG balancer or greedy scanner) and
 adaptive (UGAL) policies with the per-flow path sampler, and the
@@ -11,10 +14,16 @@ hand-written CUDA kernels (BFS distances, path sampling and the ring
 all-gather) beside their plain PyTorch versions.
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; asking for CUDA without a card raises.
+``device="cpu"`` (``Config.device`` for the controller); asking for
+CUDA without a card raises.
 
 Package map:
-  core/         TopologyDB (backends "torch" and "py")
+  config.py     Config: every knob, one dataclass
+  control/      event bus and events, controller, topology manager,
+                router, process manager, monitor, discovery, admission,
+                recovery plane, simulated fabric
+  core/         TopologyDB (backends "torch" and "py"), SwitchFDB,
+                RankAllocationDB, CollectiveTable
   oracle/       APSP, path chase, DAG balancer, greedy scanner, UGAL,
                 route oracle, result arrays
   kernels/      CUDA kernels K1 (BFS), K2 (path sampler), K3 (ring
@@ -24,10 +33,15 @@ Package map:
   topogen/      topology generators (linear, ring, fat-tree, dragonfly,
                 torus)
   collectives/  MPI collective rank-pair generators
-  protocol/     OpenFlow constants and flow batches, virtual MAC codec
-  utils/        MAC helpers, metrics registry
+  protocol/     OpenFlow constants, flow batches and wire codec, virtual
+                MAC codec, LLDP and announcement codecs
+  utils/        MAC helpers, metrics registry, tracing, event log,
+                device-memory telemetry
   native.py     host codecs (C++ over native/, numpy fallbacks)
   convert.py    topology and tensors carried across from sdnmpi_tpu
 """
 
 __version__ = "0.1.0"
+from sdnmpi_tpu_torch.config import Config  # noqa: F401
+from sdnmpi_tpu_torch.control.fabric import Fabric  # noqa: F401
+from sdnmpi_tpu_torch.control.controller import Controller  # noqa: F401

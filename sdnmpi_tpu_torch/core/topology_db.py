@@ -14,7 +14,9 @@ which is ``"cuda"`` unless the caller asks for the CPU; asking for CUDA
 without a card raises. ``backend="py"`` is a pure-Python BFS whose
 semantics match the oracle exactly (lowest-dpid tie-break), the
 differential oracle of the tests. Mutations bump a version counter so
-the oracle caches device tensors until the topology changes.
+the oracle caches device tensors until the topology changes, and each
+mutation is logged as a delta (``deltas_since``) that the control
+plane's revalidation reads through :func:`narrowed_dirty_set`.
 """
 
 from __future__ import annotations
@@ -26,8 +28,14 @@ import numpy as np
 
 from sdnmpi_tpu_torch.protocol.openflow import OFPP_LOCAL
 from sdnmpi_tpu_torch.utils.mac import mac_to_int
+from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 
 _BACKENDS = ("torch", "py")
+
+_m_log_breaks = REGISTRY.counter(
+    "topology_delta_log_breaks_total",
+    "delta-log breaks (structural mutations forcing full recomputes)",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +101,127 @@ def _entity_dict(obj: Any) -> Any:
     return out
 
 
+def narrowed_dirty_set(deltas, podmap=None, db=None) -> Optional[set]:
+    """The delta-narrowing rules, in ONE place .
+
+    Given :meth:`TopologyDB.deltas_since` entries, returns the dirtied
+    dpid set when every delta is individually narrowable, or None when
+    ANY delta kind defeats narrowing. The rules:
+
+    - ``link-`` narrows to its endpoint dpids. Soundness: a pair's
+      chosen shortest path changes under a delete only if it rode the
+      deleted link, so its hops contain both endpoints.
+    - ``switch_upsert`` (a port-set refresh of a known dpid) never
+      changes the routed graph and is ignorable.
+    - ``link+`` normally defeats narrowing — a restored cable can
+      shorten flows whose current detour avoids both endpoints (the
+      torus counterexample). EXCEPT when the topology
+      carries a :class:`~sdnmpi_tpu_torch.topogen.podmap.PodMap` whose
+      generator certified ``intra_add_narrows``, BOTH endpoints are
+      *interior* (non-border) switches of ONE pod, AND every live
+      border pair of that pod is currently within in-pod distance 2
+      (:func:`_pod_borders_within_two`), the add narrows to that pod's
+      member set. Soundness, in two steps. (1) An interior add cannot
+      change any border-pair in-pod distance that is currently <= 2:
+      every new path between borders via the added link spends >= 1
+      hop reaching the first interior endpoint and >= 1 hop returning
+      from the second, so it has length >= 3. The <= 2 precondition is
+      checked LIVE — it holds for pristine fat-tree pods (every agg
+      pair meets through every edge switch) and dragonfly groups
+      (complete), exactly the structural facts the generators certify,
+      and it automatically FAILS (falling back to the clear) once
+      intra-pod deletes degrade the pod, where an interior add really
+      can restore a border-to-border transit (e.g. a pod whose two
+      agg-edge diagonals were cut: an edge-edge add revives the
+      agg->agg path at length 3). (2) With every border-to-border
+      transit cost through the pod unchanged, any pair with both
+      endpoints OUTSIDE the pod is unaffected — its shortest distance
+      decomposes at the pod's borders. Any pair a shorter path COULD
+      reach has an endpoint inside the pod, and its installed route
+      necessarily rides its own endpoint switch, a pod member, so the
+      pod-member dirty set always covers it. Border membership is
+      evaluated against the CURRENT link set, which only
+      over-approximates the pre-add borders — over-approximation can
+      only force MORE adds down the clear path, never unsound
+      narrowing. Unannotated fabrics and partitioner-recovered maps
+      (``intra_add_narrows=False``) keep the always-sound clear.
+    - host / switch membership deltas move endpoint resolution in ways
+      installed hop sets cannot express: never narrowable.
+
+    All consumers — the Router's delta-narrowed revalidation
+    (control/router.py) and the route cache's invalidation sweep
+    (oracle/routecache.py) — share this helper so the proofs cannot
+    drift between them. ``podmap`` is the TopologyDB's annotation (or
+    None) and ``db`` the live TopologyDB — borders and the <= 2
+    precondition are properties of the CURRENT links, not the
+    annotation, and are only computed when a link+ delta actually
+    needs them. Callers that cannot supply both keep the stricter
+    rules."""
+    dirty: set = set()
+    members_of: Optional[list] = None
+    borders: Optional[set] = None
+    for entry in deltas:
+        kind = entry[1]
+        if kind == "link-":
+            dirty.add(entry[2])
+            dirty.add(entry[3])
+        elif (
+            kind == "link+"
+            and podmap is not None
+            and db is not None
+            and getattr(podmap, "intra_add_narrows", False)
+        ):
+            a, b = entry[2], entry[3]
+            pa = podmap.pod_of.get(a)
+            if pa is None or podmap.pod_of.get(b) != pa:
+                return None  # inter-pod or unmapped add: clear
+            if borders is None:
+                borders = db.live_border_set()
+            if a in borders or b in borders:
+                return None  # a border endpoint: no structural cert
+            if members_of is None:
+                members_of = podmap.members()
+            members = members_of[pa]
+            if not _pod_borders_within_two(db, members, borders):
+                return None  # a degraded pod: the cert's premise fell
+            dirty.update(members)
+        elif kind != "switch_upsert":
+            return None
+    return dirty
+
+
+def _pod_borders_within_two(db, members, borders) -> bool:
+    """The live precondition of the intra-pod add narrowing: every
+    ordered pair of the pod's borders is within IN-POD distance 2
+    (direct link, or a shared pod-member relay, checked per direction
+    — the graph discipline is symmetric cables, but staying
+    directed-safe costs nothing). See ``narrowed_dirty_set`` step (1)
+    for why <= 2 is the exact threshold an interior add cannot
+    touch."""
+    pod_set = set(members)
+    bs = sorted(d for d in members if d in borders)
+    out_nb = {
+        x: {n for n in db.links.get(x, ()) if n in pod_set} for x in bs
+    }
+    in_nb = {
+        y: {z for z in pod_set if y in db.links.get(z, ())} for y in bs
+    }
+    for x in bs:
+        for y in bs:
+            if x == y or y in out_nb[x]:
+                continue
+            if out_nb[x].isdisjoint(in_nb[y]):
+                return False
+    return True
+
+
+#: delta-log depth: enough to cover any burst the oracle would repair
+#: incrementally (Config.delta_repair_threshold plus the switch-upsert
+#: chatter cabling changes produce) with a wide margin; overflow just
+#: advances the floor, forcing the next refresh down the full path
+_DELTA_LOG_CAP = 64
+
+
 class TopologyDB:
     def __init__(
         self,
@@ -103,6 +232,9 @@ class TopologyDB:
         mesh_devices: int = 0,
         shard_oracle: bool = False,
         ring_exchange: bool = False,
+        delta_repair_threshold: Optional[int] = None,
+        route_cache: bool = False,
+        route_cache_max_entries: int = 4096,
         hier_oracle: bool = False,
         hier_pod_target: int = 0,
         hier_fused: bool = True,
@@ -114,6 +246,10 @@ class TopologyDB:
             raise NotImplementedError(
                 "the hierarchical oracle (hier_oracle and its hier_* "
                 "arguments) is ROADMAP A13"
+            )
+        if route_cache:
+            raise NotImplementedError(
+                "the memoized route cache (route_cache) is ROADMAP A9"
             )
         # dpid -> switch entity
         self.switches: dict[int, Any] = {}
@@ -139,42 +275,112 @@ class TopologyDB:
         #: pod structure annotation (topogen/podmap.py), set by
         #: TopoSpec.to_topology_db for generator fabrics
         self.podmap = None
+        #: max link deltas the reference's oracle absorbs by in-place
+        #: repair before a full recompute. Stored for the incremental
+        #: oracle (ROADMAP A7); until it is ported every refresh is a
+        #: full recompute, which the reference holds route-equal to the
+        #: repair (tests/test_incremental.py)
+        self.delta_repair_threshold = delta_repair_threshold
         self._version = 0
         self._oracle = None  # lazily-created torch oracle (oracle/engine.py)
+        #: epoch + dirty-set log: one entry per version bump,
+        #: ``(version, kind, ...)`` — see :meth:`deltas_since`.
+        #: Structural mutations (switch deletion) break the log instead.
+        self._delta_log: list[tuple] = []
+        #: deltas at versions <= the floor are unknown (pre-history,
+        #: log overflow, or a structural break)
+        self._delta_floor = 0
 
-    # -- mutators ----------------------------------------------------------
+    # -- mutators (reference: sdnmpi/util/topology_db.py:20-42) ----------
+
+    def _log_delta(self, *entry) -> None:
+        self._delta_log.append((self._version, *entry))
+        if len(self._delta_log) > _DELTA_LOG_CAP:
+            self._delta_floor = self._delta_log.pop(0)[0]
+
+    def _break_deltas(self) -> None:
+        self._delta_log.clear()
+        self._delta_floor = self._version
+        # structural mutation the repair path cannot express: every
+        # oracle/utilplane consumer falls back to its full path
+        _m_log_breaks.inc()
 
     def add_host(self, host: Any) -> None:
         self.hosts[host.mac] = host
         self._version += 1
+        self._log_delta("host", host.port.dpid)
 
     def delete_host(self, mac: str) -> None:
-        if self.hosts.pop(mac, None) is not None:
+        host = self.hosts.pop(mac, None)
+        if host is not None:
             self._version += 1
+            self._log_delta("host", host.port.dpid)
 
     def add_switch(self, switch: Any) -> None:
+        known = switch.dp.id in self.switches
         self.switches[switch.dp.id] = switch
         self._version += 1
+        # an upsert (port-set refresh of a known dpid — what every
+        # cabling change produces via EventPortAdd) never changes the
+        # routed graph; a genuinely new switch may grow the node set
+        self._log_delta(
+            "switch_upsert" if known else "switch_new", switch.dp.id
+        )
 
     def delete_switch(self, switch: Any) -> None:
         if switch.dp.id in self.switches:
             del self.switches[switch.dp.id]
             self._version += 1
+            self._break_deltas()  # node set may shrink: full recompute
 
     def add_link(self, link: Any) -> None:
         self.links.setdefault(link.src.dpid, {})[link.dst.dpid] = link
         self._version += 1
+        self._log_delta(
+            "link+", link.src.dpid, link.dst.dpid, link.src.port_no
+        )
 
     def delete_link(self, link: Any) -> None:
         dst_map = self.links.get(link.src.dpid)
         if dst_map and link.dst.dpid in dst_map:
             del dst_map[link.dst.dpid]
             self._version += 1
+            self._log_delta("link-", link.src.dpid, link.dst.dpid)
 
     @property
     def version(self) -> int:
         """Bumped on every mutation; oracle caches are keyed on this."""
         return self._version
+
+    def live_border_set(self) -> set:
+        """Dpids with at least one link whose far end lives in another
+        pod of :attr:`podmap` (or outside it) — the LIVE border set the
+        narrowed link-add invalidation checks interiors against
+        (:func:`narrowed_dirty_set`). Empty without an annotation."""
+        podmap = self.podmap
+        if podmap is None:
+            return set()
+        pod_of = podmap.pod_of
+        borders: set = set()
+        for src, dst_map in self.links.items():
+            ps = pod_of.get(src)
+            for dst in dst_map:
+                if pod_of.get(dst) != ps or ps is None:
+                    borders.add(src)
+                    borders.add(dst)
+        return borders
+
+    def deltas_since(self, version: int) -> Optional[list[tuple]]:
+        """Every mutation after ``version``, as ``(version, kind, ...)``
+        tuples — ``("link+", src, dst, port)`` / ``("link-", src, dst)``
+        link deltas plus ``switch_upsert`` / ``switch_new`` / ``host``
+        membership markers — or None when the log no longer covers that
+        epoch (overflow or a structural break). The incremental oracle
+        (oracle/incremental.py) repairs its tensors from this instead
+        of recomputing the full APSP."""
+        if version < self._delta_floor:
+            return None
+        return [e for e in self._delta_log if e[0] > version]
 
     def to_dict(self) -> dict:
         """JSON snapshot, same layout as the reference's
@@ -372,7 +578,9 @@ class TopologyDB:
         return RouteWindow(result=WindowRoutes.from_fdbs(fdbs))
 
     def find_routes_batch_delta_dispatch(self, pairs, dirty_dpids):
-        raise NotImplementedError("delta-narrowed batches are ROADMAP A7")
+        raise NotImplementedError(
+            "delta-narrowed batches (Config.delta_reval) are ROADMAP A7"
+        )
 
     def find_routes_collective_phased(self, *args, **kwargs):
         raise NotImplementedError("phase-scheduled collectives are ROADMAP A10")
@@ -441,8 +649,8 @@ class TopologyDB:
         self, src_dpid: int, dst_dpid: int, max_paths: Optional[int] = None
     ) -> tuple[list[list[int]], bool]:
         if self.backend == "torch":
-            raise NotImplementedError(
-                "equal-cost route enumeration on the torch oracle is ROADMAP A5"
+            return self._oracle_engine().all_shortest_routes(
+                self, src_dpid, dst_dpid, max_paths
             )
         return _py_all_shortest_routes(self, src_dpid, dst_dpid, max_paths)
 

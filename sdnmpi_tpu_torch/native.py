@@ -2,7 +2,8 @@
 
 The device computes routes; the host decodes and installs them. These
 bindings accelerate the host side of that pipeline — slot-stream
-decoding, link-load accounting, fdb materialization, pair grouping —
+decoding, link-load accounting, fdb materialization, pair grouping,
+the block install's member scatter, announcement parsing —
 with the C++ library built from ``native/sdnmpi_native.cpp``
 (the same source the JAX package binds). Every entry point but the
 fused grouping pair (``group_pairs``, ``deal_subflows_keyed``) has a
@@ -76,6 +77,7 @@ def _load() -> Optional[ctypes.CDLL]:
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
         i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -98,6 +100,15 @@ def _load() -> Optional[ctypes.CDLL]:
             i64p, i32p, i32p, i64p, i32p, i64p, i64, i32p,
         ]
         lib.deal_subflows_keyed.restype = None
+        lib.decode_announcements.argtypes = [u8p, i64, i32p, i32p]
+        lib.decode_announcements.restype = i64
+        lib.encode_announcements.argtypes = [i32p, i32p, i64, u8p]
+        lib.encode_announcements.restype = None
+        lib.scatter_members.argtypes = [
+            i32p, i32p, i32p, i64p, i64p, i64p, i64p, i32p,
+            i64, i64, i64, i64p, i64p, i64p, i64p, i32p,
+        ]
+        lib.scatter_members.restype = None
         _lib = lib
     except (OSError, AttributeError) as exc:
         logging.getLogger("native").debug("native load failed (%s)", exc)
@@ -305,3 +316,90 @@ def deal_subflows(
     out = np.empty(f, np.int32)
     lib.deal_subflows(inv, src_idx, dst_idx, nsub, sub_base, f, out)
     return out
+
+
+def scatter_members(
+    pair_sub: np.ndarray,
+    src_idx: np.ndarray,
+    dst_idx: np.ndarray,
+    src_key_lut: np.ndarray,
+    vmac_src_lut: np.ndarray,
+    vmac_dst_lut: np.ndarray,
+    rewrite_lut: np.ndarray,
+    fport_lut: np.ndarray,
+    vmac_base: int,
+    n_subflows: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Counting-sort pairs by sub-flow, producing the contiguous member
+    arrays the block install needs: (bounds [S+1] int64, src keys, vMAC
+    keys, rewrite keys, final ports), each [F_routed] sorted so sub-flow
+    s's members are rows bounds[s]:bounds[s+1]. Pairs with pair_sub < 0
+    are dropped. All key production goes through per-endpoint LUTs."""
+    lib = _load()
+    pair_sub = np.ascontiguousarray(pair_sub, np.int32)
+    src_idx = np.ascontiguousarray(src_idx, np.int32)
+    dst_idx = np.ascontiguousarray(dst_idx, np.int32)
+    src_key_lut = np.ascontiguousarray(src_key_lut, np.int64)
+    vmac_src_lut = np.ascontiguousarray(vmac_src_lut, np.int64)
+    vmac_dst_lut = np.ascontiguousarray(vmac_dst_lut, np.int64)
+    rewrite_lut = np.ascontiguousarray(rewrite_lut, np.int64)
+    fport_lut = np.ascontiguousarray(fport_lut, np.int32)
+    f = len(pair_sub)
+    if lib is None:  # numpy fallback: stable argsort + LUT gathers
+        keep = pair_sub >= 0
+        order = np.argsort(pair_sub[keep], kind="stable")
+        si = src_idx[keep][order]
+        di = dst_idx[keep][order]
+        bounds = np.zeros(n_subflows + 1, np.int64)
+        np.cumsum(
+            np.bincount(pair_sub[keep], minlength=n_subflows), out=bounds[1:]
+        )
+        return (
+            bounds,
+            src_key_lut[si],
+            vmac_base | vmac_src_lut[si] | vmac_dst_lut[di],
+            rewrite_lut[di],
+            fport_lut[di],
+        )
+    n_routed = int((pair_sub >= 0).sum())
+    bounds = np.empty(n_subflows + 1, np.int64)
+    m_src = np.empty(n_routed, np.int64)
+    m_vmac = np.empty(n_routed, np.int64)
+    m_rewrite = np.empty(n_routed, np.int64)
+    m_fport = np.empty(n_routed, np.int32)
+    lib.scatter_members(
+        pair_sub, src_idx, dst_idx, src_key_lut, vmac_src_lut, vmac_dst_lut,
+        rewrite_lut, fport_lut, vmac_base, f, n_subflows,
+        bounds, m_src, m_vmac, m_rewrite, m_fport,
+    )
+    return bounds, m_src, m_vmac, m_rewrite, m_fport
+
+
+def decode_announcements(buf: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """Batch-parse concatenated announcement records -> (types, ranks)."""
+    lib = _load()
+    data = np.frombuffer(bytes(buf), np.uint8)
+    n_max = len(data) // 8
+    if lib is None:
+        recs = np.frombuffer(bytes(buf[: n_max * 8]), "<i4").reshape(-1, 2)
+        ok = (recs[:, 0] == 0) | (recs[:, 0] == 1)
+        return recs[ok, 0].astype(np.int32), recs[ok, 1].astype(np.int32)
+    types = np.empty(n_max, np.int32)
+    ranks = np.empty(n_max, np.int32)
+    n = lib.decode_announcements(data, len(data), types, ranks)
+    return types[:n], ranks[:n]
+
+
+def encode_announcements(types: np.ndarray, ranks: np.ndarray) -> bytes:
+    """Inverse of decode_announcements (batch wire encoding)."""
+    lib = _load()
+    types = np.ascontiguousarray(types, np.int32)
+    ranks = np.ascontiguousarray(ranks, np.int32)
+    if lib is None:
+        out = np.empty((len(types), 2), "<i4")
+        out[:, 0] = types
+        out[:, 1] = ranks
+        return out.tobytes()
+    buf = np.empty(len(types) * 8, np.uint8)
+    lib.encode_announcements(types, ranks, len(types), buf)
+    return buf.tobytes()

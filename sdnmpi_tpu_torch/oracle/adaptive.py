@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdnmpi_tpu_torch.kernels.bfs import bfs_distances, neighbor_rows_of
+from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
 from sdnmpi_tpu_torch.kernels.sampler import (
     _MASK,
     _hash_u32,
@@ -49,6 +49,7 @@ from sdnmpi_tpu_torch.oracle.dag import (
     balance_rounds,
     decode_slots_device,
     sampled_hops,
+    uncached_distances,
 )
 
 INF = float("inf")
@@ -192,15 +193,15 @@ def route_adaptive(
     n_candidates: int = 4,
     bias: float = 1.0,
     salt: int = 0,
-    dist: torch.Tensor | None = None,  # cached distances, else kernel K1
+    dist: torch.Tensor | None = None,  # cached distances, else uncached_distances
     packed: bool = False,
     neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """UGAL + load-balanced DAG routing for a whole flow batch.
 
-    Distances (kernel K1 over ``levels`` steps unless ``dist`` is given)
-    -> DAG-restricted weighted costs -> per-flow UGAL choice -> every
-    flow becomes two segment flows (s -> m, m -> t; minimal flows use
+    Distances (:func:`~sdnmpi_tpu_torch.oracle.dag.uncached_distances`
+    unless ``dist`` is given) -> DAG-restricted weighted costs ->
+    per-flow UGAL choice -> every flow becomes two segment flows (s -> m, m -> t; minimal flows use
     m = t and a dead second segment) -> both segment sets are balanced
     together over the shortest-path DAG and sampled to discrete paths by
     kernel K2, the two launches sharing one set-up (salts ``salt`` and
@@ -213,13 +214,15 @@ def route_adaptive(
     K2's int8 slot streams ``(inter, slots1, slots2, load)``; decode them
     on the host with :func:`decode_segments`.
 
-    Without ``dist``, ``levels`` must bound the diameter: pairs farther
-    apart read unreachable."""
+    Without ``dist``, the card runs kernel K1 for ``levels`` steps and
+    reads pairs farther apart as unreachable, as the reference's Pallas
+    path does; the CPU computes exact distances, as the reference does
+    off the TPU."""
     v = adj.shape[0]
     if neigh is None:
         neigh = neighbor_rows_of(adj)
     if dist is None:
-        dist = bfs_distances(adj, levels, neigh=neigh)
+        dist = uncached_distances(adj, levels, neigh)
     cost = congestion_cost(adj, util)
     dmin = dag_weighted_costs(adj, dist, cost, levels, neigh=neigh)
     inter = ugal_choose(

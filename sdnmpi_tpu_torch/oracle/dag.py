@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdnmpi_tpu_torch.kernels.bfs import bfs_distances, neighbor_rows, neighbor_rows_of
+from sdnmpi_tpu_torch.kernels.bfs import MAX_V, bfs_distances, neighbor_rows, neighbor_rows_of
 from sdnmpi_tpu_torch.kernels.sampler import (
     _hash_u32,
     _mul32,
@@ -298,6 +298,29 @@ def decode_slots_device(
     return torch.cat([nodes, last[:, None], forced[:, None]], dim=1).to(torch.int32)
 
 
+def uncached_distances(
+    adj: torch.Tensor, levels: int, neigh: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The distances a ``dist=None`` program routes on, by the
+    reference's own dispatch (``sdnmpi_tpu/oracle/dag.py``
+    ``route_collective``): on a CUDA tensor, kernel K1 for exactly
+    ``levels`` steps, the counterpart of the reference's Pallas BFS,
+    which truncates there too, so pairs farther apart read unreachable;
+    on a CPU tensor, the exact ``apsp_distances``, the reference's path
+    off the TPU. Past K1's ``MAX_V`` the card has no BFS yet: the
+    large hierarchical fabrics are ROADMAP A13."""
+    if adj.device.type == "cuda":
+        if adj.shape[0] > MAX_V:
+            raise ValueError(
+                f"dist=None on the card takes V <= {MAX_V} (kernel K1), got "
+                f"{adj.shape[0]}; larger fabrics are ROADMAP A13"
+            )
+        return bfs_distances(adj, levels, neigh=neigh)
+    from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
+
+    return apsp_distances(adj)
+
+
 def route_collective(
     adj: torch.Tensor,  # [V, V] 0/1
     link_src: torch.Tensor,  # [E] int32 row index of each real link
@@ -317,7 +340,7 @@ def route_collective(
     """End-to-end collective routing on the tensors' device.
 
     Scatters the per-link utilization into the ``[V, V]`` cost matrix,
-    computes the distances with kernel K1 (``levels`` steps) unless the
+    computes the distances with :func:`uncached_distances` unless the
     caller passes the ``dist`` cached at this topology version, balances
     the collective over the DAG, and samples every flow's path with
     kernel K2. Returns ``(slots [F, sampled_hops(max_len)] int8,
@@ -327,18 +350,21 @@ def route_collective(
     ``dst_nodes`` (every flow's ``dst`` and every nonzero ``traffic``
     row must be in it) restricts the balancing products and the
     sampler's distance table to the destination set, with the same
-    result. ``levels`` must bound the diameter: without a cached
-    ``dist``, pairs farther apart read unreachable. ``neigh`` is the
-    compact sorted neighbour table of ``adj`` that the oracle builds once
-    per topology version (``TopoTensors.neigh``); without it one is built
-    here. It takes the place of the reference's ``max_degree``."""
+    result. ``levels`` bounds the balancer's DAG depth; without a cached
+    ``dist`` it also bounds K1 on the card, where pairs farther apart
+    read unreachable, as on the reference's Pallas path, while the CPU
+    computes exact distances, as the reference does off the TPU.
+    ``neigh`` is the compact sorted neighbour table of ``adj`` that the
+    oracle builds once per topology version (``TopoTensors.neigh``);
+    without it one is built here. It takes the place of the reference's
+    ``max_degree``."""
     v = adj.shape[0]
     base = torch.zeros((v, v), dtype=torch.float32, device=adj.device)
     base[link_src.long(), link_dst.long()] = link_util.to(torch.float32)
     if neigh is None:
         neigh = neighbor_rows_of(adj)
     if dist is None:
-        dist = bfs_distances(adj, levels, neigh=neigh)
+        dist = uncached_distances(adj, levels, neigh)
     weights, _, maxc = balance_rounds(
         adj, dist, base, traffic, levels=levels, rounds=rounds,
         dst_nodes=dst_nodes,

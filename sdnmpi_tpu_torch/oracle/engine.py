@@ -362,6 +362,22 @@ class RouteOracle:
         return self._tensors
 
     @property
+    def dist_device(self):
+        """The distance matrix of the last ``refresh()`` on the oracle's
+        device (None before the first): one ``[V, V]`` tensor, or the
+        list of per-shard row blocks under ``shard_oracle``. Lets batch
+        callers reuse the distances the refresh already paid for."""
+        return self._dist_d
+
+    def matrices(
+        self, db: "TopologyDB"
+    ) -> tuple[TopoTensors, np.ndarray, np.ndarray]:
+        """``(tensors, distances, next hops)`` of the current topology,
+        the two matrices as host arrays."""
+        t = self.refresh(db)
+        return t, self._dist, self._next
+
+    @property
     def _dist(self) -> Optional[np.ndarray]:
         """Host twin of the distance matrix, copied on first use per
         topology version (shard by shard when row-sharded)."""
@@ -422,6 +438,43 @@ class RouteOracle:
             node = int(self._next[node, di])
             route.append(int(t.dpids[node]))
         return route
+
+    def all_shortest_routes(
+        self, db: "TopologyDB", src_dpid: int, dst_dpid: int,
+        max_paths: Optional[int] = None,
+    ) -> tuple[list[list[int]], bool]:
+        """Enumerate equal-cost shortest paths, capped at ``max_paths``.
+
+        Walks the shortest-path DAG of the cached distance matrix on the
+        host, in ascending-index order. The path count is exponential in
+        the worst case, so the walk stops, returning ``truncated=True``,
+        once the cap is hit; every DAG branch reaches the destination,
+        so the cap bounds the total work. Returns ``(routes, truncated)``.
+        """
+        if src_dpid == dst_dpid:
+            return [[src_dpid]], False
+        t = self.refresh(db)
+        si = t.index.get(src_dpid)
+        di = t.index.get(dst_dpid)
+        if si is None or di is None or not np.isfinite(self._dist[si, di]):
+            return [], False
+        dist = self._dist
+        adj = t.host_adj() > 0
+        routes: list[list[int]] = []
+        stack: list[list[int]] = [[si]]
+        while stack:
+            acc = stack.pop()
+            node = acc[-1]
+            if node == di:
+                routes.append([int(t.dpids[n]) for n in acc])
+                if max_paths is not None and len(routes) >= max_paths:
+                    return routes, bool(stack)
+                continue
+            # reversed push order == ascending-index emission order
+            for nxt in np.nonzero(adj[node])[0][::-1]:
+                if dist[nxt, di] == dist[node, di] - 1:
+                    stack.append(acc + [int(nxt)])
+        return routes, False
 
     def _next_full(self) -> torch.Tensor:
         """The next-hop matrix as one ``[V, V]`` tensor on the oracle's

@@ -64,9 +64,19 @@ class TopoSpec:
         return db
 
     def to_fabric(self, **fabric_kw):
-        raise NotImplementedError(
-            "the simulated fabric is not ported yet (ROADMAP A6)"
-        )
+        """Materialize as a simulated :class:`~sdnmpi_tpu_torch.control.
+        fabric.Fabric`; ``fabric_kw`` (``wire=``, ...) go to its
+        constructor."""
+        from sdnmpi_tpu_torch.control.fabric import Fabric
+
+        fabric = Fabric(**fabric_kw)
+        for dpid in self.switches:
+            fabric.add_switch(dpid)
+        for a, pa, b, pb in self.links:
+            fabric.add_link(a, pa, b, pb)
+        for mac, dpid, port_no in self.hosts:
+            fabric.add_host(mac, dpid, port_no)
+        return fabric
 
 
 class PortAllocator:

@@ -33,7 +33,7 @@ from sdnmpi_tpu_torch.collectives import alltoall_pairs
 from sdnmpi_tpu_torch.collectives import patterns as p_patterns
 from sdnmpi_tpu_torch.protocol import vmac as p_vmac
 from sdnmpi_tpu_torch.convert import topology_from_dict
-from sdnmpi_tpu_torch.core.topology_db import Link, Port
+from sdnmpi_tpu_torch.core.topology_db import Link, Port, TopologyDB
 from sdnmpi_tpu_torch.oracle import dag
 from tests.test_torch_kernels import _jax_lw, assert_slots_match, near_ties
 
@@ -257,8 +257,8 @@ def test_unported_surface_raises():
         pdb.find_routes_collective_phased(macs, [0], [1])
     with pytest.raises(NotImplementedError, match="A7"):
         pdb.find_routes_batch_delta_dispatch([(macs[0], macs[1])], [1])
-    with pytest.raises(NotImplementedError, match="A5"):
-        pdb.find_route(macs[0], macs[1], multiple=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TopologyDB(device="cpu", route_cache=True)
 
 
 @pytest.mark.parametrize("name,args", [
