@@ -27,7 +27,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 14.
+               printed last, after phases 7 to 17.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -71,6 +71,28 @@ order; the first failure ends the run with a non-zero exit:
                (packet-in to FlowMods p50/p99), a 64-rank alltoall on
                the adaptive window install (K2's set-up once, K2 twice),
                then one loaded global link failed and revalidated.
+15. launcher — config 4 through the command line, in this process
+               (``sdnmpi_tpu_torch.launch.main``): ``--demo`` of the
+               4096-rank alltoall on the k=28 fat-tree writing checkpoint
+               A, ``--restore A --checkpoint B``, and the demo on the
+               sharded oracle (``--shard-oracle --ring-exchange
+               --mesh-devices 8``); the start -> demo-installed wall, the
+               checkpoint's bytes and write and restore seconds; A and B
+               agree, the sharded install's max congestion is the
+               unsharded one's.
+16. southbound — config 14's fabric over TCP: the 80 switches of a k=8
+               fat-tree as scripted raw-byte OpenFlow 1.0 switches
+               dialling the port's OFSouthbound, 128 ranks announced as
+               UDP:61000 packet-in bytes, one 16,256-pair alltoall
+               kickoff through the block install; every FlowMod checked
+               on the switch its oracle route names.
+17. serving  — config 14's shape through the command line (``--topo
+               fattree:8 --wire --tenants 4 --offered-rate 400
+               --duration 1.5``) with and without the route cache, in
+               turns: routes/s and p50/p99/p999 per tenant, the cache's hit ==
+               miss on one 256-pair window; then the port started twice
+               as a child process with ``--warm-serving`` and one kernel
+               build directory, empty (nvcc builds) and warm (loads).
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -80,12 +102,16 @@ route_adaptive(dist=None) (phase 10, exactly K1 1, set-up 1, K2 2), each
 pair-batch entry point (phase 11), each collective policy (phase 12),
 one controller block install (phase 13, K1 0, set-up 1, K2 1), and the
 packet-in burst, the adaptive window install (K1 0, set-up 1, K2 2) and
-the link failure of phase 14, against the counts each path must launch.
+the link failure of phase 14, each launcher run of phase 15 (demo and
+restore: K1 0, set-up 1, K2 1; sharded demo: set-up 1, K2 8, K3 at
+least 1), the TCP block install of phase 16 (K1 0, set-up 1, K2 1) and
+each serving run of phase 17, against the counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so are both of phase 10's and
 every shard's sampler call
-(with its ``fid_base``) of the steady sharded call and of each
+(with its ``fid_base``) of the steady sharded call, of every launcher
+run and of the TCP block install and of each
 route_collective_sharded call, and the tables its set-up kernels
 (``sampler_tables``) built for it against the plain set-up. The set-up
 has a launch count of its own: every call must launch it once for its
@@ -98,6 +124,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -138,6 +165,11 @@ DFLY_CANDIDATES = 8
 #: Config.block_install_threshold)
 CTL_DELIVER = 1000
 CTL_WINDOW_RANKS = 64
+#: where phases 15-17 write checkpoints and the warm-start kernel
+#: directory (inside the checkout, git-ignored; removed again)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_out")
+#: config 14's cache-fence window (benchmarks/config14_serving.py)
+CACHE_WINDOW = 256
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -1632,6 +1664,9 @@ def phase_controller_collective(device, report: dict) -> list:
              f"want {n_pairs:,}")
     first, first_oracle = out["first"], oracle_ms[-1]
     steady, steady_oracle = [], []
+    from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+
+    hits0 = REGISTRY.get("route_cache_hits_total").value
     for s in (2, 4, 6):
         router._remove_collective(next(iter(router.collectives)))
         steady.append(kickoff(s, s + 1))
@@ -1659,7 +1694,19 @@ def phase_controller_collective(device, report: dict) -> list:
     cfg = ctl.config
     key = np.flatnonzero(~np.eye(N_RANKS, dtype=bool))
     src_idx, dst_idx = (a.astype(np.int32) for a in np.divmod(key, N_RANKS))
-    direct = tm.topologydb.find_routes_collective(
+    # the steady re-installs of one collective are route-cache hits; the
+    # hit's cost is the key over the 16.7M pairs
+    cache = tm.topologydb.route_cache
+    t0 = time.perf_counter()
+    cache.collective_key(list(install.macs), src_idx, dst_idx, "balanced", None, {})
+    log(f"controller collective: {REGISTRY.get('route_cache_hits_total').value - hits0:.0f} "
+        f"of the 5 re-installs (3 steady, 2 profiled) served from the route "
+        f"cache; one cache key "
+        f"over the {N_RANKS * (N_RANKS - 1):,} pairs takes "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # the direct call takes the uncached leg: a memo hit would compare
+    # the install with itself
+    direct = tm.topologydb._find_routes_collective(
         list(install.macs), src_idx, dst_idx, policy="balanced",
         link_util=tm.routing_util(), alpha=cfg.congestion_alpha,
         link_capacity=cfg.link_capacity_bps, ecmp_ways=cfg.ecmp_ways,
@@ -1939,6 +1986,576 @@ def phase_controller_packet_in(device, report: dict) -> list:
     return [counts_a, counts_b, counts_c]
 
 
+# -- phases 15 to 17: the command line, the TCP southbound, serving -------
+
+
+class LogTimes(logging.Handler):
+    """A logging handler that keeps ``(perf_counter, message)`` of every
+    record it sees."""
+
+    def __init__(self, out: list):
+        super().__init__()
+        self.out = out
+
+    def emit(self, record) -> None:
+        self.out.append((time.perf_counter(), record.getMessage()))
+
+
+@contextlib.contextmanager
+def launcher_probe(record: dict):
+    """Instrument one in-process run of the port's launcher: the
+    Controller it builds, the time of each ``launch`` log record, the
+    walls of its checkpoint save and restore, and the serving-load
+    reports of ``--tenants``. Everything lands in ``record``."""
+    from sdnmpi_tpu_torch import launch
+    from sdnmpi_tpu_torch.api import snapshot
+
+    real = (launch.Controller, snapshot.save_checkpoint,
+            snapshot.load_checkpoint, launch.run_serving_load)
+
+    def controller(*a, **kw):
+        record["controller"] = real[0](*a, **kw)
+        return record["controller"]
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                record[name] = time.perf_counter() - t0
+        return call
+
+    def serving(*a, **kw):
+        record["reports"] = real[3](*a, **kw)
+        return record["reports"]
+
+    logger = logging.getLogger("launch")
+    times = LogTimes(record.setdefault("log", []))
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(times)
+    launch.Controller, launch.run_serving_load = controller, serving
+    snapshot.save_checkpoint = timed("save_s", real[1])
+    snapshot.load_checkpoint = timed("load_s", real[2])
+    try:
+        yield
+    finally:
+        (launch.Controller, snapshot.save_checkpoint, snapshot.load_checkpoint,
+         launch.run_serving_load) = real
+        logger.removeHandler(times)
+        logger.setLevel(level)
+
+
+@contextlib.contextmanager
+def collector_pauses(out: dict):
+    """Sum the passes of Python's cyclic collector while the context is
+    open: ``out`` gets their count, the full (generation 2) ones and
+    their seconds."""
+    out.update(n=0, full=0, s=0.0)
+    started = []
+
+    def pause(phase: str, info: dict) -> None:
+        if phase == "start":
+            started.append(time.perf_counter())
+            return
+        out["s"] += time.perf_counter() - started.pop()
+        out["n"] += 1
+        out["full"] += info["generation"] == 2
+
+    gc.callbacks.append(pause)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(pause)
+
+
+def run_launcher(argv: list, what: str, report: dict) -> tuple[dict, dict]:
+    """``sdnmpi_tpu_torch.launch.main(argv)`` in this process, with every
+    K2 call recorded and held against the plain sampler. Returns the
+    launch counts of the run and the probe's record."""
+    from sdnmpi_tpu_torch import launch
+
+    record: dict = {}
+    pauses: dict = {}
+    log(f"{what}: python -m sdnmpi_tpu_torch {' '.join(argv)}")
+    with launcher_probe(record), collector_pauses(pauses):
+        record["t0"] = time.perf_counter()
+        counts = checked_launches(lambda: launch.main(argv), what, report)
+        record["wall_s"] = time.perf_counter() - record["t0"]
+    log(f"launches, {what}: {counts}; the cyclic collector ran {pauses['n']} "
+        f"passes ({pauses['full']} full) for {pauses['s']:.2f} s of the "
+        f"{record['wall_s']:.2f} s run")
+    return counts, record
+
+
+def logged_at(record: dict, text: str) -> float:
+    """Seconds from the run's start to its first ``launch`` log record
+    holding ``text``."""
+    for t, msg in record["log"]:
+        if text in msg:
+            return t - record["t0"]
+    fail(f"the launcher never logged {text!r}")
+
+
+def collect(what: str) -> None:
+    t0 = time.perf_counter()
+    gc.collect()
+    log(f"{what}: gc.collect() took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_launcher(device, report: dict, k: int = FATTREE_K,
+                   n_ranks: int = N_RANKS, shards: int = N_SHARDS) -> list:
+    """Config 4 through the port's command line, in this process: (1)
+    ``--demo`` of a 4096-rank alltoall on the k=28 fat-tree (the 16.7M
+    pairs of phase 13, block-installed) writing checkpoint A; (2)
+    ``--restore A --checkpoint B`` with no demo; (3) the demo again on
+    the sharded oracle (``--shard-oracle --ring-exchange --mesh-devices
+    8``). Reports each run's launches, the start -> ``demo: ... flows
+    installed`` wall, the checkpoint's bytes and write seconds and the
+    restore seconds; A and B must agree on the rank DB, the collectives
+    and the desired flows, and the sharded install must have the
+    unsharded one's max congestion. Returns the launch counts."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    ckpt_a = os.path.join(OUT_DIR, "launcher-A.json")
+    ckpt_b = os.path.join(OUT_DIR, "launcher-B.json")
+    base = ["--topo", f"fattree:{k}", "--no-rpc", "--duration", "0.1",
+            "--device", str(device)]
+    demo = ["--demo", "--demo-ranks", str(n_ranks)]
+    n_pairs = n_ranks * (n_ranks - 1)
+
+    def installed(record: dict, what: str):
+        colls = list(record["controller"].router.collectives)
+        if len(colls) != 1 or colls[0].n_pairs != n_pairs:
+            fail(f"{what}: {[c.n_pairs for c in colls]} pairs block-installed, "
+                 f"want one collective of {n_pairs:,}")
+        return colls[0]
+
+    def want(counts: dict, expect: dict, what: str) -> None:
+        for name, n in expect.items():
+            if counts[name] != n:
+                fail(f"{what}: launches {counts}, want {expect}")
+
+    counts_a, rec = run_launcher(base + demo + ["--checkpoint", ckpt_a],
+                                 "launcher demo", report)
+    want(counts_a, {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+                    "ring_all_gather": 0}, "launcher demo")
+    max_congestion = float(installed(rec, "launcher demo").max_congestion)
+    size_a = os.path.getsize(ckpt_a)
+    log(f"launcher demo: start -> demo flows installed "
+        f"{logged_at(rec, 'demo:'):.2f} s (start -> fabric and controller up "
+        f"{logged_at(rec, 'topology'):.2f} s); run {rec['wall_s']:.2f} s; "
+        f"checkpoint A {size_a:,} bytes written in {rec['save_s']:.2f} s; "
+        f"max congestion {max_congestion}")
+    rec.clear()
+    collect("launcher demo")
+
+    counts_b, rec = run_launcher(base + ["--restore", ckpt_a, "--checkpoint", ckpt_b],
+                                 "launcher restore", report)
+    want(counts_b, {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+                    "ring_all_gather": 0}, "launcher restore")
+    restored = float(installed(rec, "launcher restore").max_congestion)
+    if restored != max_congestion:
+        fail(f"launcher restore: max congestion {restored}, saved {max_congestion}")
+    log(f"launcher restore: checkpoint A restored in {rec['load_s']:.2f} s; "
+        f"checkpoint B {os.path.getsize(ckpt_b):,} bytes written in "
+        f"{rec['save_s']:.2f} s; run {rec['wall_s']:.2f} s")
+    rec.clear()
+    collect("launcher restore")
+    t0 = time.perf_counter()
+    with open(ckpt_a) as f:
+        snap_a = json.load(f)
+    with open(ckpt_b) as f:
+        snap_b = json.load(f)
+    for key in ("rankdb", "collectives", "desired_flows"):
+        if snap_a[key] != snap_b[key]:
+            fail(f"launcher restore: checkpoints A and B differ in {key!r}")
+    n_ranks_a = len(snap_a["rankdb"])
+    del snap_a, snap_b
+    os.remove(ckpt_a)
+    os.remove(ckpt_b)
+    log(f"launcher restore: A and B agree on the rank DB ({n_ranks_a} ranks), "
+        f"the collectives and the desired flows "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    collect("launcher checkpoints")
+
+    sharded = ["--shard-oracle", "--ring-exchange", "--mesh-devices", str(shards)]
+    counts_c, rec = run_launcher(base + demo + sharded, "launcher sharded demo", report)
+    want(counts_c, {"bfs_distances": 0, "sampler_tables": 1,
+                    "sample_slots": shards}, "launcher sharded demo")
+    if counts_c["ring_all_gather"] < 1:
+        fail(f"launcher sharded demo: K3 did not launch ({counts_c})")
+    got = float(installed(rec, "launcher sharded demo").max_congestion)
+    if got != max_congestion:
+        fail(f"launcher sharded demo: max congestion {got} against "
+             f"{max_congestion} unsharded")
+    log(f"launcher sharded demo: start -> demo flows installed "
+        f"{logged_at(rec, 'demo:'):.2f} s (start -> fabric and controller up "
+        f"{logged_at(rec, 'topology'):.2f} s); run {rec['wall_s']:.2f} s; max "
+        f"congestion {got} equal to the unsharded install's")
+    rec.clear()
+    collect("launcher sharded demo")
+    return [counts_a, counts_b, counts_c]
+
+
+class ScriptedSwitch:
+    """An OpenFlow 1.0 switch as raw bytes over TCP, the role a physical
+    switch or OVS plays: it answers the handshake, echoes and barriers,
+    and keeps every FlowMod it receives, decoded, with its arrival
+    time."""
+
+    def __init__(self, dpid: int, ports: list):
+        self.dpid = dpid
+        self.ports = ports
+        self.flow_mods: list = []
+        self.barriers = 0
+        self.last_flow_mod = 0.0
+
+    async def connect(self, port: int) -> None:
+        import asyncio
+
+        from sdnmpi_tpu_torch.protocol import ofwire
+
+        self.reader, self.writer = await asyncio.open_connection("127.0.0.1", port)
+        self.writer.write(ofwire.encode_hello(xid=1))
+        self.task = asyncio.create_task(self._read())
+
+    async def _read(self) -> None:
+        from sdnmpi_tpu_torch.protocol import ofwire
+
+        buf = b""
+        while True:
+            data = await self.reader.read(1 << 16)
+            if not data:
+                return
+            buf += data
+            while len(buf) >= 8:
+                msg_type, length, xid = ofwire.peek_header(buf)
+                if len(buf) < length:
+                    break
+                msg, buf = buf[:length], buf[length:]
+                if msg_type == ofwire.OFPT_FEATURES_REQUEST:
+                    self.writer.write(
+                        ofwire.encode_features_reply(self.dpid, self.ports, xid))
+                elif msg_type == ofwire.OFPT_FLOW_MOD:
+                    self.flow_mods.append(ofwire.decode_flow_mod(msg))
+                    self.last_flow_mod = time.perf_counter()
+                elif msg_type == ofwire.OFPT_BARRIER_REQUEST:
+                    self.barriers += 1
+                    self.writer.write(ofwire.encode_barrier_reply(xid))
+                elif msg_type == ofwire.OFPT_ECHO_REQUEST:
+                    self.writer.write(ofwire.encode_echo_reply(msg[8:], xid))
+
+    def send(self, payload: bytes) -> None:
+        self.writer.write(payload)
+
+    async def close(self) -> None:
+        self.task.cancel()
+        self.writer.close()
+
+
+def expected_flow_mods(block) -> list:
+    """The (switch, src, dst, out-port, rewrite) rows a block install
+    must put on the wire: one per member per hop of its sub-flow's
+    path, the last hop rewriting the virtual MAC to the host's."""
+    from sdnmpi_tpu_torch.utils.mac import int_to_mac
+
+    rows = []
+    bounds = np.asarray(block.bounds)
+    for s in range(len(block.hop_len)):
+        n_hops = int(block.hop_len[s])
+        for m in range(int(bounds[s]), int(bounds[s + 1])):
+            src, dst = int_to_mac(int(block.src[m])), int_to_mac(int(block.dst[m]))
+            for h in range(n_hops):
+                last = h == n_hops - 1
+                rows.append((
+                    int(block.hop_dpid[s, h]), src, dst,
+                    int(block.final_port[m] if last else block.hop_port[s, h]),
+                    int_to_mac(int(block.rewrite[m])) if last else None,
+                ))
+    return sorted(rows)
+
+
+def received_flow_mods(switches: dict, cookie: int) -> list:
+    from sdnmpi_tpu_torch.protocol import openflow as of
+
+    rows = []
+    for dpid, sw in switches.items():
+        for m in sw.flow_mods:
+            if m.cookie != cookie:
+                continue
+            out = [a.port for a in m.actions if isinstance(a, of.ActionOutput)]
+            rew = [a.mac for a in m.actions if isinstance(a, of.ActionSetDlDst)]
+            rows.append((dpid, m.match.dl_src, m.match.dl_dst, out[0],
+                         rew[0] if rew else None))
+    return sorted(rows)
+
+
+def phase_southbound(device, report: dict, k: int = 8, n_ranks: int = 128) -> list:
+    """Config 14's fabric over TCP: the 80 switches of a k=8 fat-tree
+    dial the port's ``OFSouthbound`` as scripted raw-byte switches, the
+    links and hosts announced on the bus; 128 ranks announce with
+    UDP:61000 packet-in bytes and one kickoff packet-in starts a
+    16,256-pair alltoall, which takes the block install. Every FlowMod
+    of the block must land as OF 1.0 bytes on the switch the oracle's
+    route names (the route of the ``FindCollectiveRoutesRequest`` reply,
+    unrolled per member and hop). Reports the FlowMods, the kickoff ->
+    last FlowMod wall and the K2 launches (set-up 1, K2 1, each held
+    against the plain version). Returns the launch counts."""
+    import asyncio
+
+    import torch
+
+    from sdnmpi_tpu_torch import Config, Controller
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.control.southbound import OFSouthbound
+    from sdnmpi_tpu_torch.core.topology_db import Host, Link, Port
+    from sdnmpi_tpu_torch.kernels import bfs, ring, sampler
+    from sdnmpi_tpu_torch.protocol import ofwire
+    from sdnmpi_tpu_torch.protocol import openflow as of
+    from sdnmpi_tpu_torch.protocol.announcement import Announcement, AnnouncementType
+    from sdnmpi_tpu_torch.protocol.vmac import CollectiveType, VirtualMac
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(k)
+    out: dict = {}
+
+    async def run() -> None:
+        sb = OFSouthbound(host="127.0.0.1", port=0)
+        ctl = Controller(sb, Config(oracle_backend="torch", device=str(device)))
+        ctl.attach()
+        await sb.serve()
+        ports: dict = {d: set() for d in spec.switches}
+        for _, dpid, port in spec.hosts:
+            ports[dpid].add(port)
+        for a, pa, b, pb in spec.links:
+            ports[a].add(pa)
+            ports[b].add(pb)
+        switches = {d: ScriptedSwitch(d, sorted(ports[d])) for d in spec.switches}
+        t0 = time.perf_counter()
+        for sw in switches.values():
+            await sw.connect(sb.bound_port)
+        while len(sb.connected_dpids()) < len(switches):
+            if time.perf_counter() - t0 > 60:
+                fail(f"southbound: {len(sb.connected_dpids())} of "
+                     f"{len(switches)} switches completed the handshake")
+            await asyncio.sleep(0.01)
+        for a, pa, b, pb in spec.links:
+            ctl.bus.publish(ev.EventLinkAdd(Link(Port(a, pa), Port(b, pb))))
+            ctl.bus.publish(ev.EventLinkAdd(Link(Port(b, pb), Port(a, pa))))
+        for mac, dpid, port in spec.hosts:
+            ctl.bus.publish(ev.EventHostAdd(Host(mac, Port(dpid, port))))
+        hosts = spec.hosts[:n_ranks]
+        for rank, (mac, dpid, port) in enumerate(hosts):
+            switches[dpid].send(ofwire.encode_packet_in(of.Packet(
+                mac, "ff:ff:ff:ff:ff:ff", ip_proto=of.IPPROTO_UDP, udp_dst=61000,
+                payload=Announcement(AnnouncementType.LAUNCH, rank).encode(),
+            ), in_port=port, xid=100 + rank))
+        while len(ctl.process_manager.rankdb) < n_ranks:
+            if time.perf_counter() - t0 > 120:
+                fail(f"southbound: {len(ctl.process_manager.rankdb)} of "
+                     f"{n_ranks} ranks registered")
+            await asyncio.sleep(0.01)
+        log(f"southbound: {len(switches)} switches dialled and {n_ranks} ranks "
+            f"announced over TCP [{time.perf_counter() - t0:.1f} s]")
+
+        # the oracle's reply and the block the router hands the southbound
+        replies, blocks = [], []
+        handler = ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest]
+
+        def oracle(req):
+            reply = handler(req)
+            replies.append(reply.routes)
+            return reply
+
+        ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest] = oracle
+        block_set = sb.flow_block_set
+
+        def flow_block_set(block):
+            blocks.append(block)
+            out["t_block"] = time.perf_counter()
+            try:
+                return block_set(block)
+            finally:
+                out["t_unrolled"] = time.perf_counter()
+
+        sb.flow_block_set = flow_block_set
+        mac0, dpid0, port0 = hosts[0]
+        kickoff = ofwire.encode_packet_in(of.Packet(
+            mac0, VirtualMac(CollectiveType.ALLTOALL, 0, 1).encode(),
+            eth_type=of.ETH_TYPE_IP), in_port=port0, xid=999)
+        k2_calls: list = []
+        for fn in (bfs.bfs_distances, sampler.sample_slots, ring.ring_all_gather,
+                   sampler.sampler_tables):
+            fn.launches = 0
+        with recording_sampler(k2_calls):
+            t_kick = time.perf_counter()
+            switches[dpid0].send(kickoff)
+            while not blocks:
+                if time.perf_counter() - t_kick > 120:
+                    fail("southbound: the kickoff installed no block")
+                await asyncio.sleep(0.005)
+            torch.cuda.synchronize()
+            out["counts"] = {
+                "bfs_distances": bfs.bfs_distances.launches,
+                "sampler_tables": sampler.sampler_tables.launches,
+                "sample_slots": sampler.sample_slots.launches,
+                "ring_all_gather": ring.ring_all_gather.launches,
+            }
+        report["sample_slots"]["max_abs_err"] = max(
+            report["sample_slots"]["max_abs_err"],
+            check_k2_calls(k2_calls, out["counts"]["sample_slots"],
+                           "southbound block install"))
+        want = expected_flow_mods(blocks[0])
+        while True:
+            got = received_flow_mods(switches, blocks[0].cookie)
+            if len(got) >= len(want) or time.perf_counter() - t_kick > 120:
+                break
+            await asyncio.sleep(0.01)
+        out["ms"] = (max(sw.last_flow_mod for sw in switches.values()) - t_kick) * 1e3
+        out["route_ms"] = (out["t_block"] - t_kick) * 1e3
+        out["unroll_ms"] = (out["t_unrolled"] - out["t_block"]) * 1e3
+        routes = replies[-1]
+        if not np.array_equal(blocks[0].hop_dpid, routes.hop_dpid):
+            fail("southbound: the installed block's paths are not the oracle's")
+        if got != want:
+            fail(f"southbound: {len(got):,} block FlowMods received, {len(want):,} "
+                 f"expected, {len(set(want) - set(got)):,} missing")
+        install = next(iter(ctl.router.collectives))
+        if install.n_flows != len(want) or install.n_pairs != n_ranks * (n_ranks - 1):
+            fail(f"southbound: install of {install.n_pairs:,} pairs and "
+                 f"{install.n_flows:,} flows, {len(want):,} FlowMods expected")
+        out["flow_mods"] = len(got)
+        out["switches"] = sum(1 for sw in switches.values() if any(
+            m.cookie == blocks[0].cookie for m in sw.flow_mods))
+        # the run is over: the switches' disconnects must not re-route
+        sb.bus = None
+        for sw in switches.values():
+            await sw.close()
+        await sb.close()
+
+    asyncio.run(run())
+    counts = out["counts"]
+    if counts != {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+                  "ring_all_gather": 0}:
+        fail(f"southbound block install: launches {counts}")
+    log(f"southbound: block install of {n_ranks * (n_ranks - 1):,} pairs sent "
+        f"{out['flow_mods']:,} FlowMods to {out['switches']} switches, every one "
+        f"on the switch its oracle route names; kickoff -> last FlowMod "
+        f"{out['ms']:.1f} ms (kickoff -> block handed to the southbound "
+        f"{out['route_ms']:.1f} ms, its unroll into FlowMods "
+        f"{out['unroll_ms']:.1f} ms); launches {counts}")
+    return [counts]
+
+
+def warm_start(cache_dir: str, k: int, device) -> tuple[float, int]:
+    """Start ``python -m sdnmpi_tpu_torch --warm-serving`` with its
+    kernel build directory at ``cache_dir`` as a child process: the
+    seconds from the start to its ``serving path warmed`` log line, and
+    its exit code."""
+    cmd = [sys.executable, "-m", "sdnmpi_tpu_torch", "--topo", f"fattree:{k}",
+           "--warm-serving", "--compile-cache-dir", cache_dir, "--duration",
+           "0.1", "--no-rpc", "--device", str(device)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    warmed, tail = None, []
+    try:
+        for line in proc.stderr:
+            tail = (tail + [line.rstrip()])[-20:]
+            if warmed is None and "serving path warmed" in line:
+                warmed = time.perf_counter() - t0
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or warmed is None:
+        fail(f"warm start: {' '.join(cmd)} exited {rc}:\n" + "\n".join(tail))
+    return warmed, rc
+
+
+def phase_serving(device, report: dict, k: int = 8, duration: float = 1.5) -> list:
+    """Config 14's shape through the command line: ``--topo fattree:8
+    --wire --tenants 4 --offered-rate 400 --duration 1.5`` (600
+    requests per tenant, open loop) with the route cache and with
+    ``--no-route-cache``, in turns (cache, no cache, no cache, cache);
+    routes/s and p50/p99/p999 per tenant. The
+    cache's hit equals its miss and the uncached route on one 256-pair
+    window of the cached run's controller (config 14's fence). Then the
+    port starts twice as a child process with ``--warm-serving`` and one
+    kernel build directory: empty (nvcc builds the kernels) and then
+    warm (the libraries load, unchanged on disk); the process start ->
+    ``serving path warmed`` wall of each. Returns the launch counts of
+    the two serving runs."""
+    import shutil
+
+    argv = ["--topo", f"fattree:{k}", "--wire", "--tenants", "4", "--offered-rate",
+            "400", "--duration", str(duration), "--no-rpc", "--device", str(device)]
+    counts = []
+    # in turns, cache / no cache / no cache / cache, so that the order
+    # of the runs does not pass for the cache's effect
+    cached, uncached = ("serving, route cache", []), (
+        "serving, no route cache", ["--no-route-cache"])
+    totals: dict = {}
+    for what, extra in (cached, uncached, uncached, cached):
+        c, rec = run_launcher(argv + extra, what, report)
+        counts.append(c)
+        reports = rec["reports"]
+        if len(reports) != 4:
+            fail(f"{what}: {len(reports)} tenant reports")
+        for r in reports.values():
+            if r.completed + r.rejected != r.offered or r.completed == 0:
+                fail(f"{what}: tenant {r.tenant} completed {r.completed} of "
+                     f"{r.offered}")
+            log(f"{what}: {r.tenant} {r.routes_per_s:.1f} routes/s (offered "
+                f"{r.offered}, completed {r.completed}, rejected {r.rejected}), "
+                f"p50 {r.p50_ms:.3f} ms, p99 {r.p99_ms:.3f} ms, p999 "
+                f"{r.p999_ms:.3f} ms")
+        total = sum(r.routes_per_s for r in reports.values())
+        totals.setdefault(what, []).append(total)
+        log(f"{what}: {total:.1f} routes/s over the 4 tenants")
+        if not extra and len(totals[what]) == 1:
+            db = rec["controller"].topology_manager.topologydb
+            macs = sorted(db.hosts)
+            pairs = [(macs[i % len(macs)], macs[(7 * i + 3) % len(macs)])
+                     for i in range(CACHE_WINDOW)]
+            pairs = [(s, d) for s, d in pairs if s != d][:CACHE_WINDOW]
+            miss = db.find_routes_batch_dispatch(pairs).reap()
+            copy = [a.copy() for a in (miss.hop_dpid, miss.hop_port, miss.hop_len)]
+            hit = db.find_routes_batch_dispatch(pairs).reap()
+            off = db._find_routes_batch_dispatch(pairs).reap()
+            if hit is not miss:
+                fail(f"{what}: the repeat window was not served from the memo")
+            for r in (hit, off):
+                if not all(np.array_equal(a, b) for a, b in zip(
+                        (r.hop_dpid, r.hop_port, r.hop_len), copy)):
+                    fail(f"{what}: hit, miss and uncached windows differ")
+            log(f"{what}: cache fence: hit == miss == uncached over "
+                f"{len(pairs)} pairs")
+        rec.clear()
+        collect(what)
+    log("serving: routes/s over the 4 tenants, with the cache (runs 1 and 4) "
+        "and without (runs 2 and 3): " + "; ".join(
+            f"{w} {', '.join(f'{x:.1f}' for x in v)}" for w, v in totals.items()))
+
+    cache = os.path.join(OUT_DIR, "kernel-cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    cold, _ = warm_start(cache, k, device)
+    built = {f: os.path.getmtime(os.path.join(cache, f))
+             for f in os.listdir(cache) if f.endswith(".so")}
+    warm, _ = warm_start(cache, k, device)
+    again = {f: os.path.getmtime(os.path.join(cache, f))
+             for f in os.listdir(cache) if f.endswith(".so")}
+    if len(built) != 3 or again != built:
+        fail(f"warm start: {len(built)} libraries built, and the warm start "
+             f"{'left them as they were' if again == built else 'rebuilt them'}")
+    shutil.rmtree(cache, ignore_errors=True)
+    log(f"warm start: process start -> serving path warmed cold (nvcc builds "
+        f"{len(built)} kernels) {cold:.2f} s, warm (loads them) {warm:.2f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1998,8 +2615,18 @@ def main() -> int:
     # phases 13 and 14: the controller, from packet-in to FlowMods
     ctl_counts = phase_controller_collective(device, report)
     packet_in_counts = phase_controller_packet_in(device, report)
+
+    # phases 15 to 17: the command line, the TCP southbound, serving;
+    # the launcher's INFO lines go to stderr, the rest of its stack's
+    # only from WARNING up
+    logging.basicConfig(level=logging.WARNING,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    launcher_counts = phase_launcher(device, report)
+    southbound_counts = phase_southbound(device, report)
+    serving_counts = phase_serving(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
-             *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts)
+             *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
+             *launcher_counts, *southbound_counts, *serving_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report
@@ -2022,6 +2649,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": r.get("library_ms"),
         })
+    # the card's name and power limit again, beside the numbers they qualify
+    log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

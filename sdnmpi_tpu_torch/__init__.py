@@ -3,9 +3,11 @@ for NVIDIA Hopper.
 
 A port of ``sdnmpi_tpu`` (the JAX package beside it, which stays the
 reference) that imports neither JAX nor the JAX package. It holds the
-control plane (event bus, topology manager, router, process manager,
-monitor, LLDP discovery, the simulated fabric and the recovery plane)
-on the route oracle: the topology store, the tensorized fabric,
+command line (``python -m sdnmpi_tpu_torch``), the control plane (event
+bus, topology manager, router, process manager, monitor, LLDP
+discovery, the simulated fabric, the OpenFlow 1.0 TCP southbound, the
+recovery plane and the serving plane: route cache, admission, load
+generator), the WebSocket mirror and checkpoints, on the route oracle: the topology store, the tensorized fabric,
 all-pairs distances and next hops, whole collectives and pair batches
 routed by the shortest, balanced (DAG balancer or greedy scanner) and
 adaptive (UGAL) policies with the per-flow path sampler, and the
@@ -18,14 +20,17 @@ Entry points run on ``device="cuda"`` unless the caller passes
 CUDA without a card raises.
 
 Package map:
+  launch.py     the command line (__main__.py runs it)
   config.py     Config: every knob, one dataclass
+  api/          WebSocket JSON-RPC mirror, its wire ABI, checkpoints
   control/      event bus and events, controller, topology manager,
                 router, process manager, monitor, discovery, admission,
-                recovery plane, simulated fabric
+                load generator, recovery plane, simulated fabric,
+                OpenFlow TCP southbound
   core/         TopologyDB (backends "torch" and "py"), SwitchFDB,
                 RankAllocationDB, CollectiveTable
   oracle/       APSP, path chase, DAG balancer, greedy scanner, UGAL,
-                route oracle, result arrays
+                route oracle, route cache, result arrays
   kernels/      CUDA kernels K1 (BFS), K2 (path sampler), K3 (ring
                 all-gather), csrc/ sources
   shardplane/   the sharded oracle: shard mesh, row-sharded APSP, sharded

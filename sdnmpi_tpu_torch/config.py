@@ -15,9 +15,8 @@ default:
 
 - ``util_plane`` (device utilization plane): A7
 - ``delta_reval`` (delta-narrowed revalidation): A7
-- ``route_cache`` (memoized route cache): A9
-- ``fabric_audit``, ``traffic_plane``, ``flight_recorder`` and
-  ``metrics_timeline``: A11
+- ``fabric_audit``, ``traffic_plane``, ``flight_recorder``,
+  ``metrics_timeline`` and ``rpc_telemetry``: A11
 
 With these off the routes are the reference's own: it holds the
 narrowed and the full revalidation bit-identical, and a cache hit equal
@@ -267,9 +266,8 @@ class Config:
     #: dispatch entirely and feeds the install plane the stored window,
     #: bit-identical to a miss by construction. False restores the
     #: uncached dispatch path byte-identically (the differential escape
-    #: hatch, pinned by tests/test_routecache.py). Not ported yet
-    #: (ROADMAP A9): off.
-    route_cache: bool = False
+    #: hatch, pinned by tests/test_routecache.py).
+    route_cache: bool = True
     #: LRU capacity of the route cache (entries; evictions counted in
     #: route_cache_evictions_total)
     route_cache_max_entries: int = 4096
@@ -296,17 +294,16 @@ class Config:
     #: byte-identical to the arrival-order bulk fill (pinned by
     #: tests/test_serving.py).
     coalesce_wfq_weights: dict = dataclasses.field(default_factory=dict)
-    #: persistent JAX compilation cache directory ("" = off): compiled
-    #: device programs (APSP, window extraction, the DAG engine) are
-    #: written to disk and reloaded by a restarted controller, so the
-    #: 18-22 s cold trace+compile every BENCH_r0* log pays happens once
-    #: per fleet, not once per process (jax_compilation_cache_dir)
+    #: persistent kernel build directory ("" = the package's own
+    #: kernels/build/): the CUDA kernels built with nvcc are written
+    #: there under a digest of their source and flags, and a restarted
+    #: controller loads them instead of building again
+    #: (oracle/engine.enable_compile_cache)
     compile_cache_dir: str = ""
-    #: run RouteOracle.warm_serving at launch: compile the serving
-    #: path's kernels (APSP refresh + the window-extraction buckets)
-    #: against the booted topology BEFORE the first request arrives,
-    #: so a restarted controller serves its first route in seconds
-    #: (with compile_cache_dir, from the disk cache)
+    #: run RouteOracle.warm_serving at launch: build the kernels and
+    #: run the serving path (APSP refresh + the window-extraction
+    #: buckets) against the booted topology BEFORE the first request
+    #: arrives (with compile_cache_dir, loading the built kernels)
     warm_serving: bool = False
 
     # --- SLO plane (control/slo.py) -----------------------------
@@ -576,8 +573,8 @@ class Config:
     #: RPC clients once per Monitor pass (EventStatsFlush) — the live
     #: feed twin of the Prometheus text exposition (api/telemetry.py);
     #: both read the same registry. False silences the feed (snapshot
-    #: requests still work).
-    rpc_telemetry: bool = True
+    #: requests still work). Not ported yet (ROADMAP A11): off.
+    rpc_telemetry: bool = False
 
     def require_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of the
@@ -588,8 +585,6 @@ class Config:
         deferred = (
             ("util_plane", self.util_plane and self.oracle_backend == "torch", "A7"),
             ("delta_reval", self.delta_reval, "A7"),
-            ("route_cache", self.route_cache, "A9"),
-            ("admission_rate > 0", self.admission_rate > 0, "A9"),
             ("schedule_collectives", self.schedule_collectives, "A10"),
             ("fabric_audit", self.fabric_audit, "A11"),
             ("traffic_plane", self.traffic_plane, "A11"),
@@ -597,7 +592,9 @@ class Config:
             ("metrics_timeline", self.metrics_timeline, "A11"),
             ("slo_targets", bool(self.slo_targets), "A11"),
             ("replica_peer", bool(self.replica_peer), "A11"),
+            ("rpc_telemetry", self.rpc_telemetry, "A11"),
             ("hier_oracle", self.hier_oracle, "A13"),
+            ("hier_pod_target", self.hier_pod_target != 0, "A13"),
         )
         for name, on, item in deferred:
             if on:

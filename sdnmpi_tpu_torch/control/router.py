@@ -22,8 +22,8 @@ reference does, and a collective of at least
 ``Config.block_install_threshold`` pairs takes the block install, whose
 routes come from one ``find_routes_collective`` call (kernel K2's set-up
 and K2 on the balanced and adaptive policies). The planes the port does
-not have yet (delta-narrowed revalidation, the route cache, admission
-limits, phased collectives) are refused by ``Config.require_ported``.
+not have yet (delta-narrowed revalidation, phased collectives) are
+refused by ``Config.require_ported``.
 """
 
 from __future__ import annotations

@@ -247,10 +247,6 @@ class TopologyDB:
                 "the hierarchical oracle (hier_oracle and its hier_* "
                 "arguments) is ROADMAP A13"
             )
-        if route_cache:
-            raise NotImplementedError(
-                "the memoized route cache (route_cache) is ROADMAP A9"
-            )
         # dpid -> switch entity
         self.switches: dict[int, Any] = {}
         # src dpid -> dst dpid -> link entity (directed; the discovery layer
@@ -281,6 +277,16 @@ class TopologyDB:
         #: full recompute, which the reference holds route-equal to the
         #: repair (tests/test_incremental.py)
         self.delta_repair_threshold = delta_repair_threshold
+        #: memoized route cache (oracle/routecache.py): reaped route
+        #: windows and collective results served straight from the memo
+        #: on a repeat request, invalidated through this DB's own delta
+        #: log. None = off (the uncached dispatch path). Works on both
+        #: backends.
+        self.route_cache = None
+        if route_cache:
+            from sdnmpi_tpu_torch.oracle.routecache import RouteCache
+
+            self.route_cache = RouteCache(route_cache_max_entries)
         self._version = 0
         self._oracle = None  # lazily-created torch oracle (oracle/engine.py)
         #: epoch + dirty-set log: one entry per version bump,
@@ -553,7 +559,38 @@ class TopologyDB:
         ``kwargs`` are the knobs of the blocking API of ``policy``
         (``"balanced"`` or ``"adaptive"``; any other policy routes
         shortest paths). The adaptive policy and the pure-Python backend
-        come back as completed windows."""
+        come back as completed windows.
+
+        With :attr:`route_cache` armed, a repeat request (same pairs,
+        same policy knobs, same topology and utilization state) returns
+        the memoized reaped window without dispatching anything, equal
+        to the miss it memoizes (oracle/routecache.py owns the
+        invalidation rules)."""
+        cache = self.route_cache
+        key = None
+        if cache is not None:
+            cache.sync(self)
+            key = cache.window_key(
+                pairs, policy, kwargs.get("link_util"), kwargs
+            )
+            if key is not None:
+                hit = cache.lookup(key)
+                if hit is not None:
+                    from sdnmpi_tpu_torch.oracle.batch import RouteWindow
+
+                    return RouteWindow(result=hit)
+        window = self._find_routes_batch_dispatch(pairs, policy, **kwargs)
+        if key is not None:
+            return cache.store_window(key, window, self._version)
+        return window
+
+    def _find_routes_batch_dispatch(
+        self,
+        pairs: list[tuple[str, str]],
+        policy: str = "shortest",
+        **kwargs,
+    ):
+        """The uncached dispatch leg (see find_routes_batch_dispatch)."""
         from sdnmpi_tpu_torch.oracle.batch import RouteWindow, WindowRoutes
 
         if policy == "balanced":
@@ -598,7 +635,39 @@ class TopologyDB:
         ``macs`` lists unique endpoints once; ``src_idx``/``dst_idx`` are
         [F] indices into it. Returns a ``CollectiveRoutes``. On the torch
         backend this is one resolve + one device program + one decode;
-        the pure-Python backend loops (differential oracle)."""
+        the pure-Python backend loops (differential oracle).
+
+        With :attr:`route_cache` armed, a re-issued collective (same
+        member set, same policy and epoch state) is served from the memo
+        without touching the oracle."""
+        cache = self.route_cache
+        key = None
+        if cache is not None:
+            cache.sync(self)
+            key = cache.collective_key(
+                macs, src_idx, dst_idx, policy,
+                kwargs.get("link_util"), kwargs,
+            )
+            if key is not None:
+                hit = cache.lookup(key)
+                if hit is not None:
+                    return hit
+        routes = self._find_routes_collective(
+            macs, src_idx, dst_idx, policy, **kwargs
+        )
+        if key is not None:
+            cache.store(key, routes, routes.hop_dpid)
+        return routes
+
+    def _find_routes_collective(
+        self,
+        macs: list,
+        src_idx,
+        dst_idx,
+        policy: str = "balanced",
+        **kwargs,
+    ):
+        """The uncached collective leg (see find_routes_collective)."""
         if self.backend == "torch":
             return self._oracle_engine().routes_collective(
                 self, macs, src_idx, dst_idx, policy, **kwargs
@@ -637,6 +706,15 @@ class TopologyDB:
             hop_len, max_congestion=_fdb_congestion(fdbs),
             endpoint_port=endpoint_port,
         )
+
+    def warm_serving(self, shapes=(8, 256)) -> dict:
+        """Run the serving path once against the current topology before
+        the first request: the refresh plus one window-extraction
+        dispatch per batch bucket (``RouteOracle.warm_serving``). No-op
+        on the pure-Python backend."""
+        if self.backend != "torch":
+            return {"warm_s": 0.0, "shapes": [], "max_len": 0}
+        return self._oracle_engine().warm_serving(self, shapes)
 
     # -- backend dispatch ------------------------------------------------
 

@@ -3,11 +3,15 @@
 Each source in ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``: no
 PyTorch headers, so a build takes seconds. Libraries go to
-``kernels/build/`` under a name that carries a digest of the source and
-the flags, so an edited source never loads a stale library. Nothing is
-built at import time: a kernel builds at its first launch, or all of
-them at once through :func:`build` (one ``nvcc`` process per source,
-started together).
+``kernels/build/`` (or the directory :func:`set_build_dir` names, the
+launcher's ``--compile-cache-dir``) under a name that carries a digest
+of the source and the flags, so an edited source never loads a stale
+library and a restarted process loads what an earlier one built.
+Nothing is built at import time: a kernel builds at its first launch,
+or all of them at once through :func:`build` (one ``nvcc`` process per
+source, started together). Builds and loads of an already-built library
+are counted in ``compile_cache_misses_total`` and
+``compile_cache_hits_total`` (``utils/devprof.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+from sdnmpi_tpu_torch.utils import devprof
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "build"
@@ -34,6 +40,8 @@ FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: kernels this process compiled
+_built: set[str] = set()
 #: ptxas report (registers, shared memory, spills) of each kernel built
 #: by this process, for the build log of chip_smoke.py
 BUILD_LOG: dict[str, str] = {}
@@ -52,6 +60,14 @@ def nvcc() -> str:
             "sdnmpi_tpu_torch build from source at first use"
         )
     return found
+
+
+def set_build_dir(path) -> None:
+    """Build and load the kernels' libraries under ``path`` (created if
+    missing) from now on; libraries already loaded stay loaded."""
+    global _BUILD
+    _BUILD = pathlib.Path(path).resolve()
+    _BUILD.mkdir(parents=True, exist_ok=True)
 
 
 def library_path(name: str) -> pathlib.Path:
@@ -89,6 +105,8 @@ def build(*names: str) -> float:
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, target)
+        _built.add(name)
+        devprof.note_kernel_build()
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
@@ -99,9 +117,20 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build(name)
+        if name not in _built:
+            devprof.note_kernel_load()
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def load_all(*names: str) -> None:
+    """Load the named kernels (all when none are named), building the
+    missing ones together first."""
+    names = names or tuple(SOURCES)
+    build(*[n for n in names if n not in _libs])
+    for name in names:
+        load(name)
 
 
 def function(name: str, symbol: str, argtypes: list):

@@ -72,6 +72,31 @@ _m_congestion_ratio = REGISTRY.gauge(
     "discrete / fractional max-congestion of the last DAG-balanced pass "
     "(1.0 = sampling achieved the bound; the gap is scheduling headroom)",
 )
+_m_warmup_s = REGISTRY.gauge(
+    "serving_warmup_seconds",
+    "wall of the last RouteOracle.warm_serving pass (kernel builds or "
+    "loads, APSP refresh and window-extraction buckets run before the "
+    "first request; with the kernel build directory warm the builds are "
+    "loads — see compile_cache_hits_total)",
+)
+
+
+def enable_compile_cache(path: str) -> bool:
+    """Keep the CUDA kernels' built libraries under ``path``: the
+    counterpart of the reference's persistent compilation cache.
+
+    ``kernels/_build.py`` names each library by a digest of its source
+    and flags, so a restarted controller pointed at the same directory
+    loads the libraries instead of running ``nvcc`` again. Loads and
+    builds are counted in ``compile_cache_hits_total`` and
+    ``compile_cache_misses_total``. Returns False for an empty path
+    (the package's own ``kernels/build/`` stays in use)."""
+    if not path:
+        return False
+    from sdnmpi_tpu_torch.kernels import _build
+
+    _build.set_build_dir(path)
+    return True
 
 
 def resolve_device(device) -> torch.device:
@@ -360,6 +385,54 @@ class RouteOracle:
             self.full_refresh_count += 1
             _m_full_refreshes.inc()
         return self._tensors
+
+    def warm_serving(self, db: "TopologyDB", shapes=(8, 256)) -> dict:
+        """Run the serving path once before the first request.
+
+        On a CUDA device the package's kernels are built (or, with
+        :func:`enable_compile_cache` pointing at a warm directory,
+        loaded) first. Then the refresh (APSP distances and next hops)
+        and one window-extraction dispatch (``oracle/paths.batch_fdb``)
+        per requested batch bucket run against the booted topology, with
+        the hop budget at the topology's full-diameter bucket. Returns
+        ``{"warm_s": wall, "shapes": [...], "max_len": n}``; an empty
+        topology costs nothing. Under ``shard_oracle`` the reference
+        warms the sharded chase, which is not ported (ROADMAP A12 item
+        3): it raises."""
+        import time as _time
+
+        from sdnmpi_tpu_torch.oracle.batch import bucket_len
+        from sdnmpi_tpu_torch.oracle.paths import batch_fdb
+
+        if self._shard_mesh() is not None:
+            chase = "batch_fdb_ringed" if self.ring_exchange else "batch_fdb_sharded"
+            raise NotImplementedError(
+                f"warming the sharded chase (shardplane.{chase}) is not "
+                "ported yet (ROADMAP A12 item 3)"
+            )
+        t0 = _time.perf_counter()
+        if not getattr(db, "switches", None):
+            return {"warm_s": 0.0, "shapes": [], "max_len": 0}
+        if self.device.type == "cuda":
+            from sdnmpi_tpu_torch.kernels import _build
+
+            _build.load_all()
+        t = self.refresh(db)
+        dist = self._dist_d
+        mx = torch.where(torch.isfinite(dist), dist, 0.0).max().item()
+        max_len = ((int(mx) + 1 + 7) // 8) * 8
+        warmed = []
+        for n in sorted({bucket_len(int(s)) for s in shapes if s > 0}):
+            zeros = self._put(np.zeros(n, np.int32))
+            nodes, _, _ = batch_fdb(
+                self._next_full(), t.port, zeros, zeros, zeros, max_len
+            )
+            if nodes.is_cuda:
+                torch.cuda.synchronize(nodes.device)
+            warmed.append(n)
+        warm_s = _time.perf_counter() - t0
+        _m_warmup_s.set(warm_s)
+        return {"warm_s": warm_s, "shapes": warmed, "max_len": max_len}
 
     @property
     def dist_device(self):

@@ -8,11 +8,16 @@ watches the *device runtime underneath it*:
 - **Compile walls and compile-cache counters** — the reference fills
   ``jit_compile_seconds{kernel=...}``, ``compile_cache_hits_total``,
   ``compile_cache_misses_total`` and ``compile_cache_saved_seconds``
-  from ``jax.monitoring`` listeners. PyTorch has no such event stream
-  (the port's kernels are built once by ``kernels/_build.py``, not
-  traced per shape), so the metrics are registered under the same
-  names and :func:`install_monitoring` registers nothing and returns
-  False, as the reference does on a JAX build without monitoring.
+  from ``jax.monitoring`` listeners. The port's device programs are the
+  CUDA kernels ``kernels/_build.py`` builds with ``nvcc``, once per
+  source and flags, into a build directory a restarted process reuses
+  (``oracle/engine.enable_compile_cache``): each build counts as a
+  cache miss and each load of a library an earlier process built as a
+  hit (:func:`note_kernel_build`, :func:`note_kernel_load`). The
+  compile-wall histogram and the saved-seconds gauge have no torch
+  source and stay at zero. :func:`install_monitoring` registers nothing
+  and returns False, as the reference does on a JAX build without
+  monitoring.
 - **Device-memory watermarks** — :func:`sample_memory` reads
   ``torch.cuda.memory_stats`` / ``max_memory_allocated`` of a CUDA
   device into ``device_memory_in_use_bytes`` /
@@ -79,6 +84,17 @@ _m_profile_captures = REGISTRY.counter(
     "profile_captures_total",
     "anomaly-armed torch.profiler capture windows opened",
 )
+
+def note_kernel_build() -> None:
+    """A kernel's library was built (a compile-cache miss)."""
+    _m_cache_misses.inc()
+
+
+def note_kernel_load() -> None:
+    """A library an earlier process built was loaded (a compile-cache
+    hit)."""
+    _m_cache_hits.inc()
+
 
 def install_monitoring() -> bool:
     """The reference registers its ``jax.monitoring`` compile listeners

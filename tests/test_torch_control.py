@@ -33,11 +33,11 @@ import numpy as np
 import pytest
 
 #: the reference's planes the port has not ported yet, off as in the
-#: port's Config (ROADMAP A7, A9, A11)
+#: port's Config (ROADMAP A7, A11)
 OFF = dict(
-    util_plane=False, delta_reval=False, route_cache=False,
+    util_plane=False, delta_reval=False,
     fabric_audit=False, traffic_plane=False, flight_recorder=False,
-    metrics_timeline=False,
+    metrics_timeline=False, rpc_telemetry=False,
 )
 
 MAC = {i: f"04:00:00:00:00:0{i}" for i in range(1, 7)}
@@ -565,8 +565,8 @@ def test_narrowed_dirty_set_podmap_rules_match_jax():
 @pytest.mark.parametrize("knob,item", [
     ({"util_plane": True}, "A7"),
     ({"delta_reval": True}, "A7"),
-    ({"route_cache": True}, "A9"),
-    ({"admission_rate": 10.0}, "A9"),
+    ({"rpc_telemetry": True}, "A11"),
+    ({"hier_pod_target": 16}, "A13"),
     ({"schedule_collectives": True}, "A10"),
     ({"fabric_audit": True}, "A11"),
     ({"traffic_plane": True}, "A11"),

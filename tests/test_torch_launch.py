@@ -1,0 +1,245 @@
+"""The port's command line against the JAX package's.
+
+``sdnmpi_tpu_torch.launch`` takes every flag of ``sdnmpi_tpu.launch``
+under the same name. For a table of argument lists both packages'
+``config_from_args`` agree field by field, except the deliberate
+differences of ROADMAP C (:data:`DIFFERENCES`); every flag that needs a
+module the port does not have yet fails the launch naming its item.
+The demo run writes the same checkpoint in both packages, and each
+package's checkpoint restores into the other's launcher.
+"""
+
+import asyncio
+import dataclasses
+import json
+import logging
+import runpy
+import sys
+
+import pytest
+
+from sdnmpi_tpu import launch as ref_launch
+from sdnmpi_tpu_torch import launch as port_launch
+
+#: Config fields where the port's launcher deliberately differs from
+#: the reference's (ROADMAP C), with the port's value
+DIFFERENCES = {
+    # --backend torch|py where the reference has jax|py
+    "oracle_backend": "torch",
+    # --device, the port's explicit-device rule
+    "device": "cpu",
+    # planes not ported yet keep the port's Config defaults (off); the
+    # reference's launcher or Config turns them on
+    "delta_reval": False,  # A7
+    "util_plane": False,  # A7
+    "fabric_audit": False,  # A11
+    "traffic_plane": False,  # A11
+    "flight_recorder": False,  # A11
+    "metrics_timeline": False,  # A11
+    "rpc_telemetry": False,  # A11
+}
+
+ARGVS = [
+    [],
+    ["--profile", "no-monitor", "--topo", "fattree:8", "--demo", "--demo-ranks", "64"],
+    ["--profile", "debug", "--listen", "127.0.0.1:6633", "--lldp-reprobe", "3"],
+    ["--policy", "adaptive", "--mesh-devices", "8", "--shard-oracle", "--ring-exchange"],
+    ["--policy", "shortest", "--observe-links", "--wire", "--flow-idle-timeout", "30",
+     "--flow-hard-timeout", "300"],
+    ["--no-route-cache", "--admission-rate", "50", "--tenants", "4",
+     "--offered-rate", "400"],
+    ["--compile-cache-dir", "cache", "--warm-serving", "--route-cache"],
+    ["--no-recovery", "--no-install-barriers", "--install-retry-max", "2",
+     "--install-retry-backoff", "0.5", "--echo-interval", "5", "--echo-timeout", "9"],
+    ["--event-log", "e.jsonl", "--event-log-max-bytes", "100", "--trace-log",
+     "t.jsonl", "--profile-dir", "prof", "--rpc-host", "0.0.0.0", "--rpc-port", "9"],
+    ["--no-fabric-audit", "--no-traffic-plane", "--no-flight-recorder",
+     "--no-delta-reval", "--no-hier-snapshot", "--reconcile-max-per-flush", "3",
+     "--hier-warm", "--no-ring-exchange"],
+]
+
+
+def _configs(argv):
+    ref = ref_launch.config_from_args(
+        ref_launch.build_parser().parse_args(argv + ["--backend", "jax"]))
+    got = port_launch.config_from_args(
+        port_launch.build_parser().parse_args(argv + ["--device", "cpu"]))
+    return dataclasses.asdict(ref), dataclasses.asdict(got)
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "defaults")
+def test_config_from_args_matches_the_reference(argv):
+    ref, got = _configs(argv)
+    assert set(got) == set(ref) | {"device"}
+    for field in sorted(got):
+        if field in DIFFERENCES:
+            assert got[field] == DIFFERENCES[field], field
+        else:
+            assert got[field] == ref[field], field
+
+
+def test_every_reference_flag_is_accepted():
+    """The same flags under the same names and defaults; the port adds
+    ``--device`` and takes ``torch`` where the reference takes ``jax``."""
+    def actions(parser):
+        return {a.dest: a for a in parser._actions if a.option_strings}
+
+    ref = actions(ref_launch.build_parser())
+    got = actions(port_launch.build_parser())
+    assert set(got) == set(ref) | {"device"}
+    flags = lambda acts: sorted(s for a in acts for s in a.option_strings)  # noqa: E731
+    assert flags(got.values()) == sorted(flags(ref.values()) + ["--device"])
+    for dest, action in ref.items():
+        if dest != "backend":
+            assert got[dest].default == action.default, dest
+    assert got["backend"].choices == ["torch", "py"]
+    assert (got["backend"].default, got["device"].default) == ("torch", "cuda")
+    # the reference's 68 add_argument calls, beside --help
+    ref_flags = [a for a in ref_launch.build_parser()._actions if a.option_strings]
+    got_flags = [a for a in port_launch.build_parser()._actions if a.option_strings]
+    assert (len(ref_flags), len(got_flags)) == (69, 70)
+
+
+REFUSED = [
+    (["--chaos", "3"], "A11"),
+    (["--metrics-dump", "-"], "A11"),
+    (["--trace-dump", "trace.json"], "A11"),
+    (["--replica-peer", "ws://peer:8080/v1.0/sdnmpi/ws"], "A11"),
+    (["--ownership", "0/2"], "A11"),
+    (["--lease-interval", "2"], "A11"),
+    (["--lease-timeout", "5"], "A11"),
+    (["--slo-target", "victim:50:0.999"], "A11"),
+    (["--flight-dump", "bundles"], "A11"),
+    (["--anomaly-latency-threshold", "0.5"], "A11"),
+    (["--anomaly-p99-factor", "3"], "A11"),
+    (["--profile-dump", "prof"], "A11"),
+    (["--audit-switches-per-flush", "8"], "A11"),
+    (["--sentinel-sample-per-flush", "8"], "A11"),
+    (["--sentinel-divergence-factor", "3"], "A11"),
+    (["--sentinel-heal"], "A11"),
+    (["--schedule-phases", "4"], "A10"),
+    (["--schedule-phases", "0"], "A10"),
+    (["--hier-oracle"], "A13"),
+    (["--hier-pod-target", "16"], "A13"),
+    (["--no-hier-warm"], "A13"),
+    (["--distributed", "127.0.0.1:1234,2,0"], "A12 item 2"),
+]
+
+
+@pytest.mark.parametrize("argv,item", REFUSED, ids=lambda x: x if isinstance(x, str) else x[0])
+def test_unported_flags_refuse_the_launch(argv, item):
+    """Both parsers take the flag; the port's launch stops, naming the
+    ROADMAP item, before anything is built."""
+    ref_launch.build_parser().parse_args(argv)
+    args = port_launch.build_parser().parse_args(argv + ["--device", "cpu", "--no-rpc"])
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        port_launch.config_from_args(args)
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        asyncio.run(port_launch.amain(args))
+
+
+def test_the_mirror_needs_websockets(monkeypatch):
+    """Without ``websockets`` a launch that keeps the mirror fails at
+    once, naming the ``rpc`` extra; ``--no-rpc`` runs."""
+    import importlib.util
+
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(
+        port_launch.importlib.util, "find_spec",
+        lambda name, *a: None if name == "websockets" else find_spec(name, *a),
+    )
+    args = port_launch.build_parser().parse_args(["--device", "cpu", "--duration", "0.01"])
+    with pytest.raises(SystemExit, match="rpc extra"):
+        asyncio.run(port_launch.amain(args))
+    asyncio.run(port_launch.amain(port_launch.build_parser().parse_args(
+        ["--device", "cpu", "--duration", "0.01", "--no-rpc"])))
+
+
+def test_python_dash_m_runs_the_demo(monkeypatch, tmp_path, caplog):
+    """``python -m sdnmpi_tpu_torch --device cpu --topo fattree:4 --demo
+    --no-rpc --duration 0.2``, run as ``-m`` runs it, in this process."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", [
+        "sdnmpi_tpu_torch", "--device", "cpu", "--topo", "fattree:4", "--demo",
+        "--no-rpc", "--duration", "0.2",
+    ])
+    # main() configures logging as the launch profiles do: undo it after
+    monitor, root = logging.getLogger("Monitor"), logging.getLogger()
+    saved = [(lg, list(lg.handlers), lg.level, lg.propagate) for lg in (monitor, root)]
+    try:
+        with caplog.at_level(logging.INFO, logger="launch"):
+            runpy.run_module("sdnmpi_tpu_torch", run_name="__main__")
+    finally:
+        for lg, handlers, level, propagate in saved:
+            for h in lg.handlers:
+                if h not in handlers:
+                    h.close()
+            lg.handlers[:] = handlers
+            lg.setLevel(level)
+            lg.propagate = propagate
+    assert "demo: 8 ranks, alltoall kicked off, 216 flows installed" in caplog.text
+    assert (tmp_path / "log" / "monitor.log").exists()
+
+
+# -- the demo run and its checkpoint ----------------------------------------
+
+
+DEMO = ["--topo", "fattree:4", "--demo", "--demo-ranks", "8", "--no-rpc",
+        "--duration", "0.1"]
+#: checkpoint sections that carry the controller's state
+STATE = ("topology", "fdb", "rankdb", "collectives", "desired_flows", "route_cache")
+
+
+def _run(pkg_launch, argv):
+    side = ["--backend", "jax"] if pkg_launch is ref_launch else ["--device", "cpu"]
+    asyncio.run(pkg_launch.amain(pkg_launch.build_parser().parse_args(argv + side)))
+
+
+@pytest.fixture(scope="module")
+def demo_checkpoints(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ckpt")
+    _run(ref_launch, DEMO + ["--checkpoint", str(d / "ref.json")])
+    _run(port_launch, DEMO + ["--checkpoint", str(d / "port.json")])
+    return d
+
+
+def test_demo_checkpoints_match_the_reference(demo_checkpoints):
+    ref = json.loads((demo_checkpoints / "ref.json").read_text())
+    got = json.loads((demo_checkpoints / "port.json").read_text())
+    for key in STATE:
+        assert got[key] == ref[key], key
+    assert len(got["rankdb"]) == 8
+    assert got["desired_flows"]["rows"] and got["fdb"]
+    # the demo's balanced window is utilization-keyed: the memo
+    # serializes its header only
+    assert got["route_cache"]["topology_digest"] == got["desired_flows"]["topology_digest"]
+    # the planes the port has not ported yet write nothing
+    assert got["audit_baselines"] is got["traffic_plane"] is None
+    assert ref["audit_baselines"] is not None
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_demo_checkpoint_restores_across_packages(demo_checkpoints, writer):
+    """``--restore`` of each package's checkpoint into both launchers,
+    then ``--checkpoint`` again. The two restores write the same state;
+    the topology, ranks and collectives are the ones saved, and the
+    re-routed unicast pairs are the pairs saved (restore re-routes them
+    against the live fabric, as the reference does)."""
+    src = demo_checkpoints / f"{writer}.json"
+    restored = {}
+    for reader in (ref_launch, port_launch):
+        out = demo_checkpoints / f"{writer}-into-{reader.__name__}.json"
+        _run(reader, ["--topo", "fattree:4", "--no-rpc", "--duration", "0.1",
+                      "--restore", str(src), "--checkpoint", str(out)])
+        restored[reader] = json.loads(out.read_text())
+    saved = json.loads(src.read_text())
+    got, ref = restored[port_launch], restored[ref_launch]
+    for key in STATE:
+        assert got[key] == ref[key], key
+    for key in ("topology", "rankdb", "collectives"):
+        assert got[key] == saved[key], key
+
+    def pairs(snap):
+        return {p for table in snap["fdb"].values() for p in table}
+
+    assert pairs(got) == pairs(saved)

@@ -257,8 +257,8 @@ def test_unported_surface_raises():
         pdb.find_routes_collective_phased(macs, [0], [1])
     with pytest.raises(NotImplementedError, match="A7"):
         pdb.find_routes_batch_delta_dispatch([(macs[0], macs[1])], [1])
-    with pytest.raises(NotImplementedError, match="A9"):
-        TopologyDB(device="cpu", route_cache=True)
+    with pytest.raises(NotImplementedError, match="A12 item 3"):
+        TopologyDB(device="cpu", mesh_devices=2, shard_oracle=True).warm_serving()
 
 
 @pytest.mark.parametrize("name,args", [
