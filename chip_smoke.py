@@ -27,7 +27,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 17.
+               printed last, after phases 7 to 20.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -93,6 +93,27 @@ order; the first failure ends the run with a non-zero exit:
                miss on one 256-pair window; then the port started twice
                as a child process with ``--warm-serving`` and one kernel
                build directory, empty (nvcc builds) and warm (loads).
+18. churn    — config 8's shape: the k=28 fat-tree, its 85,556 installed
+               edge pairs, 20 seeded flaps (10 cables removed and
+               restored), each absorbed by the in-place repair and
+               routes_batch_delta over the affected pairs; every flap's
+               distances and next hops equal to a full refresh on the
+               card, its window to routes_batch, touched to the host
+               intersection; repair, re-score and flap -> converged
+               timed beside one full refresh.
+19. utilization plane — config 9's shape: one Monitor pass on every
+               directed link of the k=28 fat-tree staged and flushed
+               (timed), the device base equal to the host dict's bit for
+               bit, config 4's balanced collective with the plane equal
+               to the dict's, hot_links(8) equal to a numpy stable sort.
+20. phased collectives — config 12's shape (k=16 fat-tree, 512-rank
+               alltoall): the device packer against its host twin (both
+               timed), routes_collective_phased with auto K on the
+               adaptive policy (512 ranks) and the balanced policy's
+               greedy scanner (64 ranks), partitions and shortest real
+               paths checked, congestion over the flat fractional bound;
+               then 128 ranks through the Controller with
+               schedule_collectives, every FlowMod on its route's switch.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -105,7 +126,12 @@ packet-in burst, the adaptive window install (K1 0, set-up 1, K2 2) and
 the link failure of phase 14, each launcher run of phase 15 (demo and
 restore: K1 0, set-up 1, K2 1; sharded demo: set-up 1, K2 8, K3 at
 least 1), the TCP block install of phase 16 (K1 0, set-up 1, K2 1) and
-each serving run of phase 17, against the counts each path must launch.
+each serving run of phase 17, the flap storm of phase 18 (nothing: the
+shortest leg runs no kernel), the collective with the utilization plane
+of phase 19 (K1 0, set-up 1, K2 1), and the flat batches, the phased
+programs (adaptive: set-up 1 and K2 2 per phase; the scanner: none) and
+the phased Controller install of phase 20, against the counts each path
+must launch.
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so are both of phase 10's and
@@ -170,6 +196,16 @@ CTL_WINDOW_RANKS = 64
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_out")
 #: config 14's cache-fence window (benchmarks/config14_serving.py)
 CACHE_WINDOW = 256
+#: phase 18: config 8's storm (benchmarks/config8_churn.py runs 100 flaps)
+CHURN_FLAPS = 20
+#: phase 20: config 12's shape (benchmarks/config12_schedule.py:42-43), a
+#: k=16 fat-tree and a 512-rank alltoall; the balanced program's greedy
+#: scanner runs one sub-flow at a time, so it runs at the first 64 ranks,
+#: and the Controller's phased install at 128 (above the block threshold)
+SCHED_K = 16
+SCHED_RANKS = 512
+SCHED_SCAN_RANKS = 64
+SCHED_CTL_RANKS = 128
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -1973,7 +2009,28 @@ def phase_controller_packet_in(device, report: dict) -> list:
         torch.cuda.synchronize()
         out["ms"] = (time.perf_counter() - t0) * 1e3
 
+    # the revalidation's epoch gate narrows from its second pass on: this
+    # first topology signal sets the baseline (a full pass that changes
+    # no route here)
+    ctl.bus.publish(ev.EventTopologyChanged())
+    dirty_windows: list = []
+    handler = ctl.bus._request_handlers[ev.DispatchRoutesBatchRequest]
+
+    def narrowed(req):
+        dirty_windows.append(req.dirty)
+        return handler(req)
+
+    ctl.bus._request_handlers[ev.DispatchRoutesBatchRequest] = narrowed
+    oracle = ctl.topology_manager.topologydb._oracle_engine()
+    full0, repairs0 = oracle.full_refresh_count, oracle.repair_count
     counts_c = path_launches(fail_link)
+    ctl.bus._request_handlers[ev.DispatchRoutesBatchRequest] = handler
+    if (not dirty_windows or not all(dirty_windows)
+            or oracle.full_refresh_count != full0 or oracle.repair_count <= repairs0):
+        fail(f"link failure: the revalidation did not take the narrowed leg "
+             f"({len(dirty_windows)} windows, dirty sets {dirty_windows[:2]}; "
+             f"{oracle.full_refresh_count - full0} full refreshes, "
+             f"{oracle.repair_count - repairs0} repaired link deltas)")
     if any(port == pa for port in fdb.get(a, {}).values()) or any(
             port == pb for port in fdb.get(b, {}).values()):
         fail("link failure: a flow still rides the dead link")
@@ -1982,7 +2039,10 @@ def phase_controller_packet_in(device, report: dict) -> list:
     log(f"link failure: global link {a}:{pa} - {b}:{pb} carried "
         f"{len(affected)} flows ({len(unicast)} unicast pairs); revalidation "
         f"re-installed them in {out['ms']:.1f} ms, none on the dead link, the "
-        f"unicast ones on shortest paths; launches {counts_c}")
+        f"unicast ones on shortest paths; launches {counts_c}; the narrowed leg: "
+        f"{len(dirty_windows)} delta windows with the dirty set, "
+        f"{oracle.repair_count - repairs0} link deltas repaired in place, no "
+        f"full refresh")
     return [counts_a, counts_b, counts_c]
 
 
@@ -2556,6 +2616,466 @@ def phase_serving(device, report: dict, k: int = 8, duration: float = 1.5) -> li
     return counts
 
 
+# -- phases 18 to 20: churn, the utilization plane, phased collectives ------
+
+
+def alltoall_idx(n: int) -> tuple:
+    """(src, dst) rank indices of an n-rank alltoall, src-major."""
+    src, dst = np.nonzero(~np.eye(n, dtype=bool))
+    return src.astype(np.int32), dst.astype(np.int32)
+
+
+def pad_cols(a: np.ndarray, width: int) -> np.ndarray:
+    """``a`` widened to ``width`` columns with -1."""
+    if a.shape[1] >= width:
+        return a
+    out = np.full((a.shape[0], width), -1, a.dtype)
+    out[:, : a.shape[1]] = a
+    return out
+
+
+def tail(xs) -> str:
+    """Median and p99 of a list of ms."""
+    return f"median {np.median(xs):.3f} ms, p99 {np.percentile(xs, 99):.3f} ms"
+
+
+def phase_churn(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
+                n_ranks: int = N_RANKS, n_flaps: int = CHURN_FLAPS) -> list:
+    """Config 8's shape (``benchmarks/config8_churn.py``): the k=28
+    fat-tree padded to V=1024, the 4096-rank alltoall's aggregated edge
+    pairs as the installed population (one host pair per ordered pair of
+    edge switches, scored once), and a seeded storm of ``n_flaps`` flaps
+    (each cable removal followed by its restore). Each flap is absorbed
+    as the delta-narrowed revalidation does it: ``refresh`` (the delta
+    log -> the in-place repair), ``routes_batch_delta`` over the pairs
+    whose installed hops touch the flap's switches, and the fold of the
+    new paths into the installed state; the three are timed. Per flap:
+    the refresh repaired in place (no full refresh, ``repair_count``
+    grew), distances and next hops equal a fresh oracle's full refresh
+    on the card bit for bit (timed), the delta window's fdbs equal
+    ``routes_batch`` over the same pairs, and ``touched`` equals a host
+    set intersection. After the storm the maintained state equals a
+    full re-score of every pair. Returns the launch counts of the storm
+    (the shortest leg launches no kernel)."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.engine import RouteOracle
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(k)
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=v_pad)
+    oracle = db._oracle_engine()
+    oracle.refresh(db)
+    rep: dict = {}
+    for mac, dpid, _ in spec.hosts[:n_ranks]:
+        rep.setdefault(dpid, mac)
+    edges = sorted(rep)
+    pairs = [(rep[a], rep[b]) for a in edges for b in edges if a != b]
+    t0 = time.perf_counter()
+    wr = oracle.routes_batch_dispatch(db, pairs).reap()
+    od, op, ln = wr.hop_dpid.copy(), wr.hop_port.copy(), wr.hop_len.copy()
+    log(f"churn: fat-tree k={k} (V={oracle._tensors.v}), {len(pairs):,} installed "
+        f"edge pairs scored in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    cables = [(a, b) for a in sorted(db.links) for b in sorted(db.links[a]) if a < b]
+    rng = np.random.default_rng(0)
+    chosen = rng.choice(len(cables), size=(n_flaps + 1) // 2, replace=False)
+    fresh = RouteOracle(db.pad_multiple, db.max_diameter, device=device)
+    fresh.delta_repair_threshold = 0
+    stages: dict = {"repair": [], "rescore": [], "converged": [], "full": []}
+    affected: list = []
+    full0 = oracle.full_refresh_count
+
+    def absorb(dirty: set) -> None:
+        nonlocal od, op, ln
+        repairs0 = oracle.repair_count
+        t0 = time.perf_counter()
+        oracle.refresh(db)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dirty_arr = np.fromiter(dirty, np.int64, len(dirty))
+        aff = np.nonzero(np.isin(od, dirty_arr).any(axis=1))[0]
+        aff_pairs = [pairs[i] for i in aff]
+        got = oracle.routes_batch_delta(db, aff_pairs, dirty)
+        t2 = time.perf_counter()
+        width = max(od.shape[1], got.hop_dpid.shape[1])
+        od, op = pad_cols(od, width), pad_cols(op, width)
+        od[aff] = pad_cols(got.hop_dpid, width)[: len(aff)]
+        op[aff] = pad_cols(got.hop_port, width)[: len(aff)]
+        ln[aff] = got.hop_len[: len(aff)]
+        t3 = time.perf_counter()
+        stages["repair"].append((t1 - t0) * 1e3)
+        stages["rescore"].append((t2 - t1) * 1e3)
+        stages["converged"].append((t3 - t0) * 1e3)
+        affected.append(len(aff))
+        # the checks, untimed
+        if oracle.full_refresh_count != full0 or oracle.repair_count <= repairs0:
+            fail(f"churn: a flap took a full refresh ({oracle.full_refresh_count - full0}"
+                 f" full, {oracle.repair_count - repairs0} repairs)")
+        fresh._version = None
+        t0 = time.perf_counter()
+        fresh.refresh(db)
+        torch.cuda.synchronize()
+        stages["full"].append((time.perf_counter() - t0) * 1e3)
+        if not (torch.equal(oracle._dist_d, fresh._dist_d)
+                and torch.equal(oracle._next_d, fresh._next_d)):
+            fail("churn: the repaired distances or next hops differ from a "
+                 "full refresh")
+        fdbs = got.fdbs()
+        if fdbs != oracle.routes_batch(db, aff_pairs):
+            fail("churn: routes_batch_delta differs from routes_batch")
+        want = [any(d in dirty for d, _ in fdb) for fdb in fdbs]
+        if got.touched.tolist() != want:
+            fail("churn: touched differs from the host set intersection")
+
+    for n, ci in enumerate(chosen):
+        a, b = cables[int(ci)]
+        links = [db.links[a][b], db.links[b][a]]
+        for lk in links:
+            db.delete_link(lk)
+        absorb({a, b})
+        if 2 * n + 1 < n_flaps:
+            for lk in links:
+                db.add_link(lk)
+            absorb({a, b})
+    counts = path_launches(lambda: None)  # the storm launched nothing
+    check = oracle.routes_batch_dispatch(db, pairs).reap()
+    width = max(od.shape[1], check.hop_dpid.shape[1])
+    if not (np.array_equal(pad_cols(od, width), pad_cols(check.hop_dpid, width))
+            and np.array_equal(pad_cols(op, width), pad_cols(check.hop_port, width))
+            and np.array_equal(ln, check.hop_len)):
+        fail("churn: the maintained state differs from a full re-score")
+    log(f"churn: {len(affected)} flaps ({len(chosen)} cables removed and "
+        f"restored), every one repaired in place ({oracle.repair_count} link "
+        f"deltas, {oracle.full_refresh_count} full refresh): repair "
+        f"{tail(stages['repair'])}; re-score {tail(stages['rescore'])}; "
+        f"flap -> converged {tail(stages['converged'])}; affected pairs mean "
+        f"{np.mean(affected):.1f} (max {max(affected)}); one full refresh "
+        f"{tail(stages['full'])}; every flap's dist and next hops equal the "
+        f"full refresh's, its window equal to routes_batch, touched equal to "
+        f"the host intersection; the maintained state equals a full re-score")
+    return [counts]
+
+
+def phase_utilplane(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
+                    n_ranks: int = N_RANKS, n_passes: int = 20) -> list:
+    """Config 9's shape (``benchmarks/config9_utilplane.py``): the k=28
+    fat-tree, one Monitor pass of seeded samples on every directed link
+    staged and flushed into a ``UtilPlane`` (timed per pass). The plane's
+    normalized base equals the host dict's ``_normalized_base`` bit for
+    bit (at a small and at the collective's row count); config 4's
+    balanced collective with ``link_util=plane`` routes as with the dict
+    (launches K1 0, set-up 1, K2 1, the K2 call and its tables held
+    against the plain versions); ``hot_links(8)`` equals a numpy stable
+    sort, with distinct loads and with equal loads on purpose. Returns
+    the launch counts of the collective."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.utilplane import UtilPlane
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(k)
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=v_pad)
+    oracle = db._oracle_engine()
+    t = oracle.refresh(db)
+    rng = np.random.default_rng(0)
+    samples = {}
+    for a in sorted(db.links):
+        for b in sorted(db.links[a]):
+            lk = db.links[a][b]
+            samples[(lk.src.dpid, lk.src.port_no)] = float(rng.random() * 1e9)
+    items = list(samples.items())
+    plane = UtilPlane()
+    plane.sync(db, t)
+    passes = []
+    for i in range(n_passes + 1):
+        t0 = time.perf_counter()
+        for key, bps in items:
+            plane.stage(key, bps + i)
+        plane.flush()
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0) * 1e3)
+    for key, bps in items:
+        plane.stage(key, bps)
+    macs = [m for m, _, _ in spec.hosts[:n_ranks]]
+    src_idx, dst_idx = alltoall_idx(len(macs))
+    for n_rows in (37, len(src_idx)):
+        got = oracle._normalized_base(db, t, plane, 1.0, 10e9, n_rows)
+        want = oracle._normalized_base(db, t, samples, 1.0, 10e9, n_rows)
+        if got.device.type != device.type or not np.array_equal(got.cpu().numpy(), want):
+            diff = got.cpu().numpy() != want
+            fail(f"utilization plane: the base at {n_rows} rows differs from "
+                 f"the host dict's in {int(diff.sum())} entries")
+    log(f"utilization plane: {len(items):,} directed links; stage + flush of "
+        f"one Monitor pass (steady, {n_passes} passes) {tail(passes[1:])} "
+        f"(first {passes[0]:.3f} ms); the device base equals the host dict's "
+        f"bit for bit at 37 and {len(src_idx):,} rows")
+
+    def route(link_util):
+        return db.find_routes_collective(macs, src_idx, dst_idx, policy="balanced",
+                                         link_util=link_util)
+
+    out: dict = {}
+    counts = checked_launches(lambda: out.update(r=route(plane)),
+                              "collective with the plane", report)
+    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+            "ring_all_gather": 0}
+    if counts != want:
+        fail(f"collective with the plane: launches {counts}, want {want}")
+    _, first, steady, times = timed_calls(lambda: route(plane))
+    host = route(samples)
+    for field in ("pair_sub", "hop_dpid", "hop_port", "hop_len"):
+        if not np.array_equal(getattr(out["r"], field), getattr(host, field)):
+            fail(f"collective with the plane: {field} differs from the dict path's")
+    if out["r"].max_congestion != host.max_congestion:
+        fail("collective with the plane: max congestion differs from the dict path's")
+    log(f"collective with the plane: {len(src_idx):,} pairs, steady "
+        f"{', '.join(f'{x:.1f}' for x in times)} ms (median {steady:.1f}); "
+        f"routes and max congestion {host.max_congestion} equal to the host "
+        f"dict's; launches {counts}")
+    for what, vals in (("distinct loads", None), ("equal loads", 3)):
+        if vals:
+            for i, (key, _) in enumerate(items):
+                plane.stage(key, float((i % vals) * 1e8))
+            plane.flush()
+        t0 = time.perf_counter()
+        hot = plane.hot_links(8)
+        hot_ms = (time.perf_counter() - t0) * 1e3
+        flat = plane.snapshot().cpu().numpy().reshape(-1)
+        order = [int(i) for i in np.argsort(-flat, kind="stable")[:8] if flat[i] > 0]
+        v = plane._v
+        row_dpid = {r: d for d, r in t.index.items()}
+        if [(h["src"], h["dst"], h["bps"]) for h in hot] != [
+                (row_dpid[i // v], row_dpid[i % v], float(flat[i])) for i in order]:
+            fail(f"hot_links ({what}): {hot} differs from the numpy stable sort")
+        log(f"hot_links(8) ({what}): equal to the numpy stable sort (the lower "
+            f"index first) in {hot_ms:.3f} ms; hottest {hot[0]['bps']:.0f} bps "
+            f"on {hot[0]['src']} -> {hot[0]['dst']}")
+    return [counts]
+
+
+def check_phased(what: str, spec, db, macs, src_idx, dst_idx, program) -> None:
+    """The phases partition the resolved pairs and every phase's routes
+    are shortest real paths (``check_routes`` per phase)."""
+    if (program.pair_phase < 0).any():
+        fail(f"{what}: a pair is in no phase")
+    parts = np.sort(np.concatenate([p.pair_idx for p in program.phases]))
+    if not np.array_equal(parts, np.arange(len(src_idx))):
+        fail(f"{what}: the phases do not partition the pairs")
+    for plan in program.phases:
+        if not (program.pair_phase[plan.pair_idx] == plan.phase).all():
+            fail(f"{what}: phase {plan.phase} holds pairs of another phase")
+        sel = plan.pair_idx
+        check_routes(f"{what}, phase {plan.phase}", spec, db, macs, src_idx[sel],
+                     dst_idx[sel], plan.reap())
+
+
+def phased_run(what: str, oracle, db, spec, macs, src_idx, dst_idx, policy: str,
+               report: dict, want_k2: bool) -> tuple:
+    """One phased program through ``routes_collective_phased_dispatch``
+    and its reaps, timed apart; the launches of the dispatch held (one
+    K2 set-up and two K2 launches per adaptive phase, every K2 call
+    against the plain versions; none for the scanner); checked with
+    :func:`check_phased`. Returns (launch counts, program)."""
+    import torch
+
+    out: dict = {}
+
+    def run():
+        t0 = time.perf_counter()
+        program = oracle.routes_collective_phased_dispatch(
+            db, macs, src_idx, dst_idx, policy)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        program.reap_all()
+        out.update(program=program, dispatch=(t1 - t0) * 1e3,
+                   reap=(time.perf_counter() - t1) * 1e3)
+
+    k2_calls: list = []
+    with recording_sampler(k2_calls):
+        counts = path_launches(run)
+    program = out["program"]
+    n = len(program.phases)
+    want = {"bfs_distances": 0, "sampler_tables": n if want_k2 else 0,
+            "sample_slots": 2 * n if want_k2 else 0, "ring_all_gather": 0}
+    if counts != want:
+        fail(f"{what}: launches {counts}, want {want}")
+    report["sample_slots"]["max_abs_err"] = max(
+        report["sample_slots"]["max_abs_err"],
+        check_k2_calls(k2_calls, counts["sample_slots"], what))
+    for i in range(0, len(k2_calls), 2):
+        if k2_calls[i][1]["tables"] is not k2_calls[i + 1][1]["tables"]:
+            fail(f"{what}: a phase's two segment launches did not share one set-up")
+    check_phased(what, spec, db, macs, src_idx, dst_idx, program)
+    log(f"{what}: K={program.n_phases} ({n} non-empty), pairs per phase "
+        f"{[p.n_pairs for p in program.phases]}; dispatch {out['dispatch']:.1f} ms "
+        f"(the packer, then every phase enqueued), reaps {out['reap']:.1f} ms; "
+        f"launches {counts}")
+    return counts, program
+
+
+def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RANKS,
+                scan_ranks: int = SCHED_SCAN_RANKS,
+                ctl_ranks: int = SCHED_CTL_RANKS) -> list:
+    """Config 12's shape (``benchmarks/config12_schedule.py``): the k=16
+    fat-tree and the alltoall of the first ``n_ranks`` hosts by MAC.
+    (a) The packer at the program's shape (the alltoall's edge groups,
+    auto K, a seeded per-switch background) on the card against
+    ``pack_phases_host``, both timed. (b) The flat balanced collective
+    for the fractional bound. (c) ``routes_collective_phased`` with auto
+    K on the adaptive policy at the full shape and (d) on the balanced
+    policy, whose phases route with the greedy scanner one sub-flow at a
+    time, at the first ``scan_ranks`` ranks (the cut); each checked with
+    :func:`check_phased`, timed, and reported as total discrete
+    congestion over the flat fractional bound and the hottest phase.
+    (e) The same alltoall at ``ctl_ranks`` ranks through the Controller
+    with ``schedule_collectives`` (adaptive policy, block path): every
+    phase installs and every FlowMod on the switches is one of the
+    program's route hops. Returns the launch counts of (b) to (e)."""
+    import torch
+
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases, pack_phases_host
+    from sdnmpi_tpu_torch.sched.phases import aggregate_groups
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(k)
+    db = spec.to_topology_db(backend="torch", device=device)
+    oracle = db._oracle_engine()
+    t = oracle.refresh(db)
+    all_macs = sorted(m for m, _, _ in spec.hosts)
+    macs = all_macs[:n_ranks]
+    src_idx, dst_idx = alltoall_idx(n_ranks)
+
+    # (a) the packer alone
+    edge, _ = oracle._resolve_endpoints_array(db, t, macs)
+    _, uniq, _, _, g_src, g_dst, w = aggregate_groups(edge[src_idx], edge[dst_idx], t.v)
+    n_phases = choose_n_phases(len(uniq))
+    rng = np.random.default_rng(0)
+    util_out = (rng.random(t.v) * 4).astype(np.float32)
+    util_in = (rng.random(t.v) * 4).astype(np.float32)
+    dev_ms, got = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = pack_phases(g_src, g_dst, w, n_phases, t.v, util_out, util_in,
+                          device=device)
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+    order = np.argsort(-w, kind="stable")
+    t0 = time.perf_counter()
+    host = np.empty(len(w), np.int32)
+    host[order] = pack_phases_host(g_src[order], g_dst[order], w[order], util_out,
+                                   util_in, n_phases)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, host):
+        fail(f"packer: {int((got != host).sum())} of {len(w)} groups in another "
+             "phase than pack_phases_host's")
+    log(f"packer: {len(w):,} groups of the {n_ranks}-rank alltoall, K={n_phases}, "
+        f"on the card {', '.join(f'{x:.1f}' for x in dev_ms)} ms (median "
+        f"{np.median(dev_ms):.1f}; one step {np.median(dev_ms) / len(w) * 1e3:.1f} "
+        f"us), equal to pack_phases_host ({host_ms:.1f} ms on the host)")
+
+    all_counts = []
+    # (b) the flat batch's fractional bound
+    def flat(these_macs, s, d):
+        out = {}
+        c = checked_launches(lambda: out.update(r=oracle.routes_collective(
+            db, these_macs, s, d, "balanced")), "phased: flat balanced batch", report)
+        return c, out["r"], oracle.last_fractional_congestion
+
+    counts, flat_routes, frac = flat(macs, src_idx, dst_idx)
+    all_counts.append(counts)
+    log(f"phased: flat balanced batch of {len(src_idx):,} pairs: discrete "
+        f"{flat_routes.max_congestion} against the fractional bound {frac:.3f}")
+
+    # (c) the adaptive program at the full shape
+    counts, program = phased_run(f"phased adaptive ({n_ranks} ranks)", oracle, db,
+                                 spec, macs, src_idx, dst_idx, "adaptive", report,
+                                 want_k2=True)
+    all_counts.append(counts)
+    total = program.total_discrete_congestion()
+    log(f"phased adaptive ({n_ranks} ranks): total discrete congestion {total} = "
+        f"{total / frac:.3f}x the flat fractional bound; hottest phase "
+        f"{program.max_phase_congestion()}; {sum(r.n_detours for r in program.reap_all())} "
+        "detoured pairs")
+
+    # (d) the scanner program at the cut shape
+    s_macs = all_macs[:scan_ranks]
+    s_src, s_dst = alltoall_idx(scan_ranks)
+    counts, _, s_frac = flat(s_macs, s_src, s_dst)
+    all_counts.append(counts)
+    counts, program = phased_run(f"phased balanced ({scan_ranks} ranks)", oracle, db,
+                                 spec, s_macs, s_src, s_dst, "balanced", report,
+                                 want_k2=False)
+    all_counts.append(counts)
+    n_sub = sum(p.reap().n_subflows for p in program.phases)
+    total = program.total_discrete_congestion()
+    log(f"phased balanced ({scan_ranks} ranks): {n_sub:,} sub-flows scanned one "
+        f"at a time; total discrete congestion {total} = {total / s_frac:.3f}x the "
+        f"flat fractional bound {s_frac:.3f}; hottest phase "
+        f"{program.max_phase_congestion()}")
+
+    # (e) through the Controller
+    fabric, ctl, installed = controller_stack(
+        spec, device, schedule_collectives=True, collective_policy="adaptive")
+    ranks = all_macs[:ctl_ranks]
+    launch_ranks(fabric, ranks)
+    captured: list = []
+    handler = ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest]
+
+    def capture(req):
+        reply = handler(req)
+        captured.append((req, reply.routes))
+        return reply
+
+    ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest] = capture
+    phases: list = []
+    ctl.bus.subscribe(ev.EventCollectivePhaseInstalled, phases.append)
+    out: dict = {}
+
+    def kickoff():
+        t0 = time.perf_counter()
+        send_mpi(fabric, ranks, 0, 1)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+
+    counts = checked_launches(kickoff, "phased controller install", report)
+    all_counts.append(counts)
+    req, program = captured[-1]
+    if len(installed) != 1 or len(phases) != len(program.phases):
+        fail(f"phased controller install: {len(installed)} installs, "
+             f"{len(phases)} phase events for {len(program.phases)} phases")
+    from sdnmpi_tpu_torch.protocol.vmac import CollectiveType, VirtualMac
+
+    expected = set()
+    for plan in program.phases:
+        routes = plan.reap()
+        for j in range(routes.n_pairs):
+            kk = int(plan.pair_idx[j])
+            si, di = int(req.src_idx[kk]), int(req.dst_idx[kk])
+            vmac = VirtualMac(CollectiveType.ALLTOALL, si, di).encode()
+            fdb = routes.fdb(j)
+            for h, (dpid, port) in enumerate(fdb):
+                last = h == len(fdb) - 1
+                expected.add((dpid, req.macs[si], vmac, port,
+                              req.macs[di] if last else None))
+    got_rows = set()
+    for dpid, sw in fabric.switches.items():
+        for e in sw.flow_table:
+            if e.match.dl_src is None:
+                continue
+            port = [a.port for a in e.actions if hasattr(a, "port")][-1]
+            rew = [a.mac for a in e.actions if hasattr(a, "mac")]
+            got_rows.add((dpid, e.match.dl_src, e.match.dl_dst, port,
+                          rew[0] if rew else None))
+    if got_rows != expected:
+        fail(f"phased controller install: {len(got_rows - expected)} FlowMods off "
+             f"their routes, {len(expected - got_rows)} route hops without one")
+    log(f"phased controller install: {ctl_ranks} ranks, {len(req.src_idx):,} pairs in "
+        f"{len(phases)} phases (K={program.n_phases}); kickoff -> last phase "
+        f"{out['ms']:.1f} ms; all {len(expected):,} FlowMods on their routes' "
+        f"switches; launches {counts}")
+    return all_counts
+
+
 def main() -> int:
     import torch
 
@@ -2624,9 +3144,17 @@ def main() -> int:
     launcher_counts = phase_launcher(device, report)
     southbound_counts = phase_southbound(device, report)
     serving_counts = phase_serving(device, report)
+
+    # phases 18 to 20: churn, the utilization plane, phased collectives
+    churn_counts = phase_churn(device, report)
+    collect("churn")
+    plane_counts = phase_utilplane(device, report)
+    collect("utilization plane")
+    sched_counts = phase_sched(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
-             *launcher_counts, *southbound_counts, *serving_counts)
+             *launcher_counts, *southbound_counts, *serving_counts,
+             *churn_counts, *plane_counts, *sched_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report

@@ -13,8 +13,6 @@ the port has not ported yet default to OFF here, where the reference
 turns them on; each item of ROADMAP.md that ports a plane reverts its
 default:
 
-- ``util_plane`` (device utilization plane): A7
-- ``delta_reval`` (delta-narrowed revalidation): A7
 - ``fabric_audit``, ``traffic_plane``, ``flight_recorder``,
   ``metrics_timeline`` and ``rpc_telemetry``: A11
 
@@ -88,9 +86,8 @@ class Config:
     #: balanced/adaptive/collective base cost becomes a pure device
     #: expression — no per-call host rebuild or [V, V] upload. Only
     #: meaningful with the torch backend; False falls back to the host
-    #: dict rebuild (the differential-testing path). Not ported yet
-    #: (ROADMAP A7): off.
-    util_plane: bool = False
+    #: dict rebuild (the differential-testing path).
+    util_plane: bool = True
     #: EWMA weight of each fresh Monitor sample folded into the
     #: device-resident utilization plane: ``u' = (1-a)*u + a*sample``.
     #: 1.0 (default) is pure replacement — bit-identical to the host
@@ -193,9 +190,9 @@ class Config:
     #: or "shortest" (deterministic next-hop paths)
     collective_policy: Literal["balanced", "adaptive", "shortest"] = "balanced"
     #: device-side collective phase scheduler
-    #: (sdnmpi_tpu_torch/sched, ROADMAP A10): decompose each block-installed collective
+    #: (sdnmpi_tpu_torch/sched): decompose each block-installed collective
     #: into K link-load-balanced phases (greedy packing over the
-    #: UtilPlane's per-switch load, jitted) and install the resulting
+    #: UtilPlane's per-switch load, on the device) and install the resulting
     #: phased flow program phase by phase through the pipelined install
     #: plane with barrier-acked phase boundaries — the scheduled
     #: program's summed max-link congestion approaches the flat batch's
@@ -231,9 +228,8 @@ class Config:
     #: the batched install windows. False restores the full
     #: re-route-everything pass (the differential-testing escape hatch:
     #: narrowed and full passes must leave bit-identical FDB + desired
-    #: state — asserted in tests/test_delta_reval.py). Not ported yet
-    #: (ROADMAP A7): off.
-    delta_reval: bool = False
+    #: state — asserted in tests/test_delta_reval.py).
+    delta_reval: bool = True
     #: coalesce concurrent route lookups (unicast + MPI packet-ins)
     #: into one padded batched oracle call instead of one device
     #: dispatch per packet-in. Flushed when the southbound goes idle
@@ -583,9 +579,6 @@ class Config:
         before they build anything, so no plane silently runs without
         its code."""
         deferred = (
-            ("util_plane", self.util_plane and self.oracle_backend == "torch", "A7"),
-            ("delta_reval", self.delta_reval, "A7"),
-            ("schedule_collectives", self.schedule_collectives, "A10"),
             ("fabric_audit", self.fabric_audit, "A11"),
             ("traffic_plane", self.traffic_plane, "A11"),
             ("flight_recorder", self.flight_recorder, "A11"),

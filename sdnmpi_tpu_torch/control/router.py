@@ -21,9 +21,10 @@ the window path installs the oracle's ``WindowRoutes`` arrays as the
 reference does, and a collective of at least
 ``Config.block_install_threshold`` pairs takes the block install, whose
 routes come from one ``find_routes_collective`` call (kernel K2's set-up
-and K2 on the balanced and adaptive policies). The planes the port does
-not have yet (delta-narrowed revalidation, phased collectives) are
-refused by ``Config.require_ported``.
+and K2 on the balanced and adaptive policies). A topology change
+revalidates by the delta-narrowed leg (``Config.delta_reval``, the
+oracle's in-place repair), and with ``Config.schedule_collectives`` a
+block-installed collective installs phase by phase (``sched/``).
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ Upgrades over the reference:
   beside the topology, ready for congestion-aware scoring.
 
 Counterpart of ``sdnmpi_tpu/control/topology_manager.py`` on the port's
-oracle: the TopologyDB runs backend ``"torch"`` on ``Config.device``.
-The device utilization plane (``Config.util_plane``) is ROADMAP A7, so
-the oracle always reads the Monitor's host sample dict.
+oracle: the TopologyDB runs backend ``"torch"`` on ``Config.device``, and
+with ``Config.util_plane`` (the default) the Monitor's samples also
+stage into the device utilization plane (``oracle/utilplane.py``) that
+the oracle's balanced, adaptive and collective calls read.
 """
 
 from __future__ import annotations
@@ -95,10 +96,23 @@ class TopologyManager:
         self.link_util: dict[tuple[int, int], float] = {}
         self._tx_util: dict[tuple[int, int], float] = {}
         self._rx_util: dict[tuple[int, int], float] = {}
-        #: device-resident twin of link_util (oracle/utilplane.py,
-        #: ROADMAP A7): None until it is ported, so the oracle reads the
-        #: host dict (Config.require_ported refuses util_plane)
+        #: device-resident twin of link_util (oracle/utilplane.py):
+        #: samples stage here too and flush to a persistent [V, V]
+        #: tensor once per Monitor pass, so the oracle's base cost needs
+        #: no per-call host rebuild. The host dict stays authoritative
+        #: for snapshots and RPC. None on the pure-Python backend, under
+        #: the hierarchical oracle, or when Config.util_plane is off.
         self.util_plane = None
+        if (
+            config.oracle_backend == "torch" and config.util_plane
+            and not config.hier_oracle
+        ):
+            from sdnmpi_tpu_torch.oracle.utilplane import UtilPlane
+
+            self.util_plane = UtilPlane(
+                config.util_ewma_alpha,
+                stale_horizon_s=config.util_stale_horizon_s,
+            )
         #: (dst_dpid, dst_port) -> (src_dpid, src_port) of the directed
         #: link arriving there, for attributing rx samples
         self._link_rev: dict[tuple[int, int], tuple[int, int]] = {}

@@ -271,11 +271,9 @@ class TopologyDB:
         #: pod structure annotation (topogen/podmap.py), set by
         #: TopoSpec.to_topology_db for generator fabrics
         self.podmap = None
-        #: max link deltas the reference's oracle absorbs by in-place
-        #: repair before a full recompute. Stored for the incremental
-        #: oracle (ROADMAP A7); until it is ported every refresh is a
-        #: full recompute, which the reference holds route-equal to the
-        #: repair (tests/test_incremental.py)
+        #: max link deltas the oracle absorbs by in-place repair
+        #: (oracle/incremental.py) before a full recompute; None keeps
+        #: the oracle's default
         self.delta_repair_threshold = delta_repair_threshold
         #: memoized route cache (oracle/routecache.py): reaped route
         #: windows and collective results served straight from the memo
@@ -615,12 +613,89 @@ class TopologyDB:
         return RouteWindow(result=WindowRoutes.from_fdbs(fdbs))
 
     def find_routes_batch_delta_dispatch(self, pairs, dirty_dpids):
-        raise NotImplementedError(
-            "delta-narrowed batches (Config.delta_reval) are ROADMAP A7"
-        )
+        """Delta-narrowed split-phase routing (the churn dataflow's
+        re-scoring stage): :meth:`find_routes_batch_dispatch` with the
+        shortest policy, whose reaped ``WindowRoutes`` carries the
+        per-pair ``touched`` flag (the new path crosses the dirtied
+        switch set). On the torch backend the refresh absorbs the delta
+        log by the in-place APSP repair; the pure-Python backend loops
+        and intersects sets, the differential twin."""
+        if self.backend == "torch":
+            return self._oracle_engine().routes_batch_delta_dispatch(
+                self, pairs, dirty_dpids
+            )
+        from sdnmpi_tpu_torch.oracle.batch import RouteWindow, WindowRoutes
 
-    def find_routes_collective_phased(self, *args, **kwargs):
-        raise NotImplementedError("phase-scheduled collectives are ROADMAP A10")
+        fdbs = [self.find_route(s, d) for s, d in pairs]
+        wr = WindowRoutes.from_fdbs(fdbs)
+        dirty = set(dirty_dpids)
+        wr.touched = np.array(
+            [any(dpid in dirty for dpid, _ in fdb) for fdb in fdbs], bool
+        )
+        return RouteWindow(result=wr)
+
+    def find_routes_collective_phased(
+        self,
+        macs: list,
+        src_idx,
+        dst_idx,
+        policy: str = "balanced",
+        n_phases: int = 0,
+        **kwargs,
+    ):
+        """Phase-scheduled whole-collective routing: the pairs are packed
+        into K link-load-balanced phases and each phase is routed as its
+        own batch; returns a
+        :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram` whose
+        phases the Router installs in order. On the torch backend the
+        packer runs on the oracle's device; the pure-Python backend runs
+        its host twin over the same grouping (idle background loads) and
+        routes each phase through :meth:`find_routes_collective`."""
+        if self.backend == "torch":
+            return self._oracle_engine().routes_collective_phased_dispatch(
+                self, macs, src_idx, dst_idx, policy, n_phases=n_phases,
+                **kwargs,
+            )
+        from sdnmpi_tpu_torch.oracle.batch import RouteWindow
+        from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
+        from sdnmpi_tpu_torch.sched.phases import aggregate_groups
+        from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan
+
+        src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
+        dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
+        f = len(src_idx)
+        # compact switch index over sorted dpids (the tensor path's row
+        # order), so both packers see the same group ids
+        dpids = sorted(self.switches)
+        index = {d: i for i, d in enumerate(dpids)}
+        v = max(1, len(dpids))
+        edge = np.full(len(macs), -1, np.int32)
+        for i, mac in enumerate(macs):
+            resolved = self._resolve_endpoint(mac)
+            if resolved is not None and resolved[0] in index:
+                edge[i] = index[resolved[0]]
+        src_sw = edge[src_idx]
+        dst_sw = edge[dst_idx]
+        ok = (src_sw >= 0) & (dst_sw >= 0)
+        pair_phase = np.full(f, -1, np.int32)
+        k = choose_n_phases(0, n_phases)
+        if ok.any():
+            _, uniq, inv, _, g_src, g_dst, w = aggregate_groups(
+                src_sw[ok], dst_sw[ok], v
+            )
+            k = choose_n_phases(len(uniq), n_phases)
+            packed = pack_phases(g_src, g_dst, w, k, v, device=None)
+            pair_phase[ok] = packed[inv]
+        phases = []
+        for p in range(k):
+            sel = np.nonzero(pair_phase == p)[0]
+            if not len(sel):
+                continue
+            routes = self.find_routes_collective(
+                macs, src_idx[sel], dst_idx[sel], policy, **kwargs
+            )
+            phases.append(PhasePlan(p, sel, RouteWindow(result=routes)))
+        return PhasedFlowProgram(k, pair_phase, phases)
 
     def find_routes_collective(
         self,
@@ -743,6 +818,8 @@ class TopologyDB:
                 ring_exchange=self.ring_exchange,
                 device=self.device,
             )
+            if self.delta_repair_threshold is not None:
+                self._oracle.delta_repair_threshold = self.delta_repair_threshold
         return self._oracle
 
 

@@ -28,8 +28,8 @@ reference's parser under the same name, with these differences
   oracle on the CPU;
 - the planes the port has not ported yet keep the port's ``Config``
   defaults, which are off, where the reference's launcher turns them
-  on: delta-narrowed revalidation (ROADMAP A7), the fabric audit, the
-  traffic plane and the flight recorder (A11);
+  on: the fabric audit, the traffic plane and the flight recorder
+  (A11);
 - a flag that needs a module the port does not have yet fails the
   launch with ``SystemExit`` naming its ROADMAP item, before anything
   is built (:data:`REFUSED`);
@@ -86,7 +86,6 @@ REFUSED = (
     ("sentinel_divergence_factor", 2.0, "--sentinel-divergence-factor",
      "control/sentinel.py", "A11"),
     ("sentinel_heal", False, "--sentinel-heal", "control/sentinel.py", "A11"),
-    ("schedule_phases", None, "--schedule-phases", "sched/", "A10"),
     ("hier_oracle", False, "--hier-oracle", "oracle/hier.py", "A13"),
     ("hier_pod_target", 0, "--hier-pod-target", "oracle/hier.py", "A13"),
     ("hier_warm", True, "--no-hier-warm", "oracle/hier.py", "A13"),
@@ -242,6 +241,10 @@ def config_from_args(args) -> Config:
         echo_interval_s=getattr(args, "echo_interval", 15.0),
         echo_timeout_s=getattr(args, "echo_timeout", 45.0),
         route_cache=getattr(args, "route_cache", True),
+        schedule_collectives=getattr(args, "schedule_phases", None)
+        is not None,
+        schedule_phases=getattr(args, "schedule_phases", None) or 0,
+        delta_reval=not getattr(args, "no_delta_reval", False),
         admission_rate=getattr(args, "admission_rate", 0.0),
         compile_cache_dir=getattr(args, "compile_cache_dir", None) or "",
         warm_serving=getattr(args, "warm_serving", False),
@@ -581,14 +584,13 @@ def build_parser() -> argparse.ArgumentParser:
         "(sdnmpi_tpu_torch/sched): block-installed collectives decompose into "
         "K link-load-balanced phases installed with barrier-acked "
         "boundaries (K is pow2-rounded and clamped at 32; 0 = auto). "
-        "Omit the flag for the bit-identical single-shot install path"
-        "; not ported yet (ROADMAP A10): refused",
+        "Omit the flag for the bit-identical single-shot install path",
     )
     parser.add_argument(
         "--no-delta-reval", action="store_true",
-        help="disable delta-narrowed flow revalidation (not ported yet, "
-        "ROADMAP A7, so always off here: every topology change "
-        "re-routes every installed flow and collective)",
+        help="disable delta-narrowed flow revalidation: every topology "
+        "change re-routes every installed flow and collective (the "
+        "differential escape hatch)",
     )
     parser.add_argument(
         "--no-install-barriers", action="store_true",

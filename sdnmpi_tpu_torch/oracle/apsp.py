@@ -10,11 +10,14 @@ Counterpart of ``sdnmpi_tpu/oracle/apsp.py``:
 - **Next hops** via a masked argmin over each row's neighbours: for
   every (i, j), the lowest-indexed out-neighbour ``n`` of ``i``
   minimizing ``dist[n, j]`` (``torch.argmin`` returns the first minimum,
-  the reference's sorted-dpid tie-break).
+  the reference's sorted-dpid tie-break). :func:`nexthop_cols` redoes
+  the argmin for a set of destination columns only (the incremental
+  repair's, ``oracle/incremental.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INF = float("inf")
@@ -148,3 +151,54 @@ def apsp_next_hops(
     idx = torch.arange(v, dtype=torch.int32, device=adj.device)
     nxt = torch.where(torch.isinf(dist), -1, nxt)
     return torch.where(idx[:, None] == idx[None, :], idx[:, None], nxt)
+
+
+def nexthop_cols(
+    adj: torch.Tensor,
+    dist: torch.Tensor,
+    nxt: torch.Tensor,
+    cols: np.ndarray,
+    max_degree: int,
+    valid: torch.Tensor | None = None,
+    safe: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Recompute ``next_hop[:, cols]`` against ``dist`` and write the
+    repaired columns into ``nxt`` in place (everything else untouched);
+    returns ``nxt``.
+
+    The column-restricted twin of :func:`apsp_next_hops`'s degree-compact
+    path: the same neighbour table, the same argmin
+    (:func:`_degree_compact_block`) and the same masking order, so the
+    lowest-index tie-break cannot drift from the full recompute. ``cols``
+    (int32, host) is bucket-padded with entries >= V at its end
+    (``kernels/tiling.bucket_pad``): the gathers clamp them and only the
+    real columns are written. ``valid``/``safe`` optionally give the
+    ``[V, D]`` sorted-neighbour table (the incremental repair keeps it
+    current row by row); without them it is built from ``adj``."""
+    v = adj.shape[0]
+    d = min(max_degree, v)
+    if valid is None or safe is None:
+        from sdnmpi_tpu_torch.oracle.dag import neighbor_table
+
+        _, valid, safe = neighbor_table(adj, max_degree)
+    n_real = int((cols < v).sum())
+    if n_real == 0:
+        return nxt
+    cols_d = torch.as_tensor(cols.astype(np.int64)).to(adj.device)
+    colsg = torch.clamp(cols_d, max=v - 1)  # gather-safe
+    rows = torch.arange(v, dtype=torch.int32, device=adj.device)[:, None]
+
+    def per_block(cols_b):  # [B] destination column indices
+        db = dist[:, cols_b]  # [V, B]
+        new = _degree_compact_block(valid, safe, db).to(torch.int32)
+        new = torch.where(torch.isinf(db), -1, new)
+        return torch.where(rows == cols_b[None, :].to(torch.int32), rows, new)
+
+    c = colsg.shape[0]
+    block = _fit_block(c, v * d)
+    new = torch.cat(
+        [per_block(colsg[b:b + block]) for b in range(0, c, block)], dim=1
+    )
+    # the pads sit at the end: only the real columns are written
+    nxt[:, cols_d[:n_real]] = new[:, :n_real]
+    return nxt

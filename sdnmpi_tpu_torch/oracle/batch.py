@@ -27,7 +27,7 @@ def bucket_len(n: int, multiple: int = 8) -> int:
 def bucket_pow2(n: int, floor: int = 8) -> int:
     """Round a batch length up to the next power of two (floor 8), the
     coarse bucket tier of workloads whose batch sizes vary freely per
-    event (the delta-narrowed churn path, ROADMAP A7, pads with it). A
+    event (the delta-narrowed churn path pads with it). A
     smaller ``floor`` is honored."""
     out = max(1, floor)
     while out < n:
@@ -37,6 +37,7 @@ def bucket_pow2(n: int, floor: int = 8) -> int:
 
 def pad_flow_batch(
     *arrays: np.ndarray, multiple: int = 8, fill: int = -1,
+    pow2: bool = False,
 ) -> tuple[np.ndarray, ...]:
     """End-pad equal-length 1-D index arrays to a shared bucketed length,
     as the reference's device entry points do (its jit cache keys on the
@@ -44,10 +45,11 @@ def pad_flow_batch(
     value ``-1`` is the path kernels' "dead flow" marker (masked out of
     walks and reduces); end-padding keeps real rows' positions — and
     therefore their hash streams — unchanged, so callers just trim
-    outputs back to the true length.
+    outputs back to the true length. ``pow2`` selects the power-of-two
+    tier (:func:`bucket_pow2`).
     """
     n = len(arrays[0])
-    padded = bucket_len(n, multiple)
+    padded = bucket_pow2(n, multiple) if pow2 else bucket_len(n, multiple)
     if padded == n:
         return arrays
     out = []
@@ -111,7 +113,7 @@ class WindowRoutes:
     #: pairs detoured through a Valiant intermediate (adaptive policy)
     n_detours: int = 0
     #: [F] bool, True where the pair's new path crosses a dirtied switch
-    #: set; set only by the delta-narrowed entry points (ROADMAP A7),
+    #: set; set only by the delta-narrowed entry points,
     #: None everywhere else
     touched: np.ndarray | None = None
 

@@ -14,7 +14,15 @@ points answer from them:
   (``oracle/congestion.route_flows_balanced``) below it; the adaptive
   policy runs the UGAL program (``oracle/adaptive.route_adaptive``);
 - whole collectives (``routes_collective*``) in compressed array form,
-  with the ``"balanced"``, ``"shortest"`` and ``"adaptive"`` policies.
+  with the ``"balanced"``, ``"shortest"`` and ``"adaptive"`` policies,
+  in one flat batch or as a phased flow program
+  (``routes_collective_phased*``, the scheduler of ``sched/``);
+- delta-narrowed re-scoring after a link flap (``routes_batch_delta*``),
+  whose refresh absorbs the TopologyDB's delta log by the in-place APSP
+  repair of ``oracle/incremental.py`` instead of a full recompute.
+
+``link_util`` is the Monitor's host sample dict or the device
+utilization plane (``oracle/utilplane.UtilPlane``).
 
 Every tensor lives on the oracle's ``device``; nothing moves to another
 device behind the caller's back.
@@ -28,10 +36,7 @@ kernel K3 instead of replicating them first. The sharded shortest and
 adaptive legs raise (ROADMAP A12 item 3); nothing routes on one device
 in their place.
 
-Not ported yet, and raising ``NotImplementedError`` where a caller asks
-for them: the incremental repair, the hierarchical oracle, the
-utilization plane, the delta-narrowed batches and phase scheduling
-(ROADMAP A7-A13).
+The hierarchical oracle is not ported yet (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -47,10 +52,14 @@ import torch
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows
 from sdnmpi_tpu_torch.oracle.apsp import apsp_distances, apsp_next_hops, occ_bucket
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+from sdnmpi_tpu_torch.utils.tracing import STATS
 
 if TYPE_CHECKING:
     from sdnmpi_tpu_torch.core.topology_db import TopologyDB
 
+_m_repairs = REGISTRY.counter(
+    "oracle_repairs_total", "link deltas absorbed by in-place APSP repair"
+)
 _m_full_refreshes = REGISTRY.counter(
     "oracle_full_refreshes_total", "full tensorize + APSP recomputes"
 )
@@ -135,6 +144,13 @@ def _gather_dist(blocks: list, mesh) -> torch.Tensor:
     return unpack_dist_wire(
         ring_all_gather([pack_dist_wire(d, v) for d in blocks], mesh)[0]
     )
+
+
+def _touched_rows(nodes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``[F]`` bool: does any valid hop of each -1-padded node row land in
+    the dirty-switch mask (``[V]`` bool), computed where the rows are."""
+    safe = nodes.long().clamp(min=0)
+    return ((nodes >= 0) & mask[safe]).any(dim=1)
 
 
 def _pad(n: int, multiple: int = 8) -> int:
@@ -240,6 +256,10 @@ class RouteOracle:
     matrices; whole collectives run ``dag.route_collective`` on the
     device."""
 
+    #: link deltas the in-place repair (oracle/incremental.py) absorbs
+    #: before the refresh recomputes in full; 0 disables the repair (the
+    #: reference's ``Config.delta_repair_threshold``)
+    delta_repair_threshold: int = 8
     #: occupancy-bucket width: when the padded capacity V exceeds the
     #: occupied switch count by a bucket, the APSP computes only the
     #: occupied block (the padding block is analytic); 0 disables
@@ -300,6 +320,8 @@ class RouteOracle:
         #: mac -> (row index, final out-port) | None, valid for one
         #: topology version (refresh clears it)
         self._endpoint_memo: dict[str, Optional[tuple[int, int]]] = {}
+        #: link deltas absorbed by in-place repair, and full recomputes
+        self.repair_count: int = 0
         self.full_refresh_count: int = 0
         self.last_fractional_congestion: float = 0.0
         self.last_discrete_congestion: float = 0.0
@@ -312,11 +334,63 @@ class RouteOracle:
 
     # -- cache management -------------------------------------------------
 
+    def _try_repair(self, db: "TopologyDB") -> bool:
+        """Absorb the version gap by repairing the cached tensors in
+        place (``oracle/incremental.py``) when the TopologyDB's delta log
+        covers it with at most :attr:`delta_repair_threshold` repairable
+        link deltas. Returns True when the cache is current again
+        without a full recompute. Never under a distance cap
+        (``max_diameter``), whose capped BFS a repair cannot mirror, nor
+        with a shard mesh, whose refresh owns its own layout."""
+        if (
+            self._tensors is None
+            or self._version is None
+            or not self.delta_repair_threshold
+            or self.max_diameter != 0
+            or self.mesh_devices
+        ):
+            return False
+        deltas_since = getattr(db, "deltas_since", None)
+        deltas = deltas_since(self._version) if deltas_since else None
+        if (
+            deltas is None
+            or not deltas
+            or len(deltas) != db.version - self._version
+        ):
+            return False
+        from sdnmpi_tpu_torch.oracle import incremental
+
+        plan = incremental.plan_repair(self._tensors, db, deltas)
+        if plan is None:
+            return False
+        n_edges = len(plan.edges)
+        if n_edges > self.delta_repair_threshold:
+            return False
+        with STATS.timed("oracle_repair", version=db.version, n_edges=n_edges):
+            # materialized host twins are patched per delta (only the
+            # repaired columns and rows cross to the host); twins never
+            # materialized stay lazy
+            self._dist_d, self._next_d = incremental.apply_repairs(
+                self._tensors, self._dist_d, self._next_d, self._order,
+                plan.edges, dist_host=self._dist_h, next_host=self._next_h,
+            )
+            self._dist_full_d = None
+            self._port = self._tensors.port_host
+            if plan.clear_memo:
+                self._endpoint_memo = {}
+            self._version = db.version
+            self.repair_count += n_edges
+            _m_repairs.inc(n_edges)
+        return True
+
     def refresh(self, db: "TopologyDB") -> TopoTensors:
-        """Recompute tensors, distances and next hops when the topology
-        version moved (always a full recompute: the incremental repair
-        is ROADMAP A7)."""
+        """Bring tensors, distances and next hops to the topology's
+        version: by the in-place repair of the delta log's link deltas
+        when it covers the gap (:meth:`_try_repair`), else by a full
+        recompute."""
         if self._version != db.version or self._tensors is None:
+            if self._try_repair(db):
+                return self._tensors
             from sdnmpi_tpu_torch import native
 
             tensors = tensorize(db, self.pad_multiple, self.device)
@@ -728,7 +802,47 @@ class RouteOracle:
         as per-pair fdb lists."""
         return self.routes_batch_dispatch(db, pairs).reap().fdbs()
 
-    def routes_batch_dispatch(self, db: "TopologyDB", pairs: list[tuple[str, str]]):
+    def routes_batch_delta(
+        self, db: "TopologyDB", pairs: list[tuple[str, str]], dirty_dpids
+    ):
+        """Blocking twin of :meth:`routes_batch_delta_dispatch`: returns
+        the window's :class:`~sdnmpi_tpu_torch.oracle.batch.WindowRoutes`
+        with ``touched`` set."""
+        return self.routes_batch_delta_dispatch(db, pairs, dirty_dpids).reap()
+
+    def routes_batch_delta_dispatch(
+        self, db: "TopologyDB", pairs: list[tuple[str, str]], dirty_dpids
+    ):
+        """Delta-narrowed re-scoring, the oracle leg of the churn
+        dataflow: ``pairs`` are the flows a link flap dirtied (their
+        installed hops touch ``dirty_dpids``). The refresh absorbs the
+        delta log by the in-place repair, so a flap costs O(affected
+        pairs), not a full recompute. The pairs route as
+        :meth:`routes_batch_dispatch` routes them (shortest paths), and
+        the reaped window's ``touched`` flags the pairs whose new path
+        crosses a dirtied switch: on the device for the batched leg (the
+        dirty set as a ``[V]`` bool mask), on the host otherwise. Batch
+        lengths pad to powers of two."""
+        t = self.refresh(db)  # delta log -> incremental repair
+        uniq = set(dirty_dpids)
+        dirty_idx = np.array(
+            sorted(t.index[d] for d in uniq if d in t.index), np.int32
+        )
+        dirty_dpid = np.array(sorted(uniq), np.int64)
+        return self.routes_batch_dispatch(
+            db, pairs, _dirty=(dirty_idx, dirty_dpid)
+        )
+
+    @staticmethod
+    def _host_touched(hop_dpid: np.ndarray, dirty_dpid: np.ndarray):
+        """``[F]`` bool twin of :func:`_touched_rows` for rows already on
+        the host: does the row's dpid sequence meet the dirty set (-1
+        pads never do)."""
+        return np.isin(hop_dpid, dirty_dpid).any(axis=1)
+
+    def routes_batch_dispatch(
+        self, db: "TopologyDB", pairs: list[tuple[str, str]], _dirty=None,
+    ):
         """Split-phase shortest-path batch routing: returns a
         :class:`~sdnmpi_tpu_torch.oracle.batch.RouteWindow` whose
         ``reap()`` yields the window's
@@ -740,7 +854,10 @@ class RouteOracle:
         ``oracle/paths.batch_fdb`` call on the device, padded to a
         multiple of 8, that ``reap()`` copies back. Under
         ``shard_oracle`` the reference chases row-sharded next hops, which
-        is not ported (ROADMAP A12 item 3): a large batch raises."""
+        is not ported (ROADMAP A12 item 3): a large batch raises.
+
+        ``_dirty`` is the delta entry point's ``(dirty row indices, dirty
+        dpids)``; with it the window's ``touched`` is set."""
         from sdnmpi_tpu_torch.oracle.batch import (
             RouteWindow,
             WindowRoutes,
@@ -751,15 +868,21 @@ class RouteOracle:
         t = self.refresh(db)
         results: list[list[tuple[int, int]]] = [[] for _ in pairs]
         rows = self._resolve_rows(db, pairs, t, results)
+
+        def _finish(wr: WindowRoutes) -> WindowRoutes:
+            if _dirty is not None:
+                wr.touched = self._host_touched(wr.hop_dpid, _dirty[1])
+            return wr
+
         if not rows:
-            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+            return RouteWindow(result=_finish(WindowRoutes.from_fdbs(results)))
 
         src_idx = np.array([r[1] for r in rows], dtype=np.int32)
         dst_idx = np.array([r[2] for r in rows], dtype=np.int32)
         final_port = np.array([r[3] for r in rows], dtype=np.int32)
         max_len = self._batch_max_len(src_idx, dst_idx)
         if max_len == 0:
-            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+            return RouteWindow(result=_finish(WindowRoutes.from_fdbs(results)))
 
         if len(rows) * max_len <= self.host_chase_hop_budget:
             dist, nxt_h, port_h, dpids = self._dist, self._next, self._port, t.dpids
@@ -774,7 +897,7 @@ class RouteOracle:
                     node = nxt
                 fdb.append((int(dpids[di]), int(fport)))
                 results[k] = fdb
-            return RouteWindow(result=WindowRoutes.from_fdbs(results))
+            return RouteWindow(result=_finish(WindowRoutes.from_fdbs(results)))
 
         if self._shard_mesh() is not None:
             chase = "batch_fdb_ringed" if self.ring_exchange else "batch_fdb_sharded"
@@ -782,11 +905,18 @@ class RouteOracle:
                 f"the sharded chase (shardplane.{chase}) is not ported yet "
                 "(ROADMAP A12 item 3)"
             )
-        src_p, dst_p, fport_p = pad_flow_batch(src_idx, dst_idx, final_port)
+        src_p, dst_p, fport_p = pad_flow_batch(
+            src_idx, dst_idx, final_port, pow2=_dirty is not None
+        )
         nodes_d, ports_d, length_d = batch_fdb(
             self._next_full(), t.port, self._put(src_p), self._put(dst_p),
             self._put(fport_p), max_len,
         )
+        touched_d = None
+        if _dirty is not None:
+            mask = np.zeros(t.v, bool)
+            mask[_dirty[0]] = True
+            touched_d = _touched_rows(nodes_d, self._put(mask))
         pair_rows = np.array([r[0] for r in rows], dtype=np.int64)
         n_pairs = len(pairs)
         dpids = t.dpids
@@ -806,9 +936,17 @@ class RouteOracle:
             op[pair_rows, : ports.shape[1]] = ports
             ln[pair_rows] = length
             wr = WindowRoutes(od, op, ln)
-            for k, fdb in enumerate(results):
-                if fdb:  # merge the scalar-path pairs back in
-                    wr.set_fdb(k, fdb)
+            fallbacks = [k for k, fdb in enumerate(results) if fdb]
+            for k in fallbacks:  # merge the scalar-path pairs back in
+                wr.set_fdb(k, results[k])
+            if touched_d is not None:
+                touched = np.zeros(n_pairs, bool)
+                touched[pair_rows] = touched_d.cpu().numpy()[:n_rows]
+                if fallbacks:
+                    touched[fallbacks] = self._host_touched(
+                        wr.hop_dpid[fallbacks], _dirty[1]
+                    )
+                wr.touched = touched
             return wr
 
         return RouteWindow(reap)
@@ -885,7 +1023,7 @@ class RouteOracle:
             )
         else:
             nodes_d, _, _ = route_flows_balanced(
-                t.adj, self._dist_full(), self._put(base.astype(np.float32)),
+                t.adj, self._dist_full(), self._base_tensor(base),
                 self._put(src_idx), self._put(dst_idx), self._put(sub_w),
                 max_len, chunk=chunk, neigh=t.neigh,
             )
@@ -980,7 +1118,7 @@ class RouteOracle:
         w_a = np.zeros(len(src_a), np.float32)
         w_a[:n] = np.asarray(weight, np.float32)
         inter_d, s1_d, s2_d, _ = route_adaptive(
-            t.adj, self._put(base.astype(np.float32)), self._put(src_a),
+            t.adj, self._base_tensor(base), self._put(src_a),
             self._put(dst_a), self._put(w_a), t.n_real, packed=True,
             dist=self._dist_full(), neigh=t.neigh, **kwargs,
         )
@@ -1016,23 +1154,37 @@ class RouteOracle:
     def _normalized_base(
         self, db: "TopologyDB", t: TopoTensors, link_util, alpha: float,
         link_capacity: float, n_rows: int,
-    ) -> np.ndarray:
-        """The Monitor's ``(dpid, port) -> bps`` samples as a ``[V, V]``
-        cost in flow-equivalent units: ``(util / cap) * alpha * share``,
-        so measured utilization and the balancer's own load are
-        comparable in ``cost = base + load``."""
-        from sdnmpi_tpu_torch.oracle.congestion import utilization_matrix
+    ):
+        """The measured utilization as a ``[V, V]`` cost in
+        flow-equivalent units: ``(util / cap) * alpha * share``, so
+        measured utilization and the balancer's own load are comparable
+        in ``cost = base + load``.
 
-        if link_util is not None and not isinstance(link_util, dict):
-            raise NotImplementedError(
-                "link_util takes the host (dpid, port) -> bps dict; the "
-                "device utilization plane is ROADMAP A7"
-            )
+        ``link_util`` is the Monitor's ``(dpid, port) -> bps`` host dict
+        (rebuilt into a numpy matrix per call) or a
+        :class:`~sdnmpi_tpu_torch.oracle.utilplane.UtilPlane`, which is
+        synced to the topology, flushed, and read as a device tensor of
+        its published epoch. Both compute the same f32 operations in the
+        same order, so the two bases are bit-equal."""
+        from sdnmpi_tpu_torch.oracle.congestion import utilization_matrix
+        from sdnmpi_tpu_torch.oracle.utilplane import UtilPlane
+
         n_links = max(1, t.link_count())
         per_link_share = max(1.0, n_rows / n_links)
         cap = max(link_capacity, 1.0)
+        if isinstance(link_util, UtilPlane):
+            link_util.sync(db, t)
+            link_util.flush()  # staged Monitor samples -> this epoch
+            return link_util.base(alpha, cap, per_link_share)
         util = utilization_matrix(t, link_util or {})
         return (util / cap) * alpha * per_link_share
+
+    def _base_tensor(self, base) -> torch.Tensor:
+        """A base cost (numpy from the host dict, or the plane's device
+        tensor) as an f32 tensor on the oracle's device."""
+        if isinstance(base, torch.Tensor):
+            return base
+        return self._put(base.astype(np.float32))
 
     def _batch_max_len(
         self, src_idx: np.ndarray, dst_idx: np.ndarray, multiple: int = 8
@@ -1064,7 +1216,12 @@ class RouteOracle:
         from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes, route_collective
 
         li, lj = np.nonzero(t.host_adj() > 0)
-        util = np.ascontiguousarray(base[li, lj], dtype=np.float32)
+        put = self._put
+        if isinstance(base, torch.Tensor):
+            # the plane's base: the per-link gather stays on the device
+            util = base[put(li.astype(np.int64)), put(lj.astype(np.int64))]
+        else:
+            util = put(np.ascontiguousarray(base[li, lj], dtype=np.float32))
         v_eff = self._occ_v(t)
         # rows of the occupied block: its links all lie inside it, and
         # entries >= v_eff read as padding
@@ -1086,7 +1243,6 @@ class RouteOracle:
         # sampler's distance table; where its 128 pad floor reaches V it
         # would do more work than the full contraction, so skip it
         dn = make_dst_nodes(dst_idx)
-        put = self._put
         mesh = self._dag_mesh()
         if mesh is not None and v_eff % self.mesh_devices == 0:
             from sdnmpi_tpu_torch.shardplane import route_collective_sharded
@@ -1095,7 +1251,7 @@ class RouteOracle:
             use_dn = len(dn) < v_eff and len(dn) % self.mesh_devices == 0
             slots_sh, maxc_d = route_collective_sharded(
                 adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
-                put(util), put(traffic), put(src_p), put(dst_p), mesh,
+                util, put(traffic), put(src_p), put(dst_p), mesh,
                 levels=max_len - 1, rounds=rounds, max_len=max_len,
                 dist=dist_eff, dst_nodes=put(dn) if use_dn else None,
                 ring_exchange=self.ring_exchange, neigh=neigh_eff,
@@ -1116,7 +1272,7 @@ class RouteOracle:
         )
         slots_d, maxc_d = route_collective(
             adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
-            put(util), put(traffic), put(src_p), put(dst_p),
+            util, put(traffic), put(src_p), put(dst_p),
             levels=max_len - 1, rounds=rounds, max_len=max_len,
             dist=dist_eff,  # cached at this topology version: no BFS
             dst_nodes=put(dn) if len(dn) < v_eff else None, neigh=neigh_eff,
@@ -1140,13 +1296,20 @@ class RouteOracle:
             slots, self._order, src_idx, dst_idx, complete=True
         )
 
-    def _note_congestion(self, discrete: float, dag: bool) -> None:
+    def _note_congestion(
+        self, discrete: float, dag: bool, phase: bool = False
+    ) -> None:
         """Record a reaped pass's discrete max-congestion. When the DAG
         balancer routed this pass (``dag``), publish it beside the
         balancer's fractional bound with their ratio; any other pass (the
         greedy scanner, the shortest and adaptive policies) has no
         fractional bound, and clears the pair rather than leave a stale
-        one beside its figure."""
+        one beside its figure. A phased program's per-phase batch
+        (``phase``) records nothing: its figures would pair a phase's max
+        with the last flat pass's bound (the program's own figures are
+        the Router's ``sched_program_*`` gauges)."""
+        if phase:
+            return
         self.last_discrete_congestion = float(discrete)
         _m_disc_congestion.set(self.last_discrete_congestion)
         if dag and discrete > 0 and self.last_fractional_congestion > 0:
@@ -1170,7 +1333,16 @@ class RouteOracle:
         **kwargs,
     ):
         """Blocking twin of :meth:`routes_collective_dispatch`: returns
-        the collective's :class:`~sdnmpi_tpu_torch.oracle.batch.CollectiveRoutes`."""
+        the collective's :class:`~sdnmpi_tpu_torch.oracle.batch.CollectiveRoutes`
+        or, with ``schedule=``, the
+        :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram` with
+        every phase reaped."""
+        if kwargs.get("schedule") is not None:
+            program = self.routes_collective_dispatch(
+                db, macs, src_idx, dst_idx, policy, **kwargs
+            )
+            program.reap_all()
+            return program
         return self.routes_collective_dispatch(
             db, macs, src_idx, dst_idx, policy, **kwargs
         ).reap()
@@ -1190,6 +1362,8 @@ class RouteOracle:
         ugal_candidates: int = 4,
         ugal_bias: float = 1.0,
         schedule: Optional[int] = None,
+        _phase_scan: Optional[int] = None,
+        _phase: bool = False,
     ):
         """Route an entire collective given in compressed array form,
         split-phase: the device work is launched here and the returned
@@ -1204,14 +1378,29 @@ class RouteOracle:
         balancer and kernel K2, ``"shortest"`` by the device next-hop
         chase (``oracle/paths.batch_paths``), ``"adaptive"`` with the
         UGAL program, whose window completes its device work and decode
-        here (only the materialization waits for ``reap()``)."""
+        here (only the materialization waits for ``reap()``).
+
+        ``schedule`` not None routes the collective as a phased flow
+        program instead (:meth:`routes_collective_phased_dispatch`; 0 =
+        auto phase count, K > 0 that many, rounded up to a power of two)
+        and returns its
+        :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`.
+        ``_phase_scan`` and ``_phase`` are the phased dispatch's: the
+        first routes a balanced phase with the greedy scanner at that
+        chunk width, members dealt round-robin by their rank in the
+        group; the second keeps the phase out of the flat congestion
+        figures."""
         from sdnmpi_tpu_torch import native
         from sdnmpi_tpu_torch.oracle.adaptive import link_loads
         from sdnmpi_tpu_torch.oracle.batch import CollectiveRoutes, RouteWindow
 
         if schedule is not None:
-            raise NotImplementedError(
-                "phase-scheduled collectives are ROADMAP A10"
+            return self.routes_collective_phased_dispatch(
+                db, macs, src_idx, dst_idx, policy,
+                n_phases=int(schedule), link_util=link_util, alpha=alpha,
+                link_capacity=link_capacity, ecmp_ways=ecmp_ways,
+                rounds=rounds, ugal_candidates=ugal_candidates,
+                ugal_bias=ugal_bias,
             )
         if policy not in ("balanced", "shortest", "adaptive"):
             raise ValueError(
@@ -1282,7 +1471,32 @@ class RouteOracle:
         sub_w = np.repeat((counts / nsub).astype(np.float32), nsub)
 
         # deal each group's members across its sub-flows by endpoint hash
-        if fused is not None:
+        if _phase_scan is not None:
+            # exact round-robin deal (phased leg only): the phase-grain
+            # scanner balances each sub-flow as carrying exactly sub_w
+            # members, so members are dealt by their rank in the group
+            if fused is not None:
+                lookup = np.zeros(vv, np.int64)
+                lookup[uniq] = np.arange(len(uniq))
+                okm = key_all >= 0
+                all_ok = bool(okm.all())
+                inv_ok = lookup[key_all if all_ok else key_all[okm]]
+            else:
+                okm = ok
+                inv_ok = inv
+            order = np.argsort(inv_ok, kind="stable")
+            starts = np.zeros(len(uniq), np.int64)
+            np.cumsum(counts[:-1], out=starts[1:])
+            g_ord = inv_ok[order]
+            pos = np.arange(len(g_ord), dtype=np.int64) - starts[g_ord]
+            dealt = np.empty(len(g_ord), np.int32)
+            dealt[order] = (sub_base[g_ord] + pos % nsub[g_ord]).astype(np.int32)
+            if all_ok:
+                pair_sub = dealt
+            else:
+                pair_sub = np.full(f, -1, np.int32)
+                pair_sub[okm] = dealt
+        elif fused is not None:
             lookup = np.zeros(vv, np.int64)
             lookup[uniq] = np.arange(len(uniq))
             pair_sub = native.deal_subflows_keyed(
@@ -1308,7 +1522,28 @@ class RouteOracle:
 
         base = self._normalized_base(db, t, link_util, alpha, link_capacity, f)
         inter_h = None
-        if policy == "adaptive":
+        if policy == "balanced" and _phase_scan is not None:
+            # phase-grain scanner leg (phased dispatch only): a phase is a
+            # small near-matching, and the greedy scanner routes each
+            # sub-flow against the load every earlier one placed, which
+            # lands each phase within about one flow of its split
+            from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+            from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
+
+            src_p, dst_p = pad_flow_batch(
+                sub_src.astype(np.int32), sub_dst.astype(np.int32), pow2=True,
+            )
+            w_p = np.zeros(len(src_p), np.float32)
+            w_p[:n_sub] = sub_w
+            nodes_d, _, _ = route_flows_balanced(
+                t.adj, self._dist_full(), self._base_tensor(base),
+                self._put(src_p), self._put(dst_p), self._put(w_p),
+                max_len, chunk=int(_phase_scan), neigh=t.neigh,
+            )
+
+            def paths_reap() -> np.ndarray:
+                return nodes_d.cpu().numpy()[:n_sub]
+        elif policy == "adaptive":
             from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
 
             inter_h, n1, n2 = self._adaptive_paths(
@@ -1357,9 +1592,127 @@ class RouteOracle:
             routes.max_congestion = float(
                 link_loads(paths, counts_sub, t.v).max(initial=0.0)
             )
-            self._note_congestion(routes.max_congestion, dag=policy == "balanced")
+            self._note_congestion(
+                routes.max_congestion, dag=policy == "balanced",
+                phase=_phase or _phase_scan is not None,
+            )
             if inter_h is not None:
                 routes.n_detours = int(counts_sub[inter_h >= 0].sum())
             return routes
 
         return RouteWindow(reap)
+
+    # -- phased collectives (sched/) -----------------------------------------
+
+    def routes_collective_phased(
+        self,
+        db: "TopologyDB",
+        macs: list[str],
+        src_idx: np.ndarray,
+        dst_idx: np.ndarray,
+        policy: str = "balanced",
+        n_phases: int = 0,
+        **kwargs,
+    ):
+        """Blocking twin of :meth:`routes_collective_phased_dispatch`:
+        every phase reaped in order before the program returns."""
+        program = self.routes_collective_phased_dispatch(
+            db, macs, src_idx, dst_idx, policy, n_phases=n_phases, **kwargs
+        )
+        program.reap_all()
+        return program
+
+    def routes_collective_phased_dispatch(
+        self,
+        db: "TopologyDB",
+        macs: list[str],
+        src_idx: np.ndarray,
+        dst_idx: np.ndarray,
+        policy: str = "balanced",
+        n_phases: int = 0,
+        link_util=None,
+        alpha: float = 1.0,
+        link_capacity: float = 10e9,
+        scan_chunk: int = 1,
+        **kwargs,
+    ):
+        """Decompose a collective into phases and route each one.
+
+        The collective's pairs aggregate into (edge switch, edge switch)
+        traffic groups as the flat path groups them
+        (``sched.phases.aggregate_groups``); the greedy link-load-aware
+        packer (``sched.pack_phases``, on the oracle's device) puts the
+        groups into ``n_phases`` phases (0 = auto,
+        :func:`~sdnmpi_tpu_torch.sched.choose_n_phases`), seeded with the
+        per-switch sums of the normalized base, so measured load steers
+        the packing; each phase's pairs then dispatch through
+        :meth:`routes_collective_dispatch` as their own batch, all of them
+        before this returns. A balanced phase routes with the greedy
+        scanner at ``scan_chunk`` (``_phase_scan``), its groups split
+        toward weight-1 sub-flows under ``PHASE_SUBFLOW_BUDGET``; shortest
+        and adaptive phases route as their flat batches would.
+
+        Returns a :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`;
+        pairs whose endpoints do not resolve are in no phase
+        (``pair_phase == -1``)."""
+        from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
+        from sdnmpi_tpu_torch.sched.phases import (
+            PHASE_SUBFLOW_BUDGET,
+            aggregate_groups,
+        )
+        from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan
+
+        t = self.refresh(db)
+        src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
+        dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
+        f = src_idx.shape[0]
+        edge, _ = self._resolve_endpoints_array(db, t, macs)
+        src_sw = edge[src_idx]
+        dst_sw = edge[dst_idx]
+        ok = (src_sw >= 0) & (dst_sw >= 0)
+        pair_phase = np.full(f, -1, np.int32)
+        k = choose_n_phases(0, n_phases)
+        group_phase = np.empty(0, np.int32)
+        if ok.any():
+            _, uniq, inv, _, g_src, g_dst, w_pack = aggregate_groups(
+                src_sw[ok], dst_sw[ok], t.v
+            )
+            k = choose_n_phases(len(uniq), n_phases)
+            # per-switch background load from the same normalized base the
+            # balancer scores with; a plane's base reduces on the device
+            base = self._normalized_base(
+                db, t, link_util, alpha, link_capacity, max(1, f)
+            )
+            if isinstance(base, torch.Tensor):
+                util_out, util_in = base.sum(dim=1), base.sum(dim=0)
+            else:
+                b = np.asarray(base, np.float32)
+                util_out = b.sum(axis=1, dtype=np.float32)
+                util_in = b.sum(axis=0, dtype=np.float32)
+            group_phase = pack_phases(
+                g_src, g_dst, w_pack, k, t.v, util_out, util_in,
+                device=self.device,
+            )
+            pair_phase[ok] = group_phase[inv]
+
+        phases: list = []
+        for p in range(k):
+            sel = np.nonzero(pair_phase == p)[0]
+            if not len(sel):
+                continue  # the packer left this phase empty
+            phase_kwargs = dict(kwargs)
+            phase_kwargs["_phase"] = True
+            if policy == "balanced":
+                n_groups = max(1, int((group_phase == p).sum()))
+                phase_kwargs["ecmp_ways"] = max(
+                    phase_kwargs.get("ecmp_ways", 4),
+                    -(-PHASE_SUBFLOW_BUDGET // n_groups),
+                )
+                phase_kwargs["_phase_scan"] = int(scan_chunk)
+            window = self.routes_collective_dispatch(
+                db, macs, src_idx[sel], dst_idx[sel], policy,
+                link_util=link_util, alpha=alpha,
+                link_capacity=link_capacity, **phase_kwargs,
+            )
+            phases.append(PhasePlan(p, sel, window))
+        return PhasedFlowProgram(k, pair_phase, phases)

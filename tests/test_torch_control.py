@@ -14,9 +14,11 @@ published on the bus. The two must be equal.
 
 The reference runs with the planes the port does not have yet turned
 off (:data:`OFF`), at the port's defaults. It holds its own routes
-equal with and without them (``tests/test_delta_reval.py``,
-``tests/test_routecache.py``), so the comparison is against the routes
-it installs by default.
+equal with and without them (``tests/test_audit.py``,
+``tests/test_trafficplane.py``, ``tests/test_flight.py``), so the
+comparison is against the routes it installs by default. The device
+utilization plane and the delta-narrowed revalidation are on in both
+controllers, as both packages' defaults have them.
 
 The sampler near-tie rule of ``tests/test_torch_slice.py`` (ROADMAP C1)
 is not needed here: at these sizes every sampled decision of the
@@ -33,9 +35,8 @@ import numpy as np
 import pytest
 
 #: the reference's planes the port has not ported yet, off as in the
-#: port's Config (ROADMAP A7, A11)
+#: port's Config (ROADMAP A11)
 OFF = dict(
-    util_plane=False, delta_reval=False,
     fabric_audit=False, traffic_plane=False, flight_recorder=False,
     metrics_timeline=False, rpc_telemetry=False,
 )
@@ -563,11 +564,11 @@ def test_narrowed_dirty_set_podmap_rules_match_jax():
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"util_plane": True}, "A7"),
-    ({"delta_reval": True}, "A7"),
+    ({"util_plane": True, "flight_recorder": True}, "A11"),
+    ({"delta_reval": True, "hier_oracle": True}, "A13"),
     ({"rpc_telemetry": True}, "A11"),
     ({"hier_pod_target": 16}, "A13"),
-    ({"schedule_collectives": True}, "A10"),
+    ({"schedule_collectives": True, "metrics_timeline": True}, "A11"),
     ({"fabric_audit": True}, "A11"),
     ({"traffic_plane": True}, "A11"),
     ({"flight_recorder": True}, "A11"),
@@ -598,9 +599,8 @@ def test_other_unported_seams_raise():
         ctl.telemetry()
     with pytest.raises(NotImplementedError, match="A11"):
         PORT.Controller(diamond(PORT), make_config(PORT), ownership=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        ctl.bus.request(PORT.ev.DispatchRoutesBatchRequest(
-            [(MAC[1], MAC[4])], dirty={1}))
+    with pytest.raises(NotImplementedError, match="A11"):
+        ctl.bus.request(PORT.ev.TelemetryRequest())
     assert ctl.bus.request(PORT.ev.ReplicaStatusRequest()).status == {"mode": "off"}
 
 

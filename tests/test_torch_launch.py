@@ -30,8 +30,6 @@ DIFFERENCES = {
     "device": "cpu",
     # planes not ported yet keep the port's Config defaults (off); the
     # reference's launcher or Config turns them on
-    "delta_reval": False,  # A7
-    "util_plane": False,  # A7
     "fabric_audit": False,  # A11
     "traffic_plane": False,  # A11
     "flight_recorder": False,  # A11
@@ -56,6 +54,8 @@ ARGVS = [
     ["--no-fabric-audit", "--no-traffic-plane", "--no-flight-recorder",
      "--no-delta-reval", "--no-hier-snapshot", "--reconcile-max-per-flush", "3",
      "--hier-warm", "--no-ring-exchange"],
+    ["--schedule-phases", "4"],
+    ["--schedule-phases", "0", "--no-delta-reval", "--policy", "adaptive"],
 ]
 
 
@@ -117,8 +117,8 @@ REFUSED = [
     (["--sentinel-sample-per-flush", "8"], "A11"),
     (["--sentinel-divergence-factor", "3"], "A11"),
     (["--sentinel-heal"], "A11"),
-    (["--schedule-phases", "4"], "A10"),
-    (["--schedule-phases", "0"], "A10"),
+    (["--schedule-phases", "4", "--hier-oracle"], "A13"),
+    (["--schedule-phases", "0", "--flight-dump", "bundles"], "A11"),
     (["--hier-oracle"], "A13"),
     (["--hier-pod-target", "16"], "A13"),
     (["--no-hier-warm"], "A13"),
