@@ -199,9 +199,12 @@ CACHE_WINDOW = 256
 #: phase 18: config 8's storm (benchmarks/config8_churn.py runs 100 flaps)
 CHURN_FLAPS = 20
 #: phase 20: config 12's shape (benchmarks/config12_schedule.py:42-43), a
-#: k=16 fat-tree and a 512-rank alltoall; the balanced program's greedy
-#: scanner runs one sub-flow at a time, so it runs at the first 64 ranks,
-#: and the Controller's phased install at 128 (above the block threshold)
+#: k=16 fat-tree and a 512-rank alltoall. The balanced policy's greedy
+#: scanner routes one sub-flow per step (1.7-3.0 ms each on an H100), so
+#: its programs are cut in collective size: the direct program to the
+#: first 64 ranks, the Controller's phased installs (the balanced one is
+#: what --schedule-phases runs by default) to 128, above the block
+#: threshold
 SCHED_K = 16
 SCHED_RANKS = 512
 SCHED_SCAN_RANKS = 64
@@ -2655,8 +2658,10 @@ def phase_churn(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
     on the card bit for bit (timed), the delta window's fdbs equal
     ``routes_batch`` over the same pairs, and ``touched`` equals a host
     set intersection. After the storm the maintained state equals a
-    full re-score of every pair. Returns the launch counts of the storm
-    (the shortest leg launches no kernel)."""
+    full re-score of every pair. Returns the launch counts of the
+    storm's timed refreshes and re-scores, summed over every flap; the
+    run fails unless they are all 0 (the shortest leg launches no
+    kernel)."""
     import torch
 
     from sdnmpi_tpu_torch.oracle.engine import RouteOracle
@@ -2685,18 +2690,29 @@ def phase_churn(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
     affected: list = []
     full0 = oracle.full_refresh_count
 
+    storm = {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0,
+             "ring_all_gather": 0}
+
     def absorb(dirty: set) -> None:
         nonlocal od, op, ln
         repairs0 = oracle.repair_count
-        t0 = time.perf_counter()
-        oracle.refresh(db)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         dirty_arr = np.fromiter(dirty, np.int64, len(dirty))
-        aff = np.nonzero(np.isin(od, dirty_arr).any(axis=1))[0]
+        out: dict = {}
+
+        def timed() -> None:
+            t0 = time.perf_counter()
+            oracle.refresh(db)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            aff = np.nonzero(np.isin(od, dirty_arr).any(axis=1))[0]
+            got = oracle.routes_batch_delta(db, [pairs[i] for i in aff], dirty)
+            out.update(t0=t0, t1=t1, t2=time.perf_counter(), aff=aff, got=got)
+
+        # the launches of the repair and the re-score, summed over the storm
+        for name, n in path_launches(timed).items():
+            storm[name] += n
+        t0, t1, t2, aff, got = (out[x] for x in ("t0", "t1", "t2", "aff", "got"))
         aff_pairs = [pairs[i] for i in aff]
-        got = oracle.routes_batch_delta(db, aff_pairs, dirty)
-        t2 = time.perf_counter()
         width = max(od.shape[1], got.hop_dpid.shape[1])
         od, op = pad_cols(od, width), pad_cols(op, width)
         od[aff] = pad_cols(got.hop_dpid, width)[: len(aff)]
@@ -2737,7 +2753,9 @@ def phase_churn(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
             for lk in links:
                 db.add_link(lk)
             absorb({a, b})
-    counts = path_launches(lambda: None)  # the storm launched nothing
+    if any(storm.values()):
+        fail(f"churn: the storm's repairs and re-scores launched {storm}, want "
+             "no launch (the shortest leg reads the cached distances)")
     check = oracle.routes_batch_dispatch(db, pairs).reap()
     width = max(od.shape[1], check.hop_dpid.shape[1])
     if not (np.array_equal(pad_cols(od, width), pad_cols(check.hop_dpid, width))
@@ -2752,8 +2770,9 @@ def phase_churn(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
         f"{np.mean(affected):.1f} (max {max(affected)}); one full refresh "
         f"{tail(stages['full'])}; every flap's dist and next hops equal the "
         f"full refresh's, its window equal to routes_batch, touched equal to "
-        f"the host intersection; the maintained state equals a full re-score")
-    return [counts]
+        f"the host intersection; the maintained state equals a full re-score; "
+        f"launches of the repairs and re-scores, summed over the storm, {storm}")
+    return [storm]
 
 
 def phase_utilplane(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
@@ -2869,13 +2888,36 @@ def check_phased(what: str, spec, db, macs, src_idx, dst_idx, program) -> None:
                      dst_idx[sel], plan.reap())
 
 
+def phased_launches(fn, what: str, report: dict, program_of, want_k2: bool) -> dict:
+    """:func:`path_launches` of ``fn()`` with every K2 call recorded, held
+    to the launches a phased program makes: no K1 and no K3; per
+    non-empty phase of ``program_of()`` (read after the run) one K2
+    set-up and two K2 launches sharing it on the adaptive policy, or
+    none on the scanner's; every K2 call and its tables held against the
+    plain versions."""
+    k2_calls: list = []
+    with recording_sampler(k2_calls):
+        counts = path_launches(fn)
+    n = len(program_of().phases)
+    want = {"bfs_distances": 0, "sampler_tables": n if want_k2 else 0,
+            "sample_slots": 2 * n if want_k2 else 0, "ring_all_gather": 0}
+    if counts != want:
+        fail(f"{what}: launches {counts}, want {want}")
+    report["sample_slots"]["max_abs_err"] = max(
+        report["sample_slots"]["max_abs_err"],
+        check_k2_calls(k2_calls, counts["sample_slots"], what))
+    for i in range(0, len(k2_calls), 2):
+        if k2_calls[i][1]["tables"] is not k2_calls[i + 1][1]["tables"]:
+            fail(f"{what}: a phase's two segment launches did not share one set-up")
+    return counts
+
+
 def phased_run(what: str, oracle, db, spec, macs, src_idx, dst_idx, policy: str,
                report: dict, want_k2: bool) -> tuple:
     """One phased program through ``routes_collective_phased_dispatch``
-    and its reaps, timed apart; the launches of the dispatch held (one
-    K2 set-up and two K2 launches per adaptive phase, every K2 call
-    against the plain versions; none for the scanner); checked with
-    :func:`check_phased`. Returns (launch counts, program)."""
+    and its reaps, timed apart; its launches held by
+    :func:`phased_launches`; checked with :func:`check_phased`. Returns
+    (launch counts, program)."""
     import torch
 
     out: dict = {}
@@ -2890,27 +2932,96 @@ def phased_run(what: str, oracle, db, spec, macs, src_idx, dst_idx, policy: str,
         out.update(program=program, dispatch=(t1 - t0) * 1e3,
                    reap=(time.perf_counter() - t1) * 1e3)
 
-    k2_calls: list = []
-    with recording_sampler(k2_calls):
-        counts = path_launches(run)
+    counts = phased_launches(run, what, report, lambda: out["program"], want_k2)
     program = out["program"]
     n = len(program.phases)
-    want = {"bfs_distances": 0, "sampler_tables": n if want_k2 else 0,
-            "sample_slots": 2 * n if want_k2 else 0, "ring_all_gather": 0}
-    if counts != want:
-        fail(f"{what}: launches {counts}, want {want}")
-    report["sample_slots"]["max_abs_err"] = max(
-        report["sample_slots"]["max_abs_err"],
-        check_k2_calls(k2_calls, counts["sample_slots"], what))
-    for i in range(0, len(k2_calls), 2):
-        if k2_calls[i][1]["tables"] is not k2_calls[i + 1][1]["tables"]:
-            fail(f"{what}: a phase's two segment launches did not share one set-up")
     check_phased(what, spec, db, macs, src_idx, dst_idx, program)
     log(f"{what}: K={program.n_phases} ({n} non-empty), pairs per phase "
         f"{[p.n_pairs for p in program.phases]}; dispatch {out['dispatch']:.1f} ms "
         f"(the packer, then every phase enqueued), reaps {out['reap']:.1f} ms; "
         f"launches {counts}")
     return counts, program
+
+
+def controller_phased(spec, device, policy: str, n_ranks: int, report: dict) -> dict:
+    """The alltoall of the first ``n_ranks`` hosts by MAC through the
+    Controller with ``schedule_collectives`` on ``policy``: the launches
+    held by :func:`phased_launches`; one install and one phase event per
+    phase; the program the oracle answered checked with
+    :func:`check_phased`; every FlowMod on the switches one of that
+    program's route hops, and every hop with its FlowMod. Returns the
+    launch counts."""
+    import torch
+
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.protocol.vmac import CollectiveType, VirtualMac
+
+    what = f"phased controller install, {policy} ({n_ranks} ranks)"
+    fabric, ctl, installed = controller_stack(
+        spec, device, schedule_collectives=True, collective_policy=policy)
+    ranks = sorted(m for m, _, _ in spec.hosts)[:n_ranks]
+    launch_ranks(fabric, ranks)
+    captured: list = []
+    handler = ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest]
+
+    def capture(req):
+        reply = handler(req)
+        captured.append((req, reply.routes))
+        return reply
+
+    ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest] = capture
+    phases: list = []
+    ctl.bus.subscribe(ev.EventCollectivePhaseInstalled, phases.append)
+    out: dict = {}
+
+    def kickoff():
+        t0 = time.perf_counter()
+        send_mpi(fabric, ranks, 0, 1)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+
+    counts = phased_launches(kickoff, what, report, lambda: captured[-1][1],
+                             want_k2=policy == "adaptive")
+    if len(captured) != 1:
+        fail(f"{what}: {len(captured)} collective route requests, want 1")
+    req, program = captured[0]
+    if len(installed) != 1 or len(phases) != len(program.phases):
+        fail(f"{what}: {len(installed)} installs, {len(phases)} phase events for "
+             f"{len(program.phases)} phases")
+    db = ctl.topology_manager.topologydb
+    check_phased(what, spec, db, req.macs, np.asarray(req.src_idx),
+                 np.asarray(req.dst_idx), program)
+    expected = set()
+    for plan in program.phases:
+        routes = plan.reap()
+        for j in range(routes.n_pairs):
+            kk = int(plan.pair_idx[j])
+            si, di = int(req.src_idx[kk]), int(req.dst_idx[kk])
+            vmac = VirtualMac(CollectiveType.ALLTOALL, si, di).encode()
+            fdb = routes.fdb(j)
+            for h, (dpid, port) in enumerate(fdb):
+                last = h == len(fdb) - 1
+                expected.add((dpid, req.macs[si], vmac, port,
+                              req.macs[di] if last else None))
+    got_rows = set()
+    for dpid, sw in fabric.switches.items():
+        for e in sw.flow_table:
+            if e.match.dl_src is None:
+                continue
+            port = [a.port for a in e.actions if hasattr(a, "port")][-1]
+            rew = [a.mac for a in e.actions if hasattr(a, "mac")]
+            got_rows.add((dpid, e.match.dl_src, e.match.dl_dst, port,
+                          rew[0] if rew else None))
+    if got_rows != expected:
+        fail(f"{what}: {len(got_rows - expected)} FlowMods off their routes, "
+             f"{len(expected - got_rows)} route hops without one")
+    log(f"{what}: {len(req.src_idx):,} pairs in {len(phases)} phases "
+        f"(K={program.n_phases}), total discrete congestion "
+        f"{program.total_discrete_congestion()}, hottest phase "
+        f"{program.max_phase_congestion()}; kickoff -> last phase "
+        f"{out['ms']:.1f} ms; all {len(expected):,} FlowMods on their routes' "
+        f"switches; launches {counts}")
+    return counts
 
 
 def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RANKS,
@@ -2927,13 +3038,11 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     time, at the first ``scan_ranks`` ranks (the cut); each checked with
     :func:`check_phased`, timed, and reported as total discrete
     congestion over the flat fractional bound and the hottest phase.
-    (e) The same alltoall at ``ctl_ranks`` ranks through the Controller
-    with ``schedule_collectives`` (adaptive policy, block path): every
-    phase installs and every FlowMod on the switches is one of the
-    program's route hops. Returns the launch counts of (b) to (e)."""
-    import torch
-
-    from sdnmpi_tpu_torch.control import events as ev
+    (e) The same alltoall through the Controller with
+    ``schedule_collectives`` (:func:`controller_phased`) at ``ctl_ranks``
+    ranks, on the adaptive policy and on the balanced one, the
+    Controller's default. Each flat batch launches one
+    K2 set-up and one K2. Returns the launch counts of (b) to (e)."""
     from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases, pack_phases_host
     from sdnmpi_tpu_torch.sched.phases import aggregate_groups
     from sdnmpi_tpu_torch.topogen import fattree
@@ -2977,8 +3086,13 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     # (b) the flat batch's fractional bound
     def flat(these_macs, s, d):
         out = {}
+        what = f"phased: flat balanced batch of {len(these_macs)} ranks"
         c = checked_launches(lambda: out.update(r=oracle.routes_collective(
-            db, these_macs, s, d, "balanced")), "phased: flat balanced batch", report)
+            db, these_macs, s, d, "balanced")), what, report)
+        want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+                "ring_all_gather": 0}
+        if c != want:
+            fail(f"{what}: launches {c}, want {want}")
         return c, out["r"], oracle.last_fractional_congestion
 
     counts, flat_routes, frac = flat(macs, src_idx, dst_idx)
@@ -3013,66 +3127,9 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
         f"flat fractional bound {s_frac:.3f}; hottest phase "
         f"{program.max_phase_congestion()}")
 
-    # (e) through the Controller
-    fabric, ctl, installed = controller_stack(
-        spec, device, schedule_collectives=True, collective_policy="adaptive")
-    ranks = all_macs[:ctl_ranks]
-    launch_ranks(fabric, ranks)
-    captured: list = []
-    handler = ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest]
-
-    def capture(req):
-        reply = handler(req)
-        captured.append((req, reply.routes))
-        return reply
-
-    ctl.bus._request_handlers[ev.FindCollectiveRoutesRequest] = capture
-    phases: list = []
-    ctl.bus.subscribe(ev.EventCollectivePhaseInstalled, phases.append)
-    out: dict = {}
-
-    def kickoff():
-        t0 = time.perf_counter()
-        send_mpi(fabric, ranks, 0, 1)
-        torch.cuda.synchronize()
-        out["ms"] = (time.perf_counter() - t0) * 1e3
-
-    counts = checked_launches(kickoff, "phased controller install", report)
-    all_counts.append(counts)
-    req, program = captured[-1]
-    if len(installed) != 1 or len(phases) != len(program.phases):
-        fail(f"phased controller install: {len(installed)} installs, "
-             f"{len(phases)} phase events for {len(program.phases)} phases")
-    from sdnmpi_tpu_torch.protocol.vmac import CollectiveType, VirtualMac
-
-    expected = set()
-    for plan in program.phases:
-        routes = plan.reap()
-        for j in range(routes.n_pairs):
-            kk = int(plan.pair_idx[j])
-            si, di = int(req.src_idx[kk]), int(req.dst_idx[kk])
-            vmac = VirtualMac(CollectiveType.ALLTOALL, si, di).encode()
-            fdb = routes.fdb(j)
-            for h, (dpid, port) in enumerate(fdb):
-                last = h == len(fdb) - 1
-                expected.add((dpid, req.macs[si], vmac, port,
-                              req.macs[di] if last else None))
-    got_rows = set()
-    for dpid, sw in fabric.switches.items():
-        for e in sw.flow_table:
-            if e.match.dl_src is None:
-                continue
-            port = [a.port for a in e.actions if hasattr(a, "port")][-1]
-            rew = [a.mac for a in e.actions if hasattr(a, "mac")]
-            got_rows.add((dpid, e.match.dl_src, e.match.dl_dst, port,
-                          rew[0] if rew else None))
-    if got_rows != expected:
-        fail(f"phased controller install: {len(got_rows - expected)} FlowMods off "
-             f"their routes, {len(expected - got_rows)} route hops without one")
-    log(f"phased controller install: {ctl_ranks} ranks, {len(req.src_idx):,} pairs in "
-        f"{len(phases)} phases (K={program.n_phases}); kickoff -> last phase "
-        f"{out['ms']:.1f} ms; all {len(expected):,} FlowMods on their routes' "
-        f"switches; launches {counts}")
+    # (e) through the Controller, on both policies
+    for policy in ("adaptive", "balanced"):
+        all_counts.append(controller_phased(spec, device, policy, ctl_ranks, report))
     return all_counts
 
 

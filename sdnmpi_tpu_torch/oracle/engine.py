@@ -1165,7 +1165,16 @@ class RouteOracle:
         :class:`~sdnmpi_tpu_torch.oracle.utilplane.UtilPlane`, which is
         synced to the topology, flushed, and read as a device tensor of
         its published epoch. Both compute the same f32 operations in the
-        same order, so the two bases are bit-equal."""
+        same order, so the two bases are bit-equal.
+
+        The two forms are kept, as the reference keeps them: the dict's
+        base is the differential oracle, and its consumers (the per-link
+        gather of the DAG leg, the packer's background sums) read it in
+        numpy, whose f32 sums the CPU tests hold bit-equal to the
+        reference's; a device reduction sums in another order. The
+        plane's base stays on the device, so a plane-fed call moves no
+        ``[V, V]`` matrix. :meth:`_base_tensor` uploads the dict's base
+        where a device program needs it."""
         from sdnmpi_tpu_torch.oracle.congestion import utilization_matrix
         from sdnmpi_tpu_torch.oracle.utilplane import UtilPlane
 
