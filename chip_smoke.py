@@ -27,7 +27,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 20.
+               printed last, after phases 7 to 23.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -65,7 +65,10 @@ order; the first failure ends the run with a non-zero exit:
                EventCollectiveInstalled timed (first and steady), the
                install's max congestion against a direct
                find_routes_collective, its block paths shortest, 1,000
-               seeded rank pairs delivered through the switch tables.
+               seeded rank pairs delivered through the switch tables;
+               then five Monitor passes with every plane at its default
+               pacing, each plane's wall per pass timed, and steady
+               installs with the flight recorder armed and disarmed.
 14. controller packet-in — config 5 through the Controller with the
                route coalescer: 10,000 unicast packet-ins in windows
                (packet-in to FlowMods p50/p99), a 64-rank alltoall on
@@ -114,6 +117,31 @@ order; the first failure ends the run with a non-zero exit:
                paths checked, congestion over the flat fractional bound;
                then 128 ranks through the Controller with
                schedule_collectives, every FlowMod on its route's switch.
+21. audit and traffic plane — config 16's shape (k=16 wire fat-tree,
+               1,536 pairs): eight seeded table mutations, each confirmed
+               once and healed within five audited passes, then one
+               sentinel sweep of the whole installed population (its
+               padded shadow batch: K2's set-up and K2 once, held against
+               the plain versions); config 17's shape (k=8, 256 pairs, a
+               1 Hz clock): the matrix bit-equal to a numpy fold of the
+               staged deltas at alpha 1 and within four f32 units in the
+               last place at 0.5, a published epoch unchanged by later
+               flushes, the flush, audit and sentinel walls, and a
+               cross-pod burst confirmed within 2 flush edges.
+22. observability — config 14's serving shape through the command line
+               with the SLO, flight, metrics, trace and profile dumps
+               armed; the Monitor's flush edge published around the load;
+               a bundle frozen and dumped, the incident's profile naming
+               K2's kernel, every registered instrument in the Prometheus
+               text, the Perfetto JSON with slices and counter tracks;
+               then phase 17's serving run with the flight recorder
+               armed and disarmed, in turns.
+23. chaos and the pair — config 11's shape (k=8, 384 pairs): five
+               crashes of the busiest switches redriven (timed), then a
+               seeded fault plan quiesced to installed == desired; config
+               18's shape (a pair over k=8, 256 pairs): 20 storm rounds
+               (replication lag) and a killed controller's failover
+               (reconverge wall). Both on the card's oracle.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -130,8 +158,13 @@ each serving run of phase 17, the flap storm of phase 18 (nothing: the
 shortest leg runs no kernel), the collective with the utilization plane
 of phase 19 (K1 0, set-up 1, K2 1), and the flat batches, the phased
 programs (adaptive: set-up 1 and K2 2 per phase; the scanner: none) and
-the phased Controller install of phase 20, against the counts each path
-must launch.
+the phased Controller install of phase 20, the Monitor passes of phase
+13 and the audited passes of phase 21 (no K1, no K3; the sentinel's
+default sample of 64 pairs takes the greedy scanner), phase 21's
+whole-population sentinel sweep (K1 0, set-up 1, K2 1), the launcher run
+of phase 22 (K1 0, set-up 2, K2 2: the demo's install and its
+re-install) and phase 23's crashes, storm and failover, against the
+counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so are both of phase 10's and
@@ -768,18 +801,20 @@ def check_k2_calls(calls: list, launches: int, what: str) -> float:
     return err
 
 
-def checked_launches(fn, what: str, report: dict) -> dict:
+def checked_launches(fn, what: str, report: dict, installs: int = 1) -> dict:
     """:func:`path_launches` of ``fn()`` with every K2 call recorded and
     held, its set-up's tables included, against the plain versions
     (:func:`check_k2_calls`, folded into ``report``); two launches in one
-    call (UGAL's segments) must share one set-up."""
+    call (UGAL's segments) must share one set-up, unless ``fn`` runs
+    ``installs`` separate installs, one set-up each."""
     k2_calls: list = []
     with recording_sampler(k2_calls):
         counts = path_launches(fn)
     report["sample_slots"]["max_abs_err"] = max(
         report["sample_slots"]["max_abs_err"],
         check_k2_calls(k2_calls, counts["sample_slots"], what))
-    if len(k2_calls) == 2 and k2_calls[0][1]["tables"] is not k2_calls[1][1]["tables"]:
+    if (installs == 1 and len(k2_calls) == 2
+            and k2_calls[0][1]["tables"] is not k2_calls[1][1]["tables"]):
         fail(f"{what}: the two segment launches did not share one set-up")
     return counts
 
@@ -1648,6 +1683,68 @@ def deliver_pairs(fabric, macs: list, pairs, what: str) -> int:
     return len(pairs)
 
 
+#: the planes a Monitor pass (EventStatsFlush) drives, in the order the
+#: Controller subscribes them: (attribute of the controller, its method)
+PLANE_STEPS = (("audit", "sweep"), ("traffic", "flush"), ("sentinel", "sweep"),
+               ("flight", "snapshot_tick"), ("timeline", "tick"))
+
+
+@contextlib.contextmanager
+def timed_planes(ctl, walls: dict):
+    """Time every call of each plane's per-pass method (ms, appended to
+    ``walls[attr]``) while the context is open."""
+    patched = []
+    for attr, meth in PLANE_STEPS:
+        obj = getattr(ctl, attr)
+        if obj is None:
+            fail(f"the controller has no {attr} plane")
+        inner = getattr(obj, meth)
+
+        def timed(*a, _inner=inner, _attr=attr, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*a, **kw)
+            finally:
+                walls.setdefault(_attr, []).append((time.perf_counter() - t0) * 1e3)
+
+        setattr(obj, meth, timed)
+        patched.append((obj, meth))
+    try:
+        yield walls
+    finally:
+        for obj, meth in patched:
+            delattr(obj, meth)
+
+
+def monitor_passes(ctl, n: int, what: str, report: dict, before=None) -> tuple:
+    """Publish ``n`` EventStatsFlush edges (one Monitor pass each, after
+    ``before()`` when given), each plane's wall per pass timed. Returns
+    (pass walls ms, plane walls ms, the launch counts of the passes)."""
+    import torch
+
+    from sdnmpi_tpu_torch.control import events as ev
+
+    walls: list = []
+    planes: dict = {}
+
+    def run():
+        for _ in range(n):
+            if before is not None:
+                before()
+            t0 = time.perf_counter()
+            ctl.bus.publish(ev.EventStatsFlush())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    with timed_planes(ctl, planes):
+        counts = checked_launches(run, what, report)
+    log(f"{what}: {n} Monitor passes, wall per pass {tail(walls)}; per plane: "
+        + "; ".join(f"{a} {tail(planes[a]) if planes.get(a) else 'not run'}"
+                    for a, _ in PLANE_STEPS)
+        + f"; launches {counts}")
+    return walls, planes, counts
+
+
 def phase_controller_collective(device, report: dict) -> list:
     """Config 4 through the controller: ``fattree(28).to_fabric()``
     (980 switches, 5,488 hosts), 4096 ranks announced (rank i on host i),
@@ -1660,8 +1757,10 @@ def phase_controller_collective(device, report: dict) -> list:
     and its tables against the plain versions, the install's pair count,
     its max congestion against a direct ``find_routes_collective`` of
     the same arguments, and 1,000 seeded rank pairs delivered through
-    the switch tables on shortest paths. Returns the launch counts of
-    one install."""
+    the switch tables on shortest paths; then steady installs with the
+    flight recorder armed and disarmed in turns, and five Monitor passes
+    with every plane at its default pacing (each plane's wall per pass).
+    Returns the launch counts of one install and of the passes."""
     import torch
 
     from sdnmpi_tpu_torch.control import events as ev
@@ -1743,6 +1842,18 @@ def phase_controller_collective(device, report: dict) -> list:
         f"cache; one cache key "
         f"over the {N_RANKS * (N_RANKS - 1):,} pairs takes "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # the flight recorder's cost on the install path: steady installs
+    # with the recorder armed (the default) and disarmed, in turns
+    by_state: dict = {True: [], False: []}
+    for s, armed in ((12, True), (14, False), (16, False), (18, True)):
+        (ctl.flight.arm if armed else ctl.flight.disarm)()
+        router._remove_collective(next(iter(router.collectives)))
+        by_state[armed].append(kickoff(s, s + 1))
+    log(f"controller collective: steady install with the flight recorder armed "
+        f"{', '.join(f'{x:.1f}' for x in by_state[True])} ms, disarmed "
+        f"{', '.join(f'{x:.1f}' for x in by_state[False])} ms (in turns: armed, "
+        "disarmed, disarmed, armed)")
+    install = next(iter(router.collectives))
     # the direct call takes the uncached leg: a memo hit would compare
     # the install with itself
     direct = tm.topologydb._find_routes_collective(
@@ -1766,6 +1877,17 @@ def phase_controller_collective(device, report: dict) -> list:
     from sdnmpi_tpu_torch.utils.devprof import sample_memory
 
     rss = sample_memory("cpu")
+    # five Monitor passes at the default pacing (the audit 64 switches a
+    # pass, the sentinel 64 installed unicast pairs a pass: this fabric
+    # holds none, the collective's rows are the scheduler's)
+    _, _, pass_counts = monitor_passes(
+        ctl, 5, "controller collective (Monitor passes)", report)
+    if pass_counts["bfs_distances"] or pass_counts["ring_all_gather"]:
+        fail(f"controller collective: the Monitor passes launched {pass_counts}")
+    log(f"controller collective: audit cycle {ctl.audit.cycle}, "
+        f"{sum(len(t) for t in ctl.audit._counters.values())} rows baselined, "
+        f"sentinel {ctl.sentinel._last}, {len(ctl.flight.bundles)} flight "
+        f"bundles, {ctl.timeline.n_recorded} timeline rows")
     log(f"controller collective: max congestion {install.max_congestion} equal "
         f"to the direct call's; {n} seeded rank pairs delivered through the "
         f"switch tables with the MAC rewrite [{time.perf_counter() - t0:.1f} s]; "
@@ -1775,11 +1897,12 @@ def phase_controller_collective(device, report: dict) -> list:
     # ~10^8 Python objects in reference cycles: free them here, so that
     # the collector's pass over them is not billed to the next phase
     del fabric, ctl, router, tm, install, installed
+    drop_recorder()
     t0 = time.perf_counter()
     gc.collect()
     log(f"controller collective: gc.collect() of the phase's fabric and "
         f"controller took {time.perf_counter() - t0:.1f} s")
-    return [counts]
+    return [counts, pass_counts]
 
 
 def log_host_profile(what: str, fn, top: int = 14) -> None:
@@ -2133,7 +2256,8 @@ def collector_pauses(out: dict):
         gc.callbacks.remove(pause)
 
 
-def run_launcher(argv: list, what: str, report: dict) -> tuple[dict, dict]:
+def run_launcher(argv: list, what: str, report: dict,
+                 installs: int = 1) -> tuple[dict, dict]:
     """``sdnmpi_tpu_torch.launch.main(argv)`` in this process, with every
     K2 call recorded and held against the plain sampler. Returns the
     launch counts of the run and the probe's record."""
@@ -2144,7 +2268,7 @@ def run_launcher(argv: list, what: str, report: dict) -> tuple[dict, dict]:
     log(f"{what}: python -m sdnmpi_tpu_torch {' '.join(argv)}")
     with launcher_probe(record), collector_pauses(pauses):
         record["t0"] = time.perf_counter()
-        counts = checked_launches(lambda: launch.main(argv), what, report)
+        counts = checked_launches(lambda: launch.main(argv), what, report, installs)
         record["wall_s"] = time.perf_counter() - record["t0"]
     log(f"launches, {what}: {counts}; the cyclic collector ran {pauses['n']} "
         f"passes ({pauses['full']} full) for {pauses['s']:.2f} s of the "
@@ -2161,7 +2285,21 @@ def logged_at(record: dict, text: str) -> float:
     fail(f"the launcher never logged {text!r}")
 
 
+def drop_recorder() -> None:
+    """Disarm the process's flight recorder and drop it as the process
+    default (``utils.flight.RECORDER``). Its context providers hold its
+    controller, so while the default names it a torn-down controller's
+    heap stays alive, and the cyclic collector frees it in whatever runs
+    after the next controller arms (both packages behave so)."""
+    from sdnmpi_tpu_torch.utils import flight
+
+    if flight.RECORDER is not None:
+        flight.RECORDER.disarm()
+        flight.RECORDER = None
+
+
 def collect(what: str) -> None:
+    drop_recorder()
     t0 = time.perf_counter()
     gc.collect()
     log(f"{what}: gc.collect() took {time.perf_counter() - t0:.1f} s")
@@ -3133,6 +3271,685 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     return all_counts
 
 
+# -- phases 21 to 23: the observability and HA planes ----------------------
+
+AUDIT_K = 16
+AUDIT_PAIRS = 1536
+AUDIT_SWEEPS = 5
+#: eight seeded table mutations, two of each kind, and the divergence
+#: kind each must be confirmed as
+AUDIT_MUTATIONS = ("drop_row", "insert_row", "blackhole", "freeze") * 2
+AUDIT_KINDS = {"missing": 4, "orphan": 2, "counter_dead": 2}
+TRAFFIC_K = 8
+TRAFFIC_PAIRS = 256
+TRAFFIC_SWEEPS = 6
+#: relative tolerance of the alpha = 0.5 matrix against its numpy fold,
+#: four f32 units in the last place (tests/test_torch_trafficplane.py's
+#: EWMA_RTOL; at 0.5 both products are exact, so bit-equal is expected)
+EWMA_RTOL = 2 ** -21
+CHAOS_PAIRS = 384
+CHAOS_CRASHES = 5
+PAIR_PAIRS = 256
+PAIR_ROUNDS = 20
+
+
+def random_pairs(hosts: list, n: int, seed: int) -> list:
+    """``n`` distinct seeded (src, dst) host pairs, sorted."""
+    if n > len(hosts) * (len(hosts) - 1):
+        fail(f"{n} distinct pairs asked of {len(hosts)} hosts")
+    rng = np.random.default_rng(seed)
+    pairs: set = set()
+    while len(pairs) < n:
+        a, b = rng.choice(len(hosts), size=2, replace=False)
+        pairs.add((hosts[a], hosts[b]))
+    return sorted(pairs)
+
+
+def wire_stack(k: int, device, **config_kw):
+    """fattree(k) as a wire-mode simulated fabric under the port's
+    Controller on ``device``, the benchmarks' fast-recovery knobs, the
+    Monitor's flush edge published by the caller."""
+    from sdnmpi_tpu_torch import Config, Controller
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    fabric = fattree(k).to_fabric(wire=True)
+    kw = dict(enable_monitor=False, coalesce_routes=True,
+              install_retry_backoff_s=0.0, barrier_timeout_s=0.0)
+    kw.update(config_kw)
+    ctl = Controller(fabric, Config(device=str(device), **kw))
+    ctl.attach()
+    return fabric, ctl
+
+
+def pump(fabric, pairs, n: int = 1) -> None:
+    """``n`` data-plane frames per pair through the installed tables."""
+    from sdnmpi_tpu_torch.protocol import openflow as of
+
+    for src, dst in pairs:
+        for _ in range(n):
+            fabric.hosts[src].send(of.Packet(src, dst, of.ETH_TYPE_IP))
+
+
+def flows_installed(fabric) -> set:
+    return {(d, e.match.dl_src, e.match.dl_dst, e.actions, e.priority)
+            for d, sw in fabric.switches.items() for e in sw.flow_table
+            if e.match.dl_src is not None}
+
+
+def flows_desired(ctl) -> set:
+    from sdnmpi_tpu_torch.protocol import openflow as of
+
+    out = set()
+    for d, table in ctl.router.recovery.desired.flows.items():
+        for (src, dst), spec in table.items():
+            actions: tuple = (of.ActionOutput(spec.out_port),)
+            if spec.rewrite:
+                actions = (of.ActionSetDlDst(spec.rewrite),) + actions
+            out.add((d, src, dst, actions, ctl.config.priority_default))
+    return out
+
+
+def one_hz():
+    """A clock that advances one second per reading."""
+    t = [0.0]
+
+    def clock():
+        t[0] += 1.0
+        return t[0]
+
+    return clock
+
+
+def phase_audit(device, report: dict, k: int = AUDIT_K,
+                n_pairs: int = AUDIT_PAIRS) -> list:
+    """Config 16's shape (``benchmarks/config16_audit.py:41-44``): a k=16
+    wire fat-tree (320 switches, 1,024 hosts), 1,536 routed pairs, the
+    audit sweeping the whole fabric each pass. Two baseline passes, then
+    eight seeded mutations (two of each kind); five passes with traffic
+    must confirm each exactly once and heal it (installed == desired, no
+    blackholed or frozen row left). Then one pass
+    with the sentinel sampling the whole installed population: its
+    padded shadow batch takes the DAG leg, one K2 set-up and one K2
+    launch, each call held against the plain version. Returns the launch
+    counts of the audited passes and of that sweep."""
+    from sdnmpi_tpu_torch.control.faults import FaultPlan
+    from sdnmpi_tpu_torch.kernels.tiling import col_bucket
+    from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+
+    t0 = time.perf_counter()
+    fabric, ctl = wire_stack(k, device, audit_switches_per_flush=0,
+                             audit_confirm_sweeps=2)
+    pairs = random_pairs(sorted(fabric.hosts), n_pairs, 0)
+    ctl.router.reinstall_pairs(pairs)
+    log(f"audit: fat-tree k={k}, {len(fabric.switches)} switches, "
+        f"{ctl.router.recovery.desired.total():,} desired rows for {len(pairs):,} "
+        f"pairs [{time.perf_counter() - t0:.1f} s]")
+    div = REGISTRY.get("fabric_divergence_total")
+    div0 = dict(div.values)
+    heals0 = REGISTRY.get("audit_heals_total").value
+    traffic = lambda: pump(fabric, pairs)  # noqa: E731
+    monitor_passes(ctl, 2, "audit (baseline passes)", report, before=traffic)
+    plan = FaultPlan(seed=16, mutate_priority=ctl.config.priority_default).attach(fabric)
+    for kind in AUDIT_MUTATIONS:
+        if plan.mutate(kind=kind) is None:
+            fail(f"audit: the fault plan found no row to {kind}")
+    _, planes, counts = monitor_passes(ctl, AUDIT_SWEEPS, "audit (config 16's shape)",
+                                       report, before=traffic)
+    if any(counts.values()):
+        fail(f"audit: the default-pacing passes launched {counts}")
+    got = {kk: v - div0.get(kk, 0) for kk, v in div.values.items() if v - div0.get(kk, 0)}
+    if got != AUDIT_KINDS:
+        fail(f"audit: confirmed divergences {got}, want {AUDIT_KINDS}")
+    installed, desired = flows_installed(fabric), flows_desired(ctl)
+    if installed != desired:
+        fail(f"audit: {len(installed - desired)} rows installed and not desired, "
+             f"{len(desired - installed)} desired and not installed after the heal")
+    for sw in fabric.switches.values():
+        for e in sw.flow_table:
+            if e.match.dl_src and e.cookie == 0 and (e.actions == () or e.frozen):
+                fail(f"audit: a blackholed or frozen row survived on {sw.dpid}")
+    named = {(r["dpid"], row) for r in ctl.audit.recent for row in r["rows"]}
+    for dpid, _kind, (src, dst) in plan.mutations:
+        if (dpid, f"{src}>{dst}") not in named:
+            fail(f"audit: the mutation of {src}>{dst} on {dpid} was not named")
+    log(f"audit: {len(plan.mutations)} mutations confirmed as {got} and healed "
+        f"({REGISTRY.get('audit_heals_total').value - heals0:.0f} heal rows); "
+        f"audit sweep of {len(fabric.switches)} switches {tail(planes['audit'])}; "
+        f"{sum(1 for b in ctl.flight.bundles if b['trigger'] == 'fabric:divergence')} "
+        "divergence bundles frozen")
+    ctl.config.sentinel_sample_per_flush = 0
+    n_pop = len(ctl.sentinel._population())
+    _, planes, full = monitor_passes(
+        ctl, 1, "sentinel sweep of the whole installed population", report,
+        before=traffic)
+    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
+            "ring_all_gather": 0}
+    if full != want:
+        fail(f"sentinel (whole population): launches {full}, want {want}")
+    last = ctl.sentinel._last
+    if last.get("sampled") != n_pop or not last.get("weighted"):
+        fail(f"sentinel (whole population): sweep {last} over {n_pop} pairs")
+    log(f"sentinel: one sweep of all {n_pop:,} installed pairs (padded to "
+        f"{col_bucket(n_pop, 4096):,}, the DAG leg) {planes['sentinel'][0]:.3f} ms, "
+        f"K2 set-up 1 and K2 1 (held against the plain versions); {last}")
+    drop_recorder()
+    return [counts, full]
+
+
+def fold(state: dict, staged: dict, alpha: float) -> None:
+    """The traffic plane's flush on the host in numpy f32, keyed by cell
+    name: ``old * (1 - a) + bps * a`` for staged cells (bps = bytes over
+    the 1 s interval, as the plane's f32 upload casts it), a zero sample
+    for silent ones, cleared at alpha 1 or past 20 silent rounds."""
+    keep, gain = np.float32(1.0 - alpha), np.float32(alpha)
+    for name, (old, _silent) in list(state.items()):
+        if name in staged:
+            continue
+        if _silent + 1 > 20 or alpha >= 1.0:
+            del state[name]
+        else:
+            state[name] = (np.float32(old * keep) + np.float32(np.float32(0.0) * gain),
+                           _silent + 1)
+    for name, nbytes in staged.items():
+        old = state.get(name, (np.float32(0.0), 0))[0]
+        bps = np.float32(nbytes / 1.0)
+        state[name] = (np.float32(old * keep) + np.float32(bps * gain), 0)
+
+
+def staged_names(tp) -> dict:
+    names = {}
+    for cell, nbytes in tp._staged.items():
+        t, a, b = tp._unflat(cell)
+        names[(tp._tenant_names[t], tp._ep_names[a], tp._ep_names[b])] = nbytes
+    return names
+
+
+def matrix_cells(tp) -> dict:
+    return {(t, a, b): bps for t, a, b, bps in tp.matrix()["cells"]}
+
+
+def phase_traffic(device, report: dict, k: int = TRAFFIC_K,
+                  n_pairs: int = TRAFFIC_PAIRS) -> list:
+    """Config 17's shape (``benchmarks/config17_traffic.py:41-43``): a
+    k=8 wire fat-tree, 256 routed pairs, the audit over the whole
+    fabric, the traffic plane on a 1 Hz clock. Six sweeps of pumped
+    traffic: the audit sweep and the matrix flush timed; every published
+    matrix equal bit for bit to a numpy fold of the same staged deltas at
+    alpha = 1, and a second plane at alpha = 0.5 fed the same deltas
+    within ``EWMA_RTOL`` of its fold; a published epoch unchanged by the
+    next flush. Then six sentinel sweeps at the default pacing (64
+    pairs: the greedy scanner, no kernel), and config 17's detection:
+    a cross-pod burst confirmed within 2 flush edges of a steady replay
+    that confirms nothing. Returns the launch counts of the sweeps."""
+    import dataclasses
+
+    import torch
+
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.oracle.trafficplane import TrafficPlane
+
+    fabric, ctl = wire_stack(k, device, audit_switches_per_flush=0,
+                             sentinel_divergence_factor=1.5)
+    pairs = random_pairs(sorted(fabric.hosts), n_pairs, 17)
+    ctl.router.reinstall_pairs(pairs)
+    tp = ctl.traffic
+    half = TrafficPlane(tp.db, dataclasses.replace(ctl.config, traffic_ewma_alpha=0.5))
+    tp.clock, half.clock = one_hz(), one_hz()
+    if tp._snap.device.type != torch.device(device).type:
+        fail(f"traffic: the matrix lives on {tp._snap.device}, not {device}")
+    ingest = tp.ingest
+
+    def tee(*a):
+        ingest(*a)
+        half.ingest(*a)
+
+    tp.ingest = tee
+    fold1: dict = {}
+    fold05: dict = {}
+    audit_ms, flush_ms = [], []
+    worst = 0.0
+
+    def sweeps():
+        nonlocal worst
+        held = None
+        for i in range(TRAFFIC_SWEEPS):
+            pump(fabric, pairs, 1 + i % 3)
+            t0 = time.perf_counter()
+            ctl.audit.sweep()
+            audit_ms.append((time.perf_counter() - t0) * 1e3)
+            fold(fold1, staged_names(tp), 1.0)
+            fold(fold05, staged_names(half), 0.5)
+            t0 = time.perf_counter()
+            tp.flush()
+            torch.cuda.synchronize()
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+            half.flush()
+            if held is not None and not torch.equal(held[0], held[1]):
+                fail("traffic: a published epoch changed under a later flush")
+            held = (tp._snap, tp._snap.clone())
+            want = {n: float(v) for n, (v, _) in fold1.items() if v > 0}
+            if matrix_cells(tp) != want:
+                fail(f"traffic: sweep {i}: the alpha = 1 matrix differs from its "
+                     "numpy fold")
+            got = matrix_cells(half)
+            want = {n: float(v) for n, (v, _) in fold05.items() if v > 0}
+            if got.keys() != want.keys():
+                fail(f"traffic: sweep {i}: alpha = 0.5 cells differ from the fold")
+            for n, v in want.items():
+                worst = max(worst, abs(got[n] - v) / v)
+        if worst > EWMA_RTOL:
+            fail(f"traffic: alpha = 0.5 off its fold by {worst:.3e} relative")
+
+    counts = checked_launches(sweeps, "traffic plane sweeps", report)
+    log(f"traffic (config 17's shape): {len(matrix_cells(tp))} active cells; "
+        f"traffic_update_ms (the flush) {tail(flush_ms)} riding an audit sweep of "
+        f"{tail(audit_ms)}; the alpha = 1 matrix bit-equal to its numpy fold in "
+        f"all {TRAFFIC_SWEEPS} sweeps, alpha = 0.5 within {worst:.3e} relative; "
+        f"published epochs unchanged by later flushes; launches {counts}")
+    tp.ingest = ingest
+    sentinel_ms = []
+
+    def sentinel_sweeps():
+        for i in range(TRAFFIC_SWEEPS):
+            pump(fabric, pairs)
+            ctl.audit.sweep()
+            tp.flush()
+            t0 = time.perf_counter()
+            ctl.sentinel.sweep()
+            torch.cuda.synchronize()
+            sentinel_ms.append((time.perf_counter() - t0) * 1e3)
+
+    scounts = checked_launches(sentinel_sweeps, "sentinel sweeps (default pacing)", report)
+    log(f"sentinel (sample {ctl.config.sentinel_sample_per_flush} of {len(pairs)}): "
+        f"sentinel_sweep_ms {tail(sentinel_ms)}; last sweep {ctl.sentinel._last}; "
+        f"launches {scounts}")
+    drop_recorder()
+    del fabric, ctl
+
+    # config 17's detection: steady intra-edge pairs, then a cross-pod
+    # burst of one edge's hosts over paths that share its first uplink
+    fabric, ctl = wire_stack(k, device, audit_switches_per_flush=0,
+                             sentinel_divergence_factor=1.5,
+                             sentinel_sample_per_flush=0)
+    ctl.traffic.clock = one_hz()
+    by_edge: dict = {}
+    for mac in sorted(fabric.hosts):
+        by_edge.setdefault(fabric.hosts[mac].dpid, []).append(mac)
+    order = sorted(by_edge)
+    steady = [(h[i], h[i + 1]) for e in order[: len(order) // 2]
+              for h in [by_edge[e]] for i in range(0, len(h) - 1, 2)]
+    shift = [(src, by_edge[e][0]) for src in by_edge[order[0]] for e in order[-2:]]
+    ctl.router.reinstall_pairs(steady + shift)
+
+    def confirmed():
+        from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+
+        return sum(dict(REGISTRY.get("sentinel_divergence_total").values).values())
+
+    base = confirmed()
+    detected = -1
+
+    def detection():
+        nonlocal detected
+        for _ in range(5):
+            pump(fabric, steady)
+            ctl.bus.publish(ev.EventStatsFlush())
+        if confirmed() != base:
+            fail("traffic: the sentinel confirmed a divergence on the steady replay")
+        for i in range(1, 5):
+            pump(fabric, shift, 2)
+            ctl.bus.publish(ev.EventStatsFlush())
+            if confirmed() > base:
+                detected = i
+                return
+
+    dcounts = checked_launches(detection, "sentinel detection", report)
+    if not 1 <= detected <= 2:
+        fail(f"traffic: the cross-pod burst was confirmed at edge {detected}, "
+             "want within 2")
+    detail = ctl.sentinel.recent[-1]
+    log(f"sentinel detection: the burst confirmed at flush edge {detected} "
+        f"(divergence {detail['divergence']:.3f}, pod pair {detail['pod_pair']}, "
+        f"hot link {detail['hot_link']}); launches {dcounts}")
+    drop_recorder()
+    return [counts, scounts, dcounts]
+
+
+def profile_kernels(path: str) -> set:
+    """Names of the device kernels in a ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        return {e["name"] for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"}
+
+
+def phase_observability(device, report: dict, k: int = 8, duration: float = 1.5,
+                        demo_ranks: int = 128) -> list:
+    """The flight recorder, the timeline, telemetry, traceview and SLOs
+    through the command line at config 14's serving shape
+    (``benchmarks/config14_serving.py:55-66``): ``--topo fattree:8 --wire
+    --tenants 4 --offered-rate 400 --duration 1.5 --no-route-cache``
+    with ``--demo --demo-ranks 128``, an SLO on tenant0, a latency
+    threshold low enough to fire, and ``--flight-dump``,
+    ``--metrics-dump``, ``--trace-dump`` and ``--profile-dump``. The
+    serving load blocks the launcher's event loop, so its Monitor cannot
+    run during it: the phase publishes the Monitor's flush edge before
+    the load (the baseline) and after it (the trigger pass), as
+    ``tests/test_slo.py``'s soak does, then re-installs the demo's
+    alltoall inside the incident's profile window (K2's set-up and K2
+    once more, kicked off by ranks 2 and 3). A bundle must freeze and
+    be dumped, the profile must
+    name K2's kernel, the Prometheus text must list every instrument
+    registered when it was written, and the Perfetto JSON must load with
+    span slices and counter tracks. Returns the run's launch counts."""
+    import shutil
+
+    from sdnmpi_tpu_torch import launch
+    from sdnmpi_tpu_torch.api.telemetry import instrument_rows
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.topogen import host_mac
+    from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+
+    out = os.path.join(OUT_DIR, "observability")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    paths = {n: os.path.join(out, n) for n in ("bundles", "metrics.txt", "trace.json",
+                                                "profile")}
+    argv = ["--topo", f"fattree:{k}", "--wire", "--tenants", "4", "--offered-rate",
+            "400", "--duration", str(duration), "--no-rpc", "--device", str(device),
+            "--no-route-cache", "--demo", "--demo-ranks", str(demo_ranks),
+            "--slo-target", "tenant0:0.5", "--anomaly-latency-threshold", "0.0005",
+            "--flight-dump", paths["bundles"], "--metrics-dump", paths["metrics.txt"],
+            "--trace-dump", paths["trace.json"], "--profile-dump", paths["profile"]]
+    real = launch.run_serving_load
+    seen: dict = {}
+
+    def bracketed(controller, fabric, args):
+        controller.bus.publish(ev.EventStatsFlush())  # the baseline pass
+        reports = real(controller, fabric, args)
+        controller.bus.publish(ev.EventStatsFlush())  # the trigger pass
+        seen["bundles"] = [b["trigger"] for b in controller.flight.bundles]
+        seen["capturing"] = controller.profile_capture.active
+        router = controller.router
+        if len(router.collectives) != 1:
+            fail(f"observability: {len(router.collectives)} collectives installed "
+                 "by the demo")
+        router._remove_collective(next(iter(router.collectives)))
+        # a kickoff from another rank pair: the first pair's packets now
+        # match the rows the first kickoff installed
+        send_mpi(fabric, [host_mac(r) for r in range(args.demo_ranks)], 2, 3)
+        router.flush_routes()  # the coalescer's idle edge
+        if len(router.collectives) != 1:
+            fail("observability: the demo's alltoall was not installed again")
+        seen["timeline_rows"] = controller.timeline.n_recorded
+        return reports
+
+    launch.run_serving_load = bracketed
+    try:
+        counts, rec = run_launcher(argv, "observability", report, installs=2)
+    finally:
+        launch.run_serving_load = real
+    want = {"bfs_distances": 0, "sampler_tables": 2, "sample_slots": 2,
+            "ring_all_gather": 0}
+    if counts != want:
+        fail(f"observability: launches {counts}, want {want} (the demo's install "
+             "and its re-install)")
+    for r in rec["reports"].values():
+        log(f"observability: {r.tenant} {r.routes_per_s:.1f} routes/s (offered "
+            f"{r.offered}, completed {r.completed}), p50 {r.p50_ms:.3f} ms, p99 "
+            f"{r.p99_ms:.3f} ms")
+    total = sum(r.routes_per_s for r in rec["reports"].values())
+    if not seen.get("bundles") or not seen.get("capturing"):
+        fail(f"observability: the trigger pass froze {seen.get('bundles')} and "
+             f"opened no profile window ({seen.get('capturing')})")
+    dumped = sorted(os.listdir(paths["bundles"]))
+    if not dumped:
+        fail("observability: no bundle was dumped under --flight-dump")
+    triggers = sorted({json.load(open(os.path.join(paths["bundles"], f)))["trigger"]
+                       for f in dumped})
+    profiles = [f for f in os.listdir(paths["profile"]) if f.endswith(".json")]
+    if len(profiles) != 1:
+        fail(f"observability: {len(profiles)} profile windows written")
+    kernels = profile_kernels(os.path.join(paths["profile"], profiles[0]))
+    k2 = sorted(n for n in kernels if "sample_slots" in n)
+    if not k2:
+        fail(f"observability: the incident's profile names no K2 kernel "
+             f"({len(kernels)} kernels: {sorted(kernels)[:8]})")
+    text = open(paths["metrics.txt"]).read()
+    series = {line.split("{")[0].split(" ")[0] for line in text.splitlines()}
+    # the instruments registered in this process when the run dumped its
+    # registry (a labeled family renders once it has a child)
+    rows = {name: getattr(inst, "label", "") for name, inst in REGISTRY}
+    listed = [n for n in rows if n in series or any(
+        s_.startswith(n + "_") for s_ in series)]
+    unlisted = sorted(set(rows) - set(listed))
+    labeled_unlisted = [n for n in unlisted if rows[n]]
+    if set(unlisted) - set(labeled_unlisted):
+        fail(f"observability: the Prometheus text misses {unlisted}")
+    n_port = len(instrument_rows())
+    with open(paths["trace.json"]) as f:
+        trace = json.load(f)
+    slices = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+    tracks = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "C"}
+    if not slices or len(tracks) < 3:
+        fail(f"observability: the Perfetto trace has {slices} slices and "
+             f"{len(tracks)} counter tracks")
+    log(f"observability: {total:.1f} routes/s over the 4 tenants with every plane "
+        f"on and the dumps armed; the trigger pass froze {seen['bundles']}, "
+        f"{len(dumped)} bundle files ({triggers}); the incident's profile names "
+        f"{k2}; the Prometheus text lists {len(listed)} of the "
+        f"{len(rows)} instruments registered at the dump ({len(labeled_unlisted)} "
+        f"labeled families without a child: {labeled_unlisted}; the port "
+        f"registers {n_port} in all); the Perfetto JSON holds "
+        f"{slices} span slices and {len(tracks)} counter tracks; "
+        f"{seen['timeline_rows']} timeline rows")
+    rec.clear()
+    collect("observability")
+    return [counts]
+
+
+def serving_flight_cost(device, report: dict, k: int = 8, duration: float = 1.5) -> list:
+    """The flight recorder's cost on the serving path: phase 17's
+    serving run (config 14's shape, the route cache on) with the
+    recorder armed (the default) and with ``--no-flight-recorder``, in
+    turns (armed, disarmed, disarmed, armed, armed, disarmed); routes/s
+    over the 4 tenants. Returns the runs' launch counts."""
+    argv = ["--topo", f"fattree:{k}", "--wire", "--tenants", "4", "--offered-rate",
+            "400", "--duration", str(duration), "--no-rpc", "--device", str(device)]
+    counts, totals = [], {"armed": [], "disarmed": []}
+    for state in ("armed", "disarmed", "disarmed", "armed", "armed", "disarmed"):
+        extra = ["--no-flight-recorder"] if state == "disarmed" else []
+        c, rec = run_launcher(argv + extra, f"serving, flight recorder {state}", report)
+        counts.append(c)
+        ctl = rec["controller"]
+        if (ctl.flight is None) != (state == "disarmed"):
+            fail(f"serving: the flight recorder is not {state}")
+        totals[state].append(sum(r.routes_per_s for r in rec["reports"].values()))
+        rec.clear()
+        collect(f"serving, flight recorder {state}")
+    log("serving: routes/s over the 4 tenants with the flight recorder armed "
+        f"{', '.join(f'{x:.1f}' for x in totals['armed'])}, disarmed "
+        f"{', '.join(f'{x:.1f}' for x in totals['disarmed'])} (runs 1, 4 and 5 "
+        "armed)")
+    return counts
+
+
+def phase_chaos(device, report: dict, k: int = 8, n_pairs: int = CHAOS_PAIRS) -> list:
+    """Config 11's shape (``benchmarks/config11_recovery.py:40-42``): a
+    k=8 wire fat-tree, 384 routed pairs on the card's oracle. One warm
+    crash, then the five busiest switches crashed and redialled, each
+    timed to installed == desired (the redrive wall); then 40 steps of a
+    seeded FaultPlan (crashes, flaps, drops, stalls, truncations, lost
+    acks) with traffic, quiesced, and the fabric must equal the desired
+    store exactly. Returns the launch counts of the crashes and of the
+    storm."""
+    import torch
+
+    from sdnmpi_tpu_torch.control.faults import FaultPlan
+    from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+
+    fabric, ctl = wire_stack(k, device)
+    pairs = random_pairs(sorted(fabric.hosts), n_pairs, 0)
+    ctl.router.reinstall_pairs(pairs)
+    if flows_installed(fabric) != flows_desired(ctl):
+        fail("chaos: the fresh install differs from the desired store")
+    by_load = sorted(fabric.switches,
+                     key=lambda d: -len(fabric.switches[d].flow_table))[: CHAOS_CRASHES + 1]
+    warm = by_load.pop()
+    fabric.crash_switch(warm)
+    fabric.redial_switch(warm)
+    ctl.router.recovery_tick(time.monotonic() + 10.0)
+    walls = []
+    c0 = REGISTRY.get("reconcile_flows_total").value
+
+    def crashes():
+        for victim in by_load:
+            t0 = time.perf_counter()
+            fabric.crash_switch(victim)
+            fabric.redial_switch(victim)
+            ctl.router.recovery_tick(time.monotonic() + 10.0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if flows_installed(fabric) != flows_desired(ctl):
+                fail(f"chaos: no reconvergence after crashing switch {victim}")
+
+    counts = checked_launches(crashes, "chaos (crash and redial)", report)
+    log(f"chaos (config 11's shape): {len(flows_installed(fabric))} flows; "
+        f"{len(walls)} crashes of the busiest switches redriven in {tail(walls)} "
+        f"(crash -> installed == desired), "
+        f"{REGISTRY.get('reconcile_flows_total').value - c0:.0f} flows reconciled; "
+        f"launches {counts}")
+    plan = FaultPlan(seed=11, p_send_drop=0.08, p_send_stall=0.05,
+                     p_send_truncate=0.04, p_ack_drop=0.05, p_stats_delay=0.15,
+                     p_crash=0.06, p_redial=0.4, p_flap=0.10, p_restore=0.5,
+                     p_release=0.5, max_crashed=3).attach(fabric)
+    rng = np.random.default_rng(11)
+    hosts = sorted(fabric.hosts)
+    from sdnmpi_tpu_torch.control import events as ev
+
+    def storm():
+        for step in range(40):
+            plan.step()
+            for _ in range(3):
+                a, b = rng.choice(len(hosts), size=2, replace=False)
+                if (fabric.hosts[hosts[a]].dpid in fabric.switches
+                        and fabric.hosts[hosts[b]].dpid in fabric.switches):
+                    pump(fabric, [(hosts[a], hosts[b])])
+            ctl.bus.publish(ev.EventStatsFlush())
+            fabric.tick(float(step))
+        plan.quiesce()
+        for _ in range(1 + int(ctl.config.install_retry_max) * 2):
+            fabric.release_stalls()
+            ctl.bus.publish(ev.EventStatsFlush())
+
+    t0 = time.perf_counter()
+    scounts = checked_launches(storm, "chaos (seeded fault plan)", report)
+    if flows_installed(fabric) != flows_desired(ctl):
+        fail("chaos: after quiesce the fabric differs from the desired store")
+    if plan.counts["crash"] == 0:
+        fail(f"chaos: the fault plan crashed nothing ({plan.counts})")
+    log(f"chaos: 40 seeded fault steps {plan.counts} and quiesce in "
+        f"{time.perf_counter() - t0:.1f} s; installed == desired exactly; "
+        f"launches {scounts}")
+    drop_recorder()
+    return [counts, scounts]
+
+
+def phase_pair(device, report: dict, k: int = 8, n_pairs: int = PAIR_PAIRS) -> list:
+    """Config 18's shape (``benchmarks/config18_failover.py:38-40``): a
+    controller pair over a k=8 wire fat-tree on a LoopLink, both on the
+    card's oracle, 256 pairs replicated; 20 storm rounds of 16 fresh
+    pairs (the replication lag sampled after each burst), then
+    controller 0 killed: lease expiry to installed == desired under the
+    survivor (the failover reconverge wall). Returns the launch counts
+    of the storm and of the failover."""
+    import torch
+
+    from sdnmpi_tpu_torch import Config
+    from sdnmpi_tpu_torch.control import events as ev
+    from sdnmpi_tpu_torch.control.replica import build_pair
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    fabric = fattree(k).to_fabric(wire=True)
+    clock_t = [0.0]
+    cfg = Config(device=str(device), enable_monitor=False, coalesce_routes=True,
+                 audit_switches_per_flush=0, install_retry_backoff_s=0.0,
+                 barrier_timeout_s=0.0)
+    pair = build_pair(fabric, cfg, clock=lambda: clock_t[0])
+    pair.attach()
+
+    def tick(n=3):
+        for _ in range(n):
+            clock_t[0] += 1.0
+            for i, c in enumerate(pair.controllers):
+                if i not in pair.mux.dead:
+                    c.replica.tick()
+
+    hosts = sorted(fabric.hosts)
+    pairs = random_pairs(hosts, n_pairs, 18)
+    for c in pair.controllers:
+        c.router.reinstall_pairs(pairs)
+    tick()
+    if flows_installed(fabric) != flows_desired(pair.controllers[0]):
+        fail("pair: the replicated install differs from the desired store")
+    rng = np.random.default_rng(181)
+    installed = set(pairs)
+    lags: list = []
+
+    if len(pairs) + 16 * PAIR_ROUNDS > len(hosts) * (len(hosts) - 1):
+        fail(f"pair: {PAIR_ROUNDS} rounds of 16 fresh pairs do not fit {len(hosts)} hosts")
+
+    def storm():
+        for _ in range(PAIR_ROUNDS):
+            burst = []
+            while len(burst) < 16:
+                a, b = rng.choice(len(hosts), size=2, replace=False)
+                p = (hosts[a], hosts[b])
+                if p not in installed:
+                    installed.add(p)
+                    burst.append(p)
+            for c in pair.controllers:
+                c.router.reinstall_pairs(burst)
+            for c in pair.controllers:
+                c.replica.tick()
+            lags.extend(c.replica.status()["lag"] for c in pair.controllers)
+            tick(2)
+
+    counts = checked_launches(storm, "pair (storm rounds)", report)
+    pair.kill(0)
+    surv = pair.controllers[1]
+    n_before = len(surv.router.dps)
+    clock_t[0] += surv.config.replica_lease_timeout_s + 1.0
+    wall = [0.0]
+
+    def failover():
+        t0 = time.perf_counter()
+        surv.replica.tick()
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline:
+            clock_t[0] += surv.config.replica_adopt_backoff_s
+            surv.replica.tick()
+            fabric.release_stalls()
+            surv.bus.publish(ev.EventStatsFlush())
+            if flows_installed(fabric) == flows_desired(surv):
+                break
+        torch.cuda.synchronize()
+        wall[0] = (time.perf_counter() - t0) * 1e3
+
+    fcounts = checked_launches(failover, "pair (failover)", report)
+    if flows_installed(fabric) != flows_desired(surv):
+        fail("pair: the survivor never reconverged")
+    adopted = len(surv.router.dps) - n_before
+    if adopted <= 0:
+        fail("pair: the survivor adopted nothing")
+    log(f"pair (config 18's shape): replication lag over {len(lags)} storm "
+        f"samples p99 {np.percentile(lags, 99):.1f} batches (max {max(lags)}); "
+        f"failover reconverge {wall[0]:.1f} ms (lease expiry -> installed == "
+        f"desired, {adopted} switches adopted, ownership "
+        f"{surv.ownership.to_dict()['epoch']}); launches {counts}, {fcounts}")
+    drop_recorder()
+    return [counts, fcounts]
+
+
 def main() -> int:
     import torch
 
@@ -3192,6 +4009,7 @@ def main() -> int:
     # phases 13 and 14: the controller, from packet-in to FlowMods
     ctl_counts = phase_controller_collective(device, report)
     packet_in_counts = phase_controller_packet_in(device, report)
+    collect("controller packet-in")
 
     # phases 15 to 17: the command line, the TCP southbound, serving;
     # the launcher's INFO lines go to stderr, the rest of its stack's
@@ -3208,10 +4026,23 @@ def main() -> int:
     plane_counts = phase_utilplane(device, report)
     collect("utilization plane")
     sched_counts = phase_sched(device, report)
+    collect("phased collectives")
+
+    # phases 21 to 23: the audit, the traffic plane and its sentinel;
+    # the flight recorder, timeline, telemetry, traceview and SLOs
+    # through the command line; chaos and the controller pair
+    audit_counts = phase_audit(device, report)
+    collect("audit")
+    traffic_counts = phase_traffic(device, report)
+    obs_counts = phase_observability(device, report)
+    obs_counts += serving_flight_cost(device, report)
+    chaos_counts = phase_chaos(device, report)
+    pair_counts = phase_pair(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
              *launcher_counts, *southbound_counts, *serving_counts,
-             *churn_counts, *plane_counts, *sched_counts)
+             *churn_counts, *plane_counts, *sched_counts, *audit_counts,
+             *traffic_counts, *obs_counts, *chaos_counts, *pair_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report

@@ -7,7 +7,11 @@ command line (``python -m sdnmpi_tpu_torch``), the control plane (event
 bus, topology manager, router, process manager, monitor, LLDP
 discovery, the simulated fabric, the OpenFlow 1.0 TCP southbound, the
 recovery plane and the serving plane: route cache, admission, load
-generator), the WebSocket mirror and checkpoints, on the route oracle: the topology store, the tensorized fabric,
+generator), the observability and HA planes (fabric audit, measured
+traffic matrix and route sentinel, flight recorder, metrics timeline,
+telemetry, SLOs, fault injection, the controller pair), the WebSocket
+mirror and checkpoints, on the route oracle: the topology store, the
+tensorized fabric,
 all-pairs distances and next hops, whole collectives and pair batches
 routed by the shortest, balanced (DAG balancer or greedy scanner) and
 adaptive (UGAL) policies with the per-flow path sampler, and the
@@ -22,15 +26,18 @@ CUDA without a card raises.
 Package map:
   launch.py     the command line (__main__.py runs it)
   config.py     Config: every knob, one dataclass
-  api/          WebSocket JSON-RPC mirror, its wire ABI, checkpoints
+  api/          WebSocket JSON-RPC mirror, its wire ABI, checkpoints,
+                Prometheus text, Perfetto export
   control/      event bus and events, controller, topology manager,
                 router, process manager, monitor, discovery, admission,
                 load generator, recovery plane, simulated fabric,
-                OpenFlow TCP southbound
+                OpenFlow TCP southbound, audit, sentinel, SLOs, fault
+                injection, ownership and the controller pair
   core/         TopologyDB (backends "torch" and "py"), SwitchFDB,
                 RankAllocationDB, CollectiveTable
   oracle/       APSP, path chase, DAG balancer, greedy scanner, UGAL,
-                route oracle, route cache, result arrays
+                route oracle, route cache, result arrays, utilization
+                plane, measured traffic matrix
   kernels/      CUDA kernels K1 (BFS), K2 (path sampler), K3 (ring
                 all-gather), csrc/ sources
   shardplane/   the sharded oracle: shard mesh, row-sharded APSP, sharded
@@ -41,7 +48,7 @@ Package map:
   protocol/     OpenFlow constants, flow batches and wire codec, virtual
                 MAC codec, LLDP and announcement codecs
   utils/        MAC helpers, metrics registry, tracing, event log,
-                device-memory telemetry
+                device-memory telemetry, flight recorder, metrics timeline
   native.py     host codecs (C++ over native/, numpy fallbacks)
   convert.py    topology and tensors carried across from sdnmpi_tpu
 """

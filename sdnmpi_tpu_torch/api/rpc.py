@@ -29,11 +29,7 @@ drops clients whose sockets fail, as the reference does on SocketError
 (the ``rpc`` extra).
 
 Counterpart of ``sdnmpi_tpu/api/rpc.py``, copied with its imports
-rewritten. The telemetry plane (``api/telemetry.py``, the metrics
-timeline) is ROADMAP A11: the ``update_telemetry`` feed
-(``Config.rpc_telemetry``) is refused by ``Config.require_ported``, and a
-client's ``telemetry`` or ``timeline`` request gets a JSON-RPC error
-naming A11.
+rewritten.
 """
 
 from __future__ import annotations
@@ -54,28 +50,25 @@ class RPCClient(Protocol):
     def send_json(self, message: dict) -> None: ...
 
 
-def json_default(obj):
-    """Last-resort JSON encoding for reply values (numpy scalars, sets),
-    so a reply can never kill the socket: the reference's
-    ``utils/flight.json_default``, kept here because the flight recorder
-    is not ported yet (ROADMAP A11)."""
-    if isinstance(obj, (set, frozenset)):
-        return sorted(obj)
-    for attr in ("item", "tolist"):
-        fn = getattr(obj, attr, None)
-        if fn is not None:
-            try:
-                return fn()
-            except Exception:
-                pass
-    return repr(obj)
+def _timeline_names(params):
+    """``timeline`` params -> series-name filter (None = everything).
+    A bare string first param is ONE name, not an iterable of chars —
+    char-splitting it would silently filter every real series out and
+    the empty reply would read as "series does not exist"."""
+    if not params:
+        return None
+    names = params[0]
+    if names is None:
+        return None
+    if isinstance(names, str):
+        return [names]
+    return [str(n) for n in names]
 
 
 class RPCInterface:
     name = "RPCInterface"
 
     def __init__(self, bus: EventBus, config: Config = DEFAULT_CONFIG) -> None:
-        config.require_ported()
         self.bus = bus
         self.config = config
         self.clients: list[RPCClient] = []
@@ -133,9 +126,12 @@ class RPCInterface:
                 e.max_congestion,
             ),
         )
-        # the live telemetry feed (update_telemetry per Monitor pass,
-        # Config.rpc_telemetry) needs api/telemetry.py, ROADMAP A11:
-        # require_ported refused it above
+        # live telemetry feed: one update_telemetry notification per
+        # Monitor pass (EventStatsFlush), carrying the controller's
+        # registry snapshot — the same payload api/telemetry.py renders
+        # as the Prometheus text exposition
+        if config.rpc_telemetry:
+            bus.subscribe(ev.EventStatsFlush, self._telemetry_flush)
         # anomaly push channel: a flight-recorder trigger's
         # frozen bundle summary broadcasts the moment it fires — the
         # "something just went wrong, here is the dump path" signal
@@ -167,36 +163,52 @@ class RPCInterface:
         if client in self.clients:
             self.clients.remove(client)
 
+    def _telemetry_flush(self, event: ev.EventStatsFlush) -> None:
+        """Riding the Monitor cadence: snapshot once, broadcast to every
+        client. No clients, no snapshot — the disabled path costs one
+        list check per Monitor pass."""
+        if not self.clients:
+            return
+        try:
+            snap = self.bus.request(ev.TelemetryRequest()).telemetry
+        except LookupError:
+            # minimal stacks without a Controller on the bus: fall back
+            # to the process-wide registry directly
+            from sdnmpi_tpu_torch.api.telemetry import telemetry_snapshot
+
+            snap = telemetry_snapshot()
+        self._broadcast("update_telemetry", snap)
+
     # -- pull-mode requests --------------------------------------
     #
     # Beside the push broadcasts, a client may send JSON-RPC *requests*
     # (messages WITH an id) and get replies. Methods:
     #
+    #   telemetry()          -> the registry snapshot (same payload as
+    #                           the update_telemetry push)
     #   span_tree(span_id)   -> the flight recorder's completed tree
     #                           containing that span (exemplar
     #                           resolution), or null
     #   flight_dump()        -> freeze + return a diagnostic bundle NOW
-    #   traffic_matrix()     -> the published measured traffic matrix:
+    #   timeline([names])    -> the metrics timeline's queryable
+    #                           history: {series: {name:
+    #                           [[ts, value], ...]}} over the bounded
+    #                           multi-resolution ring; names filters
+    #   traffic_matrix()     -> the published measured traffic matrix
     #                           {epoch, mode, endpoints,
     #                           cells: [[tenant, src, dst, bps], ...]}
-    #   replica_status()     -> the replica plane's status
-    #
-    # The reference's telemetry() and timeline([names]) read the
-    # telemetry plane, ROADMAP A11 (UNPORTED_METHODS).
-
-    #: pull methods of the reference whose plane is not ported yet:
-    #: method -> the module it needs
-    UNPORTED_METHODS = {
-        "telemetry": "api/telemetry.py",
-        "timeline": "utils/timeline.py",
-    }
 
     #: method name -> (request factory, reply-attribute extractor)
     PULL_METHODS = {
+        "telemetry": (lambda params: ev.TelemetryRequest(),
+                      lambda reply: reply.telemetry),
         "span_tree": (lambda params: ev.SpanTreeRequest(int(params[0])),
                       lambda reply: reply.tree),
         "flight_dump": (lambda params: ev.FlightDumpRequest(),
                         lambda reply: reply.bundle),
+        "timeline": (lambda params: ev.TimelineRequest(
+                         _timeline_names(params)),
+                     lambda reply: reply.timeline),
         "traffic_matrix": (lambda params: ev.TrafficMatrixRequest(),
                            lambda reply: reply.matrix),
         "replica_status": (lambda params: ev.ReplicaStatusRequest(),
@@ -224,14 +236,6 @@ class RPCInterface:
                     ingest(params[0])
             return None
         method = message.get("method")
-        if method in self.UNPORTED_METHODS:
-            return {
-                "jsonrpc": "2.0", "id": msg_id,
-                "error": {"code": -32001, "message": (
-                    f"{method} needs {self.UNPORTED_METHODS[method]}, "
-                    "which is not ported yet (ROADMAP A11)"
-                )},
-            }
         entry = self.PULL_METHODS.get(method)
         if entry is None:
             return {
@@ -255,12 +259,18 @@ class RPCInterface:
             reply = self.bus.request(request)
             result = extract(reply)
         except LookupError:
-            # minimal buses without the provider report unavailable
-            return {
-                "jsonrpc": "2.0", "id": msg_id,
-                "error": {"code": -32001,
-                          "message": f"{method} unavailable"},
-            }
+            # minimal buses without the provider: telemetry falls back
+            # to the process registry; the rest report unavailable
+            if method == "telemetry":
+                from sdnmpi_tpu_torch.api.telemetry import telemetry_snapshot
+
+                result = telemetry_snapshot()
+            else:
+                return {
+                    "jsonrpc": "2.0", "id": msg_id,
+                    "error": {"code": -32001,
+                              "message": f"{method} unavailable"},
+                }
         return {"jsonrpc": "2.0", "id": msg_id, "result": result}
 
     # -- broadcasting -----------------------------------------------------
@@ -390,8 +400,11 @@ class _WebSocketClient:
                 continue  # garbage frame: drop, keep the connection
             reply = interface.handle_request(message)
             if reply is not None:
-                # last-resort encoder: a bundle context value (numpy
-                # scalar, set) must not kill the socket
+                # same last-resort encoder the disk dump uses: a bundle
+                # context value (numpy scalar, set) must not kill the
+                # socket when the file path survives it
+                from sdnmpi_tpu_torch.utils.flight import json_default
+
                 try:
                     self.queue.put_nowait(
                         json.dumps(reply, default=json_default)

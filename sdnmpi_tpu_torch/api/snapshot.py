@@ -10,11 +10,10 @@ controller resumes with warm state instead of a blank network view.
 
 Counterpart of ``sdnmpi_tpu/api/snapshot.py``, copied with its imports
 rewritten: the checkpoint is the same JSON (``SNAPSHOT_VERSION``), so a
-checkpoint written by either package restores into the other. The
-sections of planes the port has not ported yet are written as ``None``
-(the audit baselines and the traffic plane, ROADMAP A11; the hier
-border rows, A13), and a restore that finds them ignores them with a
-cold-start note.
+checkpoint written by either package restores into the other. The hier
+border rows (the hierarchical oracle is ROADMAP A13) are written as
+``None``, and a restore that finds them ignores them with a cold-start
+note.
 """
 
 from __future__ import annotations
@@ -75,10 +74,37 @@ def snapshot_controller(controller) -> dict:
 
     desired = controller.router.recovery.desired
     # the reference also persists the hier oracle's border-distance
-    # rows (the hierarchical oracle is ROADMAP A13), the audit plane's
-    # counter baselines and the measured traffic matrix (ROADMAP A11):
-    # the port has none of them, so their sections are None
-    hier_border = audit_baselines = traffic_plane = None
+    # rows; the hierarchical oracle is ROADMAP A13, so that section is
+    # None
+    hier_border = None
+    # the audit plane's per-row counter baselines ride beside the
+    # desired-store checkpoint, digest-guarded: a
+    # restarted controller that re-baselined from scratch would
+    # attribute each switch's LIFETIME counters as a fresh delta on its
+    # first sweep — spiking tenant bytes, the traffic matrix, and any
+    # divergence trigger watching them.
+    audit = getattr(controller, "audit", None)
+    audit_baselines = (
+        {
+            "topology_digest": RouteCache.topology_digest(db),
+            "cycle": audit.cycle,
+            "rows": [
+                [dpid, src, dst, pkts, bts]
+                for dpid, table in sorted(audit._counters.items())
+                for (src, dst), (pkts, bts) in sorted(table.items())
+            ],
+        }
+        if audit is not None else None
+    )
+    # the measured traffic matrix's EWMA state rides too (cells keyed
+    # by tenant/endpoint NAMES; the plane re-resolves them against the
+    # live fabric on restore), under the same digest guard
+    traffic = getattr(controller, "traffic", None)
+    traffic_plane = (
+        dict(traffic.state_dict(),
+             topology_digest=RouteCache.topology_digest(db))
+        if traffic is not None else None
+    )
     return {
         "version": SNAPSHOT_VERSION,
         "route_cache": route_cache,
@@ -181,20 +207,37 @@ def restore_controller(controller, snapshot: dict) -> None:
         else:
             _cold_start(controller, "desired-flow topology digest mismatch")
 
-    # The audit baselines and the traffic plane's state (ROADMAP A11)
-    # of a checkpoint written by the reference have no plane here
-    if snapshot.get("audit_baselines"):
-        _cold_start(
-            controller,
-            "audit baselines ignored: the audit plane is not ported yet "
-            "(ROADMAP A11)",
-        )
-    if snapshot.get("traffic_plane"):
-        _cold_start(
-            controller,
-            "traffic-plane state ignored: the traffic plane is not ported "
-            "yet (ROADMAP A11)",
-        )
+    # Re-seed the audit plane's counter baselines
+    # under the same digest guard: the first post-restore sweep then
+    # diffs against where the counters stood at checkpoint instead of
+    # attributing each switch's lifetime counters as one giant fresh
+    # delta. (A switch that redialed meanwhile reset its counters;
+    # the attribution path re-baselines on counters-went-backwards,
+    # so a stale baseline degrades to the old behavior, never a spike.)
+    from sdnmpi_tpu_torch.oracle.routecache import RouteCache
+
+    aud = snapshot.get("audit_baselines")
+    audit = getattr(controller, "audit", None)
+    if aud and audit is not None:
+        if aud.get("topology_digest") == RouteCache.topology_digest(db):
+            audit.cycle = int(aud.get("cycle", 0))
+            for dpid, src, dst, pkts, bts in aud.get("rows", []):
+                audit._counters.setdefault(int(dpid), {})[(src, dst)] = (
+                    int(pkts), int(bts)
+                )
+        else:
+            _cold_start(controller, "audit-baseline topology digest mismatch")
+
+    # ... and the measured traffic matrix's EWMA state, so the sentinel
+    # scores against the learned matrix instead of a blank one until
+    # traffic re-accumulates
+    tp = snapshot.get("traffic_plane")
+    traffic = getattr(controller, "traffic", None)
+    if tp and traffic is not None:
+        if tp.get("topology_digest") == RouteCache.topology_digest(db):
+            traffic.load_state(tp)
+        else:
+            _cold_start(controller, "traffic-plane topology digest mismatch")
 
     # Re-seed the route-cache memo BEFORE any re-routing below: the
     # reinstall passes then hit the restored entries (hit == miss

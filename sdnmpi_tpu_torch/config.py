@@ -6,20 +6,12 @@ at sdnmpi/process.py:70,103 and sdnmpi/topology.py:128; flow priorities
 MONITOR_INTERVAL at sdnmpi/monitor.py:24) and selects behavior by which apps
 ``ryu-manager`` loads. Here everything is one dataclass.
 
-Counterpart of ``sdnmpi_tpu/config.py``, field for field, with two
-changes: ``oracle_backend`` is ``"torch"`` (the port's oracle) or
-``"py"``, and ``device`` names where the torch oracle runs. The planes
-the port has not ported yet default to OFF here, where the reference
-turns them on; each item of ROADMAP.md that ports a plane reverts its
-default:
-
-- ``fabric_audit``, ``traffic_plane``, ``flight_recorder``,
-  ``metrics_timeline`` and ``rpc_telemetry``: A11
-
-With these off the routes are the reference's own: it holds the
-narrowed and the full revalidation bit-identical, and a cache hit equal
-to its miss. :meth:`Config.require_ported` refuses a configuration that
-turns a plane on that the port does not have yet.
+Counterpart of ``sdnmpi_tpu/config.py``, field for field and default
+for default, with two changes: ``oracle_backend`` is ``"torch"`` (the
+port's oracle) or ``"py"``, and ``device`` names where the torch oracle
+(and the measured traffic matrix) runs. :meth:`Config.require_ported`
+refuses the hierarchical oracle, which the port does not have yet
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -329,9 +321,8 @@ class Config:
     #: at bounded memory, served by the ``timeline()`` pull RPC and
     #: exported as Perfetto counter tracks beside the span slices.
     #: Distinct from the flight recorder's short trigger-baseline
-    #: window. False drops the per-flush row entirely. Not ported yet
-    #: (ROADMAP A11): off.
-    metrics_timeline: bool = False
+    #: window. False drops the per-flush row entirely.
+    metrics_timeline: bool = True
     #: rows per timeline resolution level (3 levels, decimation 4:
     #: level 0 holds this many flushes at full cadence, level 2 covers
     #: 16x the span at 1/16 the resolution)
@@ -373,9 +364,8 @@ class Config:
     #: traffic), healing confirmed divergence through the
     #: reconcile path as TARGETED re-drives (one row, not a wipe).
     #: Only arms when the southbound can answer flow stats. False
-    #: restores the trust-the-install posture byte-identically. Not
-    #: ported yet (ROADMAP A11): off.
-    fabric_audit: bool = False
+    #: restores the trust-the-install posture byte-identically.
+    fabric_audit: bool = True
     #: switches audited per EventStatsFlush (the sweep's pacing cursor,
     #: the install_highwater round-robin idiom at the stats plane: a
     #: 1024-switch fabric audits in bounded per-flush slices instead of
@@ -397,8 +387,7 @@ class Config:
     #: UtilPlane idiom applied to MEASURED traffic. Pod-aggregated under
     #: ``hier_oracle`` so the matrix scales to the 65k-switch fabric.
     #: Arms only when the audit plane armed (it is the ingest source).
-    #: Not ported yet (ROADMAP A11): off.
-    traffic_plane: bool = False
+    traffic_plane: bool = True
     #: EWMA fold of each flush's measured rates into the matrix
     #: (``r' = (1 - a) * r + a * sample``). 1.0 (default) is pure
     #: replacement — the matrix equals the last sweep interval's
@@ -420,7 +409,7 @@ class Config:
     sentinel_divergence_factor: float = 2.0
     #: let the sentinel re-drive the worst diverging pair through the
     #: install plane when divergence confirms. Default OFF: the channel
-    #: observes only and never mutates routing until a later PR opts in.
+    #: observes only and never mutates routing unless the operator opts in.
     sentinel_heal: bool = False
 
     # --- recovery plane (control/recovery.py) --------------------
@@ -475,7 +464,7 @@ class Config:
     #: plane is built for N but the shipped transports wire a pair
     replica_count: int = 2
     #: this replica's index in the mesh's (process_index, id) order;
-    #: -1 derives it from jax.process_index (ownership.mesh_replica_index)
+    #: -1 derives it from the torch.distributed rank (ownership.mesh_replica_index)
     replica_index: int = -1
     #: lease heartbeat period, riding the EventStatsFlush/echo cadence
     replica_lease_interval_s: float = 1.0
@@ -524,8 +513,7 @@ class Config:
     #: arms per-bucket histogram exemplars (a latency spike's bucket
     #: resolves to the span tree of its latest observation). False
     #: restores the old posture: spans exist only with --trace-log.
-    #: Not ported yet (ROADMAP A11): off.
-    flight_recorder: bool = False
+    flight_recorder: bool = True
     #: completed span trees the recorder retains (bounded ring)
     flight_max_trees: int = 64
     #: directory diagnostic bundles are dumped to as JSON files
@@ -569,8 +557,8 @@ class Config:
     #: RPC clients once per Monitor pass (EventStatsFlush) — the live
     #: feed twin of the Prometheus text exposition (api/telemetry.py);
     #: both read the same registry. False silences the feed (snapshot
-    #: requests still work). Not ported yet (ROADMAP A11): off.
-    rpc_telemetry: bool = False
+    #: requests still work).
+    rpc_telemetry: bool = True
 
     def require_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of the
@@ -579,13 +567,6 @@ class Config:
         before they build anything, so no plane silently runs without
         its code."""
         deferred = (
-            ("fabric_audit", self.fabric_audit, "A11"),
-            ("traffic_plane", self.traffic_plane, "A11"),
-            ("flight_recorder", self.flight_recorder, "A11"),
-            ("metrics_timeline", self.metrics_timeline, "A11"),
-            ("slo_targets", bool(self.slo_targets), "A11"),
-            ("replica_peer", bool(self.replica_peer), "A11"),
-            ("rpc_telemetry", self.rpc_telemetry, "A11"),
             ("hier_oracle", self.hier_oracle, "A13"),
             ("hier_pod_target", self.hier_pod_target != 0, "A13"),
         )

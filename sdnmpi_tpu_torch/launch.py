@@ -26,10 +26,6 @@ reference's parser under the same name, with these differences
 - ``--backend`` takes ``torch`` (the default) or ``py``, and
   ``--device`` (default ``cuda``) is the only way to run the torch
   oracle on the CPU;
-- the planes the port has not ported yet keep the port's ``Config``
-  defaults, which are off, where the reference's launcher turns them
-  on: the fabric audit, the traffic plane and the flight recorder
-  (A11);
 - a flag that needs a module the port does not have yet fails the
   launch with ``SystemExit`` naming its ROADMAP item, before anything
   is built (:data:`REFUSED`);
@@ -64,28 +60,6 @@ log = logging.getLogger("launch")
 #: (argparse dest, its default, the flag, the module it needs, ROADMAP
 #: item). Given with any other value, the flag fails the launch.
 REFUSED = (
-    ("chaos", None, "--chaos", "control/faults.py", "A11"),
-    ("metrics_dump", None, "--metrics-dump", "api/telemetry.py", "A11"),
-    ("trace_dump", None, "--trace-dump", "api/traceview.py", "A11"),
-    ("replica_peer", None, "--replica-peer", "control/replica.py", "A11"),
-    ("ownership", None, "--ownership", "control/ownership.py", "A11"),
-    ("lease_interval", 1.0, "--lease-interval", "control/replica.py", "A11"),
-    ("lease_timeout", 3.0, "--lease-timeout", "control/replica.py", "A11"),
-    ("slo_target", None, "--slo-target", "control/slo.py", "A11"),
-    ("flight_dump", None, "--flight-dump", "utils/flight.py", "A11"),
-    ("anomaly_latency_threshold", 0.0, "--anomaly-latency-threshold",
-     "utils/flight.py", "A11"),
-    ("anomaly_p99_factor", 0.0, "--anomaly-p99-factor", "utils/flight.py",
-     "A11"),
-    ("profile_dump", None, "--profile-dump",
-     "utils/flight.py (its triggers open the capture)", "A11"),
-    ("audit_switches_per_flush", 64, "--audit-switches-per-flush",
-     "control/audit.py", "A11"),
-    ("sentinel_sample_per_flush", 64, "--sentinel-sample-per-flush",
-     "control/sentinel.py", "A11"),
-    ("sentinel_divergence_factor", 2.0, "--sentinel-divergence-factor",
-     "control/sentinel.py", "A11"),
-    ("sentinel_heal", False, "--sentinel-heal", "control/sentinel.py", "A11"),
     ("hier_oracle", False, "--hier-oracle", "oracle/hier.py", "A13"),
     ("hier_pod_target", 0, "--hier-pod-target", "oracle/hier.py", "A13"),
     ("hier_warm", True, "--no-hier-warm", "oracle/hier.py", "A13"),
@@ -212,6 +186,9 @@ def config_from_args(args) -> Config:
         # LLDP discovery is the ONLY link/host source in real-switch
         # mode (the simulated fabric's direct announcements don't exist)
         log.info("--listen implies --observe-links; enabling discovery")
+    replica_index, replica_count = parse_ownership(
+        getattr(args, "ownership", None)
+    )
     return Config(
         oracle_backend=args.backend,
         device=getattr(args, "device", "cuda"),
@@ -240,17 +217,127 @@ def config_from_args(args) -> Config:
         install_retry_backoff_s=getattr(args, "install_retry_backoff", 0.25),
         echo_interval_s=getattr(args, "echo_interval", 15.0),
         echo_timeout_s=getattr(args, "echo_timeout", 45.0),
+        fabric_audit=not getattr(args, "no_fabric_audit", False),
+        audit_switches_per_flush=getattr(
+            args, "audit_switches_per_flush", 64
+        ),
+        traffic_plane=not getattr(args, "no_traffic_plane", False),
+        sentinel_sample_per_flush=getattr(
+            args, "sentinel_sample_per_flush", 64
+        ),
+        sentinel_divergence_factor=getattr(
+            args, "sentinel_divergence_factor", 2.0
+        ),
+        sentinel_heal=getattr(args, "sentinel_heal", False),
         route_cache=getattr(args, "route_cache", True),
         schedule_collectives=getattr(args, "schedule_phases", None)
         is not None,
         schedule_phases=getattr(args, "schedule_phases", None) or 0,
         delta_reval=not getattr(args, "no_delta_reval", False),
+        trace_dump=getattr(args, "trace_dump", None) or "",
+        flight_recorder=not getattr(args, "no_flight_recorder", False),
+        flight_dump_dir=getattr(args, "flight_dump", None) or "",
+        flight_latency_threshold_s=getattr(
+            args, "anomaly_latency_threshold", 0.0
+        ),
+        flight_p99_factor=getattr(args, "anomaly_p99_factor", 0.0),
         admission_rate=getattr(args, "admission_rate", 0.0),
         compile_cache_dir=getattr(args, "compile_cache_dir", None) or "",
         warm_serving=getattr(args, "warm_serving", False),
         # the serving-load mode measures the coalesced window pipeline
         coalesce_routes=getattr(args, "tenants", 0) > 0,
+        slo_targets=_slo_targets(getattr(args, "slo_target", None)),
+        profile_dump_dir=getattr(args, "profile_dump", None) or "",
+        replica_peer=getattr(args, "replica_peer", None) or "",
+        replica_index=replica_index,
+        replica_count=replica_count,
+        replica_lease_interval_s=getattr(args, "lease_interval", 1.0),
+        replica_lease_timeout_s=getattr(args, "lease_timeout", 3.0),
     )
+
+
+def _slo_targets(specs) -> dict:
+    """``--slo-target tenant:p99_ms[:avail]`` specs -> the
+    Config.slo_targets dict; malformed specs fail the launch."""
+    if not specs:
+        return {}
+    from sdnmpi_tpu_torch.control.slo import parse_slo_target
+
+    out = {}
+    for spec in specs:
+        try:
+            t = parse_slo_target(spec)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        out[t.tenant] = (t.p99_ms, t.availability)
+    return out
+
+
+def parse_ownership(spec) -> tuple[int, int]:
+    """``--ownership I/N`` -> (replica_index, replica_count); raises
+    SystemExit on malformed input so a typo fails the launch instead of
+    two replicas silently claiming the same shards. None (flag absent)
+    -> (-1, 2): the index derives from the process group's rank
+    (ownership.mesh_replica_index)."""
+    if not spec:
+        return -1, 2
+    try:
+        idx_s, cnt_s = str(spec).split("/", 1)
+        idx, cnt = int(idx_s), int(cnt_s)
+    except ValueError:
+        raise SystemExit(f"--ownership wants I/N, e.g. 0/2 (got {spec!r})")
+    if cnt < 1 or not 0 <= idx < cnt:
+        raise SystemExit(
+            f"--ownership wants 0 <= I < N with N >= 1 (got {spec!r})"
+        )
+    return idx, cnt
+
+
+async def run_replica_relay(controller, link, config) -> None:
+    """Outbound half of the pair's replication stream: dial
+    the peer's RPC WebSocket, relay the link's sends as
+    ``replica_relay`` notifications, and drive the replica tick at the
+    lease cadence — the async twin of the echo keepalive loop.
+    Reconnects forever; sends while disconnected drop, and the
+    sequence-gap protocol snapshot-backfills once the peer is back."""
+    import json
+
+    outbox: asyncio.Queue = asyncio.Queue(maxsize=4096)
+
+    def enqueue(msg: dict) -> None:
+        # QueueFull propagates into RpcReplicaLink.send's drop counter:
+        # a wedged peer link opens a gap instead of growing unbounded
+        outbox.put_nowait(json.dumps({
+            "jsonrpc": "2.0", "method": "replica_relay", "params": [msg],
+        }))
+
+    link.bind_sender(enqueue)
+
+    async def pump() -> None:
+        import websockets
+
+        while True:
+            try:
+                async with websockets.connect(
+                    config.replica_peer
+                ) as ws:
+                    log.info("replica peer link up: %s", config.replica_peer)
+                    while True:
+                        await ws.send(await outbox.get())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                await asyncio.sleep(
+                    max(0.5, config.replica_lease_interval_s)
+                )
+
+    pump_task = asyncio.create_task(pump(), name="replica pump")
+    try:
+        while True:
+            controller.replica.tick()
+            await asyncio.sleep(max(0.1, config.replica_lease_interval_s))
+    finally:
+        pump_task.cancel()
 
 
 def _report_failure(task: asyncio.Task) -> None:
@@ -283,6 +370,15 @@ async def amain(args) -> None:
         from sdnmpi_tpu_torch.utils.tracing import set_trace_sink
 
         set_trace_sink(config.trace_log)
+    trace_collector = None
+    if config.trace_dump:
+        # in-memory span collector tee'd beside any file sink; rendered
+        # as a Perfetto/chrome://tracing timeline on shutdown
+        from sdnmpi_tpu_torch.api.traceview import TraceCollector
+        from sdnmpi_tpu_torch.utils.tracing import add_trace_sink
+
+        trace_collector = TraceCollector()
+        add_trace_sink(trace_collector)
     if listen:
         # real-switch mode: the southbound is an OpenFlow 1.0 TCP server
         # (control/southbound.py) and the topology is whatever dials in —
@@ -300,7 +396,36 @@ async def amain(args) -> None:
             wire=args.wire,
             discovery="packet" if args.observe_links else "direct",
         )
-    controller = Controller(fabric, config)
+    ownership = None
+    replica_link = None
+    if config.replica_peer:
+        # active/active pair: deterministic switch partition
+        # by the process group's rank, replication + lease heartbeats
+        # relayed over the peer's RPC WebSocket
+        from sdnmpi_tpu_torch.control.ownership import (
+            OwnershipMap,
+            mesh_replica_index,
+        )
+        from sdnmpi_tpu_torch.control.replica import (
+            FencedSouthbound,
+            RpcReplicaLink,
+        )
+
+        index = (
+            config.replica_index if config.replica_index >= 0
+            else mesh_replica_index(config.replica_count)
+        )
+        ownership = OwnershipMap(config.replica_count, index)
+        replica_link = RpcReplicaLink()
+        fabric = FencedSouthbound(fabric, ownership, shared=False)
+        log.info(
+            "replica %d/%d: serving shards %s, peer %s",
+            index, config.replica_count, ownership.shards_of(index),
+            config.replica_peer,
+        )
+    controller = Controller(
+        fabric, config, ownership=ownership, replica_link=replica_link
+    )
     controller.attach()
 
     if args.restore:
@@ -350,6 +475,24 @@ async def amain(args) -> None:
 
             tasks.append(asyncio.create_task(reprobe(), name="lldp reprobe"))
     else:
+        chaos = None
+        if getattr(args, "chaos", None) is not None:
+            # live chaos demo: the same fault plan the recovery tests
+            # soak under, stepping once per fabric clock tick
+            from sdnmpi_tpu_torch.control.faults import FaultPlan
+
+            chaos = FaultPlan(
+                seed=args.chaos,
+                p_send_drop=0.05, p_send_stall=0.03, p_send_truncate=0.02,
+                p_ack_drop=0.03, p_stats_delay=0.1,
+                p_crash=0.05, p_redial=0.5, p_flap=0.08, p_restore=0.5,
+                # silent table corruption: watch the audit
+                # plane's divergence counters catch and heal it live
+                p_mutate=0.03,
+                mutate_priority=config.priority_default,
+            ).attach(fabric)
+            log.info("chaos fault plan armed (seed %d)", args.chaos)
+
         async def clock() -> None:
             # drive the fabric's flow-expiry clock (a real switch ages
             # its own flows; the sim needs the tick) — cheap no-op while
@@ -357,6 +500,8 @@ async def amain(args) -> None:
             loop = asyncio.get_running_loop()
             while True:
                 fabric.tick(loop.time())
+                if chaos is not None:
+                    chaos.step()
                 await asyncio.sleep(1.0)
 
         tasks.append(asyncio.create_task(clock(), name="fabric clock"))
@@ -364,7 +509,19 @@ async def amain(args) -> None:
         from sdnmpi_tpu_torch.api.rpc import RPCInterface
 
         rpc = RPCInterface(controller.bus, config)
+        if replica_link is not None:
+            # inbound half of the replication stream: the peer's
+            # replica_relay notifications land in the link's inbox
+            rpc.on_replica_relay = replica_link.ingest
         tasks.append(asyncio.create_task(rpc.serve(), name="RPC mirror"))
+    elif replica_link is not None:
+        log.warning("--replica-peer with --no-rpc: no inbound relay "
+                    "endpoint; this replica can send but never receive")
+    if replica_link is not None:
+        tasks.append(asyncio.create_task(
+            run_replica_relay(controller, replica_link, config),
+            name="replica relay",
+        ))
     for task in tasks:
         task.add_done_callback(_report_failure)
 
@@ -391,6 +548,37 @@ async def amain(args) -> None:
         summary = STATS.summary()
         if summary:
             log.info("oracle timing summary: %s", summary)
+        metrics_dump = getattr(args, "metrics_dump", None)
+        if metrics_dump:
+            # Prometheus-style text exposition of the telemetry
+            # registry ("-" = stdout) — same snapshot the RPC mirror's
+            # update_telemetry feed broadcast live
+            from sdnmpi_tpu_torch.api.telemetry import dump
+
+            dump(metrics_dump, snapshot=controller.telemetry())
+            if metrics_dump != "-":
+                log.info("metrics exposition written to %s", metrics_dump)
+        if trace_collector is not None:
+            # counter tracks from the metrics timeline render beside
+            # the span slices — one trace, both stories
+            trace = trace_collector.dump(
+                config.trace_dump, timeline=controller.timeline
+            )
+            log.info(
+                "Perfetto trace (%d events) written to %s",
+                len(trace["traceEvents"]), config.trace_dump,
+            )
+        if controller.profile_capture is not None:
+            controller.profile_capture.close()
+        if controller.flight is not None:
+            if controller.flight.bundles:
+                log.info(
+                    "flight recorder froze %d diagnostic bundle(s); "
+                    "last trigger: %s",
+                    len(controller.flight.bundles),
+                    controller.flight.bundles[-1]["trigger"],
+                )
+            controller.flight.disarm()
         if args.checkpoint:
             from sdnmpi_tpu_torch.api.snapshot import save_checkpoint
 
@@ -624,43 +812,41 @@ def build_parser() -> argparse.ArgumentParser:
         "active/active pair — switch ownership is partitioned, stores "
         "replicate, and a dead peer's shards are adopted (unset = "
         "single controller, unchanged serving path)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--ownership", default=None,
         help="this replica's slot as I/N (e.g. 0/2); omit to derive "
         "the index from the mesh's process order"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--lease-interval", type=_pos_float, default=1.0,
         help="replica lease heartbeat period, seconds"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--lease-timeout", type=_pos_float, default=3.0,
         help="seconds of peer silence before its lease expires and "
         "its shards are adopted (epoch bump + reconcile-on-adopt)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--no-fabric-audit", action="store_true",
         help="disable the fabric ground-truth audit plane "
-        "(control/audit.py; not ported yet, ROADMAP A11, so always off "
-        "here)",
+        "(control/audit.py): per-flush OFPST_FLOW sweeps diffing every "
+        "switch's actual table against the desired store, healing "
+        "confirmed divergence as targeted re-drives",
     )
     parser.add_argument(
         "--audit-switches-per-flush", type=_nonneg_int, default=64,
         metavar="N",
         help="switches audited per Monitor flush (the sweep's "
         "round-robin pacing; 0 = the whole fabric every flush)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--no-traffic-plane", action="store_true",
         help="disable the measured traffic matrix + shadow route-"
-        "quality sentinel (oracle/trafficplane.py, control/sentinel.py; "
-        "not ported yet, ROADMAP A11, so always off here)",
+        "quality sentinel (oracle/trafficplane.py, control/sentinel.py):"
+        " per-flush EWMA folding of the audit plane's attributed byte "
+        "deltas into a device-resident per-tenant src->dst rate matrix,"
+        " re-scored against a fresh oracle optimum",
     )
     parser.add_argument(
         "--sentinel-sample-per-flush", type=_nonneg_int, default=64,
@@ -668,7 +854,6 @@ def build_parser() -> argparse.ArgumentParser:
         help="installed routes the sentinel re-scores per stats flush "
         "against a fresh oracle optimum for the measured matrix "
         "(round-robin pacing; 0 = the whole installed population)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--sentinel-divergence-factor", type=_pos_float, default=2.0,
@@ -677,14 +862,12 @@ def build_parser() -> argparse.ArgumentParser:
         "sentinel confirms the routes no longer fit the traffic "
         "(counts sentinel_divergence_total{tenant} and freezes a "
         "flight bundle naming the worst tenant/collective/pod-pair)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--sentinel-heal", action="store_true",
         help="let the sentinel re-drive the worst diverging pair "
         "through the install plane when divergence confirms (default "
         "OFF: the channel observes only and never mutates routing)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--reconcile-max-per-flush", type=_nonneg_int, default=0,
@@ -700,7 +883,7 @@ def build_parser() -> argparse.ArgumentParser:
         "against the simulated fabric: switch crashes/redials, link "
         "flaps, dropped/stalled/truncated installs, delayed stats — "
         "one chaos step per fabric clock tick; watch the recovery "
-        "counters converge it back; not ported yet (ROADMAP A11): refused",
+        "counters converge it back",
     )
     parser.add_argument(
         "--tenants", type=_nonneg_int, default=0, metavar="N",
@@ -754,31 +937,28 @@ def build_parser() -> argparse.ArgumentParser:
         "--trace-dump", metavar="PATH",
         help="write the run's span trees as a Perfetto/chrome://tracing "
         "JSON timeline on shutdown (api/traceview.py)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--no-flight-recorder", action="store_true",
-        help="disable the in-memory flight recorder (utils/flight.py; "
-        "not ported yet, ROADMAP A11, so always off here)",
+        help="disable the in-memory flight recorder (span-tree ring, "
+        "anomaly triggers, histogram exemplars)",
     )
     parser.add_argument(
         "--flight-dump", metavar="DIR",
         help="write each anomaly trigger's diagnostic bundle as a JSON "
         "file under DIR (default: bundles stay in memory, readable via "
-        "the flight_dump RPC method); not ported yet (ROADMAP A11): refused",
+        "the flight_dump RPC method)",
     )
     parser.add_argument(
         "--anomaly-latency-threshold", type=float, default=0.0,
         metavar="SECONDS",
         help="freeze a diagnostic bundle when a route/install/re-route "
         "latency observation provably exceeds this bound (0 = off)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--anomaly-p99-factor", type=float, default=0.0, metavar="FACTOR",
         help="freeze a bundle when an interval's estimated p99 exceeds "
         "FACTOR x the rolling baseline (0 = off)"
-        "; not ported yet (ROADMAP A11): refused",
     )
     parser.add_argument(
         "--slo-target", action="append", metavar="TENANT:P99_MS[:AVAIL]",
@@ -786,15 +966,14 @@ def build_parser() -> argparse.ArgumentParser:
         "feeds the tenant's latency histogram and a multi-window "
         "burn-rate trigger freezes a diagnostic bundle naming the "
         "burning tenant and the dominant pipeline stage when the error "
-        "budget burns (e.g. --slo-target victim:50:0.999); not ported "
-        "yet (ROADMAP A11): refused",
+        "budget burns (e.g. --slo-target victim:50:0.999)",
     )
     parser.add_argument(
         "--profile-dump", metavar="DIR",
         help="anomaly-armed device profiling: when a flight-recorder "
         "trigger fires, open a torch.profiler capture window under DIR "
         "for a few seconds — the profile OF the incident, zero "
-        "steady-state overhead; not ported yet (ROADMAP A11): refused",
+        "steady-state overhead",
     )
     parser.add_argument(
         "--event-log",
@@ -807,7 +986,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--metrics-dump", metavar="PATH",
         help="write the telemetry registry as a Prometheus-style text "
-        "exposition on shutdown ('-' = stdout); not ported yet (ROADMAP A11): refused",
+        "exposition on shutdown ('-' = stdout)",
     )
     parser.add_argument("--profile-dir", help="torch.profiler trace output dir")
     parser.add_argument("--demo", action="store_true", help="generate demo MPI traffic")

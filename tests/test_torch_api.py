@@ -1,9 +1,8 @@
 """The port's RPC mirror, its wire ABI and checkpoints against the JAX
 package's.
 
-Both controllers (the reference on backend ``"jax"`` with the planes the
-port has not ported yet off, the port on ``device="cpu"``) run the same
-scenario with an ``RPCInterface`` attached: the JSON-RPC message
+Both controllers (the reference on backend ``"jax"``, the port on
+``device="cpu"``, each with its default planes) run the same scenario with an ``RPCInterface`` attached: the JSON-RPC message
 streams a client receives, the ``init_*`` snapshots included, must be
 equal, and the port must still produce ``tests/test_api.py``'s golden
 wire vectors. Checkpoints are the same JSON in both packages and
@@ -26,7 +25,6 @@ from tests.test_torch_control import (
     diamond,
     ip_packet,
     launch_all,
-    make_config,
     send_vmac,
 )
 
@@ -40,10 +38,10 @@ def _json(x):
     return json.loads(json.dumps(x))
 
 
-#: pull requests a client may send, with the methods the port answers
-#: as the reference does (telemetry and timeline are ROADMAP A11)
+#: pull requests a client may send; replies that carry wall-clock
+#: readings (:data:`TIMED`) compare by their keys
 PULLS = [
-    {"jsonrpc": "2.0", "id": 1, "method": "span_tree", "params": [7]},
+    {"jsonrpc": "2.0", "id": 1, "method": "span_tree", "params": [10**12]},
     {"jsonrpc": "2.0", "id": 2, "method": "flight_dump"},
     {"jsonrpc": "2.0", "id": 3, "method": "traffic_matrix"},
     {"jsonrpc": "2.0", "id": 4, "method": "replica_status"},
@@ -51,7 +49,31 @@ PULLS = [
     {"jsonrpc": "2.0", "id": 6, "method": "span_tree", "params": []},
     {"jsonrpc": "2.0", "method": "replica_relay", "params": [{}]},
     ["not", "a", "dict"],
+    {"jsonrpc": "2.0", "id": 7, "method": "telemetry"},
+    {"jsonrpc": "2.0", "id": 8, "method": "timeline", "params": ["n_rows"]},
 ]
+#: ids of the pulls whose results hold timestamps or timings
+TIMED = (2, 7)
+
+
+def _anomaly_shape(messages):
+    """``anomaly`` broadcasts carry a bundle's timestamps and metric
+    deltas (the reference's also its JAX trace counts): compare their
+    trigger and the bundle's keys."""
+    return [
+        dict(m, params=[m["params"][0], sorted(m["params"][1]), m["params"][2]])
+        if isinstance(m, dict) and m.get("method") == "anomaly" else m
+        for m in messages
+    ]
+
+
+def _shape(replies):
+    return [
+        dict(r, result=sorted(r["result"]))
+        if isinstance(r, dict) and r.get("id") in TIMED and "result" in r
+        else r
+        for r in replies
+    ]
 
 
 def sc_mirror(S):
@@ -73,10 +95,10 @@ def sc_mirror(S):
     rpc.attach_client(late)
     replies = [rpc.handle_request(m) for m in PULLS]
     return {
-        "early": _json(early.messages),
-        "late": _json(late.messages),
+        "early": _anomaly_shape(_json(early.messages)),
+        "late": _anomaly_shape(_json(late.messages)),
         "dead_dropped": dead not in rpc.clients,
-        "replies": _json(replies),
+        "replies": _shape(_json(replies)),
     }
 
 
@@ -87,23 +109,50 @@ def test_mirror_streams_match_the_reference():
     for m in ("init_fdb", "add_process", "update_fdb", "install_collective",
               "delete_link", "remove_collective", "delete_process"):
         assert m in methods, m
+    # the flight_dump pull freezes a manual bundle, which both
+    # packages broadcast as an anomaly
     assert [m["method"] for m in got["late"]] == [
         "init_fdb", "init_rankdb", "init_topologydb", "init_collectives",
+        "anomaly",
     ]
     assert got["dead_dropped"]
 
 
 def test_telemetry_and_timeline_requests_name_a11():
-    fabric, ctl, _ = build(PORT, diamond)
-    rpc = api(PORT, "rpc").RPCInterface(ctl.bus, ctl.config)
-    for i, method in enumerate(("telemetry", "timeline")):
-        reply = rpc.handle_request({"jsonrpc": "2.0", "id": i, "method": method})
-        assert reply["id"] == i and "result" not in reply
-        assert "ROADMAP A11" in reply["error"]["message"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        api(PORT, "rpc").RPCInterface(
-            ctl.bus, make_config(PORT, rpc_telemetry=True)
-        )
+    """The ``telemetry`` and ``timeline`` pulls answer with the
+    reference's payloads (the registry snapshot's sections, the
+    timeline's series after two Monitor passes), and ``rpc_telemetry``
+    broadcasts one ``update_telemetry`` per pass to attached clients."""
+    def pulls(S):
+        # every instrument of each package registered, whatever this
+        # process imported before
+        api(S, "telemetry")._import_instrumented()
+        fabric, ctl, _ = build(S, diamond)
+        rpc = api(S, "rpc").RPCInterface(ctl.bus, ctl.config)
+        client = FakeClient()
+        rpc.attach_client(client)
+        launch_all(S, fabric, [MAC[1], MAC[4]])
+        fabric.hosts[MAC[1]].send(ip_packet(S, MAC[1], MAC[4]))
+        ctl.monitor.poll(now=0.0)
+        ctl.monitor.poll(now=1.0)
+        tel = rpc.handle_request({"jsonrpc": "2.0", "id": 1, "method": "telemetry"})
+        tl = rpc.handle_request({"jsonrpc": "2.0", "id": 2, "method": "timeline",
+                                 "params": ["desired_flows"]})
+        pushed = [m for m in client.messages if m["method"] == "update_telemetry"]
+        return {
+            "telemetry": sorted(tel["result"]),
+            "counters": sorted(tel["result"]["counters"]),
+            "timeline": [v for _, v in tl["result"]["series"]["desired_flows"]],
+            "n_rows": tl["result"]["n_rows"],
+            "pushed": len(pushed),
+        }
+
+    ref, got = pulls(REF), pulls(PORT)
+    assert got["n_rows"] == ref["n_rows"] == 2 and got["pushed"] == ref["pushed"] == 2
+    assert got["timeline"] == ref["timeline"]
+    assert got["telemetry"] == ref["telemetry"]
+    # every counter the port's snapshot carries, the reference's carries
+    assert set(got["counters"]) <= set(ref["counters"])
 
 
 def _golden_stack():
@@ -161,6 +210,7 @@ def sc_populated(S):
     """The diamond with ranks, a routed pair, a block-installed
     collective and a Monitor sample."""
     fabric, ctl, _ = build(S, diamond, block_install_threshold=1)
+    ctl.traffic.clock = iter(range(100)).__next__  # a 1 Hz flush clock
     launch_all(S, fabric, [MAC[1], MAC[2], MAC[3], MAC[4]])
     fabric.hosts[MAC[1]].send(ip_packet(S, MAC[1], MAC[4]))
     ctl.monitor.poll(now=0.0)
@@ -172,7 +222,8 @@ def sc_populated(S):
 
 #: checkpoint sections the two packages must write equal
 SECTIONS = ("version", "route_cache", "desired_flows", "topology", "fdb",
-            "rankdb", "link_util", "collectives")
+            "rankdb", "link_util", "collectives", "audit_baselines",
+            "traffic_plane")
 
 
 def test_snapshot_matches_the_reference():
@@ -181,7 +232,8 @@ def test_snapshot_matches_the_reference():
     for key in SECTIONS:
         assert got[key] == ref[key], key
     assert got["collectives"] and got["desired_flows"]["rows"]
-    assert got["hier_border"] is got["audit_baselines"] is got["traffic_plane"] is None
+    assert got["audit_baselines"]["rows"] and got["traffic_plane"]["mode"] == "edge"
+    assert got["hier_border"] is ref["hier_border"] is None
 
 
 @pytest.mark.parametrize("writer,reader", [(REF, PORT), (PORT, REF)],
@@ -204,21 +256,42 @@ def test_checkpoint_restores_across_packages(writer, reader, tmp_path):
 
 
 def test_unported_sections_restore_with_a_cold_start_note():
-    """A reference checkpoint with the audit and traffic planes on
-    restores into the port, which notes the sections it has no plane
-    for and restores the rest."""
-    fabric, ctl, _ = build(REF, diamond, fabric_audit=True, traffic_plane=True)
+    """A reference checkpoint with audit baselines, a traffic matrix and
+    hier border rows restores into the port: the audit's counters and
+    the matrix's cells as the reference restores them, and the border
+    rows (the hierarchical oracle, ROADMAP A13) with a cold-start note."""
+    fabric, ctl, _ = build(REF, diamond)
+    ctl.traffic.clock = iter(range(100)).__next__  # a 1 Hz flush clock
     launch_all(REF, fabric, [MAC[1], MAC[4]])
-    ctl.monitor.poll(now=0.0)
+    ctl.router.reinstall_pairs([(MAC[1], MAC[4])])
+    for t in (0.0, 1.0):
+        fabric.hosts[MAC[1]].send(ip_packet(REF, MAC[1], MAC[4]))
+        ctl.monitor.poll(now=t)
     snap = _json(api(REF, "snapshot").snapshot_controller(ctl))
-    assert snap["audit_baselines"] and snap["traffic_plane"]
+    assert snap["audit_baselines"]["rows"] and snap["traffic_plane"]["cells"]
     snap["hier_border"] = {"rows": []}
-    fabric, ctl, events = build(PORT, diamond)
-    api(PORT, "snapshot").restore_controller(ctl, snap)
-    notes = [e.reason for e in events if type(e).__name__ == "EventSnapshotColdStart"]
-    assert len(notes) == 3
-    assert all("not ported yet (ROADMAP A1" in n for n in notes)
-    assert dict(ctl.process_manager.rankdb.processes) == {0: MAC[1], 1: MAC[4]}
+    restored = {}
+    for name, S in (("ref", REF), ("port", PORT)):
+        fabric, ctl, events = build(S, diamond)
+        if S is REF:
+            # the reference restores the rows into its hier oracle, off here
+            snap_s = dict(snap, hier_border=None)
+        else:
+            snap_s = snap
+        api(S, "snapshot").restore_controller(ctl, snap_s)
+        restored[name] = {
+            "notes": [e.reason for e in events
+                      if type(e).__name__ == "EventSnapshotColdStart"],
+            "counters": ctl.audit._counters, "cycle": ctl.audit.cycle,
+            "matrix": ctl.traffic.matrix(),
+            "ranks": dict(ctl.process_manager.rankdb.processes),
+        }
+    got, ref = restored["port"], restored["ref"]
+    assert len(got["notes"]) == 1 and "not ported yet (ROADMAP A13)" in got["notes"][0]
+    assert ref["notes"] == []
+    for key in ("counters", "cycle", "matrix", "ranks"):
+        assert got[key] == ref[key], key
+    assert got["ranks"] == {0: MAC[1], 1: MAC[4]} and got["matrix"]["cells"]
 
 
 def test_version_and_digest_mismatch_degrade_to_cold_start():
@@ -283,4 +356,5 @@ def test_real_websocket_roundtrip():
     ]
     assert messages[4]["params"] == [3, MAC[1]]
     assert messages[5] == {"jsonrpc": "2.0", "id": 1, "result": {"mode": "off"}}
-    assert "ROADMAP A11" in messages[6]["error"]["message"]
+    assert messages[6]["id"] == 2 and {"counters", "gauges", "histograms"} <= set(
+        messages[6]["result"])

@@ -12,13 +12,10 @@ blocks, the packets each host received, the SwitchFDB, the installed
 collectives, the rank DB, the desired-flow store and every event
 published on the bus. The two must be equal.
 
-The reference runs with the planes the port does not have yet turned
-off (:data:`OFF`), at the port's defaults. It holds its own routes
-equal with and without them (``tests/test_audit.py``,
-``tests/test_trafficplane.py``, ``tests/test_flight.py``), so the
-comparison is against the routes it installs by default. The device
-utilization plane and the delta-narrowed revalidation are on in both
-controllers, as both packages' defaults have them.
+Both controllers run at their defaults: the device utilization plane,
+the delta-narrowed revalidation, the fabric audit, the traffic plane and
+its sentinel, the flight recorder and the metrics timeline are on in
+both, as both packages' defaults have them.
 
 The sampler near-tie rule of ``tests/test_torch_slice.py`` (ROADMAP C1)
 is not needed here: at these sizes every sampled decision of the
@@ -33,13 +30,6 @@ import types
 
 import numpy as np
 import pytest
-
-#: the reference's planes the port has not ported yet, off as in the
-#: port's Config (ROADMAP A11)
-OFF = dict(
-    fabric_audit=False, traffic_plane=False, flight_recorder=False,
-    metrics_timeline=False, rpc_telemetry=False,
-)
 
 MAC = {i: f"04:00:00:00:00:0{i}" for i in range(1, 7)}
 
@@ -69,7 +59,7 @@ PORT = _side("sdnmpi_tpu_torch")
 def make_config(S, **kw):
     """One Config for one side: the same knobs, each side's oracle."""
     if S is REF:
-        return S.Config(oracle_backend="jax", **{**OFF, **kw})
+        return S.Config(oracle_backend="jax", **kw)
     return S.Config(oracle_backend="torch", device="cpu", **kw)
 
 
@@ -564,22 +554,24 @@ def test_narrowed_dirty_set_podmap_rules_match_jax():
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"util_plane": True, "flight_recorder": True}, "A11"),
+    ({"util_plane": True, "flight_recorder": True, "hier_oracle": True}, "A13"),
     ({"delta_reval": True, "hier_oracle": True}, "A13"),
-    ({"rpc_telemetry": True}, "A11"),
+    ({"rpc_telemetry": True, "hier_pod_target": 8}, "A13"),
     ({"hier_pod_target": 16}, "A13"),
-    ({"schedule_collectives": True, "metrics_timeline": True}, "A11"),
-    ({"fabric_audit": True}, "A11"),
-    ({"traffic_plane": True}, "A11"),
-    ({"flight_recorder": True}, "A11"),
-    ({"metrics_timeline": True}, "A11"),
-    ({"slo_targets": {"t": (50.0, 0.99)}}, "A11"),
-    ({"replica_peer": "127.0.0.1:1"}, "A11"),
+    ({"schedule_collectives": True, "metrics_timeline": True,
+      "hier_oracle": True}, "A13"),
+    ({"fabric_audit": True, "hier_pod_target": 4}, "A13"),
+    ({"traffic_plane": True, "hier_oracle": True}, "A13"),
+    ({"flight_recorder": True, "hier_pod_target": 32}, "A13"),
+    ({"metrics_timeline": True, "hier_oracle": True}, "A13"),
+    ({"slo_targets": {"t": (50.0, 0.99)}, "hier_oracle": True}, "A13"),
+    ({"replica_peer": "127.0.0.1:1", "hier_pod_target": 2}, "A13"),
     ({"hier_oracle": True}, "A13"),
 ])
 def test_deferred_plane_raises(knob, item):
     """Turning on a plane the port has not ported yet raises, naming its
-    ROADMAP item, before anything is built."""
+    ROADMAP item, before anything is built, also beside the planes that
+    are ported."""
     from sdnmpi_tpu_torch.control.router import Router
     from sdnmpi_tpu_torch.control.topology_manager import TopologyManager
 
@@ -594,14 +586,36 @@ def test_deferred_plane_raises(knob, item):
 
 
 def test_other_unported_seams_raise():
-    fabric, ctl, _ = build(PORT, diamond)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ctl.telemetry()
-    with pytest.raises(NotImplementedError, match="A11"):
-        PORT.Controller(diamond(PORT), make_config(PORT), ownership=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        ctl.bus.request(PORT.ev.TelemetryRequest())
-    assert ctl.bus.request(PORT.ev.ReplicaStatusRequest()).status == {"mode": "off"}
+    """The bus seams of the observability and HA planes answer as the
+    reference's do: the telemetry snapshot (same sections), the replica
+    status of a single controller, the traffic matrix and timeline of a
+    fresh controller; a pair is built from an ownership map and a link.
+    The hierarchical oracle is the one plane left that raises."""
+    def seams(S):
+        fabric, ctl, _ = build(S, diamond)
+        snap = ctl.telemetry()
+        assert ctl.bus.request(S.ev.TelemetryRequest()).telemetry.keys() == snap.keys()
+        return {
+            "telemetry": sorted(snap),
+            "replica": ctl.bus.request(S.ev.ReplicaStatusRequest()).status,
+            "matrix": ctl.bus.request(S.ev.TrafficMatrixRequest()).matrix,
+            "timeline": ctl.bus.request(S.ev.TimelineRequest(None)).timeline,
+            "planes": [getattr(ctl, n) is not None for n in (
+                "audit", "traffic", "sentinel", "flight", "timeline", "slo",
+                "replica")],
+        }
+
+    assert seams(PORT) == seams(REF)
+    from sdnmpi_tpu_torch.control.ownership import OwnershipMap
+    from sdnmpi_tpu_torch.control.replica import LoopLink
+
+    link, _ = LoopLink.pair()
+    ctl = PORT.Controller(diamond(PORT), make_config(PORT),
+                          ownership=OwnershipMap(2, 0), replica_link=link)
+    assert ctl.replica is not None
+    assert ctl.bus.request(PORT.ev.ReplicaStatusRequest()).status["mode"] != "off"
+    with pytest.raises(NotImplementedError, match="A13"):
+        PORT.Controller(diamond(PORT), make_config(PORT, hier_oracle=True))
 
 
 def test_port_defaults_and_device():
@@ -614,7 +628,7 @@ def test_port_defaults_and_device():
     ref = {f.name: f.default for f in dc.fields(REF.Config)}
     got = {f.name: f.default for f in dc.fields(PORT.Config)}
     differ = {k for k in ref if got.get(k, object()) != ref[k]}
-    assert differ == {"oracle_backend", *OFF}
+    assert differ == {"oracle_backend"}
     assert set(got) - set(ref) == {"device"}
     assert got["device"] == "cuda" and got["oracle_backend"] == "torch"
     if not torch.cuda.is_available():

@@ -4,7 +4,8 @@
 under the same name. For a table of argument lists both packages'
 ``config_from_args`` agree field by field, except the deliberate
 differences of ROADMAP C (:data:`DIFFERENCES`); every flag that needs a
-module the port does not have yet fails the launch naming its item.
+module the port does not have yet fails the launch naming its item, also
+beside the flags of the planes that are ported.
 The demo run writes the same checkpoint in both packages, and each
 package's checkpoint restores into the other's launcher.
 """
@@ -28,13 +29,6 @@ DIFFERENCES = {
     "oracle_backend": "torch",
     # --device, the port's explicit-device rule
     "device": "cpu",
-    # planes not ported yet keep the port's Config defaults (off); the
-    # reference's launcher or Config turns them on
-    "fabric_audit": False,  # A11
-    "traffic_plane": False,  # A11
-    "flight_recorder": False,  # A11
-    "metrics_timeline": False,  # A11
-    "rpc_telemetry": False,  # A11
 }
 
 ARGVS = [
@@ -56,6 +50,16 @@ ARGVS = [
      "--hier-warm", "--no-ring-exchange"],
     ["--schedule-phases", "4"],
     ["--schedule-phases", "0", "--no-delta-reval", "--policy", "adaptive"],
+    # the observability and HA planes' flags
+    ["--chaos", "3", "--metrics-dump", "-", "--trace-dump", "trace.json"],
+    ["--replica-peer", "ws://peer:8080/v1.0/sdnmpi/ws", "--ownership", "1/2",
+     "--lease-interval", "2", "--lease-timeout", "5"],
+    ["--slo-target", "victim:50:0.999", "--slo-target", "bulk:200",
+     "--flight-dump", "bundles", "--anomaly-latency-threshold", "0.5",
+     "--anomaly-p99-factor", "3", "--profile-dump", "prof"],
+    ["--audit-switches-per-flush", "8", "--sentinel-sample-per-flush", "8",
+     "--sentinel-divergence-factor", "3", "--sentinel-heal"],
+    ["--no-fabric-audit", "--sentinel-sample-per-flush", "0"],
 ]
 
 
@@ -101,24 +105,28 @@ def test_every_reference_flag_is_accepted():
 
 
 REFUSED = [
-    (["--chaos", "3"], "A11"),
-    (["--metrics-dump", "-"], "A11"),
-    (["--trace-dump", "trace.json"], "A11"),
-    (["--replica-peer", "ws://peer:8080/v1.0/sdnmpi/ws"], "A11"),
-    (["--ownership", "0/2"], "A11"),
-    (["--lease-interval", "2"], "A11"),
-    (["--lease-timeout", "5"], "A11"),
-    (["--slo-target", "victim:50:0.999"], "A11"),
-    (["--flight-dump", "bundles"], "A11"),
-    (["--anomaly-latency-threshold", "0.5"], "A11"),
-    (["--anomaly-p99-factor", "3"], "A11"),
-    (["--profile-dump", "prof"], "A11"),
-    (["--audit-switches-per-flush", "8"], "A11"),
-    (["--sentinel-sample-per-flush", "8"], "A11"),
-    (["--sentinel-divergence-factor", "3"], "A11"),
-    (["--sentinel-heal"], "A11"),
+    (["--chaos", "3", "--hier-oracle"], "A13"),
+    (["--metrics-dump", "-", "--hier-pod-target", "16"], "A13"),
+    (["--trace-dump", "trace.json", "--no-hier-warm"], "A13"),
+    (["--replica-peer", "ws://peer:8080/v1.0/sdnmpi/ws", "--distributed",
+      "127.0.0.1:1234,2,0"], "A12 item 2"),
+    (["--ownership", "0/2", "--hier-oracle"], "A13"),
+    (["--lease-interval", "2", "--hier-pod-target", "8"], "A13"),
+    (["--lease-timeout", "5", "--no-hier-warm"], "A13"),
+    (["--slo-target", "victim:50:0.999", "--hier-oracle"], "A13"),
+    (["--flight-dump", "bundles", "--distributed", "127.0.0.1:1234,2,1"],
+     "A12 item 2"),
+    (["--anomaly-latency-threshold", "0.5", "--hier-oracle"], "A13"),
+    (["--anomaly-p99-factor", "3", "--hier-pod-target", "4"], "A13"),
+    (["--profile-dump", "prof", "--no-hier-warm"], "A13"),
+    (["--audit-switches-per-flush", "8", "--hier-oracle"], "A13"),
+    (["--sentinel-sample-per-flush", "8", "--hier-oracle"], "A13"),
+    (["--sentinel-divergence-factor", "3", "--distributed",
+      "127.0.0.1:1234,3,2"], "A12 item 2"),
+    (["--sentinel-heal", "--hier-oracle"], "A13"),
     (["--schedule-phases", "4", "--hier-oracle"], "A13"),
-    (["--schedule-phases", "0", "--flight-dump", "bundles"], "A11"),
+    (["--schedule-phases", "0", "--flight-dump", "bundles", "--no-hier-warm"],
+     "A13"),
     (["--hier-oracle"], "A13"),
     (["--hier-pod-target", "16"], "A13"),
     (["--no-hier-warm"], "A13"),
@@ -187,7 +195,8 @@ def test_python_dash_m_runs_the_demo(monkeypatch, tmp_path, caplog):
 DEMO = ["--topo", "fattree:4", "--demo", "--demo-ranks", "8", "--no-rpc",
         "--duration", "0.1"]
 #: checkpoint sections that carry the controller's state
-STATE = ("topology", "fdb", "rankdb", "collectives", "desired_flows", "route_cache")
+STATE = ("topology", "fdb", "rankdb", "collectives", "desired_flows", "route_cache",
+         "audit_baselines", "traffic_plane")
 
 
 def _run(pkg_launch, argv):
@@ -213,9 +222,11 @@ def test_demo_checkpoints_match_the_reference(demo_checkpoints):
     # the demo's balanced window is utilization-keyed: the memo
     # serializes its header only
     assert got["route_cache"]["topology_digest"] == got["desired_flows"]["topology_digest"]
-    # the planes the port has not ported yet write nothing
-    assert got["audit_baselines"] is got["traffic_plane"] is None
-    assert ref["audit_baselines"] is not None
+    # the audit and traffic sections are written by both packages; the
+    # hier border rows (ROADMAP A13) by neither at these defaults
+    assert got["audit_baselines"]["topology_digest"] == got["route_cache"]["topology_digest"]
+    assert got["traffic_plane"]["mode"] == "edge"
+    assert got["hier_border"] is ref["hier_border"] is None
 
 
 @pytest.mark.parametrize("writer", ["ref", "port"])
@@ -243,3 +254,18 @@ def test_demo_checkpoint_restores_across_packages(demo_checkpoints, writer):
         return {p for table in snap["fdb"].values() for p in table}
 
     assert pairs(got) == pairs(saved)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--ownership", "2/2"], ["--ownership", "x"], ["--ownership", "0/0"],
+    ["--slo-target", "victim"], ["--slo-target", "t:50:1.5"],
+], ids=lambda a: " ".join(a))
+def test_malformed_plane_flags_fail_as_the_reference(argv):
+    """A malformed ``--ownership`` or ``--slo-target`` fails the launch
+    with the reference's message."""
+    msgs = []
+    for mod, side in ((ref_launch, ["--backend", "jax"]), (port_launch, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            mod.config_from_args(mod.build_parser().parse_args(argv + side))
+        msgs.append(str(exc.value))
+    assert msgs[0] == msgs[1]
