@@ -142,6 +142,29 @@ order; the first failure ends the run with a non-zero exit:
                18's shape (a pair over k=8, 256 pairs): 20 storm rounds
                (replication lag) and a killed controller's failover
                (reconverge wall). Both on the card's oracle.
+24. hier     — config 15 through the hierarchical oracle
+               (TopologyDB(hier_oracle=True, mesh_devices=8,
+               ring_exchange=True)): fattree(64, pods=1008), 65,536
+               switches, 128 ranks strided over the hosts, 16,256 pairs
+               through find_routes_collective(policy="shortest"); the DB
+               build, cold refresh, first route and median of 3 steady
+               routes timed, every pair routed over live links, K3's
+               border plane equal to its plain version and the host
+               slice, the per-shard device bytes at least 8x under the
+               dense [V, V] f32 plane; warm_serving, the route after it,
+               the scalar escape hatch and a border snapshot restored
+               into a fresh oracle, their fdbs equal, 16 border rows of
+               the card equal to sweep_rows_host; one intra-pod and one
+               inter-pod flap (block repairs and level-2 refreshes as the
+               reference counts them, routes equal to a cold rebuild's,
+               then the original routes back); the refresh twin at k=56
+               (the dense sharded refresh beside the full hier build,
+               hier lengths equal to the dense oracle's over a 256-rank
+               alltoall, the mesh equal to one device); a k=8 Controller
+               block install under hier_oracle (flows as the dense
+               controller's, every block path shortest, 200 pairs
+               delivered) and the launcher's --hier-oracle --demo; the
+               three device programs timed with CUDA events.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -163,8 +186,9 @@ the phased Controller install of phase 20, the Monitor passes of phase
 default sample of 64 pairs takes the greedy scanner), phase 21's
 whole-population sentinel sweep (K1 0, set-up 1, K2 1), the launcher run
 of phase 22 (K1 0, set-up 2, K2 2: the demo's install and its
-re-install) and phase 23's crashes, storm and failover, against the
-counts each path must launch.
+re-install), phase 23's crashes, storm and failover and every leg of
+phase 24 (K1 and K2 0; K3 at least 1 on each refresh with the ring),
+against the counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so are both of phase 10's and
@@ -1924,10 +1948,12 @@ def log_host_profile(what: str, fn, top: int = 14) -> None:
             f"{os.path.basename(path)}:{line} {name}")
 
 
-def check_block_paths(ctl, what: str) -> None:
+def check_block_paths(ctl, what: str, dense=None) -> None:
     """Every block path of the installed collectives is a shortest path
-    over the fabric's links, with each hop's port that link's port."""
-    db = ctl.topology_manager.topologydb
+    over the fabric's links, with each hop's port that link's port; the
+    distances and ports are those of ``dense``'s oracle (a controller on
+    the same fabric; ``ctl``'s own by default)."""
+    db = (dense or ctl).topology_manager.topologydb
     t, dist, _ = db._oracle_engine().matrices(db)
     port_h = t.host_port()
     row_of = np.full(int(t.dpids.max()) + 2, -1, np.int64)
@@ -3950,6 +3976,500 @@ def phase_pair(device, report: dict, k: int = 8, n_pairs: int = PAIR_PAIRS) -> l
     return [counts, fcounts]
 
 
+# -- phase 24: the hierarchical two-level oracle ----------------------------
+
+#: config 15 (benchmarks/config15_hier.py:43-47): fattree(64, pods=1008),
+#: 65,536 switches and one host per edge switch, 128 ranks strided over
+#: the hosts (16,256 pairs), the hierarchy on 8 shards of one card with
+#: the ring (kernel K3) moving the border plane
+HIER_K = 64
+HIER_PODS = 1008
+HIER_RANKS = 128
+#: the refresh twin (15b): the config-13 pod shape, fat-tree k=56, and
+#: the ranks of its dense-length check
+HIER_TWIN_K = 56
+HIER_TWIN_RANKS = 256
+#: the Controller and launcher legs: a k=8 fat-tree, 128 ranks
+HIER_CTL_K = 8
+HIER_CTL_RANKS = 128
+#: per-shard headroom over the dense [V, V] f32 plane that the
+#: reference's config 15 asserts (MEM_HEADROOM_MIN)
+HIER_HEADROOM_MIN = 8.0
+#: border-plane rows held against the host sweep
+HIER_ROW_SAMPLE = 16
+HIER_COUNTERS = ("hier_block_repairs_total", "hier_l2_refreshes_total",
+                 "hier_full_builds_total")
+
+
+@contextlib.contextmanager
+def hier_programs(record: dict):
+    """Count the calls of the hier oracle's three device programs (the
+    reference's three jitted programs: ``shardplane.hier._stack_apsp_core``,
+    ``_sweep_core`` and ``kernels.hiercompose._compose_core``) while the
+    context is open, sum the row-sweeps ``_sweep_core`` runs, and keep the
+    arguments of the largest composition for :func:`time_hier_programs`."""
+    from sdnmpi_tpu_torch.kernels import hiercompose
+    from sdnmpi_tpu_torch.shardplane import hier as shier
+
+    where = {"_stack_apsp_core": shier, "_sweep_core": shier,
+             "_compose_core": hiercompose}
+    real = {name: getattr(mod, name) for name, mod in where.items()}
+
+    def wrapped(name):
+        def call(*args):
+            out = real[name](*args)
+            record[name] = record.get(name, 0) + 1
+            if name == "_sweep_core":
+                record["row_sweeps"] = record.get("row_sweeps", 0) + out
+            elif name == "_compose_core":
+                size = args[1].numel() * args[2].shape[1]
+                if size > record.get("compose_size", -1):
+                    record.update(compose_size=size, compose_args=args)
+            return out
+        return call
+
+    for name, mod in where.items():
+        setattr(mod, name, wrapped(name))
+    try:
+        yield record
+    finally:
+        for name, mod in where.items():
+            setattr(mod, name, real[name])
+
+
+def time_hier_programs(state, record: dict) -> list:
+    """The hier oracle's device programs timed with CUDA events at the
+    main path's shapes on ``state``: the pod-stack APSP of each bucket
+    (every shard's call), the row sweeps of the materialized destination
+    pods' borders (every shard's call, the padded ladder included) and
+    the largest composition chunk ``record`` kept; each beside its bound
+    (bytes: inputs read once, outputs written once; operations: what this
+    data needs). Returns the table's rows."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import hiercompose
+    from sdnmpi_tpu_torch.shardplane import hier as shier
+
+    mesh = state.mesh
+    shards = mesh.n_shards
+    rows = []
+    for b in state.buckets:
+        n, s = len(b.pods), b.s
+        finite = b.dist[np.isfinite(b.dist)]
+        iters = int(finite.max()) + 1 if finite.size else 1
+        rows.append({
+            "name": "_stack_apsp_core", "shape": f"[{n}, {s}, {s}] "
+            f"({'one call a shard' if n >= shards else 'one call'})",
+            "ms": time_ms(lambda: torch.cuda.synchronize(
+                shier.pod_stack_apsp_async(b.adj, mesh)[0][0].device), reps=5),
+            "bytes": n * s * s * 12, "ops": iters * 2 * n * s ** 3 + n * s ** 3,
+        })
+    targets = np.concatenate([np.arange(state.pod_bstart[p], state.pod_bstart[p + 1])
+                              for p in sorted(state.rows)]).astype(np.int32)
+    t = len(targets)
+    tloc = np.concatenate([targets, np.full(shier._ladder(t, shards) - t, -1, np.int32)])
+    dev = mesh.devices[0]
+    sweep: dict = {}
+    with hier_programs(sweep):
+        shier._sweep_padded(state.deg_buckets, state.n_borders, tloc, shards, dev)
+    per_row = sum(int(np.asarray(c).size) for _, c, _ in state.deg_buckets)
+    ms = time_ms(lambda: shier._sweep_padded(state.deg_buckets, state.n_borders, tloc,
+                                             shards, dev), reps=3)
+    rows.append({
+        "name": "_sweep_core", "shape": f"[{len(tloc)}, {state.n_borders}] rows "
+        f"({t} real), {per_row:,} gathers a row, "
+        f"{sweep['row_sweeps'] / len(tloc):.2f} sweeps a row",
+        # out [rows, B] f32 written, targets read, and per bucket the
+        # int64 candidates, f32 weights and int64 border ids read once
+        "ms": ms, "bytes": len(tloc) * (state.n_borders * 4 + 4) + sum(
+            int(np.asarray(c).size) * 12 + len(i) * 8 for i, c, _ in state.deg_buckets),
+        "ops": sweep["row_sweeps"] * per_row * 2,
+    })
+    if "compose_args" in record:
+        args = record["compose_args"]
+        m, bb = args[1].shape
+        ba = args[2].shape[1]
+        rows.append({
+            "name": "_compose_core", "shape": f"m={m}, bA={ba}, bB={bb}",
+            "ms": time_ms(lambda: hiercompose._compose_core(*args), reps=10),
+            "bytes": m * ba * bb * 4 + m * (ba + bb) * (8 + 8) + m * 8,
+            "ops": m * ba * bb * 5,
+        })
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = bound_ms(r)
+    return rows
+
+
+def hier_counters() -> list:
+    from sdnmpi_tpu_torch.utils.metrics import REGISTRY
+
+    return [REGISTRY.get(n).value for n in HIER_COUNTERS]
+
+
+def check_hier_routes(db, macs, src_idx, dst_idx, routes, what: str) -> None:
+    """Every pair routed (the fabric is connected), every fdb over live
+    links with their ports from its source's switch to its destination
+    host's port (the reference's ``validate_routes``, on every pair)."""
+    if not routes.routed_mask().all():
+        fail(f"{what}: unrouted pairs on a connected fabric")
+    for kk in range(routes.n_pairs):
+        fdb = routes.fdb(kk)
+        src = db.hosts[macs[int(src_idx[kk])]].port
+        dst = db.hosts[macs[int(dst_idx[kk])]].port
+        if not fdb or fdb[0][0] != src.dpid or fdb[-1] != (dst.dpid, dst.port_no):
+            fail(f"{what}: pair {kk} does not join its hosts: {fdb}")
+        for (a, pa), (b, _) in zip(fdb, fdb[1:]):
+            link = db.links.get(a, {}).get(b)
+            if link is None or link.src.port_no != pa:
+                fail(f"{what}: pair {kk} leaves {a} by port {pa} toward {b}")
+    log(f"{what}: all {routes.n_pairs:,} pairs routed over live links")
+
+
+def check_hier_ring(state, what: str) -> int:
+    """K3 on every bucket's border-plane wire blocks equals its plain
+    version, and the unpacked plane equals the host slice of the pod
+    blocks; returns the buckets held."""
+    from sdnmpi_tpu_torch.kernels.ring import unpack_dist_wire
+    from sdnmpi_tpu_torch.shardplane.hier import border_plane_blocks
+
+    held = 0
+    for bi, b in enumerate(state.buckets):
+        blocks, counts, bmax = border_plane_blocks(state, b)
+        if not bmax:
+            continue
+        got = check_k3(blocks, state.mesh, f"{what} bucket {bi}")
+        plane = unpack_dist_wire(got[0]).cpu().numpy().reshape(len(b.pods), bmax, b.s)
+        for i, p in enumerate(b.pods):
+            lo = int(state.pod_bstart[p])
+            bl = state.border_local[lo:lo + int(counts[i])]
+            if not np.array_equal(plane[i, :len(bl)], b.dist[i][bl, :]):
+                fail(f"{what}: K3's border plane differs from the host slice "
+                     f"(bucket {bi}, pod {p})")
+        log(f"{what}: K3 on bucket {bi} ({len(b.pods)} pods of {b.s}, "
+            f"{len(blocks)} shards, {blocks[0].dtype} wire) equal to the plain "
+            "version and to the host slice")
+        held += 1
+    return held
+
+
+def same_routes(a, b, what: str) -> None:
+    for key in ("pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len"):
+        if not np.array_equal(np.asarray(getattr(a, key)), np.asarray(getattr(b, key))):
+            fail(f"{what}: {key} differs")
+    if a.fdbs() != b.fdbs():
+        fail(f"{what}: fdbs differ")
+
+
+def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
+               n_ranks: int = HIER_RANKS, twin_k: int = HIER_TWIN_K,
+               twin_ranks: int = HIER_TWIN_RANKS, ctl_k: int = HIER_CTL_K,
+               ctl_ranks: int = HIER_CTL_RANKS, shards: int = N_SHARDS) -> list:
+    """Config 15 through the hierarchical oracle on the card (see the
+    module docstring, phase 24). Returns the launch counts of its legs."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.hier import HierOracle, sweep_rows_host
+    from sdnmpi_tpu_torch.shardplane.hier import hier_device_bytes
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    what = f"config 15 (fattree({k}, pods={pods}))"
+    programs: dict = {}
+    legs: list = []
+    summary: dict = {}
+
+    def leg(fn, name: str, k3_min: int = 0) -> dict:
+        """One counted leg: its launches, held (no K1, no K2; K3 at least
+        ``k3_min``), and the device programs' calls."""
+        with hier_programs(programs):
+            counts = path_launches(fn)
+        if counts["bfs_distances"] or counts["sampler_tables"] or counts["sample_slots"]:
+            fail(f"{name}: the hierarchy launched K1 or K2: {counts}")
+        if counts["ring_all_gather"] < k3_min:
+            fail(f"{name}: K3 launched {counts['ring_all_gather']} times, want at "
+                 f"least {k3_min}")
+        legs.append(counts)
+        return counts
+
+    def timed(fn, out: dict, key: str):
+        def run():
+            t0 = time.perf_counter()
+            out[key + "_result"] = fn()
+            torch.cuda.synchronize()
+            out[key] = (time.perf_counter() - t0) * 1e3
+        return run
+
+    # (a) the primary: build, cold refresh, first and steady routes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec = fattree(k, pods=pods, hosts_per_edge=1)
+    db = spec.to_topology_db(device=device, hier_oracle=True, mesh_devices=shards,
+                             ring_exchange=True)
+    summary["db_build_s"] = time.perf_counter() - t0
+    hosts = sorted(db.hosts)
+    macs = hosts[::max(1, len(hosts) // n_ranks)][:n_ranks]
+    si, di = alltoall_idx(len(macs))
+    oracle = db._oracle_engine()
+
+    def route(o=None):
+        if o is None:
+            return db.find_routes_collective(macs, si, di, policy="shortest")
+        return o.routes_collective(db, macs, si, di, "shortest")
+
+    out: dict = {}
+    c = leg(timed(lambda: oracle.refresh(db), out, "refresh_ms"), "cold refresh", 1)
+    state = out["refresh_ms_result"]
+    log(f"{what}: V={state.v:,} pods={state.n_pods} borders={state.n_borders:,} "
+        f"buckets {[(len(b.pods), b.s) for b in state.buckets]}; DB built in "
+        f"{summary['db_build_s']:.1f} s, cold refresh {out['refresh_ms']:.1f} ms, "
+        f"launches {c}")
+    leg(timed(route, out, "first_ms"), "first route")
+    routes = out["first_ms_result"]
+    steady = []
+    for _ in range(3):
+        leg(timed(route, out, "steady"), "steady route")
+        steady.append(out["steady"])
+    check_hier_routes(db, macs, si, di, routes, what)
+    # where a steady route's time goes: the device's busy share, the host's
+    # functions
+    log_profile(f"{what}: steady route", *profile_device(route))
+    log_host_profile(f"{what}: steady route", route)
+    summary.update(refresh_ms=out["refresh_ms"], first_route_ms=out["first_ms"],
+                   steady_route_ms=statistics.median(steady),
+                   n_pairs=int(len(si)), v=state.v, pods=state.n_pods,
+                   borders=state.n_borders)
+    check_hier_ring(state, what)
+    per_shard = hier_device_bytes(state, state.mesh)
+    dense = state.v * state.v * 4
+    if per_shard * HIER_HEADROOM_MIN >= dense:
+        fail(f"{what}: {per_shard:,} B a shard is not {HIER_HEADROOM_MIN}x under the "
+             f"dense plane's {dense:,} B")
+    summary.update(per_shard_bytes=per_shard, dense_plane_bytes=dense,
+                   headroom=dense / per_shard)
+    log(f"{what}: first route {out['first_ms']:.1f} ms, steady {tail(steady)}; "
+        f"{per_shard:,} device bytes a shard ({shards} shards) against the dense "
+        f"plane's {dense:,} B ({dense / per_shard:.1f}x)")
+    # (f) the device programs at the main path's shapes, timed here while
+    # the plane holds the first route's rows
+    program_rows = time_hier_programs(state, programs)
+
+    # (b) the serving twin: warm_serving, the scalar escape hatch, a
+    # border snapshot restored into a fresh oracle
+    leg(timed(lambda: db.warm_serving(), out, "warm_ms"), "warm_serving")
+    ws = out["warm_ms_result"]
+    leg(timed(route, out, "warm_first_ms"), "first route after warm_serving")
+    routes_w = out["warm_first_ms_result"]
+    warm_steady = []
+    for _ in range(3):
+        leg(timed(route, out, "steady"), "steady route after warm_serving")
+        warm_steady.append(out["steady"])
+    oracle.fused = False
+    scalar = []
+    for _ in range(2):
+        leg(timed(route, out, "scalar"), "steady route, scalar escape hatch")
+        scalar.append(out["scalar"])
+    routes_s = out["scalar_result"]
+    oracle.fused = True
+    t0 = time.perf_counter()
+    snap = oracle.border_snapshot(db)
+    snap_s = time.perf_counter() - t0
+    fresh = HierOracle(mesh_devices=shards, ring_exchange=True, device=device)
+    leg(timed(lambda: fresh.restore_border_rows(snap, db), out, "restore_ms"),
+        "border restore into a fresh oracle", 1)
+    leg(timed(lambda: route(fresh), out, "restored_first_ms"),
+        "first route after the restore")
+    routes_r = out["restored_first_ms_result"]
+    same_routes(routes_w, routes_s, f"{what}: fused against the scalar escape hatch")
+    same_routes(routes_w, routes_r, f"{what}: fused against the restored plane")
+    same_routes(routes_w, routes, f"{what}: after warm_serving against before")
+    plane_rows = {p: r for p, r in state.rows.items()}
+    rng = np.random.default_rng(24)
+    pods_h = rng.choice(sorted(plane_rows), HIER_ROW_SAMPLE)
+    targets = np.array([int(state.pod_bstart[p]) + int(rng.integers(
+        int(state.pod_bstart[p + 1] - state.pod_bstart[p]))) for p in pods_h], np.int64)
+    host = sweep_rows_host(state.deg_buckets, state.n_borders, targets)
+    for j, tgt in enumerate(targets):
+        p = int(state.border_pod[tgt])
+        row = state.rows_d[p][int(tgt - state.pod_bstart[p])].cpu().numpy()
+        if not np.array_equal(row, host[j]):
+            fail(f"{what}: the card's border row of border {tgt} differs from "
+                 "sweep_rows_host")
+    summary.update(warm_ms=out["warm_ms"], warm_compiled=ws["compiled"],
+                   warm_first_ms=out["warm_first_ms"],
+                   warm_steady_ms=statistics.median(warm_steady),
+                   scalar_steady_ms=scalar[-1], snapshot_s=snap_s,
+                   restore_ms=out["restore_ms"],
+                   restored_rows=out["restore_ms_result"],
+                   restored_first_ms=out["restored_first_ms"])
+    log(f"{what}: warm_serving {out['warm_ms']:.1f} ms ({ws['compiled']} rungs, "
+        f"{state.plane_len:,} border rows), first route after it "
+        f"{out['warm_first_ms']:.1f} ms, steady {tail(warm_steady)}; scalar escape "
+        f"hatch {scalar[-1]:.1f} ms; snapshot {snap_s:.1f} s, restore of "
+        f"{out['restore_ms_result']:,} rows into a fresh oracle "
+        f"{out['restore_ms']:.1f} ms, its first route {out['restored_first_ms']:.1f} ms; "
+        f"fused == scalar == restored over {routes_w.n_pairs:,} pairs; "
+        f"{HIER_ROW_SAMPLE} card rows equal to sweep_rows_host")
+    del fresh, snap, routes_s, routes_r
+    summary["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # (d) churn: one intra-pod and one inter-pod flap, each beside a cold
+    # rebuild of the flapped fabric and back to the original routes
+    from sdnmpi_tpu_torch.core.topology_db import Link, Port
+
+    pm = spec.podmap
+    core = pm.n_pods - 1
+    intra = next(c for c in spec.links if pm.pod_of[c[0]] == pm.pod_of[c[2]])
+    inter = next(c for c in spec.links
+                 if (pm.pod_of[c[0]] == core) != (pm.pod_of[c[2]] == core))
+
+    def flip(cable, add: bool) -> None:
+        a, pa, b, pb = cable
+        for x, px, y, py in ((a, pa, b, pb), (b, pb, a, pa)):
+            link = Link(Port(x, px), Port(y, py))
+            (db.add_link if add else db.delete_link)(link)
+
+    for name, cable, want in (("intra-pod", intra, [1, 1, 0]),
+                              ("inter-pod", inter, [0, 1, 0])):
+        v0 = hier_counters()
+        flip(cable, add=False)
+        leg(timed(lambda: oracle.refresh(db), out, "flap_refresh"),
+            f"{name} flap refresh", 1)
+        leg(timed(route, out, "flap_route"), f"{name} flap route")
+        moved = [b - a for a, b in zip(v0, hier_counters())]
+        if moved != want:
+            fail(f"{what}: a {name} flap moved {dict(zip(HIER_COUNTERS, moved))}, "
+                 f"want {dict(zip(HIER_COUNTERS, want))}")
+        cold = HierOracle(mesh_devices=shards, ring_exchange=True, device=device)
+        leg(timed(lambda: cold.refresh(db), out, "cold_refresh"),
+            f"{name} cold rebuild", 1)
+        leg(timed(lambda: route(cold), out, "cold_route"), f"{name} cold route")
+        same_routes(out["flap_route_result"], out["cold_route_result"],
+                    f"{what}: {name} flap repaired against a cold rebuild")
+        del cold
+        flip(cable, add=True)
+        leg(timed(lambda: oracle.refresh(db), out, "back_refresh"),
+            f"{name} restored-link refresh", 1)
+        leg(timed(route, out, "back_route"), f"{name} restored-link route")
+        same_routes(out["back_route_result"], routes_w,
+                    f"{what}: {name} link restored against the original routes")
+        summary[f"{name}_refresh_ms"] = out["flap_refresh"]
+        summary[f"{name}_cold_refresh_ms"] = out["cold_refresh"]
+        summary[f"{name}_route_ms"] = out["flap_route"]
+        summary[f"{name}_back_refresh_ms"] = out["back_refresh"]
+        log(f"{what}: {name} flap {cable}: repair refresh {out['flap_refresh']:.1f} ms "
+            f"(cold rebuild {out['cold_refresh']:.1f} ms), route "
+            f"{out['flap_route']:.1f} ms, counters {dict(zip(HIER_COUNTERS, moved))}; "
+            f"routes equal to the cold rebuild's; link back: refresh "
+            f"{out['back_refresh']:.1f} ms, routes equal to the original")
+    del db, oracle, state, routes, routes_w, plane_rows, spec
+    collect("config 15")
+
+    # (c) the refresh twin (15b): the dense sharded refresh (K3) beside
+    # the full hier build with every border row, at k=56
+    twin = fattree(twin_k)
+    wt = f"refresh twin (fattree({twin_k}))"
+    dense_db = twin.to_topology_db(device=device, mesh_devices=shards,
+                                   shard_oracle=True, ring_exchange=True)
+    leg(timed(lambda: dense_db._oracle_engine().refresh(dense_db), out, "dense_ms"),
+        f"{wt} dense sharded refresh", 1)
+    hier_db = twin.to_topology_db(device=device, hier_oracle=True, mesh_devices=shards,
+                                  ring_exchange=True)
+    one_db = twin.to_topology_db(device=device, hier_oracle=True)
+
+    def full_build(db):
+        st = db._oracle_engine().refresh(db)
+        st.ensure_rows(range(st.n_pods))
+        return st
+
+    leg(timed(lambda: full_build(hier_db), out, "hier_ms"), f"{wt} full hier build", 1)
+    st_mesh = out["hier_ms_result"]
+    leg(timed(lambda: full_build(one_db), out, "one_ms"),
+        f"{wt} full hier build, one device")
+    st_one = out["one_ms_result"]
+    for p, r in st_one.rows.items():
+        if not np.array_equal(st_mesh.rows[p], r):
+            fail(f"{wt}: border rows of pod {p} differ between the mesh and one device")
+    thosts = sorted(m for m, _, _ in twin.hosts)
+    tmacs = thosts[::max(1, len(thosts) // twin_ranks)][:twin_ranks]
+    tsi, tdi = alltoall_idx(len(tmacs))
+    leg(timed(lambda: hier_db.find_routes_collective(tmacs, tsi, tdi, policy="shortest"),
+              out, "twin_route"), f"{wt} hier route, mesh and ring")
+    leg(timed(lambda: one_db.find_routes_collective(tmacs, tsi, tdi, policy="shortest"),
+              out, "twin_one"), f"{wt} hier route, one device")
+    check_routes(f"{wt}: hier lengths against the dense oracle", twin, dense_db, tmacs,
+                 tsi, tdi, out["twin_route_result"])
+    same_routes(out["twin_route_result"], out["twin_one_result"],
+                f"{wt}: hier on the mesh with the ring against one device")
+    summary.update(twin_dense_refresh_ms=out["dense_ms"], twin_hier_build_ms=out["hier_ms"],
+                   twin_one_device_build_ms=out["one_ms"], twin_borders=st_mesh.n_borders,
+                   twin_pairs=int(len(tsi)))
+    log(f"{wt}: dense sharded refresh {out['dense_ms']:.1f} ms, full hier build "
+        f"({st_mesh.n_borders:,} border rows) {out['hier_ms']:.1f} ms on the mesh, "
+        f"{out['one_ms']:.1f} ms on one device; hier == dense lengths over "
+        f"{len(tsi):,} pairs; mesh == one device")
+    del dense_db, hier_db, one_db, st_mesh, st_one
+    collect("refresh twin")
+
+    # (e) the Controller and the launcher under hier_oracle, at k=8
+    cspec = fattree(ctl_k)
+    ranks = sorted(m for m, _, _ in cspec.hosts)[:ctl_ranks]
+    installs = {}
+    for hier in (False, True):
+        fabric, ctl, installed = controller_stack(cspec, device, hier_oracle=hier)
+        launch_ranks(fabric, ranks)
+        if hier:
+            leg(lambda: send_mpi(fabric, ranks, 0, 1), "hier controller block install")
+        else:  # the dense controller is the yardstick: its launches count nowhere
+            send_mpi(fabric, ranks, 0, 1)
+        colls = list(ctl.router.collectives)
+        if len(colls) != 1 or len(installed) != 1:
+            fail(f"controller, hier_oracle={hier}: {len(colls)} collectives installed")
+        installs[hier] = (fabric, ctl, colls[0])
+    dense_ctl = installs[False][1]
+    fabric, ctl, inst = installs[True]
+    ref = installs[False][2]
+    if (inst.n_pairs, inst.n_flows) != (ref.n_pairs, ref.n_flows):
+        fail(f"hier controller: {inst.n_pairs} pairs in {inst.n_flows} flows, the dense "
+             f"controller {ref.n_pairs} in {ref.n_flows}")
+    check_block_paths(ctl, "hier controller", dense=dense_ctl)
+    pairs = np.random.default_rng(8).integers(0, len(ranks), (200, 2))
+    pairs = [(int(s), int(d)) for s, d in pairs if s != d]
+    deliver_pairs(fabric, ranks, pairs, "hier controller")
+    log(f"hier controller: {inst.n_pairs:,} pairs block-installed in {inst.n_flows:,} "
+        f"flows, as the dense controller; {len(pairs)} pairs delivered")
+    del installs, fabric, ctl, dense_ctl, inst, ref
+    collect("hier controller")
+    counts_l, rec = run_launcher(
+        ["--topo", f"fattree:{ctl_k}", "--no-rpc", "--duration", "0.1", "--device",
+         str(device), "--hier-oracle", "--demo", "--demo-ranks", str(ctl_ranks)],
+        "hier launcher demo", report)
+    colls = list(rec["controller"].router.collectives)
+    if len(colls) != 1 or colls[0].n_pairs != ctl_ranks * (ctl_ranks - 1):
+        fail(f"hier launcher demo: {[c.n_pairs for c in colls]} pairs installed")
+    if not isinstance(rec["controller"].topology_manager.topologydb._oracle, HierOracle):
+        fail("hier launcher demo: the launch did not build the hierarchical oracle")
+    if counts_l["bfs_distances"] or counts_l["sampler_tables"] or counts_l["sample_slots"]:
+        fail(f"hier launcher demo: the hierarchy launched K1 or K2: {counts_l}")
+    legs.append(counts_l)
+    log(f"hier launcher demo: start -> demo flows installed "
+        f"{logged_at(rec, 'demo:'):.2f} s; launches {counts_l}")
+    rec.clear()
+    collect("hier launcher")
+
+    # (f) the device programs' calls on every counted leg above
+    for r in program_rows:
+        r["launches"] = programs.get(r["name"], 0)
+        log(f"hier program {r['name']} {r['shape']}: {r['ms']:.4f} ms; "
+            f"{r['launches']} calls on the counted legs; bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}: {r['bytes']:,} B, {r['ops']:,} ops)")
+    summary["programs"] = [{key: r[key] for key in ("name", "shape", "ms", "launches",
+                                                     "bound_ms", "bound_by")}
+                           for r in program_rows]
+    summary["k3_launches"] = sum(c["ring_all_gather"] for c in legs)
+    programs.clear()
+    log("phase 24 summary: " + json.dumps(summary))
+    return legs
+
+
 def main() -> int:
     import torch
 
@@ -4038,11 +4558,16 @@ def main() -> int:
     obs_counts += serving_flight_cost(device, report)
     chaos_counts = phase_chaos(device, report)
     pair_counts = phase_pair(device, report)
+    collect("chaos and the pair")
+
+    # phase 24: the hierarchical oracle at config 15
+    hier_counts = phase_hier(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
              *launcher_counts, *southbound_counts, *serving_counts,
              *churn_counts, *plane_counts, *sched_counts, *audit_counts,
-             *traffic_counts, *obs_counts, *chaos_counts, *pair_counts)
+             *traffic_counts, *obs_counts, *chaos_counts, *pair_counts,
+             *hier_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report

@@ -10,10 +10,8 @@ controller resumes with warm state instead of a blank network view.
 
 Counterpart of ``sdnmpi_tpu/api/snapshot.py``, copied with its imports
 rewritten: the checkpoint is the same JSON (``SNAPSHOT_VERSION``), so a
-checkpoint written by either package restores into the other. The hier
-border rows (the hierarchical oracle is ROADMAP A13) are written as
-``None``, and a restore that finds them ignores them with a cold-start
-note.
+checkpoint written by either package restores into the other, the hier
+oracle's border rows (``hier_border``) included.
 """
 
 from __future__ import annotations
@@ -73,10 +71,15 @@ def snapshot_controller(controller) -> dict:
     from sdnmpi_tpu_torch.oracle.routecache import RouteCache
 
     desired = controller.router.recovery.desired
-    # the reference also persists the hier oracle's border-distance
-    # rows; the hierarchical oracle is ROADMAP A13, so that section is
-    # None
-    hier_border = None
+    # the hier oracle's lazy border-distance row plane rides beside the
+    # route-cache memo: digest-guarded inside the oracle, so a restarted
+    # controller inherits the warm level-2 plane instead of re-sweeping
+    # it. None when the hier oracle (or the knob) is off.
+    cfg = getattr(controller.topology_manager, "config", None)
+    hier_border = (
+        db.hier_border_snapshot()
+        if getattr(cfg, "hier_snapshot", True) else None
+    )
     # the audit plane's per-row counter baselines ride beside the
     # desired-store checkpoint, digest-guarded: a
     # restarted controller that re-baselined from scratch would
@@ -248,15 +251,14 @@ def restore_controller(controller, snapshot: dict) -> None:
     if memo and db.route_cache is not None:
         db.route_cache.restore_entries(memo, db)
 
-    # The reference restores the hier oracle's border rows here; the
-    # hierarchical oracle is ROADMAP A13
+    # The hier border plane restores BEFORE the re-routing below, which
+    # then composes against the restored rows instead of re-sweeping
+    # them. Digest/version mismatches leave the cold lazy build inside
+    # the oracle (counted hier_snapshot_rejected_total), never a crash.
+    border = snapshot.get("hier_border")
     cfg = getattr(controller.topology_manager, "config", None)
-    if snapshot.get("hier_border") and getattr(cfg, "hier_snapshot", True):
-        _cold_start(
-            controller,
-            "hier border rows ignored: the hierarchical oracle is not "
-            "ported yet (ROADMAP A13)",
-        )
+    if border and getattr(cfg, "hier_snapshot", True):
+        db.hier_restore_border_rows(border)
 
     # Flows are restored by *re-routing* the snapshotted (src, dst) pairs
     # and pushing real FlowMods to whatever datapaths are currently live —

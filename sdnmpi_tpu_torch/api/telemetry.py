@@ -149,8 +149,7 @@ def install_env_dump_hook() -> bool:
 
 #: every module that registers instruments at import time — imported
 #: before walking the registry so the reference is complete regardless
-#: of which subsystems the current process happened to touch (the
-#: hierarchical oracle's modules come with ROADMAP A13)
+#: of which subsystems the current process happened to touch
 INSTRUMENTED_MODULES = (
     "sdnmpi_tpu_torch.utils.metrics",
     "sdnmpi_tpu_torch.utils.tracing",
@@ -174,6 +173,8 @@ INSTRUMENTED_MODULES = (
     "sdnmpi_tpu_torch.oracle.utilplane",
     "sdnmpi_tpu_torch.oracle.incremental",
     "sdnmpi_tpu_torch.oracle.routecache",
+    "sdnmpi_tpu_torch.oracle.hier",
+    "sdnmpi_tpu_torch.shardplane.hier",
     "sdnmpi_tpu_torch.core.topology_db",
 )
 

@@ -9,9 +9,7 @@ MONITOR_INTERVAL at sdnmpi/monitor.py:24) and selects behavior by which apps
 Counterpart of ``sdnmpi_tpu/config.py``, field for field and default
 for default, with two changes: ``oracle_backend`` is ``"torch"`` (the
 port's oracle) or ``"py"``, and ``device`` names where the torch oracle
-(and the measured traffic matrix) runs. :meth:`Config.require_ported`
-refuses the hierarchical oracle, which the port does not have yet
-(ROADMAP A13).
+(and the measured traffic matrix) runs.
 """
 
 from __future__ import annotations
@@ -559,22 +557,6 @@ class Config:
     #: both read the same registry. False silences the feed (snapshot
     #: requests still work).
     rpc_telemetry: bool = True
-
-    def require_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP item of the
-        first plane this configuration turns on that the port does not
-        have yet. The controller, topology manager and router call it
-        before they build anything, so no plane silently runs without
-        its code."""
-        deferred = (
-            ("hier_oracle", self.hier_oracle, "A13"),
-            ("hier_pod_target", self.hier_pod_target != 0, "A13"),
-        )
-        for name, on, item in deferred:
-            if on:
-                raise NotImplementedError(
-                    f"Config.{name} is not ported yet (ROADMAP {item})"
-                )
 
 
 DEFAULT_CONFIG = Config()

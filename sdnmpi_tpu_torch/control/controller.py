@@ -10,8 +10,8 @@ Counterpart of ``sdnmpi_tpu/control/controller.py``: the same planes,
 built in the same order with the same bus subscriptions. The measured
 traffic matrix and the memory gauges follow ``Config.device`` with the
 torch oracle; the anomaly-armed profiler captures ``torch.profiler``
-windows. :meth:`Config.require_ported` refuses the hierarchical oracle
-(ROADMAP A13) before anything is built.
+windows; ``Config.hier_oracle`` routes through the hierarchical oracle
+(``oracle/hier.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ class Controller:
         ownership=None,
         replica_link=None,
     ) -> None:
-        config.require_ported()
         self.config = config
         self.bus = EventBus()
         self.southbound = southbound

@@ -262,7 +262,6 @@ class Router:
         southbound,
         config: Config = DEFAULT_CONFIG,
     ) -> None:
-        config.require_ported()
         self.bus = bus
         self.southbound = southbound
         self.config = config

@@ -67,7 +67,6 @@ class TopologyManager:
         southbound,
         config: Config = DEFAULT_CONFIG,
     ) -> None:
-        config.require_ported()
         self.bus = bus
         self.southbound = southbound
         self.config = config

@@ -242,11 +242,6 @@ class TopologyDB:
     ) -> None:
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-        if hier_oracle or hier_pod_target or not (hier_fused and hier_warm):
-            raise NotImplementedError(
-                "the hierarchical oracle (hier_oracle and its hier_* "
-                "arguments) is ROADMAP A13"
-            )
         # dpid -> switch entity
         self.switches: dict[int, Any] = {}
         # src dpid -> dst dpid -> link entity (directed; the discovery layer
@@ -264,6 +259,18 @@ class TopologyDB:
         self.mesh_devices = mesh_devices
         self.shard_oracle = shard_oracle
         self.ring_exchange = ring_exchange
+        #: the hierarchical two-level oracle (oracle/hier.py): dense
+        #: per-pod blocks + a border skeleton replace the dense [V, V]
+        #: planes. Only meaningful on the torch backend.
+        self.hier_oracle = hier_oracle
+        #: partitioner pod-size target when the topology carries no
+        #: PodMap annotation (0 = ~sqrt(V) auto)
+        self.hier_pod_target = hier_pod_target
+        #: fused hier composition + batched hop walk; False is the
+        #: bit-identical scalar escape hatch
+        self.hier_fused = hier_fused
+        #: run the hier pow2 program ladder during warm_serving
+        self.hier_warm = hier_warm
         if backend == "torch":
             from sdnmpi_tpu_torch.oracle.engine import resolve_device
 
@@ -791,6 +798,24 @@ class TopologyDB:
             return {"warm_s": 0.0, "shapes": [], "max_len": 0}
         return self._oracle_engine().warm_serving(self, shapes)
 
+    def hier_border_snapshot(self) -> Optional[dict]:
+        """Serializable snapshot of the hier oracle's materialized
+        border-row plane (None when the hier oracle is off, stale, or
+        has no rows): api/snapshot persists it beside the route-cache
+        memo."""
+        if not self.hier_oracle or self.backend != "torch":
+            return None
+        return self._oracle_engine().border_snapshot(self)
+
+    def hier_restore_border_rows(self, snap) -> int:
+        """Seed the hier oracle's border-row plane from a snapshot
+        (topology-digest guarded: a mismatch counts
+        ``hier_snapshot_rejected_total`` and leaves the cold lazy build,
+        never a crash). Returns the restored row count."""
+        if not self.hier_oracle or self.backend != "torch":
+            return 0
+        return self._oracle_engine().restore_border_rows(snap, self)
+
     # -- backend dispatch ------------------------------------------------
 
     def _shortest_route(self, src_dpid: int, dst_dpid: int) -> list[int]:
@@ -809,15 +834,29 @@ class TopologyDB:
 
     def _oracle_engine(self):
         if self._oracle is None:
-            from sdnmpi_tpu_torch.oracle.engine import RouteOracle
+            if self.hier_oracle:
+                from sdnmpi_tpu_torch.oracle.hier import HierOracle
 
-            self._oracle = RouteOracle(
-                self.pad_multiple, self.max_diameter,
-                mesh_devices=self.mesh_devices,
-                shard_oracle=self.shard_oracle,
-                ring_exchange=self.ring_exchange,
-                device=self.device,
-            )
+                self._oracle = HierOracle(
+                    self.pad_multiple, self.max_diameter,
+                    mesh_devices=self.mesh_devices,
+                    shard_oracle=self.shard_oracle,
+                    ring_exchange=self.ring_exchange,
+                    pod_target=self.hier_pod_target,
+                    fused=self.hier_fused,
+                    hier_warm=self.hier_warm,
+                    device=self.device,
+                )
+            else:
+                from sdnmpi_tpu_torch.oracle.engine import RouteOracle
+
+                self._oracle = RouteOracle(
+                    self.pad_multiple, self.max_diameter,
+                    mesh_devices=self.mesh_devices,
+                    shard_oracle=self.shard_oracle,
+                    ring_exchange=self.ring_exchange,
+                    device=self.device,
+                )
             if self.delta_repair_threshold is not None:
                 self._oracle.delta_repair_threshold = self.delta_repair_threshold
         return self._oracle

@@ -60,9 +60,6 @@ log = logging.getLogger("launch")
 #: (argparse dest, its default, the flag, the module it needs, ROADMAP
 #: item). Given with any other value, the flag fails the launch.
 REFUSED = (
-    ("hier_oracle", False, "--hier-oracle", "oracle/hier.py", "A13"),
-    ("hier_pod_target", 0, "--hier-pod-target", "oracle/hier.py", "A13"),
-    ("hier_warm", True, "--no-hier-warm", "oracle/hier.py", "A13"),
     ("distributed", None, "--distributed", "multi-host shard meshes",
      "A12 item 2"),
 )
@@ -205,6 +202,9 @@ def config_from_args(args) -> Config:
         mesh_devices=args.mesh_devices,
         shard_oracle=getattr(args, "shard_oracle", False),
         ring_exchange=getattr(args, "ring_exchange", False),
+        hier_oracle=getattr(args, "hier_oracle", False),
+        hier_pod_target=getattr(args, "hier_pod_target", 0),
+        hier_warm=getattr(args, "hier_warm", True),
         hier_snapshot=getattr(args, "hier_snapshot", True),
         event_log=args.event_log or "",
         event_log_max_bytes=getattr(args, "event_log_max_bytes", 0),
@@ -716,13 +716,12 @@ def build_parser() -> argparse.ArgumentParser:
         "lengths bit-identical to the dense oracle; with "
         "--mesh-devices the pod blocks shard one block-shard per "
         "device and --ring-exchange moves the border plane over the "
-        "ring; not ported yet (ROADMAP A13): refused",
+        "ring",
     )
     parser.add_argument(
         "--hier-pod-target", type=int, default=0,
         help="partitioner pod-size target for unannotated fabrics "
-        "under --hier-oracle (0 = ~sqrt(V) auto)"
-        "; not ported yet (ROADMAP A13): refused",
+        "under --hier-oracle (0 = ~sqrt(V) auto)",
     )
     parser.add_argument(
         "--hier-warm", dest="hier_warm", action="store_true",
@@ -736,7 +735,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-hier-warm", dest="hier_warm", action="store_false",
         help="skip the hierarchical warm ladder — first route pays "
         "full trace/compile cost (the differential escape hatch; "
-        "routes stay bit-identical); not ported yet (ROADMAP A13): refused",
+        "routes stay bit-identical)",
     )
     parser.set_defaults(hier_warm=True)
     parser.add_argument(

@@ -307,13 +307,15 @@ def uncached_distances(
     ``levels`` steps, the counterpart of the reference's Pallas BFS,
     which truncates there too, so pairs farther apart read unreachable;
     on a CPU tensor, the exact ``apsp_distances``, the reference's path
-    off the TPU. Past K1's ``MAX_V`` the card has no BFS yet: the
-    large hierarchical fabrics are ROADMAP A13."""
+    off the TPU. Past K1's ``MAX_V`` the card has no dense BFS: fabrics
+    that large route through the hierarchical oracle
+    (``TopologyDB(hier_oracle=True)``, ``oracle/hier.py``)."""
     if adj.device.type == "cuda":
         if adj.shape[0] > MAX_V:
             raise ValueError(
                 f"dist=None on the card takes V <= {MAX_V} (kernel K1), got "
-                f"{adj.shape[0]}; larger fabrics are ROADMAP A13"
+                f"{adj.shape[0]}; route larger fabrics through the "
+                "hierarchical oracle (hier_oracle=True)"
             )
         return bfs_distances(adj, levels, neigh=neigh)
     from sdnmpi_tpu_torch.oracle.apsp import apsp_distances

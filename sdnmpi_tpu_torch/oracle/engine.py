@@ -36,7 +36,8 @@ kernel K3 instead of replicating them first. The sharded shortest and
 adaptive legs raise (ROADMAP A12 item 3); nothing routes on one device
 in their place.
 
-The hierarchical oracle is not ported yet (ROADMAP A13).
+The hierarchical two-level oracle (``oracle/hier.py``) subclasses
+:class:`RouteOracle` and answers the same entry points.
 """
 
 from __future__ import annotations
@@ -151,6 +152,23 @@ def _touched_rows(nodes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     the dirty-switch mask (``[V]`` bool), computed where the rows are."""
     safe = nodes.long().clamp(min=0)
     return ((nodes >= 0) & mask[safe]).any(dim=1)
+
+
+def _timed_batch(op: str):
+    """Record the wall time and batch size of a routes_* entry point: an
+    ``op`` sample in ``STATS`` and an ``oracle`` trace event carrying
+    ``n_pairs`` (the length of the call's third argument)."""
+    import functools
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, db, pairs, *args, **kwargs):
+            with STATS.timed(op, n_pairs=len(pairs)):
+                return fn(self, db, pairs, *args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 def _pad(n: int, multiple: int = 8) -> int:
@@ -391,73 +409,74 @@ class RouteOracle:
         if self._version != db.version or self._tensors is None:
             if self._try_repair(db):
                 return self._tensors
-            from sdnmpi_tpu_torch import native
+            with STATS.timed("oracle_refresh", version=db.version):
+                from sdnmpi_tpu_torch import native
 
-            tensors = tensorize(db, self.pad_multiple, self.device)
-            v_occ = self._occ_v(tensors)
-            n_occ = 0 if v_occ >= tensors.v else v_occ
-            mesh = self._dag_mesh()
-            if (
-                self.shard_oracle
-                and self.max_diameter == 0  # the sharded BFS has no cap
-                and tensors.v % self.mesh_devices == 0
-            ):
-                # shardplane refresh: BFS sources and next-hop rows
-                # row-shard over every shard; under ring_exchange the
-                # argmin consumes the distance blocks off the ring
-                from sdnmpi_tpu_torch.shardplane import (
-                    apsp_distances_rowsharded,
-                    apsp_next_hops_ringed,
-                    apsp_next_hops_rowsharded,
-                )
+                tensors = tensorize(db, self.pad_multiple, self.device)
+                v_occ = self._occ_v(tensors)
+                n_occ = 0 if v_occ >= tensors.v else v_occ
+                mesh = self._dag_mesh()
+                if (
+                    self.shard_oracle
+                    and self.max_diameter == 0  # the sharded BFS has no cap
+                    and tensors.v % self.mesh_devices == 0
+                ):
+                    # shardplane refresh: BFS sources and next-hop rows
+                    # row-shard over every shard; under ring_exchange the
+                    # argmin consumes the distance blocks off the ring
+                    from sdnmpi_tpu_torch.shardplane import (
+                        apsp_distances_rowsharded,
+                        apsp_next_hops_ringed,
+                        apsp_next_hops_rowsharded,
+                    )
 
-                dist = apsp_distances_rowsharded(tensors.adj, mesh)
-                next_fn = (
-                    apsp_next_hops_ringed if self.ring_exchange
-                    else apsp_next_hops_rowsharded
-                )
-                nxt = next_fn(
-                    tensors.adj, dist, mesh, tensors.max_degree, n_occ=n_occ
-                )
-            elif (
-                mesh is not None
-                and self.max_diameter == 0
-                and mesh.shape["v"] > 1  # v = 1 would just replicate
-                and tensors.v % mesh.shape["v"] == 0
-            ):
-                # mesh-only refresh: the BFS row-shards over the "v" axis,
-                # K3 replicates it, the next hops run on one device
-                from sdnmpi_tpu_torch.shardplane import (
-                    ShardMesh,
-                    apsp_distances_sharded,
-                )
+                    dist = apsp_distances_rowsharded(tensors.adj, mesh)
+                    next_fn = (
+                        apsp_next_hops_ringed if self.ring_exchange
+                        else apsp_next_hops_rowsharded
+                    )
+                    nxt = next_fn(
+                        tensors.adj, dist, mesh, tensors.max_degree, n_occ=n_occ
+                    )
+                elif (
+                    mesh is not None
+                    and self.max_diameter == 0
+                    and mesh.shape["v"] > 1  # v = 1 would just replicate
+                    and tensors.v % mesh.shape["v"] == 0
+                ):
+                    # mesh-only refresh: the BFS row-shards over the "v" axis,
+                    # K3 replicates it, the next hops run on one device
+                    from sdnmpi_tpu_torch.shardplane import (
+                        ShardMesh,
+                        apsp_distances_sharded,
+                    )
 
-                nv = mesh.shape["v"]
-                dist = _gather_dist(
-                    apsp_distances_sharded(tensors.adj, mesh),
-                    ShardMesh(mesh.devices[:nv]),
-                )
-                nxt = apsp_next_hops(
-                    tensors.adj, dist, max_degree=tensors.max_degree,
-                    n_occ=n_occ,
-                )
-            else:
-                dist = apsp_distances(tensors.adj, self.max_diameter, n_occ=n_occ)
-                nxt = apsp_next_hops(
-                    tensors.adj, dist, max_degree=tensors.max_degree, n_occ=n_occ
-                )
-            self._tensors = tensors
-            self._dist_d = dist
-            self._next_d = nxt
-            self._dist_full_d = None
-            self._dist_h = None
-            self._next_h = None
-            self._port = tensors.host_port()
-            self._order = native.neighbor_order(tensors.host_adj())
-            self._endpoint_memo = {}
-            self._version = db.version
-            self.full_refresh_count += 1
-            _m_full_refreshes.inc()
+                    nv = mesh.shape["v"]
+                    dist = _gather_dist(
+                        apsp_distances_sharded(tensors.adj, mesh),
+                        ShardMesh(mesh.devices[:nv]),
+                    )
+                    nxt = apsp_next_hops(
+                        tensors.adj, dist, max_degree=tensors.max_degree,
+                        n_occ=n_occ,
+                    )
+                else:
+                    dist = apsp_distances(tensors.adj, self.max_diameter, n_occ=n_occ)
+                    nxt = apsp_next_hops(
+                        tensors.adj, dist, max_degree=tensors.max_degree, n_occ=n_occ
+                    )
+                self._tensors = tensors
+                self._dist_d = dist
+                self._next_d = nxt
+                self._dist_full_d = None
+                self._dist_h = None
+                self._next_h = None
+                self._port = tensors.host_port()
+                self._order = native.neighbor_order(tensors.host_adj())
+                self._endpoint_memo = {}
+                self._version = db.version
+                self.full_refresh_count += 1
+                _m_full_refreshes.inc()
         return self._tensors
 
     def warm_serving(self, db: "TopologyDB", shapes=(8, 256)) -> dict:
@@ -794,6 +813,7 @@ class RouteOracle:
                 wr.set_fdb(k, fdb)
         return wr
 
+    @_timed_batch("routes_batch")
     def routes_batch(
         self, db: "TopologyDB", pairs: list[tuple[str, str]]
     ) -> list[list[tuple[int, int]]]:
@@ -802,6 +822,7 @@ class RouteOracle:
         as per-pair fdb lists."""
         return self.routes_batch_dispatch(db, pairs).reap().fdbs()
 
+    @_timed_batch("routes_batch_delta")
     def routes_batch_delta(
         self, db: "TopologyDB", pairs: list[tuple[str, str]], dirty_dpids
     ):
@@ -810,6 +831,7 @@ class RouteOracle:
         with ``touched`` set."""
         return self.routes_batch_delta_dispatch(db, pairs, dirty_dpids).reap()
 
+    @_timed_batch("routes_batch_delta_dispatch")
     def routes_batch_delta_dispatch(
         self, db: "TopologyDB", pairs: list[tuple[str, str]], dirty_dpids
     ):
@@ -840,6 +862,7 @@ class RouteOracle:
         pads never do)."""
         return np.isin(hop_dpid, dirty_dpid).any(axis=1)
 
+    @_timed_batch("routes_batch_dispatch")
     def routes_batch_dispatch(
         self, db: "TopologyDB", pairs: list[tuple[str, str]], _dirty=None,
     ):
@@ -951,6 +974,7 @@ class RouteOracle:
 
         return RouteWindow(reap)
 
+    @_timed_batch("routes_batch_balanced")
     def routes_batch_balanced(
         self,
         db: "TopologyDB",
@@ -980,6 +1004,7 @@ class RouteOracle:
         ).reap()
         return wr.fdbs(), wr.max_congestion
 
+    @_timed_batch("routes_batch_balanced_dispatch")
     def routes_batch_balanced_dispatch(
         self,
         db: "TopologyDB",
@@ -1042,6 +1067,7 @@ class RouteOracle:
 
         return RouteWindow(reap)
 
+    @_timed_batch("routes_batch_adaptive")
     def routes_batch_adaptive(
         self,
         db: "TopologyDB",
@@ -1332,6 +1358,7 @@ class RouteOracle:
             _m_frac_congestion.set(0.0)
             _m_congestion_ratio.set(0.0)
 
+    @_timed_batch("routes_collective")
     def routes_collective(
         self,
         db: "TopologyDB",
@@ -1356,6 +1383,7 @@ class RouteOracle:
             db, macs, src_idx, dst_idx, policy, **kwargs
         ).reap()
 
+    @_timed_batch("routes_collective_dispatch")
     def routes_collective_dispatch(
         self,
         db: "TopologyDB",
@@ -1613,6 +1641,7 @@ class RouteOracle:
 
     # -- phased collectives (sched/) -----------------------------------------
 
+    @_timed_batch("routes_collective_phased")
     def routes_collective_phased(
         self,
         db: "TopologyDB",
@@ -1631,6 +1660,7 @@ class RouteOracle:
         program.reap_all()
         return program
 
+    @_timed_batch("routes_collective_phased_dispatch")
     def routes_collective_phased_dispatch(
         self,
         db: "TopologyDB",

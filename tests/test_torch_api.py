@@ -255,43 +255,62 @@ def test_checkpoint_restores_across_packages(writer, reader, tmp_path):
     assert not [e for e in events if type(e).__name__ == "EventSnapshotColdStart"]
 
 
+def _border_rows(ctl) -> dict:
+    """The hier oracle's materialized border rows, pod -> list."""
+    hier = ctl.topology_manager.topologydb._oracle._hier
+    return {p: r.tolist() for p, r in sorted(hier.rows.items())}
+
+
 def test_unported_sections_restore_with_a_cold_start_note():
-    """A reference checkpoint with audit baselines, a traffic matrix and
-    hier border rows restores into the port: the audit's counters and
-    the matrix's cells as the reference restores them, and the border
-    rows (the hierarchical oracle, ROADMAP A13) with a cold-start note."""
-    fabric, ctl, _ = build(REF, diamond)
-    ctl.traffic.clock = iter(range(100)).__next__  # a 1 Hz flush clock
-    launch_all(REF, fabric, [MAC[1], MAC[4]])
-    ctl.router.reinstall_pairs([(MAC[1], MAC[4])])
-    for t in (0.0, 1.0):
-        fabric.hosts[MAC[1]].send(ip_packet(REF, MAC[1], MAC[4]))
-        ctl.monitor.poll(now=t)
-    snap = _json(api(REF, "snapshot").snapshot_controller(ctl))
-    assert snap["audit_baselines"]["rows"] and snap["traffic_plane"]["cells"]
-    snap["hier_border"] = {"rows": []}
-    restored = {}
-    for name, S in (("ref", REF), ("port", PORT)):
-        fabric, ctl, events = build(S, diamond)
-        if S is REF:
-            # the reference restores the rows into its hier oracle, off here
-            snap_s = dict(snap, hier_border=None)
-        else:
-            snap_s = snap
-        api(S, "snapshot").restore_controller(ctl, snap_s)
-        restored[name] = {
-            "notes": [e.reason for e in events
-                      if type(e).__name__ == "EventSnapshotColdStart"],
-            "counters": ctl.audit._counters, "cycle": ctl.audit.cycle,
-            "matrix": ctl.traffic.matrix(),
-            "ranks": dict(ctl.process_manager.rankdb.processes),
-        }
-    got, ref = restored["port"], restored["ref"]
-    assert len(got["notes"]) == 1 and "not ported yet (ROADMAP A13)" in got["notes"][0]
-    assert ref["notes"] == []
-    for key in ("counters", "cycle", "matrix", "ranks"):
-        assert got[key] == ref[key], key
-    assert got["ranks"] == {0: MAC[1], 1: MAC[4]} and got["matrix"]["cells"]
+    """A checkpoint of a controller under the hierarchical oracle, with
+    audit baselines, a traffic matrix and hier border rows, restores
+    into both packages from either: the audit's counters, the matrix's
+    cells and the border rows as the reference restores them, with no
+    cold-start note. A border plane of another fabric is rejected
+    without a crash."""
+    def fattree(S, **kw):
+        return S.topogen.fattree(4).to_fabric(**kw)
+
+    for writer in (REF, PORT):
+        fabric, ctl, _ = build(writer, fattree, hier_oracle=True)
+        macs = sorted(fabric.hosts)
+        ctl.traffic.clock = iter(range(100)).__next__  # a 1 Hz flush clock
+        launch_all(writer, fabric, [macs[0], macs[9]])
+        ctl.router.reinstall_pairs([(macs[0], macs[9]), (macs[3], macs[14])])
+        for t in (0.0, 1.0):
+            fabric.hosts[macs[0]].send(ip_packet(writer, macs[0], macs[9]))
+            ctl.monitor.poll(now=t)
+        snap = _json(api(writer, "snapshot").snapshot_controller(ctl))
+        assert snap["audit_baselines"]["rows"] and snap["traffic_plane"]["cells"]
+        assert snap["hier_border"]["pods"]
+        saved_rows = _border_rows(ctl)
+        restored = {}
+        for name, S in (("ref", REF), ("port", PORT)):
+            fabric, ctl, events = build(S, fattree, hier_oracle=True)
+            api(S, "snapshot").restore_controller(ctl, snap)
+            restored[name] = {
+                "notes": [e.reason for e in events
+                          if type(e).__name__ == "EventSnapshotColdStart"],
+                "counters": ctl.audit._counters, "cycle": ctl.audit.cycle,
+                "matrix": ctl.traffic.matrix(),
+                "ranks": dict(ctl.process_manager.rankdb.processes),
+                "rows": _border_rows(ctl),
+            }
+        got, ref = restored["port"], restored["ref"]
+        assert got["notes"] == ref["notes"] == []
+        for key in ("counters", "cycle", "matrix", "ranks", "rows"):
+            assert got[key] == ref[key], key
+        assert got["rows"] == saved_rows and got["matrix"]["cells"]
+    # another fabric's plane: counted, never raised, the lazy path serves
+    # (on the diamond, one pod and no borders)
+    fabric, ctl, _ = build(PORT, diamond, hier_oracle=True)
+    db = ctl.topology_manager.topologydb
+    db._oracle_engine()
+    rejected = api(PORT, "snapshot").REGISTRY.get("hier_snapshot_rejected_total")
+    before = rejected.value
+    assert db.hier_restore_border_rows(dict(snap["hier_border"], digest="0" * 32)) == 0
+    assert rejected.value == before + 1
+    assert db.find_route(MAC[1], MAC[4]) == [(1, 2), (2, 3), (4, 1)]
 
 
 def test_version_and_digest_mismatch_degrade_to_cold_start():

@@ -550,7 +550,35 @@ def test_narrowed_dirty_set_podmap_rules_match_jax():
     assert got.live_border_set() == ref.live_border_set()
 
 
-# -- planes the port has not ported yet -------------------------------------
+# -- the planes beside the hierarchical oracle ------------------------------
+
+
+def sc_hier_planes(S, knob):
+    """Fat-tree k=4 under the hierarchical oracle with ``knob``'s planes
+    on: unicast packet-ins, a link failure and its re-route, and a block
+    installed 8-rank alltoall."""
+    fabric = S.topogen.fattree(4).to_fabric()
+    ctl = S.Controller(fabric, make_config(S, block_install_threshold=1, **knob))
+    if ctl.traffic is not None:
+        ctl.traffic.clock = iter(range(100)).__next__  # a 1 Hz flush clock
+    events: list = []
+    ctl.bus.tap(events.append)
+    ctl.attach()
+    macs = sorted(fabric.hosts)[:8]
+    for a, b in ((0, 5), (1, 6), (7, 2)):
+        fabric.hosts[macs[a]].send(ip_packet(S, macs[a], macs[b]))
+    launch_all(S, fabric, macs)
+    send_vmac(S, fabric, macs[0], "ALLTOALL", 0, 1)
+    ctl.monitor.poll(now=100.0)
+    fabric.remove_link(*sorted(fabric.links)[0])
+    fabric.hosts[macs[0]].send(ip_packet(S, macs[0], macs[5]))
+    ctl.monitor.poll(now=101.0)
+    out = state(fabric, ctl, events)
+    out["oracle"] = type(ctl.topology_manager.topologydb._oracle).__name__
+    # the hier branches of the congestion report and the pod-mode matrix
+    out["congestion"] = repr(ctl.topology_manager.congestion)
+    out["matrix"] = ctl.traffic.matrix() if ctl.traffic is not None else None
+    return out
 
 
 @pytest.mark.parametrize("knob,item", [
@@ -569,28 +597,20 @@ def test_narrowed_dirty_set_podmap_rules_match_jax():
     ({"hier_oracle": True}, "A13"),
 ])
 def test_deferred_plane_raises(knob, item):
-    """Turning on a plane the port has not ported yet raises, naming its
-    ROADMAP item, before anything is built, also beside the planes that
-    are ported."""
-    from sdnmpi_tpu_torch.control.router import Router
-    from sdnmpi_tpu_torch.control.topology_manager import TopologyManager
-
-    config = make_config(PORT, **knob)
-    for build_one in (
-        lambda: PORT.Controller(diamond(PORT), config),
-        lambda: TopologyManager(None, None, config),
-        lambda: Router(None, None, config),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            build_one()
+    """The plane sets that once waited for the hierarchical oracle
+    (ROADMAP ``item``) run beside it: both controllers install the same
+    flows and blocks, publish the same events and pick the same oracle
+    (``HierOracle`` under ``hier_oracle``; ``hier_pod_target`` alone
+    keeps the dense one, as in the reference)."""
+    ref = assert_same(sc_hier_planes, knob)
+    assert ref["oracle"] == ("HierOracle" if knob.get("hier_oracle") else "RouteOracle")
 
 
 def test_other_unported_seams_raise():
     """The bus seams of the observability and HA planes answer as the
     reference's do: the telemetry snapshot (same sections), the replica
     status of a single controller, the traffic matrix and timeline of a
-    fresh controller; a pair is built from an ownership map and a link.
-    The hierarchical oracle is the one plane left that raises."""
+    fresh controller; a pair is built from an ownership map and a link."""
     def seams(S):
         fabric, ctl, _ = build(S, diamond)
         snap = ctl.telemetry()
@@ -614,8 +634,6 @@ def test_other_unported_seams_raise():
                           ownership=OwnershipMap(2, 0), replica_link=link)
     assert ctl.replica is not None
     assert ctl.bus.request(PORT.ev.ReplicaStatusRequest()).status["mode"] != "off"
-    with pytest.raises(NotImplementedError, match="A13"):
-        PORT.Controller(diamond(PORT), make_config(PORT, hier_oracle=True))
 
 
 def test_port_defaults_and_device():

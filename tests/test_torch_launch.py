@@ -3,9 +3,9 @@
 ``sdnmpi_tpu_torch.launch`` takes every flag of ``sdnmpi_tpu.launch``
 under the same name. For a table of argument lists both packages'
 ``config_from_args`` agree field by field, except the deliberate
-differences of ROADMAP C (:data:`DIFFERENCES`); every flag that needs a
-module the port does not have yet fails the launch naming its item, also
-beside the flags of the planes that are ported.
+differences of ROADMAP C (:data:`DIFFERENCES`); ``--distributed``, which
+needs a module the port does not have yet, fails the launch naming its
+item, also beside the flags of the planes that are ported.
 The demo run writes the same checkpoint in both packages, and each
 package's checkpoint restores into the other's launcher.
 """
@@ -60,6 +60,25 @@ ARGVS = [
     ["--audit-switches-per-flush", "8", "--sentinel-sample-per-flush", "8",
      "--sentinel-divergence-factor", "3", "--sentinel-heal"],
     ["--no-fabric-audit", "--sentinel-sample-per-flush", "0"],
+    # the hierarchical oracle's flags, alone and beside the planes'
+    ["--chaos", "3", "--hier-oracle"],
+    ["--metrics-dump", "-", "--hier-pod-target", "16"],
+    ["--trace-dump", "trace.json", "--no-hier-warm"],
+    ["--ownership", "0/2", "--hier-oracle"],
+    ["--lease-interval", "2", "--hier-pod-target", "8"],
+    ["--lease-timeout", "5", "--no-hier-warm"],
+    ["--slo-target", "victim:50:0.999", "--hier-oracle"],
+    ["--anomaly-latency-threshold", "0.5", "--hier-oracle"],
+    ["--anomaly-p99-factor", "3", "--hier-pod-target", "4"],
+    ["--profile-dump", "prof", "--no-hier-warm"],
+    ["--audit-switches-per-flush", "8", "--hier-oracle"],
+    ["--sentinel-sample-per-flush", "8", "--hier-oracle"],
+    ["--sentinel-heal", "--hier-oracle"],
+    ["--schedule-phases", "4", "--hier-oracle"],
+    ["--schedule-phases", "0", "--flight-dump", "bundles", "--no-hier-warm"],
+    ["--hier-oracle"],
+    ["--hier-pod-target", "16"],
+    ["--no-hier-warm"],
 ]
 
 
@@ -105,31 +124,12 @@ def test_every_reference_flag_is_accepted():
 
 
 REFUSED = [
-    (["--chaos", "3", "--hier-oracle"], "A13"),
-    (["--metrics-dump", "-", "--hier-pod-target", "16"], "A13"),
-    (["--trace-dump", "trace.json", "--no-hier-warm"], "A13"),
     (["--replica-peer", "ws://peer:8080/v1.0/sdnmpi/ws", "--distributed",
       "127.0.0.1:1234,2,0"], "A12 item 2"),
-    (["--ownership", "0/2", "--hier-oracle"], "A13"),
-    (["--lease-interval", "2", "--hier-pod-target", "8"], "A13"),
-    (["--lease-timeout", "5", "--no-hier-warm"], "A13"),
-    (["--slo-target", "victim:50:0.999", "--hier-oracle"], "A13"),
     (["--flight-dump", "bundles", "--distributed", "127.0.0.1:1234,2,1"],
      "A12 item 2"),
-    (["--anomaly-latency-threshold", "0.5", "--hier-oracle"], "A13"),
-    (["--anomaly-p99-factor", "3", "--hier-pod-target", "4"], "A13"),
-    (["--profile-dump", "prof", "--no-hier-warm"], "A13"),
-    (["--audit-switches-per-flush", "8", "--hier-oracle"], "A13"),
-    (["--sentinel-sample-per-flush", "8", "--hier-oracle"], "A13"),
     (["--sentinel-divergence-factor", "3", "--distributed",
       "127.0.0.1:1234,3,2"], "A12 item 2"),
-    (["--sentinel-heal", "--hier-oracle"], "A13"),
-    (["--schedule-phases", "4", "--hier-oracle"], "A13"),
-    (["--schedule-phases", "0", "--flight-dump", "bundles", "--no-hier-warm"],
-     "A13"),
-    (["--hier-oracle"], "A13"),
-    (["--hier-pod-target", "16"], "A13"),
-    (["--no-hier-warm"], "A13"),
     (["--distributed", "127.0.0.1:1234,2,0"], "A12 item 2"),
 ]
 
@@ -223,7 +223,7 @@ def test_demo_checkpoints_match_the_reference(demo_checkpoints):
     # serializes its header only
     assert got["route_cache"]["topology_digest"] == got["desired_flows"]["topology_digest"]
     # the audit and traffic sections are written by both packages; the
-    # hier border rows (ROADMAP A13) by neither at these defaults
+    # hier border rows by neither without --hier-oracle
     assert got["audit_baselines"]["topology_digest"] == got["route_cache"]["topology_digest"]
     assert got["traffic_plane"]["mode"] == "edge"
     assert got["hier_border"] is ref["hier_border"] is None

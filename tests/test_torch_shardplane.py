@@ -263,9 +263,9 @@ def test_sharded_find_routes_collective_matches_jax(monkeypatch, topo, util):
 
 def test_oracle_mesh_rules():
     """The reference's flag rules, without its fallback to one device:
-    shard_oracle needs a mesh, ring_exchange needs shard_oracle, the pad
-    multiple covers the shard count, and a mesh that cannot be built
-    raises."""
+    shard_oracle needs a mesh, ring_exchange needs shard_oracle (the
+    hierarchical oracle's ring needs only the mesh), the pad multiple
+    covers the shard count, and a mesh that cannot be built raises."""
     from sdnmpi_tpu_torch.core.topology_db import TopologyDB
     from sdnmpi_tpu_torch.oracle.engine import RouteOracle
 
@@ -279,8 +279,16 @@ def test_oracle_mesh_rules():
     assert o.ring_exchange and o._shard_mesh() is o._dag_mesh()
     with pytest.raises(ValueError):
         RouteOracle(mesh_devices=1000, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        TopologyDB(device="cpu", hier_oracle=True)
+    from sdnmpi_tpu_torch.oracle.hier import HierOracle
+
+    # the hierarchical oracle takes the mesh and the ring flag itself:
+    # its pod blocks and border rows shard, the dense refresh stays off
+    o = TopologyDB(device="cpu", hier_oracle=True, mesh_devices=8,
+                   ring_exchange=True)._oracle_engine()
+    assert isinstance(o, HierOracle) and o.hier_ring and not o.shard_oracle
+    assert o._dag_mesh().n_shards == 8
+    o = TopologyDB(device="cpu", hier_oracle=True, ring_exchange=True)._oracle_engine()
+    assert isinstance(o, HierOracle) and not o.hier_ring and o._dag_mesh() is None
     db = TopologyDB(device="cpu", mesh_devices=4, shard_oracle=True)
     assert db._oracle_engine().mesh_devices == 4
     with pytest.raises(NotImplementedError, match="A12"):
