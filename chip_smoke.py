@@ -27,7 +27,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 23.
+               printed last, after phases 7 to 25.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -165,6 +165,23 @@ order; the first failure ends the run with a non-zero exit:
                controller's, every block path shortest, 200 pairs
                delivered) and the launcher's --hier-oracle --demo; the
                three device programs timed with CUDA events.
+25. sharded legs — config 13 (fattree(56), V = 3,968, 8 shards of this
+               card) on the legs that ROADMAP A1 ported: (a) an 8,192-pair
+               unicast window through find_routes_batch_dispatch on the
+               shard_oracle, ring on and off (batch_fdb_ringed and
+               batch_fdb_sharded), and the narrowed re-route
+               (find_routes_batch_delta_dispatch) of one flapped link,
+               every fdb valid hop by hop and equal to a single-device
+               TopologyDB's, K3 timed on the int16 next-hop wire and the
+               int32 rows; (b) warm_serving of the sharded chase; (c)
+               find_routes_collective(policy="shortest") at 8192 ranks
+               through the next hops gathered once per refresh; (d)
+               config 5's find_routes_batch_adaptive with mesh_devices=8
+               and config 13's find_routes_collective(policy="adaptive"),
+               both equal to one device, K2 timed at a shard's UGAL
+               segment; (e) route_flows_sharded and multichip_route_step
+               on config 13's alltoall, every path shortest and the
+               summed load equal to link_loads of the paths.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -188,8 +205,14 @@ whole-population sentinel sweep (K1 0, set-up 1, K2 1), the launcher run
 of phase 22 (K1 0, set-up 2, K2 2: the demo's install and its
 re-install), phase 23's crashes, storm and failover and every leg of
 phase 24 (K1 and K2 0; K3 at least 1 on each refresh with the ring),
-against the counts each path must launch.
+and phase 25's legs (each window and narrowed re-route: K3 1, nothing
+else; warm_serving: K3 1 per warmed bucket; the shortest collective: K3
+1 on its first call after a refresh, 0 after; each UGAL leg: set-up 1,
+K2 2 per shard, no K1, no K3; the library legs: nothing), against the
+counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
+wall of every phase is logged after it, and all phases' wall before the
+report. The
 sampler call of phase 4 is recorded and held bit for bit against the
 plain version on its own arguments, and so are both of phase 10's and
 every shard's sampler call
@@ -199,7 +222,9 @@ route_collective_sharded call, and the tables its set-up kernels
 (``sampler_tables``) built for it against the plain set-up. The set-up
 has a launch count of its own: every call must launch it once for its
 one device, however many shards sample, and the profiles of the entry
-points and the programs must show no sort kernel. Nothing here imports JAX or the JAX package.
+points and the programs must show no sort kernel. Every K3 launch of
+phase 25 is recorded and held against the plain version on its own
+blocks. Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -1193,7 +1218,7 @@ def phase_sharded_entry(device) -> dict:
     return counts, err
 
 
-def shard_problem(device) -> dict:
+def shard_problem(device, k: int = SHARD_K, n_ranks: int = SHARD_RANKS) -> dict:
     """Config 13's primary problem: alltoall of 8192 ranks on fat-tree
     k=56 aggregated to edge-switch flows (as benchmarks/common's
     alltoall_problem builds it), end-padded to the shard count; an idle
@@ -1205,11 +1230,11 @@ def shard_problem(device) -> dict:
     from sdnmpi_tpu_torch.oracle.engine import tensorize
     from sdnmpi_tpu_torch.topogen import fattree
 
-    spec = fattree(SHARD_K)
+    spec = fattree(k)
     db = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD)
     t = tensorize(db, pad_multiple=SHARD_PAD, device=device)
     host_edge = np.array(
-        [t.index[d] for _, d, _ in spec.hosts[:SHARD_RANKS]], np.int32
+        [t.index[d] for _, d, _ in spec.hosts[:n_ranks]], np.int32
     )
     edges, counts = np.unique(host_edge, return_counts=True)
     ga, gb = np.meshgrid(edges, edges, indexing="ij")
@@ -1220,10 +1245,11 @@ def shard_problem(device) -> dict:
     pad = (-len(usrc)) % N_SHARDS
     usrc = np.concatenate([usrc, np.full(pad, -1, np.int32)])
     udst = np.concatenate([udst, np.full(pad, -1, np.int32)])
+    weight = np.concatenate([weight, np.zeros(pad, np.float32)])
     live = usrc >= 0
     v = t.v
     traffic = np.zeros((v, v), np.float32)
-    np.add.at(traffic, (udst[live], usrc[live]), weight)
+    np.add.at(traffic, (udst[live], usrc[live]), weight[live])
     li, lj = (a.astype(np.int32) for a in np.nonzero(t.host_adj() > 0))
     dist = apsp_distances(t.adj)
     dist_h = dist.cpu().numpy()
@@ -1234,6 +1260,7 @@ def shard_problem(device) -> dict:
         "args": [t.adj, put(li), put(lj), put(np.zeros(len(li), np.float32)),
                  put(traffic), put(usrc), put(udst)],
         "dst_nodes": put(make_dst_nodes(udst[live])), "src": usrc, "dst": udst,
+        "weight": weight,
     }
 
 
@@ -4470,8 +4497,409 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
     return legs
 
 
+# -- phase 25: the remaining sharded legs (config 13, 8 shards) -------------
+
+#: host pairs of phase 25's unicast window (past the host chase's budget)
+LEGS_WINDOW = 8192
+#: the card's name and power limit as nvidia-smi reads them (set by main)
+CARD = "not measured"
+
+
+@contextlib.contextmanager
+def recording_ring(calls: list):
+    """Record ``(blocks, outputs)`` of every K3 launch while the context
+    is open. The wrapper's launch helper is wrapped, so the launch count
+    stays the wrapper's."""
+    from sdnmpi_tpu_torch.kernels import ring
+
+    launch = ring._launch
+
+    def record(blocks, b):
+        out = launch(blocks, b)
+        calls.append((blocks, out))
+        return out
+
+    ring._launch = record
+    try:
+        yield
+    finally:
+        ring._launch = launch
+
+
+def check_k3_calls(calls: list, launches: int, what: str) -> None:
+    """Every recorded K3 launch of one leg equal to the plain version on
+    its own blocks, on every shard."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    if len(calls) != launches:
+        fail(f"{what}: {len(calls)} K3 calls recorded for {launches} launches")
+    for blocks, out in calls:
+        want = ring.ring_all_gather_plain(blocks)
+        torch.cuda.synchronize()
+        for q, (g, w) in enumerate(zip(out, want)):
+            if g.shape != w.shape or not torch.equal(g, w):
+                fail(f"K3 {what}: shard {q} differs from the plain version")
+        log(f"K3 {what}: {len(blocks)} blocks of {tuple(blocks[0].shape)} "
+            f"{blocks[0].dtype} equal to the plain version on every shard")
+
+
+def leg_launches(fn, what: str, want: dict, report: dict) -> tuple:
+    """Run ``fn()`` with the launch counts zeroed and every K2 and K3 call
+    recorded; each K2 call (its set-up's tables included) and each K3
+    call held against its plain version, the K2 launches of one device
+    sharing one set-up, and the counts exactly ``want``. Returns (counts,
+    the recorded K2 calls, the wall in ms)."""
+    k2_calls: list = []
+    k3_calls: list = []
+    wall = {}
+
+    def timed_fn():
+        t0 = time.perf_counter()
+        fn()
+        wall["ms"] = (time.perf_counter() - t0) * 1e3
+
+    with recording_sampler(k2_calls), recording_ring(k3_calls):
+        counts = path_launches(timed_fn)
+    report["sample_slots"]["max_abs_err"] = max(
+        report["sample_slots"]["max_abs_err"],
+        check_k2_calls(k2_calls, counts["sample_slots"], what))
+    check_k3_calls(k3_calls, counts["ring_all_gather"], what)
+    n_tables = len({id(kw["tables"]) for _, kw, _ in k2_calls})
+    if k2_calls and n_tables != counts["sampler_tables"]:
+        fail(f"{what}: {counts['sample_slots']} K2 launches on {n_tables} "
+             f"tables for {counts['sampler_tables']} set-ups")
+    if counts != want:
+        fail(f"{what}: launches {counts}, want {want}")
+    log(f"{what}: launches {counts} (as stated); wall {wall['ms']:.1f} ms "
+        f"({CARD})")
+    return counts, k2_calls, wall["ms"]
+
+
+def launches_of(k1=0, setup=0, k2=0, k3=0) -> dict:
+    return {"bfs_distances": k1, "sampler_tables": setup, "sample_slots": k2,
+            "ring_all_gather": k3}
+
+
+def same_window(a, b, what: str) -> None:
+    for field in ("hop_dpid", "hop_port", "hop_len", "touched"):
+        x, y = getattr(a, field), getattr(b, field)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            fail(f"{what}: {field} differs from the single-device TopologyDB")
+
+
+def same_collective(a, b, what: str) -> None:
+    for field in ("pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len"):
+        x, y = getattr(a, field), getattr(b, field)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            fail(f"{what}: {field} differs from the single-device TopologyDB")
+    if (a.max_congestion, a.n_detours) != (b.max_congestion, b.n_detours):
+        fail(f"{what}: congestion {a.max_congestion} / {b.max_congestion}, "
+             f"detours {a.n_detours} / {b.n_detours}")
+
+
+def time_k3_wire(blocks: list, mesh, what: str) -> dict:
+    """K3 on one leg's own blocks: the wrapper, the bare kernel, the plain
+    version and ``torch.cat(blocks * s)`` (the same s copies), beside its
+    bound (each block read once, each shard's copy written once)."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    s = len(blocks)
+    ms = time_ms(lambda: ring.ring_all_gather(blocks, mesh), reps=20)
+    plain = time_ms(lambda: ring.ring_all_gather_plain(blocks), reps=10)
+    lib = time_ms(lambda: torch.cat(blocks * s), reps=20)
+    rows = log_profile(f"K3 {what}", *profile_device(
+        lambda: ring.ring_all_gather(blocks, mesh)))
+    r_all = sum(b.shape[0] for b in blocks)
+    n_bytes = (1 + s) * r_all * blocks[0].shape[1] * blocks[0].element_size()
+    bound, by = bound_ms({"bytes": n_bytes, "ops": 0})
+    bare = device_ms(rows, "broadcast_gather")
+    bare = f"{bare:.4f} ms" if bare > 0 else "not measured (no device time)"
+    log(f"K3 time ({what}: {s} blocks of {tuple(blocks[0].shape)} "
+        f"{blocks[0].dtype}): wrapper {ms:.4f} ms, bare kernel {bare}, "
+        f"plain {plain:.4f} ms, "
+        f"torch.cat(blocks * {s}) {lib:.4f} ms; bound {bound:.5f} ms ({by}, "
+        f"{n_bytes} B) ({CARD})")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound}
+
+
+def phase_shard_legs(device, report: dict, k: int = SHARD_K,
+                     n_ranks: int = SHARD_RANKS, n_window: int = LEGS_WINDOW) -> list:
+    """Config 13 on the remaining sharded legs: fattree(56), V padded to
+    3,968, 8 shards of one card. (a) 8,192-pair unicast windows through
+    find_routes_batch_dispatch on shard_oracle, ring on and off, and the
+    narrowed re-route of one flapped link; (b) warm_serving; (c) the
+    shortest collective at 8192 ranks through ``_next_full``; (d) UGAL on
+    the mesh: config 5's adaptive batch and config 13's adaptive
+    collective; (e) route_flows_sharded and multichip_route_step on
+    config 13's alltoall. Every leg's launches exactly as stated, every
+    K2 and K3 call held against its plain version, every fdb and route
+    checked and equal to a single-device TopologyDB's. Returns the
+    launch counts of each counted leg."""
+    import torch
+
+    from sdnmpi_tpu_torch.collectives import alltoall_pairs
+    from sdnmpi_tpu_torch.core.topology_db import Link, Port
+    from sdnmpi_tpu_torch.kernels.ring import pack_next_wire
+    from sdnmpi_tpu_torch.oracle.adaptive import link_loads
+    from sdnmpi_tpu_torch.shardplane import (
+        make_mesh,
+        multichip_route_step,
+        route_flows_sharded,
+    )
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    legs = []
+    walls = {}
+    spec = fattree(k)
+    t0 = time.perf_counter()
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD,
+                             mesh_devices=N_SHARDS, shard_oracle=True,
+                             ring_exchange=True)
+    one = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD)
+    walls["db_build_s"] = time.perf_counter() - t0
+    oracle = db._oracle_engine()
+    t0 = time.perf_counter()
+    t = oracle.refresh(db)
+    torch.cuda.synchronize()
+    walls["refresh_ms"] = (time.perf_counter() - t0) * 1e3
+    one._oracle_engine().refresh(one)
+    mesh = oracle._shard_mesh()
+    hosts = [m for m, _, _ in spec.hosts[:n_ranks]]
+    log(f"phase 25: fattree-k{k} V={t.v}, {mesh.n_shards} shards on {device}; "
+        f"DB builds {walls['db_build_s']:.1f} s, ring refresh "
+        f"{walls['refresh_ms']:.1f} ms")
+
+    # (a) unicast windows past the host chase's budget, ring on and off
+    rng = np.random.default_rng(25)
+    a = rng.integers(0, len(hosts), n_window)
+    b = (a + 1 + rng.integers(0, len(hosts) - 1, n_window)) % len(hosts)
+    pairs = [(hosts[i], hosts[j]) for i, j in zip(a, b)]
+    ref, _, walls["window_one_steady_ms"], _ = timed_calls(
+        lambda: one.find_routes_batch_dispatch(pairs).reap())
+    log(f"(a) {n_window:,}-pair window on one device: steady "
+        f"{walls['window_one_steady_ms']:.1f} ms ({CARD})")
+    chase = launches_of(k3=1)
+    for ring_mode in (True, False):
+        oracle.ring_exchange = ring_mode
+        mode = "ring" if ring_mode else "gather"
+        what = f"(a) {n_window:,}-pair window, {mode}"
+        out = {}
+        counts, _, walls[f"window_{mode}_ms"] = leg_launches(
+            lambda: out.update(w=db.find_routes_batch_dispatch(pairs).reap()),
+            what, chase, report)
+        legs.append(counts)
+        same_window(out["w"], ref, what)
+        check_fdbs(db, pairs, out["w"].fdbs(), what)
+        _, first, steady, times = timed_calls(
+            lambda: db.find_routes_batch_dispatch(pairs).reap())
+        walls[f"window_{mode}_steady_ms"] = steady
+        log(f"{what}: hop budget {out['w'].hop_dpid.shape[1]}, equal to one "
+            f"device; steady {', '.join(f'{x:.1f}' for x in times)} ms (median "
+            f"{steady:.1f}) ({CARD})")
+    wire = [pack_next_wire(x) for x in oracle._next_d]
+    k3_wire = time_k3_wire(wire, mesh, "next-hop wire")
+    k3_rows = time_k3_wire(list(oracle._next_d), mesh, "int32 next-hop rows")
+    del wire
+    # one flapped link: a full sharded refresh, then the narrowed re-route
+    d1, p1 = out["w"].fdbs()[0][0]
+    d2 = out["w"].fdbs()[0][1][0]
+    link = Link(Port(d1, p1), Port(d2, db.links[d1][d2].dst.port_no))
+    for x in (db, one):
+        x.delete_link(link)
+    oracle.ring_exchange = True
+    t0 = time.perf_counter()
+    refresh = path_launches(lambda: oracle.refresh(db))
+    walls["flap_refresh_ms"] = (time.perf_counter() - t0) * 1e3
+    one._oracle_engine().refresh(one)
+    log(f"(a) flap {d1}->{d2}: sharded ring refresh "
+        f"{walls['flap_refresh_ms']:.1f} ms, launches {refresh} ({CARD})")
+    ref = one.find_routes_batch_delta_dispatch(pairs, [d1, d2]).reap()
+    for ring_mode in (True, False):
+        oracle.ring_exchange = ring_mode
+        what = f"(a) narrowed re-route, {'ring' if ring_mode else 'gather'}"
+        counts, _, walls[f"delta_{'ring' if ring_mode else 'gather'}_ms"] = leg_launches(
+            lambda: out.update(w=db.find_routes_batch_delta_dispatch(
+                pairs, [d1, d2]).reap()), what, chase, report)
+        legs.append(counts)
+        same_window(out["w"], ref, what)
+        check_fdbs(db, pairs, out["w"].fdbs(), what)
+        log(f"{what}: {int(out['w'].touched.sum()):,} of {n_window:,} pairs "
+            "touched, equal to one device")
+    for x in (db, one):
+        x.add_link(link)
+    oracle.ring_exchange = True
+    oracle.refresh(db)
+    one._oracle_engine().refresh(one)
+
+    # (b) the serving warm-up of the sharded chase
+    for ring_mode in (True, False):
+        oracle.ring_exchange = ring_mode
+        what = f"(b) warm_serving, {'ring' if ring_mode else 'gather'}"
+        counts, _, _ = leg_launches(lambda: out.update(w=db.warm_serving()), what,
+                                    launches_of(k3=2), report)
+        legs.append(counts)
+        w = out["w"]
+        if w["shapes"] != [8, 256]:
+            fail(f"{what}: warmed buckets {w['shapes']}")
+        walls[f"warm_{'ring' if ring_mode else 'gather'}_ms"] = w["warm_s"] * 1e3
+        log(f"{what}: buckets {w['shapes']}, hop budget {w['max_len']}, "
+            f"{w['warm_s'] * 1e3:.1f} ms ({CARD})")
+    oracle.ring_exchange = True
+
+    # (c) the shortest collective on the row-sharded next hops
+    pair_idx = alltoall_pairs(len(hosts))
+    src_idx, dst_idx = pair_idx[:, 0], pair_idx[:, 1]
+    del pair_idx
+
+    def collective(x, policy):
+        return lambda: out.update(r=x.find_routes_collective(
+            hosts, src_idx, dst_idx, policy=policy))
+
+    collective(one, "shortest")()
+    ref = out["r"]
+    for n, (when, k3) in enumerate((("first call after the refresh", 1),
+                                    ("steady", 0))):
+        what = f"(c) shortest collective, {when}"
+        counts, _, walls[f"shortest_{n}_ms"] = leg_launches(
+            collective(db, "shortest"), what, launches_of(k3=k3), report)
+        legs.append(counts)
+        same_collective(out["r"], ref, what)
+    check_routes("(c) shortest collective", spec, db, hosts, src_idx, dst_idx,
+                 out["r"])
+    log(f"(c) shortest collective: {len(src_idx):,} pairs -> "
+        f"{out['r'].n_subflows:,} sub-flows, equal to one device; K3 gathers "
+        "the next hops once per refresh")
+
+    # (d) UGAL on the mesh: config 5's batch, then config 13's collective
+    p = dragonfly_problem(device)
+    dspec, dt = p["spec"], p["t"]
+    mdb = dspec.to_topology_db(backend="torch", device=device, mesh_devices=N_SHARDS)
+    sdb = dspec.to_topology_db(backend="torch", device=device)
+    mac_of = {dpid: mac for mac, dpid, _ in dspec.hosts}
+    dmacs = [mac_of[int(d)] for d in dt.dpids]
+    dpairs = [(dmacs[s], dmacs[d]) for s, d in zip(p["src"], p["dst"])]
+    port = dt.host_port()
+    share = max(1.0, len(dpairs) / int((dt.host_adj() > 0).sum()))
+    bps = DFLY_UTIL * 10e9 / share
+    link_util = {(int(dt.dpids[i]), int(port[i, j])): bps
+                 for i, j in zip(*np.nonzero(p["direct"]))}
+    mdb._oracle_engine().refresh(mdb)
+
+    def adaptive_batch(x):
+        return lambda: out.update(r=x.find_routes_batch_adaptive(
+            dpairs, link_util=link_util, ugal_candidates=DFLY_CANDIDATES))
+
+    adaptive_batch(sdb)()
+    ref = out["r"]
+    ugal = launches_of(setup=1, k2=2 * N_SHARDS)
+    what = f"(d) config 5 adaptive batch on {N_SHARDS} shards"
+    counts, k2_dfly, walls["dragonfly_adaptive_ms"] = leg_launches(
+        adaptive_batch(mdb), what, ugal, report)
+    legs.append(counts)
+    if out["r"] != ref:
+        fail(f"{what}: differs from the single-device TopologyDB")
+    check_fdbs(mdb, dpairs, out["r"][0], what)
+    log(f"{what}: {out['r'][1]:,} pairs detoured, max congestion {out['r'][2]}, "
+        "equal to one device")
+    # the last shard's first segment (every live flow; the second holds
+    # the detours only)
+    seg_args, seg_kw, _ = k2_dfly[-2]
+    measure_k2(seg_args, seg_kw, f"config 5 sharded UGAL segment 1, shard "
+                                 f"{N_SHARDS - 1}", dt.neigh)
+    del k2_dfly, mdb, sdb, p
+    collective(one, "adaptive")()
+    ref = out["r"]
+    # the replicated distances: one K3 gather on the first adaptive call
+    # after the refresh, recorded and held against the plain version;
+    # none on the steady call
+    for n, (when, k3) in enumerate((("first call after the refresh", 1),
+                                    ("steady", 0))):
+        what = f"(d) config 13 adaptive collective on {N_SHARDS} shards, {when}"
+        counts, k2_13, walls[f"collective_adaptive_{n}_ms"] = leg_launches(
+            collective(db, "adaptive"), what, launches_of(setup=1, k2=2 * N_SHARDS,
+                                                          k3=k3), report)
+        legs.append(counts)
+        same_collective(out["r"], ref, what)
+    check_routes(what, spec, db, hosts, src_idx, dst_idx, out["r"])
+    seg_args, seg_kw, _ = k2_13[-2]
+    k2 = measure_k2(seg_args, seg_kw, f"config 13 sharded UGAL segment 1, shard "
+                                      f"{N_SHARDS - 1}", t.neigh)
+    log(f"K2 config 13 sharded UGAL segment 1: set-up + kernel {k2['ms']:.4f} ms, "
+        f"bound {bound_ms(k2)[0]:.5f} ms ({bound_ms(k2)[1]}) ({CARD})")
+    del k2_13, seg_args, seg_kw, ref
+    out.clear()
+
+    # (e) the library legs on config 13's alltoall
+    sp = shard_problem(device, k, n_ranks)
+    st = sp["t"]
+    lmesh = make_mesh(N_SHARDS, device)
+    put = lambda x: torch.as_tensor(x).to(device)  # noqa: E731
+    base = torch.zeros((st.v, st.v), dtype=torch.float32, device=device)
+    lib_args = (put(sp["src"]), put(sp["dst"]), put(sp["weight"]), lmesh,
+                sp["levels"] + 1)
+    live = sp["src"] >= 0
+    results = {}
+    for name, fn in (
+        ("route_flows_sharded", lambda: route_flows_sharded(
+            st.adj, sp["dist"], base, *lib_args, neigh=st.neigh)),
+        ("multichip_route_step", lambda: multichip_route_step(
+            st.adj, base, *lib_args, neigh=st.neigh)),
+    ):
+        what = f"(e) {name}"
+        counts, _, walls[f"{name}_ms"] = leg_launches(
+            lambda: results.update({name: fn()}), what, launches_of(), report)
+        legs.append(counts)
+        nodes_sh, load, maxc = results[name]
+        nodes = torch.cat(nodes_sh).cpu().numpy()
+        n = check_paths(nodes[live], sp["src"][live], sp["dst"][live], sp["dist_h"],
+                        st.host_adj(), what)
+        want = link_loads(nodes, sp["weight"], st.v)
+        got = load.cpu().numpy()
+        if not np.allclose(got, want, rtol=1e-6, atol=0.0):
+            fail(f"{what}: summed load differs from link_loads of its paths "
+                 f"(max {float(np.abs(got - want).max())})")
+        if float(maxc) != float(got[st.host_adj() > 0].max()):
+            fail(f"{what}: max congestion {float(maxc)} is not the load's max")
+        log(f"{what}: {n:,} flows on shortest real paths, load equal to "
+            f"link_loads of the paths (rtol 1e-6), max congestion {float(maxc)}")
+    a_nodes, a_load, _ = results["route_flows_sharded"]
+    b_nodes, b_load, _ = results["multichip_route_step"]
+    if not (torch.equal(torch.cat(a_nodes), torch.cat(b_nodes))
+            and torch.equal(a_load, b_load)):
+        fail("(e) multichip_route_step differs from route_flows_sharded on the "
+             "exact distances")
+    del results, sp, db, one
+    collect("phase 25")
+    summary = {"walls": walls, "k3_next_hop_wire": k3_wire, "k3_next_hop_rows": k3_rows,
+               "k3_launches": sum(c["ring_all_gather"] for c in legs),
+               "k2_launches": sum(c["sample_slots"] for c in legs)}
+    log(f"phase 25 summary ({CARD}): " + json.dumps(summary))
+    return legs
+
+
+def walled(fn):
+    """``fn`` with the wall of each call logged: the phases' budget."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            log(f"wall of {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+
+    return run
+
+
 def main() -> int:
     import torch
+
+    t_main = time.perf_counter()
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4485,6 +4913,8 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(smi)
+    global CARD
+    CARD = smi
 
     # phase 2: build
     from sdnmpi_tpu_torch.kernels import _build
@@ -4505,30 +4935,30 @@ def main() -> int:
         f"flows, T={p['dst_nodes'].shape[0]} "
         f"[{time.perf_counter() - t0:.1f} s]")
     report: dict = {}
-    phase_bfs(device, report)
-    phase_kernels(p, device, report)
+    walled(phase_bfs)(device, report)
+    walled(phase_kernels)(p, device, report)
 
     # phases 4 and 5: the two main paths, each with its launch counts
-    slice_counts = phase_slice(FATTREE_K, N_RANKS, V_PAD, device, report)
-    program_counts = phase_program(p, device)
+    slice_counts = walled(phase_slice)(FATTREE_K, N_RANKS, V_PAD, device, report)
+    program_counts = walled(phase_program)(p, device)
     del p
 
     # phases 7 to 9: K3, then the sharded entry point and one program
-    phase_ring(device, report)
-    entry_counts, entry_err = phase_sharded_entry(device)
-    shard_counts, shard_err = phase_sharded_program(device)
+    walled(phase_ring)(device, report)
+    entry_counts, entry_err = walled(phase_sharded_entry)(device)
+    shard_counts, shard_err = walled(phase_sharded_program)(device)
     report["sample_slots"]["max_abs_err"] = max(
         report["sample_slots"]["max_abs_err"], entry_err, shard_err)
 
     # phases 10 to 12: the UGAL program, the pair batches, the collective
     # policies
-    ugal_counts = phase_ugal_program(device, report)
-    batch_counts = phase_pair_batches(device, report)
-    policy_counts = phase_collective_policies(device, report)
+    ugal_counts = walled(phase_ugal_program)(device, report)
+    batch_counts = walled(phase_pair_batches)(device, report)
+    policy_counts = walled(phase_collective_policies)(device, report)
 
     # phases 13 and 14: the controller, from packet-in to FlowMods
-    ctl_counts = phase_controller_collective(device, report)
-    packet_in_counts = phase_controller_packet_in(device, report)
+    ctl_counts = walled(phase_controller_collective)(device, report)
+    packet_in_counts = walled(phase_controller_packet_in)(device, report)
     collect("controller packet-in")
 
     # phases 15 to 17: the command line, the TCP southbound, serving;
@@ -4536,38 +4966,42 @@ def main() -> int:
     # only from WARNING up
     logging.basicConfig(level=logging.WARNING,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    launcher_counts = phase_launcher(device, report)
-    southbound_counts = phase_southbound(device, report)
-    serving_counts = phase_serving(device, report)
+    launcher_counts = walled(phase_launcher)(device, report)
+    southbound_counts = walled(phase_southbound)(device, report)
+    serving_counts = walled(phase_serving)(device, report)
 
     # phases 18 to 20: churn, the utilization plane, phased collectives
-    churn_counts = phase_churn(device, report)
+    churn_counts = walled(phase_churn)(device, report)
     collect("churn")
-    plane_counts = phase_utilplane(device, report)
+    plane_counts = walled(phase_utilplane)(device, report)
     collect("utilization plane")
-    sched_counts = phase_sched(device, report)
+    sched_counts = walled(phase_sched)(device, report)
     collect("phased collectives")
 
     # phases 21 to 23: the audit, the traffic plane and its sentinel;
     # the flight recorder, timeline, telemetry, traceview and SLOs
     # through the command line; chaos and the controller pair
-    audit_counts = phase_audit(device, report)
+    audit_counts = walled(phase_audit)(device, report)
     collect("audit")
-    traffic_counts = phase_traffic(device, report)
-    obs_counts = phase_observability(device, report)
-    obs_counts += serving_flight_cost(device, report)
-    chaos_counts = phase_chaos(device, report)
-    pair_counts = phase_pair(device, report)
+    traffic_counts = walled(phase_traffic)(device, report)
+    obs_counts = walled(phase_observability)(device, report)
+    obs_counts += walled(serving_flight_cost)(device, report)
+    chaos_counts = walled(phase_chaos)(device, report)
+    pair_counts = walled(phase_pair)(device, report)
     collect("chaos and the pair")
 
     # phase 24: the hierarchical oracle at config 15
-    hier_counts = phase_hier(device, report)
+    hier_counts = walled(phase_hier)(device, report)
+    collect("hier")
+
+    # phase 25: the remaining sharded legs at config 13
+    legs_counts = walled(phase_shard_legs)(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
              *launcher_counts, *southbound_counts, *serving_counts,
              *churn_counts, *plane_counts, *sched_counts, *audit_counts,
              *traffic_counts, *obs_counts, *chaos_counts, *pair_counts,
-             *hier_counts)
+             *hier_counts, *legs_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report
@@ -4590,6 +5024,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": r.get("library_ms"),
         })
+    log(f"all phases: {time.perf_counter() - t_main:.1f} s")
     # the card's name and power limit again, beside the numbers they qualify
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

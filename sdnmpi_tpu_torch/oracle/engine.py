@@ -32,9 +32,14 @@ With ``mesh_devices=n`` the oracle builds a shard mesh
 ``shardplane.route_collective_sharded``; with ``shard_oracle`` the
 refresh row-shards distances and next hops over it too, and with
 ``ring_exchange`` the sharded legs stream distances through the ring
-kernel K3 instead of replicating them first. The sharded shortest and
-adaptive legs raise (ROADMAP A12 item 3); nothing routes on one device
-in their place.
+kernel K3 instead of replicating them first. Under ``shard_oracle`` the
+device chase of pair batches runs flow-sharded on the row-sharded next
+hops (``shardplane.batch_fdb_sharded``, or ``batch_fdb_ringed`` under
+``ring_exchange``), and with a mesh the adaptive policy runs the
+sharded UGAL program (``shardplane.route_adaptive_sharded``). Every
+sharded dispatch opens a ``shard_dispatch`` span (and a
+``shard_exchange`` span where it streams over the ring) and feeds the
+``shard_*`` instruments.
 
 The hierarchical two-level oracle (``oracle/hier.py``) subclasses
 :class:`RouteOracle` and answers the same entry points.
@@ -42,6 +47,7 @@ The hierarchical two-level oracle (``oracle/hier.py``) subclasses
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -77,6 +83,31 @@ _m_frac_congestion = REGISTRY.gauge(
 _m_shard_mesh = REGISTRY.gauge(
     "shard_mesh_devices", "shards of the sharded oracle's mesh (0 = single device)"
 )
+# the sharded legs' walls, split into dispatch (enqueue, host work) and
+# reap (the blocking copy back and decode of one window); each dispatch
+# opens a shard_dispatch span under the Router's ambient span
+_m_shard_dispatch_s = REGISTRY.histogram(
+    "shard_dispatch_seconds",
+    help="sharded-oracle window dispatch (program enqueue) wall seconds",
+)
+_m_shard_reap_s = REGISTRY.histogram(
+    "shard_reap_seconds",
+    help="sharded-oracle window reap (transfer + host decode) wall seconds",
+)
+_m_shard_overlap = REGISTRY.gauge(
+    "shard_exchange_overlap_gain",
+    "serial exchange+consume wall over the ring-overlapped wall "
+    "(config-10 overlap_gain idiom; >1 = exchange hidden behind "
+    "consumer compute; authoritative on the bench path)",
+)
+_m_shard_imbalance = REGISTRY.gauge(
+    "shard_occupancy_imbalance",
+    "padded-over-real flow rows of the last sharded window dispatch "
+    "(real rows sit contiguous at the front of the shard axis, so "
+    "this IS the fullest shard's load over the mean — 1.0 = every "
+    "shard fully occupied, 2.0 = half the dispatched slots are "
+    "padding)",
+)
 _m_congestion_ratio = REGISTRY.gauge(
     "congestion_discrete_over_fractional",
     "discrete / fractional max-congestion of the last DAG-balanced pass "
@@ -107,6 +138,15 @@ def enable_compile_cache(path: str) -> bool:
 
     _build.set_build_dir(path)
     return True
+
+
+def note_exchange_overlap(serial_s: float, overlapped_s: float) -> float:
+    """Record the exchange-overlap gain: the serial wall (a blocking
+    exchange, then the consumer on the replicated tensors) over the wall
+    of the ring-streamed leg. Returns the gain it set."""
+    gain = serial_s / max(overlapped_s, 1e-12)
+    _m_shard_overlap.set(gain)
+    return gain
 
 
 def resolve_device(device) -> torch.device:
@@ -329,8 +369,10 @@ class RouteOracle:
         #: of per-shard blocks under shard_oracle
         self._dist_d = None
         self._next_d = None
-        #: replicated copy of row-sharded distances, gathered on first use
+        #: replicated copies of row-sharded distances and next hops,
+        #: gathered on first use per topology version
         self._dist_full_d: Optional[torch.Tensor] = None
+        self._next_full_d: Optional[torch.Tensor] = None
         self._dist_h: Optional[np.ndarray] = None  # lazy host twin
         self._next_h: Optional[np.ndarray] = None  # lazy host twin
         self._port: Optional[np.ndarray] = None
@@ -393,6 +435,7 @@ class RouteOracle:
                 plan.edges, dist_host=self._dist_h, next_host=self._next_h,
             )
             self._dist_full_d = None
+            self._next_full_d = None
             self._port = self._tensors.port_host
             if plan.clear_memo:
                 self._endpoint_memo = {}
@@ -431,13 +474,22 @@ class RouteOracle:
                     )
 
                     dist = apsp_distances_rowsharded(tensors.adj, mesh)
-                    next_fn = (
-                        apsp_next_hops_ringed if self.ring_exchange
-                        else apsp_next_hops_rowsharded
-                    )
-                    nxt = next_fn(
-                        tensors.adj, dist, mesh, tensors.max_degree, n_occ=n_occ
-                    )
+                    if self.ring_exchange:
+                        from sdnmpi_tpu_torch.kernels.ring import dist_wire_dtype
+
+                        with self._shard_exchange_scope(
+                            tensors.v, tensors.v if n_occ == 0 else n_occ,
+                            dist_wire_dtype(tensors.v).itemsize,
+                        ):
+                            nxt = apsp_next_hops_ringed(
+                                tensors.adj, dist, mesh, tensors.max_degree,
+                                n_occ=n_occ,
+                            )
+                    else:
+                        nxt = apsp_next_hops_rowsharded(
+                            tensors.adj, dist, mesh, tensors.max_degree,
+                            n_occ=n_occ,
+                        )
                 elif (
                     mesh is not None
                     and self.max_diameter == 0
@@ -469,6 +521,7 @@ class RouteOracle:
                 self._dist_d = dist
                 self._next_d = nxt
                 self._dist_full_d = None
+                self._next_full_d = None
                 self._dist_h = None
                 self._next_h = None
                 self._port = tensors.host_port()
@@ -489,20 +542,15 @@ class RouteOracle:
         per requested batch bucket run against the booted topology, with
         the hop budget at the topology's full-diameter bucket. Returns
         ``{"warm_s": wall, "shapes": [...], "max_len": n}``; an empty
-        topology costs nothing. Under ``shard_oracle`` the reference
-        warms the sharded chase, which is not ported (ROADMAP A12 item
-        3): it raises."""
+        topology costs nothing. The warmed chase is the one the
+        configured serving path dispatches: under ``shard_oracle`` the
+        sharded chase (ringed under ``ring_exchange``), at buckets that
+        are multiples of ``lcm(8, mesh_devices)``."""
         import time as _time
 
         from sdnmpi_tpu_torch.oracle.batch import bucket_len
         from sdnmpi_tpu_torch.oracle.paths import batch_fdb
 
-        if self._shard_mesh() is not None:
-            chase = "batch_fdb_ringed" if self.ring_exchange else "batch_fdb_sharded"
-            raise NotImplementedError(
-                f"warming the sharded chase (shardplane.{chase}) is not "
-                "ported yet (ROADMAP A12 item 3)"
-            )
         t0 = _time.perf_counter()
         if not getattr(db, "switches", None):
             return {"warm_s": 0.0, "shapes": [], "max_len": 0}
@@ -511,15 +559,28 @@ class RouteOracle:
 
             _build.load_all()
         t = self.refresh(db)
-        dist = self._dist_d
-        mx = torch.where(torch.isfinite(dist), dist, 0.0).max().item()
+        dist = self._dist_d if isinstance(self._dist_d, list) else [self._dist_d]
+        mx = max(torch.where(torch.isfinite(d), d, 0.0).max().item() for d in dist)
         max_len = ((int(mx) + 1 + 7) // 8) * 8
+        shard_mesh = self._shard_mesh()
+        mult = 8 if shard_mesh is None else math.lcm(8, self.mesh_devices)
         warmed = []
-        for n in sorted({bucket_len(int(s)) for s in shapes if s > 0}):
+        for n in sorted({bucket_len(int(s), mult) for s in shapes if s > 0}):
             zeros = self._put(np.zeros(n, np.int32))
-            nodes, _, _ = batch_fdb(
-                self._next_full(), t.port, zeros, zeros, zeros, max_len
-            )
+            if shard_mesh is not None:
+                from sdnmpi_tpu_torch.shardplane import (
+                    batch_fdb_ringed,
+                    batch_fdb_sharded,
+                )
+
+                chase = batch_fdb_ringed if self.ring_exchange else batch_fdb_sharded
+                nodes = chase(
+                    self._next_d, t.port, zeros, zeros, zeros, max_len, shard_mesh
+                )[0][0]
+            else:
+                nodes = batch_fdb(
+                    self._next_d, t.port, zeros, zeros, zeros, max_len
+                )[0]
             if nodes.is_cuda:
                 torch.cuda.synchronize(nodes.device)
             warmed.append(n)
@@ -576,14 +637,84 @@ class RouteOracle:
         """The mesh when the full shardplane (shard_oracle) is on."""
         return self._mesh if self.shard_oracle else None
 
-    def _pad_flows(self, src_idx, dst_idx):
+    @contextlib.contextmanager
+    def _shard_dispatch_scope(self, n_flows: int, n_real: int = 0):
+        """A ``shard_dispatch`` child span of the ambient span (the
+        Router's ``route_window``/``dispatch``) and a
+        ``shard_dispatch_seconds`` sample around one sharded dispatch,
+        closed even when the dispatch raises. ``n_real``, the flow count
+        before padding, sets ``shard_occupancy_imbalance``: the real rows
+        sit at the front of the shard axis, so padded over real is the
+        fullest shard's load over the mean."""
+        import time
+
+        from sdnmpi_tpu_torch.utils.tracing import start_child_span
+
+        if n_real > 0:
+            _m_shard_imbalance.set(n_flows / n_real)
+        sp = start_child_span(
+            "shard_dispatch", mesh_devices=self.mesh_devices, n_flows=n_flows,
+        )
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _m_shard_dispatch_s.observe(time.perf_counter() - t0)
+            sp.end()
+
+    @contextlib.contextmanager
+    def _shard_exchange_scope(self, v_rows: int, n_cols: int, itemsize: int = 2):
+        """A ``shard_exchange`` child span around a ring-streamed leg,
+        under ``shard_dispatch`` for windows and under the ambient span
+        for the refresh, carrying the wire bytes each shard receives
+        (``itemsize`` is the wire word: 2 packed, 4 unpacked). Its
+        duration is the enqueue wall; blocking exchange walls go to
+        ``shard_exchange_seconds``."""
+        from sdnmpi_tpu_torch.kernels.ring import exchange_bytes
+        from sdnmpi_tpu_torch.utils.tracing import start_child_span
+
+        sp = start_child_span(
+            "shard_exchange",
+            exchange_bytes=exchange_bytes(v_rows, n_cols, self.mesh_devices, itemsize),
+            mesh_devices=self.mesh_devices,
+            ring=True,
+        )
+        try:
+            yield
+        finally:
+            sp.end()
+
+    @staticmethod
+    def _shard_timed_reap(reap_fn):
+        """``reap_fn`` timed into ``shard_reap_seconds``: the blocking
+        half of a sharded window's dispatch/reap split."""
+        import functools
+        import time
+
+        @functools.wraps(reap_fn)
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                return reap_fn()
+            finally:
+                _m_shard_reap_s.observe(time.perf_counter() - t0)
+
+        return timed
+
+    def _pad_flows(self, src_idx, dst_idx, weight=None):
         """End-pad a flow batch to a multiple of the shard count with -1
-        endpoints (dead flows); the real flows keep their global ids, and
-        so their noise. Callers trim back with ``[: len(src_idx)]``."""
+        endpoints (dead flows) and zero weight; the real flows keep their
+        global ids, and so their noise. Returns ``(src, dst, weight)``,
+        the last None without ``weight``. Callers trim back with
+        ``[: len(src_idx)]``."""
         pad = (-len(src_idx)) % self.mesh_devices
         src_p = np.concatenate([src_idx, np.full(pad, -1, np.int32)])
         dst_p = np.concatenate([dst_idx, np.full(pad, -1, np.int32)])
-        return src_p.astype(np.int32), dst_p.astype(np.int32)
+        w_p = (
+            None if weight is None
+            else np.concatenate([weight, np.zeros(pad, np.float32)])
+        )
+        return src_p.astype(np.int32), dst_p.astype(np.int32), w_p
 
     # -- queries ----------------------------------------------------------
 
@@ -644,15 +775,17 @@ class RouteOracle:
 
     def _next_full(self) -> torch.Tensor:
         """The next-hop matrix as one ``[V, V]`` tensor on the oracle's
-        device. Row-sharded next hops (``shard_oracle``) feed only the
-        sharded chase, which is not ported (ROADMAP A12 item 3)."""
-        if isinstance(self._next_d, list):
-            raise NotImplementedError(
-                "the device chase of row-sharded next hops "
-                "(shardplane.batch_fdb_sharded) is not ported yet "
-                "(ROADMAP A12 item 3)"
-            )
-        return self._next_d
+        device. Row-sharded next hops (``shard_oracle``) are gathered by
+        one launch of kernel K3 per topology version (the reference's
+        all-gather of its sharded matrix) and the first shard's copy is
+        kept."""
+        if not isinstance(self._next_d, list):
+            return self._next_d
+        if self._next_full_d is None:
+            from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
+
+            self._next_full_d = ring_all_gather(self._next_d, self._dag_mesh())[0]
+        return self._next_full_d
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the oracle's device."""
@@ -876,8 +1009,10 @@ class RouteOracle:
         the host and comes back completed; a larger one is one
         ``oracle/paths.batch_fdb`` call on the device, padded to a
         multiple of 8, that ``reap()`` copies back. Under
-        ``shard_oracle`` the reference chases row-sharded next hops, which
-        is not ported (ROADMAP A12 item 3): a large batch raises.
+        ``shard_oracle`` the batch pads to a multiple of
+        ``lcm(8, mesh_devices)`` and the row-sharded next hops are chased
+        flow-sharded (``shardplane.batch_fdb_ringed`` under
+        ``ring_exchange``, else ``batch_fdb_sharded``).
 
         ``_dirty`` is the delta entry point's ``(dirty row indices, dirty
         dpids)``; with it the window's ``touched`` is set."""
@@ -922,19 +1057,46 @@ class RouteOracle:
                 results[k] = fdb
             return RouteWindow(result=_finish(WindowRoutes.from_fdbs(results)))
 
-        if self._shard_mesh() is not None:
-            chase = "batch_fdb_ringed" if self.ring_exchange else "batch_fdb_sharded"
-            raise NotImplementedError(
-                f"the sharded chase (shardplane.{chase}) is not ported yet "
-                "(ROADMAP A12 item 3)"
-            )
+        shard_mesh = self._shard_mesh()
+        # shard-divisible buckets: the flow axis splits over every shard
+        # (pow2 tiers of an lcm floor stay divisible)
+        mult = 8 if shard_mesh is None else math.lcm(8, self.mesh_devices)
         src_p, dst_p, fport_p = pad_flow_batch(
-            src_idx, dst_idx, final_port, pow2=_dirty is not None
+            src_idx, dst_idx, final_port, multiple=mult,
+            pow2=_dirty is not None,
         )
-        nodes_d, ports_d, length_d = batch_fdb(
-            self._next_full(), t.port, self._put(src_p), self._put(dst_p),
-            self._put(fport_p), max_len,
-        )
+        if shard_mesh is not None:
+            from sdnmpi_tpu_torch.shardplane import (
+                batch_fdb_ringed,
+                batch_fdb_sharded,
+            )
+
+            with self._shard_dispatch_scope(len(src_p), len(src_idx)):
+                if self.ring_exchange:
+                    # the next-hop rows ride the ring as int16 wire words
+                    # (int32 past the index bound) into the gated chase
+                    from sdnmpi_tpu_torch.kernels.ring import NEXT_WIRE_MAX_V
+
+                    wire_item = 2 if t.v <= NEXT_WIRE_MAX_V else 4
+                    with self._shard_exchange_scope(t.v, t.v, wire_item):
+                        blocks = batch_fdb_ringed(
+                            self._next_d, t.port, self._put(src_p),
+                            self._put(dst_p), self._put(fport_p), max_len,
+                            shard_mesh,
+                        )
+                else:
+                    blocks = batch_fdb_sharded(
+                        self._next_d, t.port, self._put(src_p),
+                        self._put(dst_p), self._put(fport_p), max_len,
+                        shard_mesh,
+                    )
+            # the shards sit on one device: their blocks join there
+            nodes_d, ports_d, length_d = (torch.cat(b) for b in blocks)
+        else:
+            nodes_d, ports_d, length_d = batch_fdb(
+                self._next_d, t.port, self._put(src_p), self._put(dst_p),
+                self._put(fport_p), max_len,
+            )
         touched_d = None
         if _dirty is not None:
             mask = np.zeros(t.v, bool)
@@ -972,7 +1134,9 @@ class RouteOracle:
                 wr.touched = touched
             return wr
 
-        return RouteWindow(reap)
+        return RouteWindow(
+            self._shard_timed_reap(reap) if shard_mesh is not None else reap
+        )
 
     @_timed_batch("routes_batch_balanced")
     def routes_batch_balanced(
@@ -1123,8 +1287,10 @@ class RouteOracle:
         streams, unchanged), on the cached distances (so no K1), with the
         packed slot streams decoded on the host. Returns ``(inter, n1,
         n2)`` numpy arrays trimmed to the batch. With a shard mesh the
-        reference runs the sharded program, which is not ported (ROADMAP
-        A12 item 3): it raises."""
+        batch pads to the shard count instead and runs the sharded
+        program (``shardplane.route_adaptive_sharded``): flows split over
+        the shards, the batch's traffic summed once, hash streams keyed
+        by global flow id, so the real flows choose as on one device."""
         from sdnmpi_tpu_torch.oracle.adaptive import decode_segments, route_adaptive
         from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
 
@@ -1133,11 +1299,28 @@ class RouteOracle:
             levels=max_len - 1, rounds=rounds, max_len=max_len,
             n_candidates=ugal_candidates, bias=ugal_bias,
         )
-        if self._dag_mesh() is not None:
-            raise NotImplementedError(
-                "the sharded UGAL program (shardplane.route_adaptive_sharded) "
-                "is not ported yet (ROADMAP A12 item 3)"
+        mesh = self._dag_mesh()
+        if mesh is not None:
+            from sdnmpi_tpu_torch.convert import gather_rows
+            from sdnmpi_tpu_torch.shardplane import route_adaptive_sharded
+
+            src_p, dst_p, w_p = self._pad_flows(
+                np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32),
+                np.asarray(weight, np.float32),
             )
+            with self._shard_dispatch_scope(len(src_p), len(src_idx)):
+                inter_sh, s1_sh, s2_sh, _ = route_adaptive_sharded(
+                    t.adj, self._base_tensor(base), self._put(src_p),
+                    self._put(dst_p), self._put(w_p), t.n_real, mesh,
+                    packed=True, dist=self._dist_full(), neigh=t.neigh,
+                    **kwargs,
+                )
+            inter = np.concatenate([x.cpu().numpy() for x in inter_sh])
+            n1, n2 = decode_segments(
+                t.host_adj(), src_p, dst_p, inter, gather_rows(s1_sh),
+                gather_rows(s2_sh), max_len, order=self._order,
+            )
+            return inter[:n], n1[:n], n2[:n]
         src_a, dst_a = pad_flow_batch(
             np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32)
         )
@@ -1282,16 +1465,26 @@ class RouteOracle:
         if mesh is not None and v_eff % self.mesh_devices == 0:
             from sdnmpi_tpu_torch.shardplane import route_collective_sharded
 
-            src_p, dst_p = self._pad_flows(src_idx, dst_idx)
+            src_p, dst_p, _ = self._pad_flows(src_idx, dst_idx)
             use_dn = len(dn) < v_eff and len(dn) % self.mesh_devices == 0
-            slots_sh, maxc_d = route_collective_sharded(
-                adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
-                util, put(traffic), put(src_p), put(dst_p), mesh,
-                levels=max_len - 1, rounds=rounds, max_len=max_len,
-                dist=dist_eff, dst_nodes=put(dn) if use_dn else None,
-                ring_exchange=self.ring_exchange, neigh=neigh_eff,
-            )
+            if self.ring_exchange:
+                from sdnmpi_tpu_torch.kernels.ring import dist_wire_dtype
 
+                exch_scope = self._shard_exchange_scope(
+                    v_eff, v_eff, dist_wire_dtype(v_eff).itemsize
+                )
+            else:
+                exch_scope = contextlib.nullcontext()
+            with self._shard_dispatch_scope(len(src_p), len(src_idx)), exch_scope:
+                slots_sh, maxc_d = route_collective_sharded(
+                    adj_eff, put(li.astype(np.int32)), put(lj.astype(np.int32)),
+                    util, put(traffic), put(src_p), put(dst_p), mesh,
+                    levels=max_len - 1, rounds=rounds, max_len=max_len,
+                    dist=dist_eff, dst_nodes=put(dn) if use_dn else None,
+                    ring_exchange=self.ring_exchange, neigh=neigh_eff,
+                )
+
+            @self._shard_timed_reap
             def reap_sharded() -> np.ndarray:
                 self.last_fractional_congestion = float(maxc_d)
                 _m_frac_congestion.set(self.last_fractional_congestion)

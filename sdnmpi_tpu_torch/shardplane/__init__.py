@@ -9,7 +9,8 @@ shard_oracle=True[, ring_exchange=True])``.
 
 - :mod:`~.mesh` — the mesh and its axis facts
 - :mod:`~.apsp` — row-sharded distances and next hops
-- :mod:`~.routes` — the sharded collective
+- :mod:`~.routes` — flow-sharded routing: the chase, the balancer, the
+  UGAL program and the collective, with packed per-shard readback
 """
 
 from sdnmpi_tpu_torch.shardplane.apsp import (  # noqa: F401
@@ -36,4 +37,5 @@ from sdnmpi_tpu_torch.shardplane.routes import (  # noqa: F401
     route_adaptive_sharded,
     route_collective_sharded,
     route_flows_sharded,
+    window_readback_nbytes,
 )

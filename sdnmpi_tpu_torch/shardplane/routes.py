@@ -1,30 +1,54 @@
-"""The sharded collective: the DAG balancer and sampler over the mesh.
+"""Sharded flow batches over the mesh: the routing half of the shardplane.
 
-Counterpart of ``sdnmpi_tpu/shardplane/routes.py``'s
-``route_collective_sharded`` (``_dag_step`` and ``_dag_step_ringed``).
-Each shard propagates the traffic of its block of destinations and
-samples its slice of the flows; the per-link loads are summed over the
-shards in shard order (the reference's ``psum``), so every shard
-reweights on the same global load. Distances reach every shard through
-the ring all-gather (kernel K3): in gather mode as f32 rows, in ring
-mode packed to the 2-byte wire (``exchange_distances``). Either way the
-slots are those of ``oracle/dag.route_collective`` on the same inputs
-where the loads sum alike. The sampler's set-up (kernel K2's tables) is
-built once per device and shared by the shards' launches there.
+Counterpart of ``sdnmpi_tpu/shardplane/routes.py``. Flow batches split
+across the mesh's shards, ``F/s`` contiguous flows each, and every
+shard keeps its flows' global ids (``fid_base = q * F/s``), so hashed
+choices and sampled paths are those of the single-device programs. The
+``[V, V]`` state is replicated or row-sharded as each leg needs;
+row-sharded state is replicated by the ring all-gather (kernel K3).
+Readback stays packed: the legs return per-shard ``[F/s, max_len]`` hop
+rows or int8 slot streams, never an ``[F, V]`` intermediate.
 
-The reference's other sharded legs (``batch_fdb_sharded/ringed``,
-``route_flows_sharded``, ``route_adaptive_sharded``,
-``multichip_route_step``) are not ported yet and raise.
+- :func:`batch_fdb_sharded` and :func:`batch_fdb_ringed`: the shortest
+  path chase of ``oracle/paths.batch_fdb``, on next hops replicated by
+  one K3 launch, or streamed to the chase as int16 wire blocks.
+- :func:`route_flows_sharded` and :func:`multichip_route_step`: the
+  greedy scanner per shard, loads summed over the shards.
+- :func:`route_adaptive_sharded`: the UGAL program, each shard choosing
+  and sampling (kernel K2) its own flows, balanced on the summed traffic.
+- :func:`route_collective_sharded`: the DAG balancer and sampler
+  (``_dag_step`` and ``_dag_step_ringed``). Each shard propagates the
+  traffic of its block of destinations and samples its slice of the
+  flows; the per-link loads are summed over the shards in shard order
+  (the reference's ``psum``), so every shard reweights on the same
+  global load. Distances reach every shard through K3: in gather mode as
+  f32 rows, in ring mode packed to the 2-byte wire
+  (``exchange_distances``).
+
+Work the reference replicates on every shard (the balancer on summed
+traffic, K2's set-up) runs once per device here and is shared by the
+shards placed there.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sdnmpi_tpu_torch.kernels.ring import exchange_distances, ring_all_gather
+from sdnmpi_tpu_torch.kernels import ring
+from sdnmpi_tpu_torch.kernels.ring import (
+    exchange_distances,
+    pack_next_wire,
+    ring_all_gather,
+    ring_stream,
+    unpack_next_wire,
+)
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
 from sdnmpi_tpu_torch.kernels.sampler import sample_slots, sampler_tables
-from sdnmpi_tpu_torch.shardplane.apsp import apsp_distances_rowsharded
+from sdnmpi_tpu_torch.oracle.paths import batch_fdb, fdb_ports
+from sdnmpi_tpu_torch.shardplane.apsp import (
+    apsp_distances_rowsharded,
+    apsp_distances_sharded,
+)
 from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, mesh_shards
 
 INF = float("inf")
@@ -173,16 +197,336 @@ def route_collective_sharded(
     return slots, maxc
 
 
-def _not_ported(name: str):
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP A12 item 3)")
+def _flow_slices(n: int, mesh: ShardMesh) -> list:
+    """Each shard's slice of an ``n``-flow batch; raises unless the shard
+    count divides ``n``."""
+    s = mesh_shards(mesh)
+    if n % s:
+        raise ValueError(f"flow count {n} must divide by {s} shards")
+    per = n // s
+    return [slice(q * per, (q + 1) * per) for q in range(s)]
 
-    raise_.__name__ = name
-    return raise_
+
+def _per_device(mesh: ShardMesh, fn) -> dict:
+    """``fn(device)`` once for each device of the mesh: the work the
+    reference replicates on every shard, shared by the shards placed on
+    one device."""
+    out = {}
+    for dev in mesh.devices:
+        if dev not in out:
+            out[dev] = fn(dev)
+    return out
 
 
-batch_fdb_sharded = _not_ported("batch_fdb_sharded")
-batch_fdb_ringed = _not_ported("batch_fdb_ringed")
-route_flows_sharded = _not_ported("route_flows_sharded")
-route_adaptive_sharded = _not_ported("route_adaptive_sharded")
-multichip_route_step = _not_ported("multichip_route_step")
+def batch_fdb_sharded(
+    next_hop,  # [V, V] int32 tensor, or row-sharded list of [V/s, V] blocks
+    port: torch.Tensor,  # [V, V] int32 (replicated)
+    src: torch.Tensor,  # [F] int32 (-1 pad)
+    dst: torch.Tensor,  # [F] int32
+    final_port: torch.Tensor,  # [F] int32
+    max_len: int,
+    mesh: ShardMesh,
+) -> tuple[list, list, list]:
+    """Flow-sharded twin of ``oracle.paths.batch_fdb``: shard q chases
+    flows ``[q*F/s, (q+1)*F/s)`` on the whole next-hop matrix. Row-sharded
+    next hops are replicated by one K3 launch first (the reference's
+    all-gather). The chase is per-flow deterministic, so the blocks are
+    bit-identical to the single-device extraction. Returns per-shard
+    lists ``(nodes [F/s, max_len], ports [F/s, max_len], length [F/s])``;
+    read them back with ``convert.gather_rows``. Requires ``F % s == 0``."""
+    parts = _flow_slices(src.shape[0], mesh)
+    full = _replicated(next_hop, mesh)
+    nodes, ports, length = [], [], []
+    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
+        n, p, ln = batch_fdb(
+            full[q], port.to(dev), src[sl].to(dev), dst[sl].to(dev),
+            final_port[sl].to(dev), max_len,
+        )
+        nodes.append(n)
+        ports.append(p)
+        length.append(ln)
+    return nodes, ports, length
+
+
+def batch_fdb_ringed(
+    next_hop,  # row-sharded list of [V/s, V] int32 blocks, or a [V, V] tensor
+    port: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    final_port: torch.Tensor,
+    max_len: int,
+    mesh: ShardMesh,
+) -> tuple[list, list, list]:
+    """Ring-exchange twin of :func:`batch_fdb_sharded`, the same contract
+    and bit-identical rows (the reference's ``_batch_fdb_ringed_fn``).
+
+    Each shard packs its next-hop rows to the int16 wire (int32 past
+    ``ring.NEXT_WIRE_MAX_V``) and :func:`~sdnmpi_tpu_torch.kernels.ring.ring_stream`
+    hands every shard the blocks in the ring's arrival order. Each
+    arrival lands in the shard's view of the rows and advances its flows
+    by ``ceil(max_len / s)`` hops, each hop gated on the row block of the
+    flow's current switch having arrived at that shard; a completion pass
+    of ``max_len`` hops after the last arrival finishes every flow, and
+    the validity tail of ``batch_paths`` keeps only flows that reached
+    their destination. Arrival order changes when a hop happens, never
+    what it reads.
+
+    Every shard of a mesh sits on one device, and every shard receives
+    its i-th block at the same step, so the shards chase together: one
+    wire buffer holds the blocks that have arrived anywhere, a per-shard
+    flag row gates each flow on its own shard's arrivals, and each hop is
+    one batch over all the flows. Each shard's hop sequence is the
+    reference's. Every shard's own block arrives first, so every block
+    has landed after the first step and the gate decides only when a hop
+    happens. One K3 launch delivers every block, so the gating is not
+    yet an overlap: it is the consumer an overlapped exchange will feed
+    (``shard_exchange_overlap_gain`` measures that)."""
+    s = mesh_shards(mesh)
+    parts = _flow_slices(src.shape[0], mesh)
+    blocks = _row_blocks(next_hop, mesh)
+    v = blocks[0].shape[1]
+    if v % s:
+        raise ValueError(f"V={v} must divide by {s} shards")
+    rp = v // s
+    wire16 = v <= ring.NEXT_WIRE_MAX_V
+    # opportunistic hops per arrival; the completion pass has the full
+    # budget, so a flow stalled on a late block still finishes
+    h_opp = max(1, -(-max_len // s))
+    wire = [pack_next_wire(b) if wire16 else b for b in blocks]
+    # each shard's (origin, block) arrivals, in the reference's order
+    seen = ring_stream(mesh, wire, lambda c, blk, o, _t: c + [(o, blk)],
+                       [[] for _ in range(s)])
+    dev = wire[0].device
+    buf = torch.zeros((v, v), dtype=wire[0].dtype, device=dev)
+    landed = set()
+    arrived = torch.zeros((s, s), dtype=torch.bool, device=dev)
+    f_per = parts[0].stop - parts[0].start
+    owner = torch.arange(s, device=dev).repeat_interleave(f_per)
+    node = src.to(dev).long()
+    t = dst.to(dev).long()
+    rows = torch.arange(node.shape[0], device=dev)
+    k = torch.zeros_like(node)
+    out = torch.full((node.shape[0], max_len), -1, dtype=torch.int32, device=dev)
+    shard_ids = torch.arange(s, device=dev)
+    origin = torch.tensor([[seen[q][i][0] for q in range(s)] for i in range(s)],
+                          device=dev)
+
+    def hop(node, k):
+        at_dst = node == t
+        safe = node.clamp(min=0)
+        avail = arrived[owner, (safe // rp).clamp(0, s - 1)]
+        can = (node >= 0) & (k < max_len) & (avail | at_dst)
+        nxt = buf[safe, t.clamp(min=0)]
+        nxt = (unpack_next_wire(nxt) if wire16 else nxt).long()
+        nxt = torch.where(at_dst | (t < 0), -1, nxt)
+        kcl = k.clamp(max=max_len - 1)
+        out[rows, kcl] = torch.where(can, node, out[rows, kcl].long()).to(torch.int32)
+        return torch.where(can, nxt, node), k + can.long()
+
+    for i in range(s):
+        for q in range(s):
+            o, blk = seen[q][i]
+            if o not in landed:
+                buf[o * rp:(o + 1) * rp] = blk
+                landed.add(o)
+        arrived[shard_ids, origin[i]] = True
+        for _ in range(h_opp):
+            node, k = hop(node, k)
+    for _ in range(max_len):
+        node, k = hop(node, k)
+    # batch_paths' validity tail: a flow counts only if it reached
+    ln = (out >= 0).sum(dim=1)
+    last = out.gather(1, (ln - 1).clamp(min=0)[:, None])[:, 0]
+    reached = (ln > 0) & (last == t)
+    n = torch.where(reached[:, None], out, -1)
+    ln = torch.where(reached, ln, 0).to(torch.int32)
+    p = fdb_ports(port.to(dev), n, ln, final_port.to(dev))
+    return (list(n.split(f_per)), list(p.split(f_per)), list(ln.split(f_per)))
+
+
+def window_readback_nbytes(wr) -> int:
+    """Host-ward bytes of one reaped window's struct arrays — the
+    packed-readback accounting the shardplane contract is asserted
+    with (bytes proportional to occupied flows x hop budget, never
+    F_padded x V)."""
+    total = wr.hop_dpid.nbytes + wr.hop_port.nbytes + wr.hop_len.nbytes
+    if getattr(wr, "touched", None) is not None:
+        total += wr.touched.nbytes
+    return int(total)
+
+
+def route_flows_sharded(
+    adj: torch.Tensor,  # [V, V] 0/1 (replicated)
+    dist,  # [V, V] f32 tensor, or row-sharded list
+    base_cost: torch.Tensor,  # [V, V] f32
+    src: torch.Tensor,  # [U] int32 (-1 pad)
+    dst: torch.Tensor,
+    weight: torch.Tensor,  # [U] f32 (0 pad)
+    mesh: ShardMesh,
+    max_len: int,
+    chunk: int = 1024,
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
+) -> tuple[list, torch.Tensor, torch.Tensor]:
+    """Flow batch sharded over the mesh: every shard balances its own
+    flows with the greedy scanner (``oracle.congestion.route_flows_balanced``,
+    flow ids local to the shard, as the reference's shard_map body sees
+    them), and the shards' link loads are summed in shard order (the
+    ``psum``). Returns ``(nodes, load, max_congestion)``: the per-shard
+    ``[U/s, max_len]`` node blocks, the summed ``[V, V]`` f32 load and
+    its max over real links."""
+    from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
+
+    parts = _flow_slices(src.shape[0], mesh)
+    full = _replicated(dist, mesh)
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    nodes, loads = [], []
+    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
+        n, load, _ = route_flows_balanced(
+            adj.to(dev), full[q], base_cost.to(dev), src[sl].to(dev),
+            dst[sl].to(dev), weight[sl].to(dev), max_len, chunk=chunk,
+            neigh=neigh.to(dev),
+        )
+        nodes.append(n)
+        loads.append(load)
+    load = _sum_over_shards(loads)
+    maxc = torch.where(adj.to(load.device) > 0, load, 0.0).max()
+    return nodes, load, maxc
+
+
+def route_adaptive_sharded(
+    adj: torch.Tensor,  # [V, V] 0/1 (replicated)
+    util: torch.Tensor,  # [V, V] f32 measured utilization (replicated)
+    src: torch.Tensor,  # [F] int32 (-1 pad)
+    dst: torch.Tensor,
+    weight: torch.Tensor,  # [F] f32 (0 pad)
+    n_valid: int,
+    mesh: ShardMesh,
+    levels: int,
+    max_len: int = 8,
+    rounds: int = 2,
+    n_candidates: int = 4,
+    bias: float = 1.0,
+    dist=None,  # cached distances: [V, V] tensor or row-sharded list
+    packed: bool = False,
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
+) -> tuple[list, list, list, torch.Tensor]:
+    """``oracle.adaptive.route_adaptive`` with the flow batch sharded over
+    every shard of the mesh.
+
+    Shard q makes the UGAL choice for flows ``[q*F/s, (q+1)*F/s)`` with
+    ``fid_base = q*F/s`` and builds their traffic; the shards' traffic
+    matrices are summed in shard order (the reference's ``psum``), and
+    the balancer runs on the whole batch's traffic, so split weights and
+    load are the single-device program's. Then each shard samples both
+    segments of its flows with kernel K2 (salts 0 and ``0x5BD1E995``,
+    as the reference's), every launch on a device sharing one set-up.
+    Traffic accumulates in float64 per shard and is cast once after the
+    sum, as ``route_adaptive`` does, so the result equals the
+    single-device port's on the same batch; against the reference's f32
+    sums it is bit-equal where the weights sum exactly (integers).
+
+    Without ``dist`` the exact distances of ``oracle.apsp.apsp_distances``
+    are used, as the reference does (no kernel K1); row-sharded ``dist``
+    is replicated by one K3 launch. Returns ``(inter, nodes1, nodes2,
+    load)``: per-shard lists of ``[F/s]`` intermediates and
+    ``[F/s, max_len]`` node rows, and the replicated ``[V, V]`` load. With
+    ``packed=True`` the segments come back as the int8 slot streams;
+    decode them with ``oracle.adaptive.decode_segments``."""
+    from sdnmpi_tpu_torch.oracle.adaptive import (
+        congestion_cost,
+        dag_weighted_costs,
+        ugal_choose,
+    )
+    from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
+    from sdnmpi_tpu_torch.oracle.dag import (
+        balance_rounds,
+        decode_slots_device,
+        sampled_hops,
+    )
+
+    v = adj.shape[0]
+    parts = _flow_slices(src.shape[0], mesh)
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    if dist is None:
+        d_dev = _per_device(mesh, lambda dev: apsp_distances(adj.to(dev)))
+    else:
+        full = _replicated(dist, mesh)
+        d_dev = {}
+        for q, dev in enumerate(mesh.devices):
+            d_dev.setdefault(dev, full[q])
+    dmin = _per_device(mesh, lambda dev: dag_weighted_costs(
+        adj.to(dev), d_dev[dev], congestion_cost(adj.to(dev), util.to(dev)),
+        levels, neigh=neigh.to(dev),
+    ))
+    seg, traffic_parts = [], []
+    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
+        s, t = src[sl].to(dev), dst[sl].to(dev)
+        inter = ugal_choose(
+            dmin[dev], s, t, n_valid, n_candidates=n_candidates, bias=bias,
+            fid_base=sl.start,
+        )
+        s, t = s.long(), t.long()
+        detour = inter >= 0
+        mid = torch.where(detour, inter.long(), t)
+        s2 = torch.where(detour, mid, -1)
+        d2 = torch.where(detour, t, -1)
+        w_live = torch.where(
+            (s >= 0) & (t >= 0), weight[sl].to(dev).to(torch.float64), 0.0)
+        tr = torch.zeros(v * v, dtype=torch.float64, device=dev)
+        tr.index_add_(0, mid.clamp(min=0) * v + s.clamp(min=0),
+                      torch.where(s >= 0, w_live, 0.0))
+        tr.index_add_(0, d2.clamp(min=0) * v + s2.clamp(min=0),
+                      torch.where(detour, w_live, 0.0))
+        traffic_parts.append(tr)
+        seg.append((inter, s.to(torch.int32), mid.to(torch.int32),
+                    s2.to(torch.int32), d2.to(torch.int32)))
+    # the one collective: every shard balances the whole batch's traffic
+    traffic = _sum_over_shards(traffic_parts).to(torch.float32).reshape(v, v)
+    balanced = _per_device(mesh, lambda dev: balance_rounds(
+        adj.to(dev), d_dev[dev], util.to(dev), traffic.to(dev),
+        levels=levels, rounds=rounds,
+    )[:2])
+    # K2's set-up once per device, shared by both segments of its shards
+    tables = _per_device(mesh, lambda dev: sampler_tables(
+        balanced[dev][0], d_dev[dev], None, neigh=neigh.to(dev)))
+    hops = sampled_hops(max_len)
+    inters, out1, out2 = [], [], []
+    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
+        inter, s, mid, s2, d2 = seg[q]
+        w, d = balanced[dev][0], d_dev[dev]
+        sl1 = sample_slots(w, d, s, mid, hops, fid_base=sl.start,
+                           tables=tables[dev])
+        sl2 = sample_slots(w, d, s2, d2, hops, salt=0x5BD1E995,
+                           fid_base=sl.start, tables=tables[dev])
+        if not packed:
+            a = adj.to(dev)
+            sl1 = decode_slots_device(a, sl1, s, mid)[:, :max_len]
+            sl2 = decode_slots_device(a, sl2, s2, d2)[:, :max_len]
+        inters.append(inter)
+        out1.append(sl1)
+        out2.append(sl2)
+    return inters, out1, out2, balanced[mesh.devices[0]][1]
+
+
+def multichip_route_step(
+    adj: torch.Tensor,
+    base_cost: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    weight: torch.Tensor,
+    mesh: ShardMesh,
+    max_len: int,
+    chunk: int = 1024,
+    neigh: torch.Tensor | None = None,
+):
+    """The whole sharded oracle step: distances row-sharded over the
+    mesh's "v" axis (the matmul BFS, no kernel K1), the blocks joined
+    into the replicated matrix (the reference's implicit XLA all-gather,
+    not its ring kernel), then :func:`route_flows_sharded`."""
+    blocks = apsp_distances_sharded(adj, mesh)
+    dist = torch.cat([b.to(adj.device) for b in blocks])
+    return route_flows_sharded(
+        adj, dist, base_cost, src, dst, weight, mesh, max_len, chunk, neigh,
+    )

@@ -318,10 +318,12 @@ def test_py_backend_fall_backs_match_jax_py():
 
 
 def test_mesh_oracle_raises_on_unported_sharded_legs():
-    """With a shard mesh the sharded chase and the sharded UGAL program
-    raise, naming ROADMAP A12 item 3; nothing routes on one device in
-    their place. The legs the reference runs on one device beside a mesh
-    (the host chase, the greedy scanner) still answer."""
+    """With a shard mesh every leg routes as the reference's single
+    device does: past the host chase's budget the sharded chase of
+    row-sharded next hops (``shard_oracle``), the shortest collective on
+    them, and the sharded UGAL program with or without ``shard_oracle``;
+    the greedy scanner and the one-device chase beside a mesh still
+    answer too. Nothing raises."""
     jdb, _, macs = _fabric("fattree4")
     pairs = _pairs(macs)
     sdb = topology_from_dict(jdb.to_dict(), device="cpu", mesh_devices=4,
@@ -330,19 +332,20 @@ def test_mesh_oracle_raises_on_unported_sharded_legs():
     ref = jdb.find_routes_batch(pairs)
     assert sdb.find_routes_batch(pairs) == ref  # small: the host chase
     sdb._oracle_engine().host_chase_hop_budget = 0
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        sdb.find_routes_batch(pairs)
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        sdb.find_routes_batch_dispatch(pairs)
+    assert sdb.find_routes_batch(pairs) == ref
+    assert sdb.find_routes_batch_dispatch(pairs).reap().fdbs() == ref
     n = len(macs)
     src, dst = np.arange(n), np.roll(np.arange(n), 1)
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        sdb.find_routes_collective(macs, src, dst, policy="shortest")
+    want = jdb.find_routes_collective(macs, src, dst, policy="shortest")
+    got = sdb.find_routes_collective(macs, src, dst, policy="shortest")
+    np.testing.assert_array_equal(got.hop_dpid, want.hop_dpid)
+    assert got.max_congestion == want.max_congestion
+    want = jdb.find_routes_collective(macs, src, dst, policy="adaptive")
     for db in (sdb, mdb):
-        with pytest.raises(NotImplementedError, match="A12 item 3"):
-            db.find_routes_batch_adaptive(pairs)
-        with pytest.raises(NotImplementedError, match="A12 item 3"):
-            db.find_routes_collective(macs, src, dst, policy="adaptive")
+        assert db.find_routes_batch_adaptive(pairs) == jdb.find_routes_batch_adaptive(pairs)
+        got = db.find_routes_collective(macs, src, dst, policy="adaptive")
+        np.testing.assert_array_equal(got.hop_dpid, want.hop_dpid)
+        assert (got.max_congestion, got.n_detours) == (want.max_congestion, want.n_detours)
         assert db.find_routes_batch_balanced(pairs) == jdb.find_routes_batch_balanced(pairs)
     mdb._oracle_engine().host_chase_hop_budget = 0
     assert mdb.find_routes_batch(pairs) == ref  # no shard_oracle: one device

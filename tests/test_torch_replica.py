@@ -187,8 +187,15 @@ def _storm(S, steps, seed, victim, kill_at, wire):
     spec = S.topogen.fattree(4)
     fabric = spec.to_fabric(wire=wire)
     clock = Clock()
+    # the coalescer also flushes when coalesce_window_s of wall time has
+    # passed since a burst opened; a pause that long inside one package's
+    # run (a collection, a loaded worker) cuts its bursts apart and the
+    # seeded plan then draws its faults against other sends. A window no
+    # storm reaches leaves the flushes to the batch cap and the fabric's
+    # idle edge, which both packages hit at the same sends.
     cfg = S.Config(oracle_backend="py", proactive_collectives=False,
-                   coalesce_routes=True, **FAST_RECOVERY)
+                   coalesce_routes=True, coalesce_window_s=3600.0,
+                   **FAST_RECOVERY)
     pair = mod(S, "control.replica").build_pair(fabric, cfg, clock=clock)
     pair.attach()
     macs = [S.topogen.host_mac(r) for r in range(8)]

@@ -291,8 +291,12 @@ def test_oracle_mesh_rules():
     assert isinstance(o, HierOracle) and not o.hier_ring and o._dag_mesh() is None
     db = TopologyDB(device="cpu", mesh_devices=4, shard_oracle=True)
     assert db._oracle_engine().mesh_devices == 4
-    with pytest.raises(NotImplementedError, match="A12"):
-        pshard.route_flows_sharded()
+    # the flow-sharded legs take batches that divide by the shard count
+    with pytest.raises(ValueError, match="divide"):
+        pshard.route_flows_sharded(
+            torch.zeros(8, 8), torch.zeros(8, 8), torch.zeros(8, 8),
+            torch.zeros(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int32),
+            torch.ones(3), db._oracle_engine()._dag_mesh(), 4)
 
 
 @pytest.mark.parametrize("mode", ["mesh", "shard"])

@@ -252,23 +252,34 @@ def test_single_routes_and_mutation_match():
 
 
 def test_unported_surface_raises():
-    d = j_fattree(4).to_topology_db(backend="jax").to_dict()
+    """The phased and delta legs on a shard mesh reach the sharded legs
+    and answer as the reference's single device: the phased adaptive
+    collective (sharded UGAL per phase), the narrowed re-route past the
+    host chase's budget (the device chase of row-sharded next hops), and
+    ``warm_serving`` of an empty sharded TopologyDB (nothing to warm)."""
+    jdb = j_fattree(4).to_topology_db(backend="jax")
+    d = jdb.to_dict()
     pdb = topology_from_dict(d, device="cpu", mesh_devices=2)
     macs = list(pdb.hosts)[:4]
-    # the phased and delta legs work (tests/test_torch_{sched,delta_reval}.py);
-    # on a shard mesh they still reach the sharded legs that do not
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        pdb.find_routes_collective(macs, [0], [1], policy="adaptive", schedule=2)
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        pdb.find_routes_collective_phased(macs, [0], [1], policy="adaptive")
+    for kw in (dict(schedule=2), {}):
+        fn = "find_routes_collective" if kw else "find_routes_collective_phased"
+        got = getattr(pdb, fn)(macs, [0, 2], [1, 3], policy="adaptive", **kw)
+        want = getattr(jdb, fn)(macs, [0, 2], [1, 3], policy="adaptive", **kw)
+        assert got.n_phases == want.n_phases
+        assert got.pair_phase.tolist() == want.pair_phase.tolist()
+        for pg, pw in zip(got.phases, want.phases):
+            np.testing.assert_array_equal(pg.reap().hop_dpid, pw.reap().hop_dpid)
     sdb = topology_from_dict(d, device="cpu", mesh_devices=2, shard_oracle=True)
     # past the host chase's hop budget: the device chase of row-sharded
     # next hops
     big = [(a, b) for a in sdb.hosts for b in sdb.hosts if a != b] * 3
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        sdb.find_routes_batch_delta_dispatch(big, [1])
-    with pytest.raises(NotImplementedError, match="A12 item 3"):
-        TopologyDB(device="cpu", mesh_devices=2, shard_oracle=True).warm_serving()
+    got = sdb.find_routes_batch_delta_dispatch(big, [1]).reap()
+    want = jdb.find_routes_batch_delta_dispatch(big, [1]).reap()
+    np.testing.assert_array_equal(got.hop_dpid, want.hop_dpid)
+    np.testing.assert_array_equal(got.touched, want.touched)
+    assert len(big) * 8 > sdb._oracle_engine().host_chase_hop_budget
+    assert TopologyDB(device="cpu", mesh_devices=2, shard_oracle=True).warm_serving() == {
+        "warm_s": 0.0, "shapes": [], "max_len": 0}
 
 
 @pytest.mark.parametrize("name,args", [

@@ -49,14 +49,16 @@ def test_every_port_instrument_is_a_reference_instrument():
     for name, r in got.items():
         for key in ("kind", "label", "owner"):
             assert r[key] == ref[name][key], (name, key)
-    # what the reference has beyond the port: the sharded window legs
-    # and the ring's overlap (A12 items 3 and 4) and the JAX trace
-    # counter; the hierarchical oracle's instruments are all here
+    # what the reference has beyond the port: the ring's overlap (A3)
+    # and the JAX trace counter; the sharded legs' and the hierarchical
+    # oracle's instruments are all here
     extra = set(ref) - set(got)
-    assert all(n.startswith(("shard_", "ring_exchange_", "jit_traces_"))
+    assert all(n.startswith(("ring_exchange_", "jit_traces_"))
                for n in extra), sorted(extra)
     assert not extra & {"ring_exchange_stall_seconds", "shard_exchange_seconds"}
-    assert {n for n in ref if n.startswith("hier_")} <= set(got)
+    assert {n for n in ref if n.startswith(("hier_", "shard_"))} <= set(got)
+    assert {"shard_dispatch_seconds", "shard_reap_seconds",
+            "shard_exchange_overlap_gain", "shard_occupancy_imbalance"} <= set(got)
 
 
 def test_owner_table_and_modules_match_the_reference():
