@@ -6,8 +6,9 @@ package's kernels from ``sdnmpi_tpu_torch/kernels/csrc``. Phases, in
 order; the first failure ends the run with a non-zero exit:
 
 1. device   — a CUDA card is present; print its name and power limit.
-2. build    — build kernels K1 (BFS), K2 (path sampler and its set-up)
-               and K3 (all-gather), one nvcc per source, in parallel.
+2. build    — build kernels K1 (BFS), K2 (path sampler and its set-up),
+               K3 (all-gather), S1 (greedy scanner) and S2 (phase
+               packer), one nvcc per source, in parallel.
 3. kernels  — K1 exactly against its plain version at every sources-per-
                block width that fits (config 4's fat-tree at its
                diameter, 2 and 0 levels; an asymmetric random digraph
@@ -54,7 +55,8 @@ order; the first failure ends the run with a non-zero exit:
                find_routes_batch (device and host chase) and
                find_routes_batch_dispatch on that fabric with the same
                flows as host pairs; every fdb checked, the shortest legs
-               against find_route.
+               against find_route; the greedy leg's scanner call (S1,
+               chunk 4096) equal to its plain version.
 12. collective policies — find_routes_collective(policy="shortest" and
                "adaptive") over phase 4's fat-tree and alltoall, every
                pair checked.
@@ -110,13 +112,19 @@ order; the first failure ends the run with a non-zero exit:
                bit, config 4's balanced collective with the plane equal
                to the dict's, hot_links(8) equal to a numpy stable sort.
 20. phased collectives — config 12's shape (k=16 fat-tree, 512-rank
-               alltoall): the device packer against its host twin (both
-               timed), routes_collective_phased with auto K on the
-               adaptive policy (512 ranks) and the balanced policy's
-               greedy scanner (64 ranks), partitions and shortest real
-               paths checked, congestion over the flat fractional bound;
-               then 128 ranks through the Controller with
-               schedule_collectives, every FlowMod on its route's switch.
+               alltoall, 261,632 pairs), uncut: S2 at 4,096 groups
+               against its host twin and its plain version (all timed),
+               routes_collective_phased with auto K on the adaptive and
+               the balanced policy (every sub-flow through S1 at chunk
+               1; one phase of a 128-rank, two-pod program held against
+               the plain scanner, and so are S1 on an 80-slot
+               neighbour table and S2 at V = 3,968 and K = 16;
+               every phase's load equal to the load of its paths),
+               partitions and shortest real paths checked, walls and
+               congestion over the flat fractional bound; then the
+               512 ranks through the Controller with
+               schedule_collectives on both policies, every FlowMod on
+               its route's switch.
 21. audit and traffic plane — config 16's shape (k=16 wire fat-tree,
                1,536 pairs): eight seeded table mutations, each confirmed
                once and healed within five audited passes, then one
@@ -180,15 +188,18 @@ order; the first failure ends the run with a non-zero exit:
                and config 13's find_routes_collective(policy="adaptive"),
                both equal to one device, K2 timed at a shard's UGAL
                segment; (e) route_flows_sharded and multichip_route_step
-               on config 13's alltoall, every path shortest and the
-               summed load equal to link_loads of the paths.
+               on config 13's alltoall (S1 once per shard, one shard's
+               call equal to the plain scanner and timed), every path
+               shortest and the summed load equal to link_loads of the
+               paths.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
 (phase 5), one steady sharded find_routes_collective and one sharded
 refresh (phase 8), one route_collective_sharded call per mode (phase 9),
 route_adaptive(dist=None) (phase 10, exactly K1 1, set-up 1, K2 2), each
-pair-batch entry point (phase 11), each collective policy (phase 12),
+pair-batch entry point (phase 11; the greedy leg S1 once, the others no
+S1), each collective policy (phase 12),
 one controller block install (phase 13, K1 0, set-up 1, K2 1), and the
 packet-in burst, the adaptive window install (K1 0, set-up 1, K2 2) and
 the link failure of phase 14, each launcher run of phase 15 (demo and
@@ -197,8 +208,9 @@ least 1), the TCP block install of phase 16 (K1 0, set-up 1, K2 1) and
 each serving run of phase 17, the flap storm of phase 18 (nothing: the
 shortest leg runs no kernel), the collective with the utilization plane
 of phase 19 (K1 0, set-up 1, K2 1), and the flat batches, the phased
-programs (adaptive: set-up 1 and K2 2 per phase; the scanner: none) and
-the phased Controller install of phase 20, the Monitor passes of phase
+programs (S2 once each; adaptive: set-up 1 and K2 2 per phase; balanced:
+S1 once per phase) and the phased Controller installs of phase 20, the
+Monitor passes of phase
 13 and the audited passes of phase 21 (no K1, no K3; the sentinel's
 default sample of 64 pairs takes the greedy scanner), phase 21's
 whole-population sentinel sweep (K1 0, set-up 1, K2 1), the launcher run
@@ -208,7 +220,8 @@ phase 24 (K1 and K2 0; K3 at least 1 on each refresh with the ring),
 and phase 25's legs (each window and narrowed re-route: K3 1, nothing
 else; warm_serving: K3 1 per warmed bucket; the shortest collective: K3
 1 on its first call after a refresh, 0 after; each UGAL leg: set-up 1,
-K2 2 per shard, no K1, no K3; the library legs: nothing), against the
+K2 2 per shard, no K1, no K3; the library legs: S1 once per shard,
+nothing else), against the
 counts each path must launch.
 A kernel of a path that did not launch in its call fails the run. The
 wall of every phase is logged after it, and all phases' wall before the
@@ -224,12 +237,15 @@ has a launch count of its own: every call must launch it once for its
 one device, however many shards sample, and the profiles of the entry
 points and the programs must show no sort kernel. Every K3 launch of
 phase 25 is recorded and held against the plain version on its own
-blocks. Nothing here imports JAX or the JAX package.
+blocks. S1 and S2 count in every path's launches as K1-K3 do (none on
+the paths not named above). Nothing here imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import logging
@@ -281,16 +297,28 @@ CACHE_WINDOW = 256
 #: phase 18: config 8's storm (benchmarks/config8_churn.py runs 100 flaps)
 CHURN_FLAPS = 20
 #: phase 20: config 12's shape (benchmarks/config12_schedule.py:42-43), a
-#: k=16 fat-tree and a 512-rank alltoall. The balanced policy's greedy
-#: scanner routes one sub-flow per step (1.7-3.0 ms each on an H100), so
-#: its programs are cut in collective size: the direct program to the
-#: first 64 ranks, the Controller's phased installs (the balanced one is
-#: what --schedule-phases runs by default) to 128, above the block
-#: threshold
+#: k=16 fat-tree and a 512-rank alltoall (261,632 pairs), uncut: the
+#: direct programs and the Controller's phased installs (the balanced one
+#: is what --schedule-phases runs by default) at all 512 ranks, the
+#: balanced phases' sub-flows scanned by kernel S1 one at a time. The
+#: plain scanner (a loop of ~40 torch ops a hop, about 4 ms a row at
+#: max_len 5) holds one phase of a 128-rank program, ~4,000 sub-flows:
+#: two pods, so cross-pod paths of 4 hops choose among the core uplinks
+#: (the first 64 ranks are one pod, where every path stays below the
+#: cores); a 512-rank phase (~65,000 rows) would take minutes
 SCHED_K = 16
 SCHED_RANKS = 512
-SCHED_SCAN_RANKS = 64
-SCHED_CTL_RANKS = 128
+SCHED_HOLD_RANKS = 128
+#: S2 held at config 13's V and K = 16 (phase 20's program has K = 4),
+#: seeded rows
+PACK_WIDE_V = 3968
+PACK_WIDE_K = 16
+#: S1 held on a neighbour table wider than 64 slots (random_regular(256,
+#: 80), diameter 2: ~25 equal-cost middles a pair across three 32-slot
+#: groups), 4,096 seeded weight-1 flows in chunks of 256
+SCAN_WIDE = (256, 80)
+SCAN_WIDE_FLOWS = 4096
+SCAN_WIDE_CHUNK = 256
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -835,6 +863,75 @@ def recording_sampler(calls: list):
         adaptive.sample_slots = sampler.sample_slots
 
 
+@contextlib.contextmanager
+def recording_scanner(calls: list):
+    """Record ``(args, kwargs, result)`` of every greedy scanner call
+    (kernel S1) that ``oracle.engine`` (the balanced pair batch and the
+    phase-grain leg) and ``shardplane.routes`` (one call per shard) make
+    while the context is open."""
+    from sdnmpi_tpu_torch.oracle import congestion, engine
+    from sdnmpi_tpu_torch.shardplane import routes
+
+    def record(*args, **kw):
+        out = congestion.route_flows_balanced(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    engine.route_flows_balanced = routes.route_flows_balanced = record
+    try:
+        yield
+    finally:
+        engine.route_flows_balanced = congestion.route_flows_balanced
+        routes.route_flows_balanced = congestion.route_flows_balanced
+
+
+def check_scan(args: tuple, kw: dict, got, what: str) -> float:
+    """One kernel S1 call held against ``route_flows_balanced_plain`` on
+    its own arguments on the card: nodes, load and max exactly equal.
+    Returns the plain version's wall in ms."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced_plain
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = route_flows_balanced_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for name, g, w in zip(("nodes", "load", "max"), got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            fail(f"S1 {what}: {name} differs from route_flows_balanced_plain")
+    log(f"S1 {what}: nodes {tuple(got[0].shape)}, load and max equal to the "
+        f"plain version (plain {plain_ms:.1f} ms on the card)")
+    return plain_ms
+
+
+def scan_work(args: tuple, kw: dict, got) -> dict:
+    """What one scanner call's data needs: its live flows, the moves
+    (flow hops that placed load), the dependent hop steps the kernel runs
+    in order (per chunk, its longest path's hops plus the step that
+    finds no flow moving), and the bytes and operations of its bound:
+    the flow rows read and the node rows and the [V, V] f32 load written
+    once, a neighbour row and each slot's distance, base and load read
+    per move."""
+    nodes = got[0].cpu().numpy()
+    u, max_len = nodes.shape
+    chunk = kw.get("chunk", 4096)
+    v = args[0].shape[0]
+    d = kw["neigh"].shape[1]
+    hops = (nodes >= 0).sum(axis=1) - 1  # -1 for dead rows
+    live = int((args[3].cpu().numpy() >= 0).sum())
+    moves = int(hops[hops > 0].sum())
+    n_chunks = -(-u // chunk)
+    per_chunk = np.full(n_chunks * chunk, -1, np.int64)
+    per_chunk[:u] = hops
+    steps = per_chunk.reshape(n_chunks, chunk).max(axis=1)
+    steps = int((steps[steps >= 0] + 1).sum())
+    n_bytes = u * 12 + u * max_len * 4 + v * v * 4 + moves * d * 16
+    return {"flows": live, "moves": moves, "steps": steps, "bytes": n_bytes,
+            "ops": moves * d * 4}
+
+
 def check_k2_calls(calls: list, launches: int, what: str) -> float:
     """Every recorded K2 call of one path's run, its ``fid_base``
     included, bit-equal to the plain version on its own arguments;
@@ -868,25 +965,48 @@ def checked_launches(fn, what: str, report: dict, installs: int = 1) -> dict:
     return counts
 
 
+def counted_wrappers() -> dict:
+    """Every kernel wrapper by its name in the report, each with its
+    launch count."""
+    from sdnmpi_tpu_torch.kernels import bfs, ring, sampler
+    from sdnmpi_tpu_torch.oracle import congestion
+    from sdnmpi_tpu_torch.sched import phases
+
+    return {
+        "bfs_distances": bfs.bfs_distances,
+        "sampler_tables": sampler.sampler_tables,
+        "sample_slots": sampler.sample_slots,
+        "ring_all_gather": ring.ring_all_gather,
+        "route_flows_balanced": congestion.route_flows_balanced,
+        "pack_greedy": phases._pack_greedy_device,
+    }
+
+
+def zero_launches() -> None:
+    for fn in counted_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
+
+
 def path_launches(fn) -> dict:
     """Run ``fn()`` with every launch count zeroed just before it and
     return the counts just after."""
     import torch
 
-    from sdnmpi_tpu_torch.kernels import bfs, ring, sampler
-
-    bfs.bfs_distances.launches = 0
-    sampler.sample_slots.launches = 0
-    ring.ring_all_gather.launches = 0
-    sampler.sampler_tables.launches = 0
+    zero_launches()
     fn()
     torch.cuda.synchronize()
-    return {
-        "bfs_distances": bfs.bfs_distances.launches,
-        "sampler_tables": sampler.sampler_tables.launches,
-        "sample_slots": sampler.sample_slots.launches,
-        "ring_all_gather": ring.ring_all_gather.launches,
-    }
+    return read_launches()
+
+
+def launches_of(k1=0, setup=0, k2=0, k3=0, scan=0, pack=0) -> dict:
+    """The launch counts a path must make: K1, K2's set-up, K2, K3, the
+    scanner S1 and the packer S2."""
+    return {"bfs_distances": k1, "sampler_tables": setup, "sample_slots": k2,
+            "ring_all_gather": k3, "route_flows_balanced": scan, "pack_greedy": pack}
 
 
 def require_one_set_up(counts: dict, what: str) -> None:
@@ -1451,8 +1571,7 @@ def phase_ugal_program(device, report: dict) -> dict:
         counts = path_launches(lambda: out.update(r=run()))
     require_launched(counts, ("bfs_distances", "sampler_tables", "sample_slots"),
                      "route_adaptive(dist=None)")
-    want = {"bfs_distances": 1, "sampler_tables": 1, "sample_slots": 2,
-            "ring_all_gather": 0}
+    want = launches_of(k1=1, setup=1, k2=2)
     if counts != want:
         fail(f"route_adaptive: launches {counts}, want {want}")
     err = check_k2_calls(k2_calls, 2, "UGAL program")
@@ -1551,8 +1670,9 @@ def phase_pair_batches(device, report: dict) -> list:
     against ``find_route`` on 1,000 pairs, launch counts per call held,
     and every K2 call of the counted run (the adaptive batch's two
     segments, the DAG leg's one) recorded and held bit for bit, its
-    set-up's tables included, against the plain versions. Returns the
-    launch counts of each call."""
+    set-up's tables included, against the plain versions; the greedy
+    leg's scanner call (kernel S1, chunk 4096) held against its plain
+    version exactly. Returns the launch counts of each call."""
     p = dragonfly_problem(device)
     spec, t = p["spec"], p["t"]
     db = spec.to_topology_db(backend="torch", device=device)
@@ -1570,29 +1690,33 @@ def phase_pair_batches(device, report: dict) -> list:
     calls = [
         ("find_routes_batch_adaptive", lambda: db.find_routes_batch_adaptive(
             pairs, link_util=link_util, ugal_candidates=DFLY_CANDIDATES),
-         {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 2}, pairs),
+         launches_of(setup=1, k2=2), pairs),
         ("find_routes_batch_balanced (DAG leg)", lambda: db.find_routes_batch_balanced(
             pairs, link_util=link_util),
-         {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1}, pairs),
+         launches_of(setup=1, k2=1), pairs),
         ("find_routes_batch_balanced (greedy leg, 64 pairs)",
          lambda: db.find_routes_batch_balanced(pairs[:64], link_util=link_util),
-         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs[:64]),
+         launches_of(scan=1), pairs[:64]),
         ("find_routes_batch (device chase)", lambda: db.find_routes_batch(pairs),
-         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs),
+         launches_of(), pairs),
         ("find_routes_batch (host chase, 100 pairs)",
          lambda: db.find_routes_batch(pairs[:100]),
-         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs[:100]),
+         launches_of(), pairs[:100]),
         ("find_routes_batch_dispatch().reap()",
          lambda: db.find_routes_batch_dispatch(pairs).reap().fdbs(),
-         {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0}, pairs),
+         launches_of(), pairs),
     ]
     all_counts = []
     for what, fn, want, these in calls:
         out, first, steady, times = timed_calls(fn)
         res = {}
-        counts = checked_launches(lambda: res.update(r=fn()), what, report)
-        if any(counts[k] != n for k, n in want.items()) or counts["ring_all_gather"]:
+        scans: list = []
+        with recording_scanner(scans):
+            counts = checked_launches(lambda: res.update(r=fn()), what, report)
+        if counts != want:
             fail(f"{what}: launches {counts}, want {want}")
+        for args, kw, got in scans:
+            check_scan(args, kw, got, f"config 5 {what}, chunk {kw['chunk']}")
         all_counts.append(counts)
         fdbs = out if isinstance(out, list) else out[0]
         if res["r"] != out:
@@ -1634,8 +1758,8 @@ def phase_collective_policies(device, report: dict) -> list:
     src_idx, dst_idx = pairs[:, 0], pairs[:, 1]
     del pairs
     wants = {
-        "shortest": {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0},
-        "adaptive": {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 2},
+        "shortest": launches_of(),
+        "adaptive": launches_of(setup=1, k2=2),
     }
     all_counts = []
     for policy, want in wants.items():
@@ -1647,7 +1771,7 @@ def phase_collective_policies(device, report: dict) -> list:
         routes, first, steady, times = timed_calls(route)
         res = {}
         counts = checked_launches(lambda: res.update(r=route()), what, report)
-        if any(counts[k] != n for k, n in want.items()) or counts["ring_all_gather"]:
+        if counts != want:
             fail(f"{what}: launches {counts}, want {want}")
         all_counts.append(counts)
         for field in ("pair_sub", "hop_dpid", "hop_port", "hop_len"):
@@ -1842,8 +1966,7 @@ def phase_controller_collective(device, report: dict) -> list:
     out: dict = {}
     counts = checked_launches(lambda: out.update(first=kickoff(0, 1)),
                               "controller collective (block install)", report)
-    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-            "ring_all_gather": 0}
+    want = launches_of(setup=1, k2=1)
     if counts != want:
         fail(f"controller collective: launches {counts}, want {want}")
     install = next(iter(router.collectives))
@@ -2152,8 +2275,7 @@ def phase_controller_packet_in(device, report: dict) -> list:
         out["ms"] = (mods[-1] - t_send) * 1e3
 
     counts_b = checked_launches(kickoff, "adaptive window install", report)
-    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 2,
-            "ring_all_gather": 0}
+    want = launches_of(setup=1, k2=2)
     if counts_b != want:
         fail(f"adaptive window install: launches {counts_b}, want {want}")
     n_pairs = CTL_WINDOW_RANKS * (CTL_WINDOW_RANKS - 1)
@@ -2392,8 +2514,7 @@ def phase_launcher(device, report: dict, k: int = FATTREE_K,
 
     counts_a, rec = run_launcher(base + demo + ["--checkpoint", ckpt_a],
                                  "launcher demo", report)
-    want(counts_a, {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-                    "ring_all_gather": 0}, "launcher demo")
+    want(counts_a, launches_of(setup=1, k2=1), "launcher demo")
     max_congestion = float(installed(rec, "launcher demo").max_congestion)
     size_a = os.path.getsize(ckpt_a)
     log(f"launcher demo: start -> demo flows installed "
@@ -2406,8 +2527,7 @@ def phase_launcher(device, report: dict, k: int = FATTREE_K,
 
     counts_b, rec = run_launcher(base + ["--restore", ckpt_a, "--checkpoint", ckpt_b],
                                  "launcher restore", report)
-    want(counts_b, {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-                    "ring_all_gather": 0}, "launcher restore")
+    want(counts_b, launches_of(setup=1, k2=1), "launcher restore")
     restored = float(installed(rec, "launcher restore").max_congestion)
     if restored != max_congestion:
         fail(f"launcher restore: max congestion {restored}, saved {max_congestion}")
@@ -2435,8 +2555,9 @@ def phase_launcher(device, report: dict, k: int = FATTREE_K,
 
     sharded = ["--shard-oracle", "--ring-exchange", "--mesh-devices", str(shards)]
     counts_c, rec = run_launcher(base + demo + sharded, "launcher sharded demo", report)
-    want(counts_c, {"bfs_distances": 0, "sampler_tables": 1,
-                    "sample_slots": shards}, "launcher sharded demo")
+    want(counts_c, {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": shards,
+                    "route_flows_balanced": 0, "pack_greedy": 0},
+         "launcher sharded demo")
     if counts_c["ring_all_gather"] < 1:
         fail(f"launcher sharded demo: K3 did not launch ({counts_c})")
     got = float(installed(rec, "launcher sharded demo").max_congestion)
@@ -2564,7 +2685,6 @@ def phase_southbound(device, report: dict, k: int = 8, n_ranks: int = 128) -> li
     from sdnmpi_tpu_torch.control import events as ev
     from sdnmpi_tpu_torch.control.southbound import OFSouthbound
     from sdnmpi_tpu_torch.core.topology_db import Host, Link, Port
-    from sdnmpi_tpu_torch.kernels import bfs, ring, sampler
     from sdnmpi_tpu_torch.protocol import ofwire
     from sdnmpi_tpu_torch.protocol import openflow as of
     from sdnmpi_tpu_torch.protocol.announcement import Announcement, AnnouncementType
@@ -2639,9 +2759,7 @@ def phase_southbound(device, report: dict, k: int = 8, n_ranks: int = 128) -> li
             mac0, VirtualMac(CollectiveType.ALLTOALL, 0, 1).encode(),
             eth_type=of.ETH_TYPE_IP), in_port=port0, xid=999)
         k2_calls: list = []
-        for fn in (bfs.bfs_distances, sampler.sample_slots, ring.ring_all_gather,
-                   sampler.sampler_tables):
-            fn.launches = 0
+        zero_launches()
         with recording_sampler(k2_calls):
             t_kick = time.perf_counter()
             switches[dpid0].send(kickoff)
@@ -2650,12 +2768,7 @@ def phase_southbound(device, report: dict, k: int = 8, n_ranks: int = 128) -> li
                     fail("southbound: the kickoff installed no block")
                 await asyncio.sleep(0.005)
             torch.cuda.synchronize()
-            out["counts"] = {
-                "bfs_distances": bfs.bfs_distances.launches,
-                "sampler_tables": sampler.sampler_tables.launches,
-                "sample_slots": sampler.sample_slots.launches,
-                "ring_all_gather": ring.ring_all_gather.launches,
-            }
+            out["counts"] = read_launches()
         report["sample_slots"]["max_abs_err"] = max(
             report["sample_slots"]["max_abs_err"],
             check_k2_calls(k2_calls, out["counts"]["sample_slots"],
@@ -2690,8 +2803,7 @@ def phase_southbound(device, report: dict, k: int = 8, n_ranks: int = 128) -> li
 
     asyncio.run(run())
     counts = out["counts"]
-    if counts != {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-                  "ring_all_gather": 0}:
+    if counts != launches_of(setup=1, k2=1):
         fail(f"southbound block install: launches {counts}")
     log(f"southbound: block install of {n_ranks * (n_ranks - 1):,} pairs sent "
         f"{out['flow_mods']:,} FlowMods to {out['switches']} switches, every one "
@@ -2743,6 +2855,8 @@ def phase_serving(device, report: dict, k: int = 8, duration: float = 1.5) -> li
     ``serving path warmed`` wall of each. Returns the launch counts of
     the two serving runs."""
     import shutil
+
+    from sdnmpi_tpu_torch.kernels import _build
 
     argv = ["--topo", f"fattree:{k}", "--wire", "--tenants", "4", "--offered-rate",
             "400", "--duration", str(duration), "--no-rpc", "--device", str(device)]
@@ -2801,7 +2915,7 @@ def phase_serving(device, report: dict, k: int = 8, duration: float = 1.5) -> li
     warm, _ = warm_start(cache, k, device)
     again = {f: os.path.getmtime(os.path.join(cache, f))
              for f in os.listdir(cache) if f.endswith(".so")}
-    if len(built) != 3 or again != built:
+    if len(built) != len(_build.SOURCES) or again != built:
         fail(f"warm start: {len(built)} libraries built, and the warm start "
              f"{'left them as they were' if again == built else 'rebuilt them'}")
     shutil.rmtree(cache, ignore_errors=True)
@@ -2881,8 +2995,7 @@ def phase_churn(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD,
     affected: list = []
     full0 = oracle.full_refresh_count
 
-    storm = {"bfs_distances": 0, "sampler_tables": 0, "sample_slots": 0,
-             "ring_all_gather": 0}
+    storm = launches_of()
 
     def absorb(dirty: set) -> None:
         nonlocal od, op, ln
@@ -3027,8 +3140,7 @@ def phase_utilplane(device, report: dict, k: int = FATTREE_K, v_pad: int = V_PAD
     out: dict = {}
     counts = checked_launches(lambda: out.update(r=route(plane)),
                               "collective with the plane", report)
-    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-            "ring_all_gather": 0}
+    want = launches_of(setup=1, k2=1)
     if counts != want:
         fail(f"collective with the plane: launches {counts}, want {want}")
     _, first, steady, times = timed_calls(lambda: route(plane))
@@ -3081,17 +3193,17 @@ def check_phased(what: str, spec, db, macs, src_idx, dst_idx, program) -> None:
 
 def phased_launches(fn, what: str, report: dict, program_of, want_k2: bool) -> dict:
     """:func:`path_launches` of ``fn()`` with every K2 call recorded, held
-    to the launches a phased program makes: no K1 and no K3; per
-    non-empty phase of ``program_of()`` (read after the run) one K2
-    set-up and two K2 launches sharing it on the adaptive policy, or
-    none on the scanner's; every K2 call and its tables held against the
-    plain versions."""
+    to the launches a phased program makes: no K1 and no K3; S2 once;
+    per non-empty phase of ``program_of()`` (read after the run) one K2
+    set-up and two K2 launches sharing it on the adaptive policy, or one
+    S1 launch on the balanced policy; every K2 call and its tables held
+    against the plain versions."""
     k2_calls: list = []
     with recording_sampler(k2_calls):
         counts = path_launches(fn)
     n = len(program_of().phases)
-    want = {"bfs_distances": 0, "sampler_tables": n if want_k2 else 0,
-            "sample_slots": 2 * n if want_k2 else 0, "ring_all_gather": 0}
+    want = (launches_of(setup=n, k2=2 * n, pack=1) if want_k2
+            else launches_of(scan=n, pack=1))
     if counts != want:
         fail(f"{what}: launches {counts}, want {want}")
     report["sample_slots"]["max_abs_err"] = max(
@@ -3108,7 +3220,7 @@ def phased_run(what: str, oracle, db, spec, macs, src_idx, dst_idx, policy: str,
     """One phased program through ``routes_collective_phased_dispatch``
     and its reaps, timed apart; its launches held by
     :func:`phased_launches`; checked with :func:`check_phased`. Returns
-    (launch counts, program)."""
+    (launch counts, program, wall in ms)."""
     import torch
 
     out: dict = {}
@@ -3127,11 +3239,12 @@ def phased_run(what: str, oracle, db, spec, macs, src_idx, dst_idx, policy: str,
     program = out["program"]
     n = len(program.phases)
     check_phased(what, spec, db, macs, src_idx, dst_idx, program)
+    wall = out["dispatch"] + out["reap"]
     log(f"{what}: K={program.n_phases} ({n} non-empty), pairs per phase "
-        f"{[p.n_pairs for p in program.phases]}; dispatch {out['dispatch']:.1f} ms "
-        f"(the packer, then every phase enqueued), reaps {out['reap']:.1f} ms; "
-        f"launches {counts}")
-    return counts, program
+        f"{[p.n_pairs for p in program.phases]}; wall {wall:.1f} ms = dispatch "
+        f"{out['dispatch']:.1f} ms (the packer, then every phase enqueued) + reaps "
+        f"{out['reap']:.1f} ms ({CARD}); launches {counts}")
+    return counts, program, wall
 
 
 def controller_phased(spec, device, policy: str, n_ranks: int, report: dict) -> dict:
@@ -3215,27 +3328,107 @@ def controller_phased(spec, device, policy: str, n_ranks: int, report: dict) -> 
     return counts
 
 
+def hold_pack_wide(device) -> None:
+    """Kernel S2 through its wrapper at :data:`PACK_WIDE_V` switches and
+    :data:`PACK_WIDE_K` phases (16 lanes scoring, a 508 KB state): 4,096
+    seeded rows, heaviest first, with a seeded background, against
+    ``_pack_greedy_plain`` on the card, exactly."""
+    import torch
+
+    from sdnmpi_tpu_torch.sched.phases import _pack_greedy_device, _pack_greedy_plain
+
+    v, k, g = PACK_WIDE_V, PACK_WIDE_K, 4096
+    rng = np.random.default_rng(13)
+    src = rng.integers(0, v, g).astype(np.int32)
+    dst = rng.integers(0, v, g).astype(np.int32)
+    w = rng.integers(1, 65, g).astype(np.float32)
+    order = np.argsort(-w, kind="stable")
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    rows = (put(src[order]), put(dst[order]), put(w[order]),
+            put((rng.random(v) * 4).astype(np.float32)),
+            put((rng.random(v) * 4).astype(np.float32)))
+    got = _pack_greedy_device(*rows, k)
+    want = _pack_greedy_plain(*rows, k)
+    if not torch.equal(got, want):
+        fail(f"S2 wide hold: {int((got != want).sum())} of {g} rows differ from "
+             "_pack_greedy_plain on the card")
+    ms = time_ms(lambda: _pack_greedy_device(*rows, k), reps=10)
+    log(f"S2 at V={v}, K={k} ({k * 2 * v * 4:,} bytes of state): "
+        f"{g:,} rows equal to the plain version; wrapper {ms:.4f} ms ({CARD})")
+
+
+def hold_scan_wide(device) -> None:
+    """Kernel S1 on a neighbour table wider than 64 slots
+    (:data:`SCAN_WIDE`), where a hop's slots span three 32-slot groups
+    and its ties are dealt across them: seeded flows against
+    ``route_flows_balanced_plain`` on the card, exactly."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
+    from sdnmpi_tpu_torch.topogen.basic import random_regular
+
+    n, deg = SCAN_WIDE
+    db = random_regular(n, deg).to_topology_db(backend="torch", device=device)
+    oracle = db._oracle_engine()
+    t = oracle.refresh(db)
+    d = t.neigh.shape[1]
+    if d <= 64:
+        fail(f"S1 wide hold: the neighbour table is {d} slots wide, not past 64")
+    real = np.nonzero(t.host_adj().sum(axis=1) > 0)[0]
+    rng = np.random.default_rng(80)
+    src = rng.choice(real, SCAN_WIDE_FLOWS).astype(np.int32)
+    dst = rng.choice(real, SCAN_WIDE_FLOWS).astype(np.int32)
+    dist = oracle._dist_full()
+    max_len = int(dist[torch.isfinite(dist)].max()) + 1
+    put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    args = (t.adj, dist, torch.zeros((t.v, t.v), dtype=torch.float32, device=device),
+            put(src), put(dst), put(np.ones(SCAN_WIDE_FLOWS, np.float32)), max_len)
+    kw = {"chunk": SCAN_WIDE_CHUNK, "neigh": t.neigh}
+    got = route_flows_balanced(*args, **kw)
+    what = f"random_regular({n}, {deg}), D={d}, {SCAN_WIDE_FLOWS:,} flows, chunk " \
+           f"{SCAN_WIDE_CHUNK}"
+    check_scan(args, kw, got, what)
+    ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=10)
+    log(f"S1 time ({what}): wrapper {ms:.4f} ms for {scan_work(args, kw, got)['steps']:,} "
+        f"dependent hop steps ({CARD})")
+
+
 def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RANKS,
-                scan_ranks: int = SCHED_SCAN_RANKS,
-                ctl_ranks: int = SCHED_CTL_RANKS) -> list:
+                hold_ranks: int = SCHED_HOLD_RANKS) -> list:
     """Config 12's shape (``benchmarks/config12_schedule.py``): the k=16
-    fat-tree and the alltoall of the first ``n_ranks`` hosts by MAC.
-    (a) The packer at the program's shape (the alltoall's edge groups,
-    auto K, a seeded per-switch background) on the card against
-    ``pack_phases_host``, both timed. (b) The flat balanced collective
-    for the fractional bound. (c) ``routes_collective_phased`` with auto
-    K on the adaptive policy at the full shape and (d) on the balanced
-    policy, whose phases route with the greedy scanner one sub-flow at a
-    time, at the first ``scan_ranks`` ranks (the cut); each checked with
-    :func:`check_phased`, timed, and reported as total discrete
-    congestion over the flat fractional bound and the hottest phase.
-    (e) The same alltoall through the Controller with
-    ``schedule_collectives`` (:func:`controller_phased`) at ``ctl_ranks``
-    ranks, on the adaptive policy and on the balanced one, the
-    Controller's default. Each flat batch launches one
-    K2 set-up and one K2. Returns the launch counts of (b) to (e)."""
+    fat-tree and the alltoall of the first ``n_ranks`` hosts by MAC,
+    uncut. (a) The packer at the program's shape (the alltoall's edge
+    groups, auto K, a seeded per-switch background): kernel S2 through
+    ``pack_phases`` against ``pack_phases_host``, and on the same sorted
+    rows against ``_pack_greedy_plain`` on the card, all timed, and
+    :func:`hold_pack_wide`. (b) The
+    flat balanced collective for the fractional bound. (c)
+    ``routes_collective_phased`` with auto K on the adaptive policy and
+    (d) on the balanced policy, whose phases route every sub-flow through
+    the greedy scanner (kernel S1, chunk 1): first a ``hold_ranks``
+    program (two pods: cross-pod paths through the cores), one phase's
+    scanner call held against the plain version and timed, and
+    :func:`hold_scan_wide`; then the full program, every phase's scanner load equal to
+    ``link_loads_from_paths`` of its own paths, its device time, the
+    sub-flows scanned and the time per sub-flow. Each program is checked
+    with :func:`check_phased`, its wall logged, and reported as total
+    discrete congestion over the flat fractional bound. (e) The same
+    alltoall through the Controller with ``schedule_collectives``
+    (:func:`controller_phased`) on the adaptive policy and on the
+    balanced one, the Controller's default. Returns the launch counts of
+    (b) to (e)."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.congestion import (
+        link_loads_from_paths,
+        route_flows_balanced,
+    )
     from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases, pack_phases_host
-    from sdnmpi_tpu_torch.sched.phases import aggregate_groups
+    from sdnmpi_tpu_torch.sched.phases import (
+        _pack_greedy_device,
+        _pack_greedy_plain,
+        aggregate_groups,
+    )
     from sdnmpi_tpu_torch.topogen import fattree
 
     spec = fattree(k)
@@ -3268,10 +3461,38 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     if not np.array_equal(got, host):
         fail(f"packer: {int((got != host).sum())} of {len(w)} groups in another "
              "phase than pack_phases_host's")
-    log(f"packer: {len(w):,} groups of the {n_ranks}-rank alltoall, K={n_phases}, "
-        f"on the card {', '.join(f'{x:.1f}' for x in dev_ms)} ms (median "
-        f"{np.median(dev_ms):.1f}; one step {np.median(dev_ms) / len(w) * 1e3:.1f} "
-        f"us), equal to pack_phases_host ({host_ms:.1f} ms on the host)")
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    rows = (put(g_src[order]), put(g_dst[order]), put(w[order]), put(util_out),
+            put(util_in))
+    kernel_out = _pack_greedy_device(*rows, n_phases)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_out = _pack_greedy_plain(*rows, n_phases)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(kernel_out, plain_out):
+        fail(f"S2: {int((kernel_out != plain_out).sum())} of {len(w)} groups differ "
+             "from _pack_greedy_plain on the card")
+    ms = time_ms(lambda: _pack_greedy_device(*rows, n_phases), reps=20)
+    bare = device_ms(log_profile("S2 wrapper", *profile_device(
+        lambda: _pack_greedy_device(*rows, n_phases))), "pack_rows")
+    g, v = len(w), t.v
+    hold_pack_wide(device)
+    # the rows and the background read once, the phases written once; a
+    # step scores K phases (two adds, a max, a compare) and adds twice
+    report["pack_greedy"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                             "bytes": g * 16 + 2 * v * 4, "ops": g * (4 * n_phases + 2),
+                             "library_ms": None}
+    bound, by = bound_ms(report["pack_greedy"])
+    log(f"packer: {g:,} groups of the {n_ranks}-rank alltoall, K={n_phases}: "
+        f"pack_phases on the card {', '.join(f'{x:.1f}' for x in dev_ms)} ms (median "
+        f"{np.median(dev_ms):.1f}, host work included), equal to pack_phases_host "
+        f"({host_ms:.1f} ms on the host)")
+    log(f"S2 time ({g:,} rows, V={v}, K={n_phases}): wrapper {ms:.4f} ms "
+        f"({ms / g * 1e3:.3f} us a row, {g:,} dependent steps), bare kernel "
+        f"{f'{bare:.4f} ms' if bare else 'not measured'}, plain "
+        f"{plain_ms:.1f} ms on the card, equal bit for bit; bound {bound:.5f} ms "
+        f"({by}) ({CARD})")
 
     all_counts = []
     # (b) the flat batch's fractional bound
@@ -3280,8 +3501,7 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
         what = f"phased: flat balanced batch of {len(these_macs)} ranks"
         c = checked_launches(lambda: out.update(r=oracle.routes_collective(
             db, these_macs, s, d, "balanced")), what, report)
-        want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-                "ring_all_gather": 0}
+        want = launches_of(setup=1, k2=1)
         if c != want:
             fail(f"{what}: launches {c}, want {want}")
         return c, out["r"], oracle.last_fractional_congestion
@@ -3291,36 +3511,87 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     log(f"phased: flat balanced batch of {len(src_idx):,} pairs: discrete "
         f"{flat_routes.max_congestion} against the fractional bound {frac:.3f}")
 
-    # (c) the adaptive program at the full shape
-    counts, program = phased_run(f"phased adaptive ({n_ranks} ranks)", oracle, db,
-                                 spec, macs, src_idx, dst_idx, "adaptive", report,
-                                 want_k2=True)
-    all_counts.append(counts)
-    total = program.total_discrete_congestion()
-    log(f"phased adaptive ({n_ranks} ranks): total discrete congestion {total} = "
-        f"{total / frac:.3f}x the flat fractional bound; hottest phase "
-        f"{program.max_phase_congestion()}; {sum(r.n_detours for r in program.reap_all())} "
-        "detoured pairs")
+    def quality(what, program, bound):
+        total = program.total_discrete_congestion()
+        log(f"{what}: total discrete congestion {total} = {total / bound:.3f}x the "
+            f"flat fractional bound {bound:.3f}; hottest phase "
+            f"{program.max_phase_congestion()}")
 
-    # (d) the scanner program at the cut shape
-    s_macs = all_macs[:scan_ranks]
-    s_src, s_dst = alltoall_idx(scan_ranks)
-    counts, _, s_frac = flat(s_macs, s_src, s_dst)
+    # (c) the adaptive program
+    what = f"phased adaptive ({n_ranks} ranks)"
+    counts, program, _ = phased_run(what, oracle, db, spec, macs, src_idx, dst_idx,
+                                    "adaptive", report, want_k2=True)
     all_counts.append(counts)
-    counts, program = phased_run(f"phased balanced ({scan_ranks} ranks)", oracle, db,
-                                 spec, s_macs, s_src, s_dst, "balanced", report,
-                                 want_k2=False)
+    quality(what, program, frac)
+    log(f"{what}: {sum(r.n_detours for r in program.reap_all())} detoured pairs")
+
+    # (d) the scanner's program: one phase of a small one held against the
+    # plain version, then the full program
+    h_macs = all_macs[:hold_ranks]
+    h_src, h_dst = alltoall_idx(hold_ranks)
+    scans: list = []
+    with recording_scanner(scans):
+        counts, _, _ = phased_run(f"phased balanced ({hold_ranks} ranks)", oracle, db,
+                                  spec, h_macs, h_src, h_dst, "balanced", report,
+                                  want_k2=False)
     all_counts.append(counts)
-    n_sub = sum(p.reap().n_subflows for p in program.phases)
-    total = program.total_discrete_congestion()
-    log(f"phased balanced ({scan_ranks} ranks): {n_sub:,} sub-flows scanned one "
-        f"at a time; total discrete congestion {total} = {total / s_frac:.3f}x the "
-        f"flat fractional bound {s_frac:.3f}; hottest phase "
-        f"{program.max_phase_congestion()}")
+    # the phase of fewest rows (the plain version runs the pads too)
+    q = min(range(len(scans)), key=lambda i: scans[i][0][3].shape[0])
+    args, kw, got_scan = scans[q]
+    if got_scan[0].shape[1] < 5 or not bool((got_scan[0][:, 4] >= 0).any()):
+        fail(f"S1 hold: no path of the {hold_ranks}-rank phase takes 4 hops; the "
+             "hold must cross pods")
+    scan_plain_ms = check_scan(
+        args, kw, got_scan,
+        f"phase {q} of the {hold_ranks}-rank balanced program, chunk {kw['chunk']}, "
+        f"max_len {got_scan[0].shape[1]}")
+    work = scan_work(args, kw, got_scan)
+    ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=10)
+    bare = device_ms(log_profile("S1 wrapper", *profile_device(
+        lambda: route_flows_balanced(*args, **kw))), "scan_flows")
+    report["route_flows_balanced"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": scan_plain_ms,
+        "bytes": work["bytes"], "ops": work["ops"], "library_ms": None}
+    bound, by = bound_ms(report["route_flows_balanced"])
+    log(f"S1 time (phase {q} of the {hold_ranks}-rank program, {work['flows']:,} "
+        f"sub-flows in {args[3].shape[0]:,} rows, chunk 1): wrapper {ms:.4f} ms, "
+        f"{ms / max(1, work['flows']) * 1e3:.3f} us a sub-flow; bare kernel "
+        f"{f'{bare:.4f} ms' if bare else 'not measured'}; plain "
+        f"{scan_plain_ms:.1f} ms; bound {bound:.5f} ms ({by}), far below the "
+        f"{work['steps']:,} dependent hop steps ({work['moves']:,} moves) it runs "
+        f"in order ({CARD})")
+    del scans, args, kw, got_scan
+    hold_scan_wide(device)
+
+    scans = []
+    what = f"phased balanced ({n_ranks} ranks)"
+    with recording_scanner(scans):
+        counts, program, wall = phased_run(what, oracle, db, spec, macs, src_idx,
+                                           dst_idx, "balanced", report, want_k2=False)
+    all_counts.append(counts)
+    per_phase, n_sub, total_ms = [], 0, 0.0
+    for q, (args, kw, got_scan) in enumerate(scans):
+        load = link_loads_from_paths(got_scan[0], t.v, args[5])
+        if not torch.equal(load, got_scan[1]):
+            fail(f"{what}, phase call {q}: the scanner's load is not the load of "
+                 "its own paths")
+        work = scan_work(args, kw, got_scan)
+        call_ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=2, warm=1)
+        per_phase.append(f"{call_ms:.1f} ms / {work['flows']:,} sub-flows / "
+                         f"{work['steps']:,} steps")
+        n_sub += work["flows"]
+        total_ms += call_ms
+    log(f"{what}: every phase's scanner load equal to link_loads_from_paths of its "
+        f"own paths; scanner device time per phase: {'; '.join(per_phase)}; "
+        f"{n_sub:,} sub-flows scanned in {total_ms:.1f} ms, "
+        f"{total_ms / max(1, n_sub) * 1e3:.3f} us a sub-flow; program wall "
+        f"{wall:.1f} ms ({CARD})")
+    quality(what, program, frac)
+    del scans, program
 
     # (e) through the Controller, on both policies
     for policy in ("adaptive", "balanced"):
-        all_counts.append(controller_phased(spec, device, policy, ctl_ranks, report))
+        all_counts.append(controller_phased(spec, device, policy, n_ranks, report))
     return all_counts
 
 
@@ -3448,8 +3719,11 @@ def phase_audit(device, report: dict, k: int = AUDIT_K,
             fail(f"audit: the fault plan found no row to {kind}")
     _, planes, counts = monitor_passes(ctl, AUDIT_SWEEPS, "audit (config 16's shape)",
                                        report, before=traffic)
-    if any(counts.values()):
-        fail(f"audit: the default-pacing passes launched {counts}")
+    # the sentinel re-scores its default sample of 64 pairs once a pass
+    # through the balanced pair batch's greedy leg: S1 once, nothing else
+    if counts != launches_of(scan=AUDIT_SWEEPS):
+        fail(f"audit: the default-pacing passes launched {counts}, want "
+             f"{launches_of(scan=AUDIT_SWEEPS)}")
     got = {kk: v - div0.get(kk, 0) for kk, v in div.values.items() if v - div0.get(kk, 0)}
     if got != AUDIT_KINDS:
         fail(f"audit: confirmed divergences {got}, want {AUDIT_KINDS}")
@@ -3475,8 +3749,7 @@ def phase_audit(device, report: dict, k: int = AUDIT_K,
     _, planes, full = monitor_passes(
         ctl, 1, "sentinel sweep of the whole installed population", report,
         before=traffic)
-    want = {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": 1,
-            "ring_all_gather": 0}
+    want = launches_of(setup=1, k2=1)
     if full != want:
         fail(f"sentinel (whole population): launches {full}, want {want}")
     last = ctl.sentinel._last
@@ -3741,8 +4014,7 @@ def phase_observability(device, report: dict, k: int = 8, duration: float = 1.5,
         counts, rec = run_launcher(argv, "observability", report, installs=2)
     finally:
         launch.run_serving_load = real
-    want = {"bfs_distances": 0, "sampler_tables": 2, "sample_slots": 2,
-            "ring_all_gather": 0}
+    want = launches_of(setup=2, k2=2)
     if counts != want:
         fail(f"observability: launches {counts}, want {want} (the demo's install "
              "and its re-install)")
@@ -4577,9 +4849,6 @@ def leg_launches(fn, what: str, want: dict, report: dict) -> tuple:
     return counts, k2_calls, wall["ms"]
 
 
-def launches_of(k1=0, setup=0, k2=0, k3=0) -> dict:
-    return {"bfs_distances": k1, "sampler_tables": setup, "sample_slots": k2,
-            "ring_all_gather": k3}
 
 
 def same_window(a, b, what: str) -> None:
@@ -4645,6 +4914,7 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
     from sdnmpi_tpu_torch.core.topology_db import Link, Port
     from sdnmpi_tpu_torch.kernels.ring import pack_next_wire
     from sdnmpi_tpu_torch.oracle.adaptive import link_loads
+    from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
     from sdnmpi_tpu_torch.shardplane import (
         make_mesh,
         multichip_route_step,
@@ -4850,9 +5120,27 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
             st.adj, base, *lib_args, neigh=st.neigh)),
     ):
         what = f"(e) {name}"
-        counts, _, walls[f"{name}_ms"] = leg_launches(
-            lambda: results.update({name: fn()}), what, launches_of(), report)
+        scans: list = []
+        # the wall waits for the device: the legs return tensors unread
+        with recording_scanner(scans):
+            counts, _, walls[f"{name}_ms"] = leg_launches(
+                lambda: (results.update({name: fn()}), torch.cuda.synchronize()),
+                what, launches_of(scan=N_SHARDS), report)
         legs.append(counts)
+        if len(scans) != N_SHARDS:
+            fail(f"{what}: {len(scans)} scanner calls recorded for {N_SHARDS} shards")
+        if name == "route_flows_sharded":
+            # one shard's call (the last) against the plain version
+            args, kw, got = scans[-1]
+            check_scan(args, kw, got, f"config 13 shard {N_SHARDS - 1} of "
+                                      f"route_flows_sharded, chunk {kw['chunk']}")
+            ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=5, warm=1)
+            work = scan_work(args, kw, got)
+            log(f"S1 time (config 13 shard {N_SHARDS - 1}, {work['flows']:,} flows, "
+                f"chunk {kw['chunk']}): {ms:.4f} ms for {work['steps']:,} dependent "
+                f"hop steps ({ms / max(1, work['steps']) * 1e3:.3f} us a step), "
+                f"{work['moves']:,} moves ({CARD})")
+        del scans
         nodes_sh, load, maxc = results[name]
         nodes = torch.cat(nodes_sh).cpu().numpy()
         n = check_paths(nodes[live], sp["src"][live], sp["dst"][live], sp["dist_h"],
@@ -4883,8 +5171,6 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
 
 def walled(fn):
     """``fn`` with the wall of each call logged: the phases' budget."""
-    import functools
-
     @functools.wraps(fn)
     def run(*args, **kw):
         t0 = time.perf_counter()
@@ -5011,6 +5297,9 @@ def main() -> int:
         "sampler_tables": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:270"),
         "sample_slots": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:245"),
         "ring_all_gather": ("csrc/ring.cu", "sdnmpi_tpu/kernels/ring.py:365"),
+        # S1 and S2 replace jitted lax.scan programs, not Pallas kernels
+        "route_flows_balanced": ("csrc/scan.cu", "sdnmpi_tpu/oracle/congestion.py:56"),
+        "pack_greedy": ("csrc/pack.cu", "sdnmpi_tpu/sched/phases.py:126"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

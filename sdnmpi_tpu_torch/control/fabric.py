@@ -12,6 +12,7 @@ announcement in, flows installed, packets forwarded, counters ticking.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import logging
 from typing import Optional
@@ -57,6 +58,11 @@ class SimPort:
     rx_bytes: int = 0
     tx_packets: int = 0
     tx_bytes: int = 0
+
+
+def _table_order(e) -> tuple:
+    """A flow table's order: highest priority first, then install order."""
+    return (-e.priority, e.seq)
 
 
 @dataclasses.dataclass
@@ -202,9 +208,11 @@ class SimSwitch:
                 cookie=mod.cookie,
             )
             bucket.append(entry)
-            self.flow_table.append(entry)
-            # highest priority first; earlier install wins ties
-            self.flow_table.sort(key=lambda e: (-e.priority, e.seq))
+            # highest priority first; earlier install wins ties. The table
+            # is kept in that order, so the new entry (the latest seq) is
+            # placed by bisection: the table a sort would give, without
+            # re-sorting it on every add
+            bisect.insort(self.flow_table, entry, key=_table_order)
         elif mod.command == of.OFPFC_DELETE:
             if mod.match == of.Match():
                 # all-wildcard non-strict DELETE: the OF 1.0 "wipe the

@@ -31,9 +31,11 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "build"
 
 #: kernel name -> its CUDA source in csrc/
-SOURCES = {"bfs": "bfs.cu", "ring": "ring.cu", "sampler": "sampler.cu"}
+SOURCES = {"bfs": "bfs.cu", "pack": "pack.cu", "ring": "ring.cu",
+           "sampler": "sampler.cu", "scan": "scan.cu"}
 
-#: no --use_fast_math: the sampler's logf must round like torch.log
+#: no --use_fast_math: the sampler's logf must round like torch.log, and
+#: the scanner's and the packer's adds and comparisons like the CPU's
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -8,9 +8,12 @@ Counterpart of ``sdnmpi_tpu/oracle/congestion.py``:
   lowest-loaded equal-cost next hop given the load every earlier chunk
   and hop placed (an online assignment that spreads a batch over the
   fabric), seeded with the measured utilization of
-  :func:`utilization_matrix`. The reference's two nested ``lax.scan``s
-  (chunks, then hops) are host loops over device tensors here, with no
-  host sync inside them.
+  :func:`utilization_matrix`. On a CPU tensor it runs
+  :func:`route_flows_balanced_plain`, the reference's two nested
+  ``lax.scan``s (chunks, then hops) as host loops of torch ops; on a
+  CUDA tensor it launches the hand-written kernel S1 in
+  ``kernels/csrc/scan.cu`` (one block that runs the chunks and hops in
+  order and stops at the last live row) or raises.
 - :func:`link_loads_from_paths` recomputes the load of chosen paths.
 
 Loads accumulate in float64 and are cast to float32 where they are read.
@@ -23,9 +26,12 @@ float32 sums may differ from them in the last place.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from sdnmpi_tpu_torch.kernels import _build
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
 
 
@@ -46,7 +52,7 @@ def aggregate_pairs(
     )
 
 
-def route_flows_balanced(
+def route_flows_balanced_plain(
     adj: torch.Tensor,  # [V, V] 0/1
     dist: torch.Tensor,  # [V, V] f32 hop counts (inf unreachable)
     base_cost: torch.Tensor,  # [V, V] f32 measured link utilization (scaled)
@@ -57,7 +63,9 @@ def route_flows_balanced(
     chunk: int = 4096,
     neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Greedy load-balanced routing of weighted flows.
+    """Greedy load-balanced routing of weighted flows: the plain version
+    of kernel S1, the reference's two ``lax.scan``s as host loops of
+    torch ops with no host sync inside them.
 
     Returns ``(nodes [U, max_len] int32 chosen switch sequence padded
     with -1, load [V, V] f32 directed-link load, max_congestion scalar)``.
@@ -128,6 +136,88 @@ def route_flows_balanced(
     nodes = torch.cat(chunks)[:u].to(torch.int32)
     max_congestion = torch.where(adj > 0, load32, 0.0).max()
     return nodes, load32, max_congestion
+
+
+def route_flows_balanced(
+    adj: torch.Tensor,  # [V, V] 0/1
+    dist: torch.Tensor,  # [V, V] f32 hop counts (inf unreachable)
+    base_cost: torch.Tensor,  # [V, V] f32 measured link utilization (scaled)
+    src: torch.Tensor,  # [U] int32 (padded with -1)
+    dst: torch.Tensor,  # [U] int32
+    weight: torch.Tensor,  # [U] f32 (0 for padding)
+    max_len: int,
+    chunk: int = 4096,
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The greedy scanner of :func:`route_flows_balanced_plain`, same
+    arguments and results. CPU tensors take the plain version; CUDA
+    tensors launch kernel S1 (``kernels/csrc/scan.cu``), which takes
+    contiguous tensors on one card: ``dist`` and ``base_cost`` ``[V, V]``
+    f32, ``src``/``dst`` int32 and ``weight`` f32 of one length U >= 1,
+    ``neigh`` ``[V, D]`` int32 of any width D >= 1, and ``max_len`` >= 1;
+    it raises on anything else. Rows past the last live one
+    (``src >= 0``) are not run: they place no load and read -1."""
+    dev = adj.device
+    if dev.type == "cpu":
+        return route_flows_balanced_plain(
+            adj, dist, base_cost, src, dst, weight, max_len, chunk=chunk, neigh=neigh)
+    if dev.type != "cuda":
+        raise ValueError(f"route_flows_balanced runs on cpu or cuda, not {dev}")
+    v = adj.shape[0]
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    u = src.shape[0]
+    check_kernel_args(adj, dist, base_cost, src, dst, weight, max_len, chunk, neigh)
+    nodes = torch.full((u, max_len), -1, dtype=torch.int32, device=dev)
+    load = torch.zeros(v * v, dtype=torch.float64, device=dev)
+    scratch = torch.empty(min(chunk, u), dtype=torch.int32, device=dev)
+    fn = _build.function("scan", "scan_launch", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ])
+    err = fn(
+        neigh.data_ptr(), v, neigh.shape[1], dist.data_ptr(), base_cost.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), weight.data_ptr(), u, max_len, chunk,
+        load.data_ptr(), nodes.data_ptr(), scratch.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(err, "scan")
+    route_flows_balanced.launches += 1
+    load32 = load.to(torch.float32).reshape(v, v)
+    max_congestion = torch.where(adj > 0, load32, 0.0).max()
+    return nodes, load32, max_congestion
+
+
+#: kernel launches of :func:`route_flows_balanced` (CPU calls do not count)
+route_flows_balanced.launches = 0
+
+
+def check_kernel_args(adj, dist, base_cost, src, dst, weight, max_len: int,
+                      chunk: int, neigh: torch.Tensor) -> None:
+    """Raise unless kernel S1 takes these arguments of
+    :func:`route_flows_balanced` (its docstring lists what it takes)."""
+    dev = adj.device
+    v = adj.shape[0]
+    u = src.shape[0]
+    for name, x, dtype, shape in (
+        ("dist", dist, torch.float32, (v, v)),
+        ("base_cost", base_cost, torch.float32, (v, v)),
+        ("src", src, torch.int32, (u,)),
+        ("dst", dst, torch.int32, (u,)),
+        ("weight", weight, torch.float32, (u,)),
+        ("neigh", neigh, torch.int32, (v, neigh.shape[-1])),
+    ):
+        if (x.dtype != dtype or tuple(x.shape) != shape or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"route_flows_balanced kernel takes {name} as a contiguous "
+                f"{dtype} tensor of shape {shape} on {dev}; got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    if u < 1 or max_len < 1 or chunk < 1 or neigh.shape[1] < 1:
+        raise ValueError(
+            f"route_flows_balanced kernel takes U, max_len, chunk and D >= 1, got "
+            f"{u}, {max_len}, {chunk}, {neigh.shape[1]}")
 
 
 def link_loads_from_paths(

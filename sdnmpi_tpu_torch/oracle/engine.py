@@ -58,6 +58,7 @@ import torch
 
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows
 from sdnmpi_tpu_torch.oracle.apsp import apsp_distances, apsp_next_hops, occ_bucket
+from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 from sdnmpi_tpu_torch.utils.tracing import STATS
 
@@ -1187,7 +1188,6 @@ class RouteOracle:
         ``reap()`` decodes and materializes the window's
         ``WindowRoutes``."""
         from sdnmpi_tpu_torch.oracle.batch import RouteWindow, WindowRoutes
-        from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
 
         t = self.refresh(db)
         results: list[list[tuple[int, int]]] = [[] for _ in pairs]
@@ -1604,11 +1604,12 @@ class RouteOracle:
         are [F] int32 indices into it. Pairs aggregate to (edge, edge)
         groups, each split into up to ``ecmp_ways`` weighted sub-flows
         (one for ``"shortest"``) whose members are dealt by endpoint hash.
-        ``policy`` routes the sub-flows: ``"balanced"`` with the DAG
-        balancer and kernel K2, ``"shortest"`` by the device next-hop
-        chase (``oracle/paths.batch_paths``), ``"adaptive"`` with the
-        UGAL program, whose window completes its device work and decode
-        here (only the materialization waits for ``reap()``).
+        ``policy`` routes the sub-flows: ``"shortest"`` by the device
+        next-hop chase (``oracle/paths.batch_paths``), ``"adaptive"`` with
+        the UGAL program, whose window completes its device work and
+        decode here (only the materialization waits for ``reap()``), and
+        ``"balanced"``, or any other name as in the reference, with the
+        DAG balancer and kernel K2.
 
         ``schedule`` not None routes the collective as a phased flow
         program instead (:meth:`routes_collective_phased_dispatch`; 0 =
@@ -1631,10 +1632,6 @@ class RouteOracle:
                 link_capacity=link_capacity, ecmp_ways=ecmp_ways,
                 rounds=rounds, ugal_candidates=ugal_candidates,
                 ugal_bias=ugal_bias,
-            )
-        if policy not in ("balanced", "shortest", "adaptive"):
-            raise ValueError(
-                f"policy must be 'balanced', 'shortest' or 'adaptive', got {policy!r}"
             )
 
         t = self.refresh(db)
@@ -1758,8 +1755,7 @@ class RouteOracle:
             # sub-flow against the load every earlier one placed, which
             # lands each phase within about one flow of its split
             from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
-            from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
-
+    
             src_p, dst_p = pad_flow_batch(
                 sub_src.astype(np.int32), sub_dst.astype(np.int32), pow2=True,
             )

@@ -13,20 +13,25 @@ each. The objective is a bottleneck:
 Groups go heaviest first (a stable order). The measured per-switch load
 enters as the background terms ``util_out``/``util_in``.
 
-The device packer (:func:`_pack_greedy_device`) is the reference's
-``lax.scan`` as a host loop of torch ops on the oracle's device: one
-step per group over a ``[K, 2V]`` load state (out loads, then in loads),
-about six small kernels a step and no host read inside the loop (the
-chosen phase stays a device tensor). :func:`pack_phases_host` is the
-numpy twin with the same f32 operations in the same order; the two
-assignments are equal bit for bit.
+The device packer (:func:`_pack_greedy_device`) runs the reference's
+``lax.scan`` on the oracle's device: one step per group over a
+``[K, 2V]`` load state (out loads, then in loads). On a CPU tensor it
+runs :func:`_pack_greedy_plain`, the scan as a host loop of torch ops;
+on a CUDA tensor it launches the hand-written kernel S2 in
+``kernels/csrc/pack.cu`` (one warp, the state in a device buffer) or
+raises. :func:`pack_phases_host` is the numpy twin with the same f32
+operations in the same order; the three assignments are equal bit for
+bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from sdnmpi_tpu_torch.kernels import _build
 from sdnmpi_tpu_torch.oracle.batch import bucket_pow2
 
 #: widest phase count :func:`choose_n_phases` returns; requested counts
@@ -93,6 +98,64 @@ def _pack_greedy_device(
 ) -> torch.Tensor:
     """``[G]`` int32 phase per group row (-1 where ``src < 0``): the greedy
     scan of the module docstring, one step per row, on the rows' device.
+    CPU tensors take :func:`_pack_greedy_plain`; CUDA tensors launch
+    kernel S2, which takes 1 <= ``k`` <= :data:`MAX_AUTO_PHASES` and f32
+    ``w``, ``util_out`` and ``util_in`` (``[G]``, ``[V]``, ``[V]``) on
+    the rows' card, and raises on anything else. Its ``K * 2V`` f32
+    state is a zeroed buffer on the card."""
+    dev = src.device
+    if dev.type == "cpu":
+        return _pack_greedy_plain(src, dst, w, util_out, util_in, k)
+    if dev.type != "cuda":
+        raise ValueError(f"the phase packer runs on cpu or cuda, not {dev}")
+    if not 1 <= k <= MAX_AUTO_PHASES:
+        raise ValueError(f"the phase packer kernel takes 1 to {MAX_AUTO_PHASES} "
+                         f"phases, got {k}")
+    g = src.shape[0]
+    v = util_out.shape[0]
+    for name, x, shape in (("w", w, (g,)), ("util_out", util_out, (v,)),
+                           ("util_in", util_in, (v,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(
+                f"the phase packer kernel takes {name} as a float32 tensor of "
+                f"shape {shape} on {dev}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if dst.shape != src.shape or dst.device != dev:
+        raise ValueError("the phase packer takes src and dst of one shape on one device")
+    out = torch.empty(g, dtype=torch.int32, device=dev)
+    if g == 0:
+        return out
+    state = torch.zeros(k * 2 * v, dtype=torch.float32, device=dev)
+    fn = _build.function("pack", "pack_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ])
+    args = [x.to(torch.int32).contiguous() for x in (src, dst)]
+    args += [x.contiguous() for x in (w, util_out, util_in)]
+    err = fn(
+        *(x.data_ptr() for x in args), g, v, k, state.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "pack")
+    _pack_greedy_device.launches += 1
+    return out
+
+
+#: kernel launches of :func:`_pack_greedy_device` (CPU calls do not count)
+_pack_greedy_device.launches = 0
+
+
+def _pack_greedy_plain(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    w: torch.Tensor,
+    util_out: torch.Tensor,
+    util_in: torch.Tensor,
+    k: int,
+) -> torch.Tensor:
+    """The plain version of kernel S2: the scan as a host loop of torch
+    ops, about six small kernels a step and no host read inside the loop
+    (the chosen phase stays a tensor).
 
     ``src``/``dst`` are int tensors, ``w``, ``util_out``, ``util_in`` f32.
     The state is one ``[K * 2V]`` vector (phase k's out loads at

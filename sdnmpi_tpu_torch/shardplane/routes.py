@@ -44,6 +44,7 @@ from sdnmpi_tpu_torch.kernels.ring import (
 )
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
 from sdnmpi_tpu_torch.kernels.sampler import sample_slots, sampler_tables
+from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
 from sdnmpi_tpu_torch.oracle.paths import batch_fdb, fdb_ports
 from sdnmpi_tpu_torch.shardplane.apsp import (
     apsp_distances_rowsharded,
@@ -374,8 +375,6 @@ def route_flows_sharded(
     ``psum``). Returns ``(nodes, load, max_congestion)``: the per-shard
     ``[U/s, max_len]`` node blocks, the summed ``[V, V]`` f32 load and
     its max over real links."""
-    from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
-
     parts = _flow_slices(src.shape[0], mesh)
     full = _replicated(dist, mesh)
     if neigh is None:

@@ -353,7 +353,9 @@ def test_mesh_oracle_raises_on_unported_sharded_legs():
 
 def test_reference_policy_knobs_are_accepted():
     """The knobs the reference's blocking APIs take pass through the
-    split-phase entry point; an unknown collective policy is refused."""
+    split-phase entry point; an unknown collective policy routes as the
+    reference routes it, through the balanced (DAG) leg, flat and phased:
+    routes equal to the reference's exactly."""
     jdb, pdb, macs = _fabric("diamond")
     pairs = _pairs(macs)
     w = pdb.find_routes_batch_dispatch(
@@ -362,5 +364,14 @@ def test_reference_policy_knobs_are_accepted():
     assert w.fdbs() == jdb.find_routes_batch_dispatch(
         pairs, policy="balanced", alpha=2.0, chunk=4, link_capacity=1e9,
         ecmp_ways=2, rounds=3, dag_threshold=10_000).reap().fdbs()
-    with pytest.raises(ValueError):
-        pdb.find_routes_collective(macs, [0], [1], policy="valiant")
+    src, dst = np.nonzero(~np.eye(len(macs), dtype=bool))
+    want = jdb.find_routes_collective(macs, src, dst, policy="valiant")
+    got = pdb.find_routes_collective(macs, src, dst, policy="valiant")
+    for field in ("pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    assert got.max_congestion == want.max_congestion
+    want = jdb.find_routes_collective_phased(macs, src, dst, "valiant", n_phases=2)
+    got = pdb.find_routes_collective_phased(macs, src, dst, "valiant", n_phases=2)
+    np.testing.assert_array_equal(got.pair_phase, want.pair_phase)
+    for a, b in zip(got.phases, want.phases):
+        np.testing.assert_array_equal(a.reap().hop_dpid, b.reap().hop_dpid)
