@@ -56,7 +56,8 @@ order; the first failure ends the run with a non-zero exit:
                find_routes_batch_dispatch on that fabric with the same
                flows as host pairs; every fdb checked, the shortest legs
                against find_route; the greedy leg's scanner call (S1,
-               chunk 4096) equal to its plain version.
+               chunk 4096, the resident form) equal to its plain version
+               and to the spread form.
 12. collective policies — find_routes_collective(policy="shortest" and
                "adaptive") over phase 4's fat-tree and alltoall, every
                pair checked.
@@ -117,9 +118,15 @@ order; the first failure ends the run with a non-zero exit:
                routes_collective_phased with auto K on the adaptive and
                the balanced policy (every sub-flow through S1 at chunk
                1; one phase of a 128-rank, two-pod program held against
-               the plain scanner, and so are S1 on an 80-slot
-               neighbour table and S2 at V = 3,968 and K = 16;
-               every phase's load equal to the load of its paths),
+               the plain scanner, both S1 forms timed and run under
+               sync debug mode 'error', and so are S1 on an 80-slot
+               neighbour table (the spread form), S1 on a directed
+               chain of 300 switches whose hop counts do not narrow to
+               uint8 (both forms) and S2 at V = 3,968 and K = 16; S1's
+               form sweep on config 12's and config 5's tables; every
+               phase's load equal to the load of its paths and both
+               forms bit-equal on every phase, timed per step beside
+               the SM clock),
                partitions and shortest real paths checked, walls and
                congestion over the flat fractional bound; then the
                512 ranks through the Controller with
@@ -189,7 +196,8 @@ order; the first failure ends the run with a non-zero exit:
                both equal to one device, K2 timed at a shard's UGAL
                segment; (e) route_flows_sharded and multichip_route_step
                on config 13's alltoall (S1 once per shard, one shard's
-               call equal to the plain scanner and timed), every path
+               call, the spread form, equal to the plain scanner, run
+               under sync debug mode 'error' and timed), every path
                shortest and the summed load equal to link_loads of the
                paths.
 
@@ -319,6 +327,20 @@ PACK_WIDE_K = 16
 SCAN_WIDE = (256, 80)
 SCAN_WIDE_FLOWS = 4096
 SCAN_WIDE_CHUNK = 256
+#: S1 held where its hop counts do not narrow to uint8: a directed chain
+#: of 300 switches (diameter 299 > 254), flows end to end
+SCAN_CHAIN_V = 300
+#: S1's form sweep: seeded weight-1 flows timed in both forms at each
+#: chunk width, on config 12's and config 5's tables
+SCAN_SWEEP_ROWS = 4096
+SCAN_SWEEP_WIDTHS = (1, 8, 32, 64, 128, 256, 512)
+#: a floor for one hop step of S1's resident form, for the log beside its
+#: time: the step waits at least for its neighbour read and then its
+#: hop-count read from shared memory, some 32 cycles each on Hopper (an
+#: estimate stated here, not measured; a floor, not a bound)
+S1_STEP_FLOOR_CYCLES = 64
+#: the profiler's kernel names of S1's two forms
+S1_KERNELS = {"resident": "scan_resident", "spread": "spread"}
 
 
 def bound_ms(r: dict) -> tuple[float, str]:
@@ -908,28 +930,120 @@ def check_scan(args: tuple, kw: dict, got, what: str) -> float:
 
 def scan_work(args: tuple, kw: dict, got) -> dict:
     """What one scanner call's data needs: its live flows, the moves
-    (flow hops that placed load), the dependent hop steps the kernel runs
-    in order (per chunk, its longest path's hops plus the step that
-    finds no flow moving), and the bytes and operations of its bound:
-    the flow rows read and the node rows and the [V, V] f32 load written
-    once, a neighbour row and each slot's distance, base and load read
-    per move."""
+    (flow hops that placed load: a row's hops, and one more where
+    ``max_len`` cut it short of its destination), the dependent hop
+    steps the kernel runs in order (per chunk, its longest walk in
+    moves), and the bytes and operations of its bound: the flow rows read
+    and the node rows and the [V, V] f32 load written once, a neighbour
+    row and each slot's distance, base and load read per move."""
     nodes = got[0].cpu().numpy()
     u, max_len = nodes.shape
     chunk = kw.get("chunk", 4096)
     v = args[0].shape[0]
     d = kw["neigh"].shape[1]
-    hops = (nodes >= 0).sum(axis=1) - 1  # -1 for dead rows
+    dst = args[4].cpu().numpy()
+    n = (nodes >= 0).sum(axis=1)
+    last = nodes[np.arange(u), np.maximum(n - 1, 0)]
+    per_row = np.where(n > 0, n - 1 + ((n == max_len) & (last != dst)), 0)
     live = int((args[3].cpu().numpy() >= 0).sum())
-    moves = int(hops[hops > 0].sum())
+    moves = int(per_row.sum())
     n_chunks = -(-u // chunk)
-    per_chunk = np.full(n_chunks * chunk, -1, np.int64)
-    per_chunk[:u] = hops
-    steps = per_chunk.reshape(n_chunks, chunk).max(axis=1)
-    steps = int((steps[steps >= 0] + 1).sum())
+    per_chunk = np.zeros(n_chunks * chunk, np.int64)
+    per_chunk[:u] = per_row
+    steps = int(per_chunk.reshape(n_chunks, chunk).max(axis=1).sum())
     n_bytes = u * 12 + u * max_len * 4 + v * v * 4 + moves * d * 16
     return {"flows": live, "moves": moves, "steps": steps, "bytes": n_bytes,
             "ops": moves * d * 4}
+
+
+def scan_form_of(args: tuple, kw: dict) -> str:
+    """The form kernel S1's rule gives one scanner call."""
+    from sdnmpi_tpu_torch.oracle.congestion import scan_form
+
+    return scan_form(args[0].shape[0], kw["neigh"].shape[1], kw.get("chunk", 4096),
+                     args[3].shape[0])
+
+
+def resident_takes(args: tuple, kw: dict) -> bool:
+    """Whether S1's resident form takes a call: its tables fit and few
+    enough flows pick together."""
+    from sdnmpi_tpu_torch.oracle import congestion
+
+    v, d = args[0].shape[0], kw["neigh"].shape[1]
+    return (congestion.resident_bytes(v, d) <= congestion.RESIDENT_SMEM_BYTES
+            and min(kw.get("chunk", 4096), args[3].shape[0])
+            <= congestion.RESIDENT_THREADS)
+
+
+def same_scan(a, b) -> bool:
+    """Nodes, load and max of two scanner results equal bit for bit."""
+    import torch
+
+    return all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def hold_scan_forms(args: tuple, kw: dict, got, what: str, want: str) -> None:
+    """``got``, one scanner call in the rule's form, which must be
+    ``want``; the other form, forced on the same arguments where it takes
+    them, must equal it bit for bit."""
+    from sdnmpi_tpu_torch.oracle.congestion import resident_bytes, route_flows_balanced
+
+    form = scan_form_of(args, kw)
+    if form != want:
+        fail(f"S1 {what}: the rule gives the {form} form, not the {want} form")
+    other = "spread" if form == "resident" else "resident"
+    if other == "resident" and not resident_takes(args, kw):
+        log(f"S1 {what}: {form} form (the rule's); the resident form does not take "
+            f"it ({resident_bytes(args[0].shape[0], kw['neigh'].shape[1]):,} bytes "
+            "of tables)")
+        return
+    if not same_scan(route_flows_balanced(*args, **kw, _form=other), got):
+        fail(f"S1 {what}: the {other} form differs from the {form} form")
+    log(f"S1 {what}: {form} form (the rule's), the {other} form equal bit for bit")
+
+
+def without_sync(fn, what: str):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a call
+    that waits for the card fails the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        fail(f"{what} synchronised with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{what}: no host synchronisation (sync debug mode 'error')")
+    return out
+
+
+@contextlib.contextmanager
+def sm_clocks(samples: list):
+    """Sample the card's SM clock (MHz) every 100 ms with nvidia-smi
+    while the context is open; the readings go to ``samples``."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+        for word in out.split():
+            try:
+                samples.append(float(word))
+            except ValueError:
+                pass
+
+
+def per_step(ms: float, steps: int, mhz: float) -> str:
+    """A scanner time per dependent step, in ns and SM cycles."""
+    ns = ms * 1e6 / max(1, steps)
+    return f"{ns:.1f} ns = {ns * mhz / 1e3:.0f} cycles a step"
 
 
 def check_k2_calls(calls: list, launches: int, what: str) -> float:
@@ -1717,6 +1831,7 @@ def phase_pair_batches(device, report: dict) -> list:
             fail(f"{what}: launches {counts}, want {want}")
         for args, kw, got in scans:
             check_scan(args, kw, got, f"config 5 {what}, chunk {kw['chunk']}")
+            hold_scan_forms(args, kw, got, f"config 5 {what}", "resident")
         all_counts.append(counts)
         fdbs = out if isinstance(out, list) else out[0]
         if res["r"] != out:
@@ -3388,9 +3503,99 @@ def hold_scan_wide(device) -> None:
     what = f"random_regular({n}, {deg}), D={d}, {SCAN_WIDE_FLOWS:,} flows, chunk " \
            f"{SCAN_WIDE_CHUNK}"
     check_scan(args, kw, got, what)
+    hold_scan_forms(args, kw, got, what, "spread")
     ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=10)
-    log(f"S1 time ({what}): wrapper {ms:.4f} ms for {scan_work(args, kw, got)['steps']:,} "
-        f"dependent hop steps ({CARD})")
+    steps = scan_work(args, kw, got)["steps"]
+    log(f"S1 time ({what}, spread form): wrapper {ms:.4f} ms for {steps:,} "
+        f"dependent hop steps ({ms * 1e3 / max(1, steps):.3f} us a step) ({CARD})")
+
+
+def hold_scan_chain(device) -> None:
+    """Kernel S1 where ``dist`` does not narrow to uint8 hop counts: a
+    directed chain of :data:`SCAN_CHAIN_V` switches (diameter 299 > 254),
+    flows end to end, some unreachable, at chunk 1 and in one chunk of
+    16; both forms against ``route_flows_balanced_plain`` on the card,
+    exactly."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows
+    from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
+
+    n = SCAN_CHAIN_V
+    adj = np.zeros((n, n), np.float32)
+    adj[np.arange(n - 1), np.arange(1, n)] = 1
+    gap = np.arange(n)[None, :] - np.arange(n)[:, None]
+    dist = np.where(gap >= 0, gap, np.inf).astype(np.float32)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    adj_d = put(adj)
+    neigh = neighbor_rows(adj_d > 0, 1)
+    rng = np.random.default_rng(300)
+    src16 = rng.integers(0, n, 16).astype(np.int32)
+    dst16 = rng.integers(0, n, 16).astype(np.int32)
+    src16[:2], dst16[:2] = 0, n - 1
+    for chunk, src, dst in (
+        (1, np.array([0, n - 1, 17, 0], np.int32),
+         np.array([n - 1, 0, n - 2, n - 1], np.int32)),
+        (16, src16, dst16),
+    ):
+        w = rng.integers(1, 4, len(src)).astype(np.float32)
+        args = (adj_d, put(dist), torch.zeros((n, n), dtype=torch.float32, device=device),
+                put(src), put(dst), put(w), n)
+        kw = {"chunk": chunk, "neigh": neigh}
+        got = route_flows_balanced(*args, **kw)
+        what = f"directed chain of {n} switches, {len(src)} flows, chunk {chunk}"
+        check_scan(args, kw, got, what)
+        hold_scan_forms(args, kw, got, what, "resident")
+        if int((got[0][:, n - 1] >= 0).sum()) < 1:
+            fail(f"S1 {what}: no flow walked the whole chain")
+
+
+def sweep_scan_forms(device, tables: list) -> None:
+    """Both forms of kernel S1 timed on each fabric's tables in
+    ``tables`` (``(what, TopoTensors, dist)``) over
+    :data:`SCAN_SWEEP_ROWS` seeded weight-1 flows at each chunk width of
+    :data:`SCAN_SWEEP_WIDTHS` (the resident form up to its thread
+    count), the two forms' results equal at every width: the sweep
+    that ``congestion.RESIDENT_MAX_WIDTH`` is read from."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle import congestion
+
+    for what, t, dist in tables:
+        real = np.nonzero(t.host_adj().sum(axis=1) > 0)[0]
+        rng = np.random.default_rng(13)
+        put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+        src = put(rng.choice(real, SCAN_SWEEP_ROWS).astype(np.int32))
+        dst = put(rng.choice(real, SCAN_SWEEP_ROWS).astype(np.int32))
+        max_len = int(dist[torch.isfinite(dist)].max()) + 1
+        args = (t.adj, dist, torch.zeros((t.v, t.v), dtype=torch.float32, device=device),
+                src, dst, put(np.ones(SCAN_SWEEP_ROWS, np.float32)), max_len)
+        rows = []
+        for width in SCAN_SWEEP_WIDTHS:
+            kw = {"chunk": width, "neigh": t.neigh}
+            ms = {}
+            outs = {}
+            for form in ("resident", "spread"):
+                if form == "resident" and not resident_takes(args, kw):
+                    continue
+                call = functools.partial(congestion.route_flows_balanced, *args, **kw,
+                                         _form=form)
+                outs[form] = call()
+                ms[form] = time_ms(call, reps=3, warm=1)
+            if len(outs) == 2 and not same_scan(outs["resident"], outs["spread"]):
+                fail(f"S1 sweep ({what}, chunk {width}): the forms differ")
+            steps = scan_work(args, kw, outs["spread"])["steps"]
+            best = min(ms, key=ms.get)
+            rows.append(
+                f"chunk {width}: {steps:,} steps, "
+                + ", ".join(f"{f} {x:.4f} ms ({x * 1e3 / max(1, steps):.3f} us a step)"
+                            for f, x in ms.items())
+                + f"; faster {best}, the rule's {scan_form_of(args, kw)}")
+        log(f"S1 form sweep ({what}, V={t.v}, D={t.neigh.shape[1]}, "
+            f"{SCAN_SWEEP_ROWS:,} flows; resident bytes "
+            f"{congestion.resident_bytes(t.v, t.neigh.shape[1]):,}; {CARD}):")
+        for row in rows:
+            log(f"  {row}")
 
 
 def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RANKS,
@@ -3541,27 +3746,51 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     if got_scan[0].shape[1] < 5 or not bool((got_scan[0][:, 4] >= 0).any()):
         fail(f"S1 hold: no path of the {hold_ranks}-rank phase takes 4 hops; the "
              "hold must cross pods")
-    scan_plain_ms = check_scan(
-        args, kw, got_scan,
-        f"phase {q} of the {hold_ranks}-rank balanced program, chunk {kw['chunk']}, "
-        f"max_len {got_scan[0].shape[1]}")
+    what = (f"phase {q} of the {hold_ranks}-rank balanced program, chunk "
+            f"{kw['chunk']}, max_len {got_scan[0].shape[1]}")
+    scan_plain_ms = check_scan(args, kw, got_scan, what)
+    hold_scan_forms(args, kw, got_scan, what, "resident")
+    for form in ("resident", "spread"):
+        without_sync(lambda: route_flows_balanced(*args, **kw, _form=form),
+                     f"S1's {form} form ({what})")
     work = scan_work(args, kw, got_scan)
-    ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=10)
-    bare = device_ms(log_profile("S1 wrapper", *profile_device(
-        lambda: route_flows_balanced(*args, **kw))), "scan_flows")
+    clocks: list = []
+    with sm_clocks(clocks):
+        forms = {}
+        for form in ("resident", "spread"):
+            call = functools.partial(route_flows_balanced, *args, **kw, _form=form)
+            forms[form] = (time_ms(call, reps=10), device_ms(log_profile(
+                f"S1 {form} form", *profile_device(call)), S1_KERNELS[form]),
+                queued_ms(call, n=10))
+    mhz = statistics.median(clocks) if clocks else float("nan")
+    ms = forms["resident"][0]
     report["route_flows_balanced"] = {
         "max_abs_err": 0.0, "ms": ms, "plain_ms": scan_plain_ms,
         "bytes": work["bytes"], "ops": work["ops"], "library_ms": None}
     bound, by = bound_ms(report["route_flows_balanced"])
-    log(f"S1 time (phase {q} of the {hold_ranks}-rank program, {work['flows']:,} "
-        f"sub-flows in {args[3].shape[0]:,} rows, chunk 1): wrapper {ms:.4f} ms, "
-        f"{ms / max(1, work['flows']) * 1e3:.3f} us a sub-flow; bare kernel "
-        f"{f'{bare:.4f} ms' if bare else 'not measured'}; plain "
-        f"{scan_plain_ms:.1f} ms; bound {bound:.5f} ms ({by}), far below the "
-        f"{work['steps']:,} dependent hop steps ({work['moves']:,} moves) it runs "
-        f"in order ({CARD})")
+    floor = work["steps"] * S1_STEP_FLOOR_CYCLES / (mhz * 1e3)
+    for form, (wrapper, bare, queued) in forms.items():
+        log(f"S1 time, {form} form (phase {q} of the {hold_ranks}-rank program, "
+            f"{work['flows']:,} sub-flows in {args[3].shape[0]:,} rows, chunk 1): "
+            f"wrapper {wrapper:.4f} ms, {wrapper / max(1, work['flows']) * 1e3:.3f} us "
+            f"a sub-flow, {per_step(wrapper, work['steps'], mhz)}; bare kernel "
+            f"{f'{bare:.4f} ms' if bare else 'not measured'}; queued {queued:.4f} ms")
+    log(f"S1 at that phase: {work['steps']:,} dependent hop steps ({work['moves']:,} "
+        f"moves); plain {scan_plain_ms:.1f} ms; bound {bound:.5f} ms ({by}); steps x "
+        f"{S1_STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) {floor:.4f} ms; "
+        f"clocks.sm {mhz:.0f} MHz (median of {len(clocks)} readings) ({CARD})")
     del scans, args, kw, got_scan
     hold_scan_wide(device)
+    hold_scan_chain(device)
+    from sdnmpi_tpu_torch.topogen import dragonfly
+
+    ddb = dragonfly(DFLY_GROUPS, DFLY_ROUTERS, hosts_per_router=1,
+                    global_links=2).to_topology_db(backend="torch", device=device)
+    d_oracle = ddb._oracle_engine()
+    sweep_scan_forms(device, [
+        ("config 12, k=16 fat-tree", t, oracle._dist_full()),
+        ("config 5, dragonfly 8x32", d_oracle.refresh(ddb), d_oracle._dist_full())])
+    del ddb, d_oracle
 
     scans = []
     what = f"phased balanced ({n_ranks} ranks)"
@@ -3569,22 +3798,44 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
         counts, program, wall = phased_run(what, oracle, db, spec, macs, src_idx,
                                            dst_idx, "balanced", report, want_k2=False)
     all_counts.append(counts)
-    per_phase, n_sub, total_ms = [], 0, 0.0
-    for q, (args, kw, got_scan) in enumerate(scans):
-        load = link_loads_from_paths(got_scan[0], t.v, args[5])
-        if not torch.equal(load, got_scan[1]):
-            fail(f"{what}, phase call {q}: the scanner's load is not the load of "
-                 "its own paths")
-        work = scan_work(args, kw, got_scan)
-        call_ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=2, warm=1)
-        per_phase.append(f"{call_ms:.1f} ms / {work['flows']:,} sub-flows / "
-                         f"{work['steps']:,} steps")
-        n_sub += work["flows"]
-        total_ms += call_ms
+    per_phase, n_sub, n_steps, total_ms, spread_ms = [], 0, 0, 0.0, 0.0
+    clocks = []
+    with sm_clocks(clocks):
+        for q, (args, kw, got_scan) in enumerate(scans):
+            load = link_loads_from_paths(got_scan[0], t.v, args[5])
+            if not torch.equal(load, got_scan[1]):
+                fail(f"{what}, phase call {q}: the scanner's load is not the load of "
+                     "its own paths")
+            if scan_form_of(args, kw) != "resident":
+                fail(f"S1 {what}, phase call {q}: the rule does not give the resident "
+                     "form")
+            work = scan_work(args, kw, got_scan)
+            call_ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=2, warm=1)
+            # the spread form's one call (~0.8 s at 512 ranks), timed and
+            # held bit-equal to the resident form's result
+            wide = {}
+            wide_ms = time_ms(lambda: wide.update(r=route_flows_balanced(
+                *args, **kw, _form="spread")), reps=1, warm=0)
+            if not same_scan(wide["r"], got_scan):
+                fail(f"S1 {what}, phase call {q}: the spread form differs from the "
+                     "resident form")
+            per_phase.append(f"{call_ms:.1f} ms (spread form {wide_ms:.1f}) / "
+                             f"{work['flows']:,} sub-flows / {work['steps']:,} steps")
+            n_sub += work["flows"]
+            n_steps += work["steps"]
+            total_ms += call_ms
+            spread_ms += wide_ms
+    mhz = statistics.median(clocks) if clocks else float("nan")
     log(f"{what}: every phase's scanner load equal to link_loads_from_paths of its "
-        f"own paths; scanner device time per phase: {'; '.join(per_phase)}; "
-        f"{n_sub:,} sub-flows scanned in {total_ms:.1f} ms, "
-        f"{total_ms / max(1, n_sub) * 1e3:.3f} us a sub-flow; program wall "
+        f"own paths, both forms bit-equal; scanner device time per phase "
+        f"(resident form): {'; '.join(per_phase)}; {n_sub:,} sub-flows scanned in "
+        f"{total_ms:.1f} ms, {total_ms / max(1, n_sub) * 1e3:.3f} us a sub-flow, "
+        f"{per_step(total_ms, n_steps, mhz)} (clocks.sm {mhz:.0f} MHz, median of "
+        f"{len(clocks)} readings; {min(clocks, default=float('nan')):.0f}-"
+        f"{max(clocks, default=float('nan')):.0f}); the spread form "
+        f"{spread_ms:.1f} ms, {per_step(spread_ms, n_steps, mhz)}; steps x "
+        f"{S1_STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) "
+        f"{n_steps * S1_STEP_FLOOR_CYCLES / (mhz * 1e3):.1f} ms; program wall "
         f"{wall:.1f} ms ({CARD})")
     quality(what, program, frac)
     del scans, program
@@ -5132,14 +5383,20 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
         if name == "route_flows_sharded":
             # one shard's call (the last) against the plain version
             args, kw, got = scans[-1]
-            check_scan(args, kw, got, f"config 13 shard {N_SHARDS - 1} of "
-                                      f"route_flows_sharded, chunk {kw['chunk']}")
-            ms = time_ms(lambda: route_flows_balanced(*args, **kw), reps=5, warm=1)
+            shard = f"config 13 shard {N_SHARDS - 1} of route_flows_sharded"
+            check_scan(args, kw, got, f"{shard}, chunk {kw['chunk']}")
+            hold_scan_forms(args, kw, got, shard, "spread")
+            without_sync(lambda: route_flows_balanced(*args, **kw),
+                         f"S1's spread form ({shard})")
+            call = functools.partial(route_flows_balanced, *args, **kw)
+            ms = time_ms(call, reps=5, warm=1)
+            queued = queued_ms(call, n=10)
             work = scan_work(args, kw, got)
-            log(f"S1 time (config 13 shard {N_SHARDS - 1}, {work['flows']:,} flows, "
-                f"chunk {kw['chunk']}): {ms:.4f} ms for {work['steps']:,} dependent "
-                f"hop steps ({ms / max(1, work['steps']) * 1e3:.3f} us a step), "
-                f"{work['moves']:,} moves ({CARD})")
+            step_us = ms / max(1, work["steps"]) * 1e3
+            log(f"S1 time (config 13 shard {N_SHARDS - 1}, spread form, "
+                f"{work['flows']:,} flows, chunk {kw['chunk']}): wrapper {ms:.4f} ms for "
+                f"{work['steps']:,} dependent hop steps ({step_us:.3f} us a step), "
+                f"{work['moves']:,} moves; queued {queued:.4f} ms ({CARD})")
         del scans
         nodes_sh, load, maxc = results[name]
         nodes = torch.cat(nodes_sh).cpu().numpy()

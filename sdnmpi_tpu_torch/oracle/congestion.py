@@ -12,8 +12,13 @@ Counterpart of ``sdnmpi_tpu/oracle/congestion.py``:
   :func:`route_flows_balanced_plain`, the reference's two nested
   ``lax.scan``s (chunks, then hops) as host loops of torch ops; on a
   CUDA tensor it launches the hand-written kernel S1 in
-  ``kernels/csrc/scan.cu`` (one block that runs the chunks and hops in
-  order and stops at the last live row) or raises.
+  ``kernels/csrc/scan.cu`` or raises. S1 has two forms, and
+  :func:`scan_form` picks one from the call's shapes: the resident form
+  (one block, every table in shared memory, for small fabrics and
+  narrow chunks such as the phased leg's chunk 1) and the spread form
+  (one warp per flow of a chunk over many SMs, for fabrics whose tables
+  do not fit or wide chunks). Both keep the load per link slot
+  (``[V, D]``), which :func:`slot_loads_to_dense` scatters to ``[V, V]``.
 - :func:`link_loads_from_paths` recomputes the load of chosen paths.
 
 Loads accumulate in float64 and are cast to float32 where they are read.
@@ -138,6 +143,71 @@ def route_flows_balanced_plain(
     return nodes, load32, max_congestion
 
 
+#: dynamic shared memory one block may use on an H100 (sm_90)
+RESIDENT_SMEM_BYTES = 232_448
+#: threads of the resident form's block: its chunks take at most one
+#: flow a thread (a lane of each warp holds one flow's state)
+RESIDENT_THREADS = 512
+#: the widest chunk (flows that pick together, ``min(chunk, U)``) the
+#: rule gives the resident form; wider ones spread over the SMs. From
+#: chip_smoke.py's form sweep on an H100 (4,096 flows on config 12's and
+#: config 5's tables): the resident form was the faster up to 128 flows
+#: a chunk in every run, the spread form mostly from 256
+RESIDENT_MAX_WIDTH = 128
+
+
+def resident_hop_stride(v: int) -> int:
+    """Bytes of one row of the resident form's uint8 hop table: an odd
+    number of 32-bit words (32 consecutive rows start in 32 banks)."""
+    words = -(-v // 4)
+    return 4 * (words + 1 - words % 2)
+
+
+def resident_bytes(v: int, d: int) -> int:
+    """Shared memory of S1's resident form (``scan.cu``'s
+    ``resident_bytes``): ``[V, D]`` float64 slot loads, ``[V, D]`` float32
+    slot base costs, ``[V, D]`` int16 neighbours rounded up to a word,
+    ``V`` hop rows of :func:`resident_hop_stride` bytes and one word for
+    the last live row."""
+    vd = v * d
+    return 12 * vd + 4 * (-(-2 * vd // 4)) + v * resident_hop_stride(v) + 4
+
+
+def spread_hop_stride(v: int) -> int:
+    """Bytes of one row of the spread form's uint8 hop table: ``V``
+    rounded up to 16 (one 16-byte store a quarter tile)."""
+    return -(-v // 16) * 16
+
+
+def scan_form(v: int, d: int, chunk: int, u: int) -> str:
+    """The form of kernel S1 for a call at ``V`` switches, a neighbour
+    table ``D`` wide, ``chunk`` and ``U`` rows: ``"resident"`` where its
+    tables fit one block's shared memory and at most
+    :data:`RESIDENT_MAX_WIDTH` flows pick together, else ``"spread"``."""
+    fits = resident_bytes(v, d) <= RESIDENT_SMEM_BYTES
+    return "resident" if fits and min(chunk, u) <= RESIDENT_MAX_WIDTH else "spread"
+
+
+def slot_loads_to_dense(
+    slot_load: torch.Tensor, neigh: torch.Tensor, v: int
+) -> torch.Tensor:
+    """The ``[V, V]`` float32 load of S1's ``[V, D]`` float64 per-slot
+    loads: slot i of node n lands at ``(n, min(neigh[n, i], V-1))``,
+    where the plain version's clamped neighbour puts the add (a
+    no-candidate pick's at column V-1). Each slot's float32 cast is
+    scattered, which is the plain version's float32 load exactly: a
+    row's neighbours are distinct and its pads take load only when the
+    row is empty (a no-candidate pick takes slot 0, a real one
+    otherwise), so every entry gets at most one nonzero slot, and no
+    ``[V, V]`` float64 buffer is needed (126 MB at V = 3,968)."""
+    cols = neigh.clamp(max=v - 1).to(torch.int64)
+    rows = torch.arange(0, v * v, v, dtype=torch.int64, device=neigh.device)
+    flat = rows[:, None] + cols
+    dense = torch.zeros(v * v, dtype=torch.float32, device=slot_load.device)
+    dense.index_add_(0, flat.reshape(-1), slot_load.reshape(-1).to(torch.float32))
+    return dense.reshape(v, v)
+
+
 def route_flows_balanced(
     adj: torch.Tensor,  # [V, V] 0/1
     dist: torch.Tensor,  # [V, V] f32 hop counts (inf unreachable)
@@ -148,15 +218,21 @@ def route_flows_balanced(
     max_len: int,
     chunk: int = 4096,
     neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
+    *,
+    _form: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The greedy scanner of :func:`route_flows_balanced_plain`, same
     arguments and results. CPU tensors take the plain version; CUDA
     tensors launch kernel S1 (``kernels/csrc/scan.cu``), which takes
     contiguous tensors on one card: ``dist`` and ``base_cost`` ``[V, V]``
     f32, ``src``/``dst`` int32 and ``weight`` f32 of one length U >= 1,
-    ``neigh`` ``[V, D]`` int32 of any width D >= 1, and ``max_len`` >= 1;
-    it raises on anything else. Rows past the last live one
-    (``src >= 0``) are not run: they place no load and read -1."""
+    ``neigh`` ``[V, D]`` int32 of any width D >= 1 (the rows of
+    ``kernels.bfs.neighbor_rows``), and ``max_len`` >= 1; it raises on
+    anything else. Rows past the last live one (``src >= 0``) are not
+    run: they place no load and read -1. The form is
+    :func:`scan_form`'s; ``_form`` forces one (``"resident"`` raises
+    where its tables do not fit or more than :data:`RESIDENT_THREADS`
+    flows pick together). Nothing here waits for the card."""
     dev = adj.device
     if dev.type == "cpu":
         return route_flows_balanced_plain(
@@ -167,24 +243,45 @@ def route_flows_balanced(
     if neigh is None:
         neigh = neighbor_rows_of(adj)
     u = src.shape[0]
+    d = neigh.shape[1]
     check_kernel_args(adj, dist, base_cost, src, dst, weight, max_len, chunk, neigh)
+    form = _form or scan_form(v, d, chunk, u)
+    if form == "resident" and (resident_bytes(v, d) > RESIDENT_SMEM_BYTES
+                               or min(chunk, u) > RESIDENT_THREADS):
+        raise ValueError(
+            f"S1's resident form takes at most {RESIDENT_SMEM_BYTES} bytes of "
+            f"tables and {RESIDENT_THREADS} flows a chunk; V={v}, D={d} need "
+            f"{resident_bytes(v, d)} bytes at min(chunk, U) = {min(chunk, u)}")
+    if form not in ("resident", "spread"):
+        raise ValueError(f"S1 has the forms resident and spread, not {form!r}")
     nodes = torch.full((u, max_len), -1, dtype=torch.int32, device=dev)
-    load = torch.zeros(v * v, dtype=torch.float64, device=dev)
-    scratch = torch.empty(min(chunk, u), dtype=torch.int32, device=dev)
+    hs8 = 0
+    if form == "resident":
+        slot_load = torch.empty(v * d, dtype=torch.float64, device=dev)
+        hop8 = base_slot = flags = None
+    else:
+        slot_load = torch.zeros(v * d, dtype=torch.float64, device=dev)
+        hs8 = spread_hop_stride(v)
+        hop8 = torch.empty(v * hs8, dtype=torch.uint8, device=dev)
+        base_slot = torch.empty(v * d, dtype=torch.float32, device=dev)
+        flags = torch.zeros(5, dtype=torch.int32, device=dev)
     fn = _build.function("scan", "scan_launch", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ])
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = fn(
-        neigh.data_ptr(), v, neigh.shape[1], dist.data_ptr(), base_cost.data_ptr(),
-        src.data_ptr(), dst.data_ptr(), weight.data_ptr(), u, max_len, chunk,
-        load.data_ptr(), nodes.data_ptr(), scratch.data_ptr(), _build.stream_ptr(dev),
+        0 if form == "resident" else 1, neigh.data_ptr(), v, d, dist.data_ptr(),
+        base_cost.data_ptr(), src.data_ptr(), dst.data_ptr(), weight.data_ptr(), u,
+        max_len, chunk, nodes.data_ptr(), slot_load.data_ptr(), ptr(hop8), hs8,
+        ptr(base_slot), ptr(flags), _build.stream_ptr(dev),
     )
     _build.check(err, "scan")
     route_flows_balanced.launches += 1
-    load32 = load.to(torch.float32).reshape(v, v)
+    load32 = slot_loads_to_dense(slot_load.view(v, d), neigh, v)
     max_congestion = torch.where(adj > 0, load32, 0.0).max()
     return nodes, load32, max_congestion
 

@@ -210,3 +210,136 @@ def test_balanced_phased_program_k8_64_ranks():
         ref_db, macs, src, dst, "balanced")
     _programs_equal(got, want)
     assert got.total_discrete_congestion() == want.total_discrete_congestion()
+
+
+# -- kernel S1's two forms: the form rule and the slot-load scatter -------
+
+
+@pytest.mark.parametrize("what,v,d,chunk,u,form", [
+    ("config 5's greedy leg", 256, 40, 4096, 64, "resident"),
+    ("config 12's phased leg", 320, 16, 1, 65536, "resident"),
+    ("config 12's sentinel sample", 320, 16, 4096, 64, "resident"),
+    ("config 12 at a chunk of 128 rows", 320, 16, 128, 65536, "resident"),
+    ("config 12 at a chunk of 129 rows", 320, 16, 129, 65536, "spread"),
+    ("config 12 at a chunk of 4096 rows", 320, 16, 4096, 65536, "spread"),
+    ("config 13's shard", 3968, 56, 1024, 16384, "spread"),
+    ("random_regular(256, 80)", 256, 80, 256, 4096, "spread"),
+])
+def test_scan_form_rule(what, v, d, chunk, u, form):
+    """The rule that picks S1's form: the resident form where its tables
+    fit one block's shared memory and at most 128 flows pick together,
+    the spread form where the tables do not fit (config 13, D = 80) or
+    the chunk is wider."""
+    assert congestion.scan_form(v, d, chunk, u) == form, what
+    fits = congestion.resident_bytes(v, d) <= congestion.RESIDENT_SMEM_BYTES
+    assert fits == (what not in ("config 13's shard", "random_regular(256, 80)"))
+
+
+@pytest.mark.parametrize("v,d,want", [
+    # 40,960 B of f64 loads + 20,480 of f32 costs + 10,240 of int16
+    # neighbours + 320 hop rows of 81 words + the last live row's word
+    (320, 16, 40_960 + 20_480 + 10_240 + 320 * 324 + 4),
+    (256, 40, 81_920 + 40_960 + 20_480 + 256 * 260 + 4),
+    (256, 80, 163_840 + 81_920 + 40_960 + 256 * 260 + 4),
+    (3968, 56, 1_777_664 + 888_832 + 444_416 + 3968 * 3972 + 4),
+    (300, 1, 2_400 + 1_200 + 600 + 300 * 300 + 4),
+    (7, 3, 168 + 84 + 44 + 7 * 12 + 4),
+])
+def test_resident_bytes(v, d, want):
+    """The resident form's byte count: slot loads, slot costs, int16
+    neighbours rounded up to a word, hop rows of an odd number of words
+    at least V bytes long, and one word for the last live row."""
+    assert congestion.resident_bytes(v, d) == want
+    stride = congestion.resident_hop_stride(v)
+    assert stride >= v and stride % 4 == 0 and (stride // 4) % 2 == 1
+    assert congestion.spread_hop_stride(v) % 16 == 0
+    assert 0 <= congestion.spread_hop_stride(v) - v < 16
+
+
+def test_scan_form_widths_of_the_real_fabrics():
+    """The neighbour tables of config 5's dragonfly and config 12's k=16
+    fat-tree are as wide as the form rule's cases say (D = 40 and 16),
+    and both fit the resident form."""
+    from sdnmpi_tpu_torch.topogen import dragonfly, fattree
+
+    for spec, v, d in ((dragonfly(8, 32, hosts_per_router=1, global_links=2), 256, 40),
+                       (fattree(16), 320, 16)):
+        db = spec.to_topology_db(backend="torch", device="cpu")
+        t = db._oracle_engine().refresh(db)
+        assert (t.v, t.neigh.shape[1]) == (v, d)
+        assert congestion.resident_bytes(v, d) <= congestion.RESIDENT_SMEM_BYTES
+
+
+def _ring(n: int):
+    """A bidirectional ring of ``n`` switches: (adj, dist) numpy."""
+    adj = np.zeros((n, n), np.float32)
+    for i in range(n):
+        adj[i, (i + 1) % n] = adj[(i + 1) % n, i] = 1
+    idx = np.arange(n)
+    gap = np.abs(idx[:, None] - idx[None, :])
+    return adj, np.minimum(gap, n - gap).astype(np.float32)
+
+
+def _slot_loads_from_paths(nodes, weight, neigh, v):
+    """Per-slot loads of chosen paths: hop (a, b) adds to the first slot
+    of a's row whose clamped neighbour is b."""
+    cols = np.minimum(neigh, v - 1)
+    out = np.zeros(neigh.shape, np.float64)
+    for row, w in zip(nodes, weight):
+        for a, b in zip(row[:-1], row[1:]):
+            if a >= 0 and b >= 0:
+                out[a, int(np.argmax(cols[a] == b))] += w
+    return out
+
+
+@pytest.mark.parametrize("name", ["fattree4", "dragonfly", "ring_empty_row"])
+def test_slot_loads_scatter_to_the_plain_load(name):
+    """The epilogue's scatter (``slot_loads_to_dense``): per-slot loads
+    made from the plain version's own paths land on its ``[V, V]``
+    float32 load bit for bit. Each case holds no-candidate picks: on the
+    fabrics a flow whose hop count at one node is raised finds no
+    neighbour one closer and takes slot 0; on the ring one switch's
+    neighbour row is empty, so its pick is slot 0 clamped to V-1, a real
+    switch there."""
+    rng = np.random.default_rng(7)
+    if name == "ring_empty_row":
+        adj, dist = _ring(9)
+        v = adj.shape[0]
+        neigh = neighbor_rows(t_(adj) > 0, 2)
+        neigh[2] = v  # switch 2 lists no neighbour
+        src = np.array([2, 2, 1, 0, 3, 2], np.int32)
+        dst = np.array([4, 5, 4, 4, 0, 2], np.int32)
+    else:
+        adj, _, dist, _ = _fabric(name)
+        v = adj.shape[0]
+        neigh = neighbor_rows(t_(adj) > 0, int((adj > 0).sum(axis=1).max()))
+        real = np.nonzero(adj.sum(axis=1) > 0)[0]
+        src = rng.choice(real, 60).astype(np.int32)
+        dst = rng.choice(real, 60).astype(np.int32)
+        # no neighbour of src[0] is one hop closer to dst[0] than this
+        dist = dist.copy()
+        dist[src[0], dst[0]] += 2
+        dist[src[1], dst[1]] += 2
+    weight = rng.integers(1, 5, len(src)).astype(np.float32)
+    base = np.zeros(adj.shape, np.float32)
+    max_len = v + 4
+    nodes, load, maxc = congestion.route_flows_balanced_plain(
+        t_(adj), t_(dist), t_(base), t_(src), t_(dst), t_(weight), max_len, chunk=1,
+        neigh=neigh)
+    nodes = nodes.numpy()
+    # every flow ended at its destination, so every add is a hop of its path
+    last = nodes[np.arange(len(src)), (nodes >= 0).sum(axis=1) - 1]
+    np.testing.assert_array_equal(last, dst)
+    cols = np.minimum(neigh.numpy(), v - 1)
+    no_cand = [(a, b) for row in nodes for a, b in zip(row[:-1], row[1:])
+               if a >= 0 and b >= 0 and dist[b, row[(row >= 0).sum() - 1]]
+               != dist[a, row[(row >= 0).sum() - 1]] - 1]
+    assert no_cand and all(b == cols[a, 0] for a, b in no_cand)
+    if name == "ring_empty_row":
+        assert (2, v - 1) in no_cand
+    slots = _slot_loads_from_paths(nodes, weight, neigh.numpy(), v)
+    dense = congestion.slot_loads_to_dense(torch.from_numpy(slots), neigh, v)
+    assert dense.dtype == torch.float32 and dense.shape == (v, v)
+    assert torch.equal(dense, load)
+    assert torch.equal(dense, congestion.link_loads_from_paths(t_(nodes), v, t_(weight)))
+    assert float(torch.where(t_(adj) > 0, dense, 0.0).max()) == float(maxc)
