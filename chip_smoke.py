@@ -113,16 +113,21 @@ order; the first failure ends the run with a non-zero exit:
                bit, config 4's balanced collective with the plane equal
                to the dict's, hot_links(8) equal to a numpy stable sort.
 20. phased collectives — config 12's shape (k=16 fat-tree, 512-rank
-               alltoall, 261,632 pairs), uncut: S2 at 4,096 groups
-               against its host twin and its plain version (all timed),
-               routes_collective_phased with auto K on the adaptive and
-               the balanced policy (every sub-flow through S1 at chunk
+               alltoall, 261,632 pairs), uncut: S2 (the dataflow
+               packer) at 4,096 groups against its host twin and its
+               plain version, 20 calls identical, its first step
+               timed, clean under sync debug mode 'error', and held on
+               a serial chain (K = 32), a gather, a mix of pads, zero
+               weights and repeated pairs, K = 1, V = 3,968 (K = 16)
+               and V = 65,536, each shape's longest chain logged beside
+               its time; routes_collective_phased with auto K on the
+               adaptive and the balanced policy (every sub-flow through S1 at chunk
                1; one phase of a 128-rank, two-pod program held against
                the plain scanner, both S1 forms timed and run under
                sync debug mode 'error', and so are S1 on an 80-slot
                neighbour table (the spread form), S1 on a directed
                chain of 300 switches whose hop counts do not narrow to
-               uint8 (both forms) and S2 at V = 3,968 and K = 16; S1's
+               uint8 (both forms); S1's
                form sweep on config 12's and config 5's tables; every
                phase's load equal to the load of its paths and both
                forms bit-equal on every phase, timed per step beside
@@ -321,6 +326,16 @@ SCHED_HOLD_RANKS = 128
 #: seeded rows
 PACK_WIDE_V = 3968
 PACK_WIDE_K = 16
+#: S2's other holds: 4,096 rows each (config 12's count); the serial case
+#: (one source and one destination: a chain of every row) at K = 32, and a
+#: V whose turnstiles (4 V bytes) do not fit in shared memory
+PACK_HOLD_ROWS = 4096
+PACK_HUGE_V = 65_536
+#: S2 at config 12 is called this many times: every result identical
+PACK_REPEATS = 20
+#: the H100's SM clock under load (MHz; clocks.sm read 1,980 in every
+#: reading of S1's runs), for S2's chain floor
+H100_SM_MHZ = 1980
 #: S1 held on a neighbour table wider than 64 slots (random_regular(256,
 #: 80), diameter 2: ~25 equal-cost middles a pair across three 32-slot
 #: groups), 4,096 seeded weight-1 flows in chunks of 256
@@ -334,11 +349,12 @@ SCAN_CHAIN_V = 300
 #: chunk width, on config 12's and config 5's tables
 SCAN_SWEEP_ROWS = 4096
 SCAN_SWEEP_WIDTHS = (1, 8, 32, 64, 128, 256, 512)
-#: a floor for one hop step of S1's resident form, for the log beside its
-#: time: the step waits at least for its neighbour read and then its
-#: hop-count read from shared memory, some 32 cycles each on Hopper (an
+#: a floor for one dependent step, for the log beside a chain's time: S1's
+#: resident hop step waits at least for its neighbour read and then its
+#: hop-count read from shared memory, some 32 cycles each on Hopper, and
+#: an S2 row at least for its turnstile's read and its in column's (an
 #: estimate stated here, not measured; a floor, not a bound)
-S1_STEP_FLOOR_CYCLES = 64
+STEP_FLOOR_CYCLES = 64
 #: the profiler's kernel names of S1's two forms
 S1_KERNELS = {"resident": "scan_resident", "spread": "spread"}
 
@@ -3443,33 +3459,129 @@ def controller_phased(spec, device, policy: str, n_ranks: int, report: dict) -> 
     return counts
 
 
-def hold_pack_wide(device) -> None:
-    """Kernel S2 through its wrapper at :data:`PACK_WIDE_V` switches and
-    :data:`PACK_WIDE_K` phases (16 lanes scoring, a 508 KB state): 4,096
-    seeded rows, heaviest first, with a seeded background, against
-    ``_pack_greedy_plain`` on the card, exactly."""
+def longest_chain(src: np.ndarray, dst: np.ndarray) -> int:
+    """The longest chain of S2's dependent rows: rows that share a source
+    or a destination switch, in order (rows with ``src < 0`` are free)."""
+    last_s: dict = {}
+    last_d: dict = {}
+    best = 0
+    for s, d in zip(src.tolist(), dst.tolist()):
+        if s < 0:
+            continue
+        d = max(d, 0)
+        level = 1 + max(last_s.get(s, 0), last_d.get(d, 0))
+        last_s[s] = last_d[d] = level
+        best = max(best, level)
+    return best
+
+
+def chain_floor_ms(chain: int) -> float:
+    """The chain's floor at :data:`STEP_FLOOR_CYCLES` a step and
+    :data:`H100_SM_MHZ` (an estimate, not a bound)."""
+    return chain * STEP_FLOOR_CYCLES / (H100_SM_MHZ * 1e3)
+
+
+def hold_pack(what: str, rows: tuple, k: int) -> dict:
+    """Kernel S2 through its wrapper on ``rows`` (src, dst, w, util_out,
+    util_in on the card) against ``_pack_greedy_plain`` on the card,
+    exactly; logs the longest chain, the wrapper and bare times, the time
+    a chain step and the placement. Returns the numbers."""
     import torch
 
-    from sdnmpi_tpu_torch.sched.phases import _pack_greedy_device, _pack_greedy_plain
+    from sdnmpi_tpu_torch.sched.phases import (
+        PACK_PLACEMENTS,
+        _pack_greedy_device,
+        _pack_greedy_plain,
+        pack_placement,
+    )
 
-    v, k, g = PACK_WIDE_V, PACK_WIDE_K, 4096
-    rng = np.random.default_rng(13)
-    src = rng.integers(0, v, g).astype(np.int32)
-    dst = rng.integers(0, v, g).astype(np.int32)
-    w = rng.integers(1, 65, g).astype(np.float32)
-    order = np.argsort(-w, kind="stable")
-    put = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    rows = (put(src[order]), put(dst[order]), put(w[order]),
-            put((rng.random(v) * 4).astype(np.float32)),
-            put((rng.random(v) * 4).astype(np.float32)))
+    g, v = rows[0].shape[0], rows[3].shape[0]
     got = _pack_greedy_device(*rows, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = _pack_greedy_plain(*rows, k)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     if not torch.equal(got, want):
-        fail(f"S2 wide hold: {int((got != want).sum())} of {g} rows differ from "
+        fail(f"S2 {what}: {int((got != want).sum())} of {g} rows differ from "
              "_pack_greedy_plain on the card")
-    ms = time_ms(lambda: _pack_greedy_device(*rows, k), reps=10)
-    log(f"S2 at V={v}, K={k} ({k * 2 * v * 4:,} bytes of state): "
-        f"{g:,} rows equal to the plain version; wrapper {ms:.4f} ms ({CARD})")
+    call = functools.partial(_pack_greedy_device, *rows, k)
+    wrapper = time_ms(call, reps=10)
+    bare = queued_ms(call, n=20)
+    chain = longest_chain(rows[0].cpu().numpy(), rows[1].cpu().numpy())
+    placement = PACK_PLACEMENTS[pack_placement(k, v)]
+    log(f"S2 {what} ({g:,} rows, V={v:,}, K={k}; {placement}): equal to "
+        f"_pack_greedy_plain ({plain_ms:.1f} ms); longest chain {chain:,}; wrapper "
+        f"{wrapper:.4f} ms, bare {bare:.4f} ms, {bare / max(1, chain) * 1e6:.1f} ns a "
+        f"chain step; chain floor {chain_floor_ms(chain):.4f} ms (an estimate) ({CARD})")
+    return {"wrapper": wrapper, "bare": bare, "chain": chain, "plain_ms": plain_ms}
+
+
+def pack_rows_on(device, src, dst, w, v: int, seed: int) -> tuple:
+    """S2's arguments on the card: the rows and a seeded background."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (put(np.asarray(src, np.int32)), put(np.asarray(dst, np.int32)),
+            put(np.asarray(w, np.float32)), put((rng.random(v) * 4).astype(np.float32)),
+            put((rng.random(v) * 4).astype(np.float32)))
+
+
+def hold_pack_wide(device) -> None:
+    """Kernel S2 at :data:`PACK_WIDE_V` switches and :data:`PACK_WIDE_K`
+    phases (16 lanes scoring, a 508 KB state in device memory): 4,096
+    seeded rows, heaviest first, with a seeded background, against
+    ``_pack_greedy_plain`` on the card, exactly."""
+    v, k, g = PACK_WIDE_V, PACK_WIDE_K, PACK_HOLD_ROWS
+    rng = np.random.default_rng(13)
+    src = rng.integers(0, v, g)
+    dst = rng.integers(0, v, g)
+    w = rng.integers(1, 65, g)
+    order = np.argsort(-w, kind="stable")
+    hold_pack(f"at V={v:,}, K={k} ({k * 2 * v * 4:,} bytes of state)",
+              pack_rows_on(device, src[order], dst[order], w[order], v, 13), k)
+
+
+def hold_pack_shapes(device, c12: tuple, k12: int) -> None:
+    """Kernel S2's holds beside config 12 (``c12``: its sorted src, dst,
+    w and V) and :func:`hold_pack_wide`: the serial case (every row on one
+    source and one destination, K = 32), a gather (every row to one
+    destination), a seeded mix of pads, zero weights and repeated pairs,
+    config 12's rows at K = 1, and V = :data:`PACK_HUGE_V` (turnstiles
+    and state in device memory). Each equal to ``_pack_greedy_plain`` on
+    the card; the calls at the two placements past shared memory run
+    under ``set_sync_debug_mode("error")``."""
+    from sdnmpi_tpu_torch.sched.phases import _pack_greedy_device
+
+    g = PACK_HOLD_ROWS
+    rng = np.random.default_rng(14)
+    v = c12[3]
+    hold_pack("serial hold", pack_rows_on(
+        device, np.full(g, 7), np.full(g, 9), rng.integers(1, 65, g), v, 1), 32)
+    hold_pack("gather", pack_rows_on(
+        device, rng.integers(0, v, g), np.full(g, 3), rng.integers(1, 65, g), v, 2), k12)
+    src = rng.integers(0, 64, g)
+    dst = rng.integers(0, 64, g)
+    pads = rng.random(g) < 0.1
+    src[pads], dst[pads] = -1, -1
+    w = np.where(rng.random(g) < 0.2, 0.0, rng.random(g) * 16)
+    src[100:200], dst[100:200] = 5, 6  # one pair, repeated
+    hold_pack("mix of pads, zero weights and repeated pairs",
+              pack_rows_on(device, src, dst, w, v, 3), k12)
+    hold_pack("config 12 at K=1", pack_rows_on(device, *c12, 4), 1)
+    hold_pack_wide(device)
+    vh = PACK_HUGE_V
+    huge = pack_rows_on(device, rng.integers(0, vh, g), rng.integers(0, vh, g),
+                        rng.integers(1, 65, g), vh, 5)
+    hold_pack(f"at V={vh:,}", huge, k12)
+    wide = pack_rows_on(device, rng.integers(0, PACK_WIDE_V, g),
+                        rng.integers(0, PACK_WIDE_V, g), rng.integers(1, 65, g),
+                        PACK_WIDE_V, 6)
+    without_sync(lambda: _pack_greedy_device(*wide, PACK_WIDE_K),
+                 f"S2 at V={PACK_WIDE_V:,} (state in device memory)")
+    without_sync(lambda: _pack_greedy_device(*huge, k12),
+                 f"S2 at V={vh:,} (turnstiles and state in device memory)")
 
 
 def hold_scan_wide(device) -> None:
@@ -3605,8 +3717,10 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     uncut. (a) The packer at the program's shape (the alltoall's edge
     groups, auto K, a seeded per-switch background): kernel S2 through
     ``pack_phases`` against ``pack_phases_host``, and on the same sorted
-    rows against ``_pack_greedy_plain`` on the card, all timed, and
-    :func:`hold_pack_wide`. (b) The
+    rows against ``_pack_greedy_plain`` on the card and
+    ``pack_phases_host``, :data:`PACK_REPEATS` calls identical, timed
+    (its first step apart), clean under sync debug mode, and
+    :func:`hold_pack_shapes`. (b) The
     flat balanced collective for the fractional bound. (c)
     ``routes_collective_phased`` with auto K on the adaptive policy and
     (d) on the balanced policy, whose phases route every sub-flow through
@@ -3666,9 +3780,9 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     if not np.array_equal(got, host):
         fail(f"packer: {int((got != host).sum())} of {len(w)} groups in another "
              "phase than pack_phases_host's")
+    c12 = (g_src[order], g_dst[order], w[order], t.v)
     put = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    rows = (put(g_src[order]), put(g_dst[order]), put(w[order]), put(util_out),
-            put(util_in))
+    rows = tuple(put(a) for a in (*c12[:3], util_out, util_in))
     kernel_out = _pack_greedy_device(*rows, n_phases)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3678,26 +3792,43 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     if not torch.equal(kernel_out, plain_out):
         fail(f"S2: {int((kernel_out != plain_out).sum())} of {len(w)} groups differ "
              "from _pack_greedy_plain on the card")
-    ms = time_ms(lambda: _pack_greedy_device(*rows, n_phases), reps=20)
-    bare = device_ms(log_profile("S2 wrapper", *profile_device(
-        lambda: _pack_greedy_device(*rows, n_phases))), "pack_rows")
+    if not torch.equal(kernel_out.cpu(), torch.as_tensor(host[order])):
+        fail("S2: the kernel's phases differ from pack_phases_host's")
+    # one schedule of many: the interleaving varies, the result must not
+    differ = sum(not torch.equal(_pack_greedy_device(*rows, n_phases), kernel_out)
+                 for _ in range(PACK_REPEATS))
+    if differ:
+        fail(f"S2: {differ} of {PACK_REPEATS} repeated calls differ from the first")
+    call = functools.partial(_pack_greedy_device, *rows, n_phases)
+    ms = time_ms(call, reps=20)
+    bare = queued_ms(call, n=20)
+    profiled = device_ms(log_profile("S2 wrapper", *profile_device(call)), "pack_dataflow")
+    turns = queued_ms(functools.partial(call, _turns_only=True), n=20)
+    without_sync(call, "S2 at config 12 (shared memory)")
     g, v = len(w), t.v
-    hold_pack_wide(device)
+    chain = longest_chain(*c12[:2])
+    hold_pack_shapes(device, c12, n_phases)
     # the rows and the background read once, the phases written once; a
     # step scores K phases (two adds, a max, a compare) and adds twice
     report["pack_greedy"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                              "bytes": g * 16 + 2 * v * 4, "ops": g * (4 * n_phases + 2),
                              "library_ms": None}
     bound, by = bound_ms(report["pack_greedy"])
+    floor = chain_floor_ms(chain)
     log(f"packer: {g:,} groups of the {n_ranks}-rank alltoall, K={n_phases}: "
         f"pack_phases on the card {', '.join(f'{x:.1f}' for x in dev_ms)} ms (median "
         f"{np.median(dev_ms):.1f}, host work included), equal to pack_phases_host "
-        f"({host_ms:.1f} ms on the host)")
-    log(f"S2 time ({g:,} rows, V={v}, K={n_phases}): wrapper {ms:.4f} ms "
-        f"({ms / g * 1e3:.3f} us a row, {g:,} dependent steps), bare kernel "
-        f"{f'{bare:.4f} ms' if bare else 'not measured'}, plain "
+        f"({host_ms:.1f} ms on the host); {PACK_REPEATS} repeated kernel calls identical")
+    profiled = f"{profiled:.4f} ms" if profiled else "not measured"
+    log(f"S2 time ({g:,} rows, V={v}, K={n_phases}; shared memory): wrapper "
+        f"{ms:.4f} ms, bare {bare:.4f} ms (profiler {profiled}), of which the first "
+        f"step (turns and deal) {turns:.4f} ms ({100 * turns / bare:.1f}%); longest "
+        f"chain {chain} ({bare / chain * 1e6:.1f} ns a chain step); plain "
         f"{plain_ms:.1f} ms on the card, equal bit for bit; bound {bound:.5f} ms "
-        f"({by}) ({CARD})")
+        f"({by}, {100 * bound / ms:.2f}% of the wrapper); chain floor {floor:.4f} ms "
+        f"(an estimate: {chain} x {STEP_FLOOR_CYCLES} cycles at {H100_SM_MHZ} MHz; "
+        f"{100 * floor / ms:.1f}% of the wrapper, {100 * floor / bare:.1f}% of the "
+        f"bare kernel) ({CARD})")
 
     all_counts = []
     # (b) the flat batch's fractional bound
@@ -3768,7 +3899,7 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
         "max_abs_err": 0.0, "ms": ms, "plain_ms": scan_plain_ms,
         "bytes": work["bytes"], "ops": work["ops"], "library_ms": None}
     bound, by = bound_ms(report["route_flows_balanced"])
-    floor = work["steps"] * S1_STEP_FLOOR_CYCLES / (mhz * 1e3)
+    floor = work["steps"] * STEP_FLOOR_CYCLES / (mhz * 1e3)
     for form, (wrapper, bare, queued) in forms.items():
         log(f"S1 time, {form} form (phase {q} of the {hold_ranks}-rank program, "
             f"{work['flows']:,} sub-flows in {args[3].shape[0]:,} rows, chunk 1): "
@@ -3777,7 +3908,7 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
             f"{f'{bare:.4f} ms' if bare else 'not measured'}; queued {queued:.4f} ms")
     log(f"S1 at that phase: {work['steps']:,} dependent hop steps ({work['moves']:,} "
         f"moves); plain {scan_plain_ms:.1f} ms; bound {bound:.5f} ms ({by}); steps x "
-        f"{S1_STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) {floor:.4f} ms; "
+        f"{STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) {floor:.4f} ms; "
         f"clocks.sm {mhz:.0f} MHz (median of {len(clocks)} readings) ({CARD})")
     del scans, args, kw, got_scan
     hold_scan_wide(device)
@@ -3834,8 +3965,8 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
         f"{len(clocks)} readings; {min(clocks, default=float('nan')):.0f}-"
         f"{max(clocks, default=float('nan')):.0f}); the spread form "
         f"{spread_ms:.1f} ms, {per_step(spread_ms, n_steps, mhz)}; steps x "
-        f"{S1_STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) "
-        f"{n_steps * S1_STEP_FLOOR_CYCLES / (mhz * 1e3):.1f} ms; program wall "
+        f"{STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) "
+        f"{n_steps * STEP_FLOOR_CYCLES / (mhz * 1e3):.1f} ms; program wall "
         f"{wall:.1f} ms ({CARD})")
     quality(what, program, frac)
     del scans, program

@@ -13,15 +13,17 @@ each. The objective is a bottleneck:
 Groups go heaviest first (a stable order). The measured per-switch load
 enters as the background terms ``util_out``/``util_in``.
 
-The device packer (:func:`_pack_greedy_device`) runs the reference's
-``lax.scan`` on the oracle's device: one step per group over a
-``[K, 2V]`` load state (out loads, then in loads). On a CPU tensor it
+The device packer (:func:`_pack_greedy_device`) computes the
+reference's ``lax.scan`` on the oracle's device: one step per group over
+a ``[K, 2V]`` load state (out loads, then in loads). On a CPU tensor it
 runs :func:`_pack_greedy_plain`, the scan as a host loop of torch ops;
 on a CUDA tensor it launches the hand-written kernel S2 in
-``kernels/csrc/pack.cu`` (one warp, the state in a device buffer) or
-raises. :func:`pack_phases_host` is the numpy twin with the same f32
-operations in the same order; the three assignments are equal bit for
-bit.
+``kernels/csrc/pack.cu`` or raises. S2 is a dataflow kernel: a row
+depends only on the earlier rows that share its source or destination
+switch, so rows on different switches run at once, in 32 warps that
+wait on a turnstile per destination switch. :func:`pack_phases_host` is the numpy
+twin with the same f32 operations in the same order; the three
+assignments are equal bit for bit.
 """
 
 from __future__ import annotations
@@ -88,6 +90,26 @@ def aggregate_groups(src_sw: np.ndarray, dst_sw: np.ndarray, v: int):
     return key, uniq, inv, counts, g_src, g_dst, w_pack
 
 
+#: shared memory that kernel S2's one block has on an H100 for its
+#: turnstiles and state: the 227 KB a block may take, less 32 KB of row
+#: records (32 bytes a row, 32 rows a warp, 32 warps)
+PACK_SHARED_BYTES = 232_448 - 32_768
+#: where S2 keeps its ``[V]`` int32 turnstiles and ``[K, 2V]`` f32 state,
+#: by :func:`pack_placement`'s code
+PACK_PLACEMENTS = ("shared memory", "state in device memory", "device memory")
+
+
+def pack_placement(k: int, v: int) -> int:
+    """Kernel S2's placement, from the shapes alone (no host sync): 0
+    when the turnstiles and the state both fit in shared memory, 1 when
+    the turnstiles alone do, 2 when neither (the names are
+    :data:`PACK_PLACEMENTS`)."""
+    turns = 4 * v
+    if turns + k * 2 * v * 4 <= PACK_SHARED_BYTES:
+        return 0
+    return 1 if turns <= PACK_SHARED_BYTES else 2
+
+
 def _pack_greedy_device(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -95,14 +117,30 @@ def _pack_greedy_device(
     util_out: torch.Tensor,
     util_in: torch.Tensor,
     k: int,
+    *,
+    _turns_only: bool = False,
 ) -> torch.Tensor:
     """``[G]`` int32 phase per group row (-1 where ``src < 0``): the greedy
-    scan of the module docstring, one step per row, on the rows' device.
-    CPU tensors take :func:`_pack_greedy_plain`; CUDA tensors launch
-    kernel S2, which takes 1 <= ``k`` <= :data:`MAX_AUTO_PHASES` and f32
-    ``w``, ``util_out`` and ``util_in`` (``[G]``, ``[V]``, ``[V]``) on
-    the rows' card, and raises on anything else. Its ``K * 2V`` f32
-    state is a zeroed buffer on the card."""
+    scan of the module docstring, on the rows' device. CPU tensors take
+    :func:`_pack_greedy_plain`; CUDA tensors launch kernel S2, which
+    takes 1 <= ``k`` <= :data:`MAX_AUTO_PHASES` and f32 ``w``,
+    ``util_out`` and ``util_in`` (``[G]``, ``[V]``, ``[V]``) on the
+    rows' card, and raises on anything else.
+
+    S2 runs the rows as a dataflow in one block of 32 warps (one launch).
+    Row i depends only on the earlier rows that share its source or its
+    destination switch, so a first step gives each row its turn in its
+    in column (the earlier live rows with the same ``d``) and deals the
+    sources to the warps (present sources, in index order, round the 32
+    warps). Each warp then takes its rows in order, waiting until the
+    turnstile of the row's in column reaches its turn; a source's rows
+    stay in one warp, so its out column needs none. Every add sees what
+    the sequential scan sees, in any interleaving the turnstiles admit.
+    The device buffer holds the rows' turns, the warps' row masks, the
+    sources' ranks and whatever :func:`pack_placement` leaves out of
+    shared memory; the kernel zeroes its own state. The private
+    ``_turns_only`` stops the launch after the first step, to time it
+    (the result then holds only the dead rows' -1)."""
     dev = src.device
     if dev.type == "cpu":
         return _pack_greedy_plain(src, dst, w, util_out, util_in, k)
@@ -124,17 +162,22 @@ def _pack_greedy_device(
     out = torch.empty(g, dtype=torch.int32, device=dev)
     if g == 0:
         return out
-    state = torch.zeros(k * 2 * v, dtype=torch.float32, device=dev)
-    fn = _build.function("pack", "pack_launch", [
+    placement = pack_placement(k, v)
+    # the rows' turns, a mask word per warp and 32-row chunk, the sources'
+    # ranks and a spill count row, and what shared memory does not hold
+    words = g + 32 * -(-g // 32) + 2 * v + (v if placement == 2 else 0)
+    words += k * 2 * v if placement else 0
+    work = torch.empty(words, dtype=torch.int32, device=dev)
+    fn = _build.function("pack", "pack_turns_launch" if _turns_only else "pack_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ])
     args = [x.to(torch.int32).contiguous() for x in (src, dst)]
     args += [x.contiguous() for x in (w, util_out, util_in)]
     err = fn(
-        *(x.data_ptr() for x in args), g, v, k, state.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(dev),
+        *(x.data_ptr() for x in args), g, v, k, placement, work.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, "pack")
     _pack_greedy_device.launches += 1
