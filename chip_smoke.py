@@ -7,8 +7,8 @@ order; the first failure ends the run with a non-zero exit:
 
 1. device   — a CUDA card is present; print its name and power limit.
 2. build    — build kernels K1 (BFS), K2 (path sampler and its set-up),
-               K3 (all-gather), S1 (greedy scanner) and S2 (phase
-               packer), one nvcc per source, in parallel.
+               K3 (all-gather, and its step form), S1 (greedy scanner)
+               and S2 (phase packer), one nvcc per source, in parallel.
 3. kernels  — K1 exactly against its plain version at every sources-per-
                block width that fits (config 4's fat-tree at its
                diameter, 2 and 0 levels; an asymmetric random digraph
@@ -28,7 +28,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 25.
+               printed last, after phases 7 to 26.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -205,19 +205,43 @@ order; the first failure ends the run with a non-zero exit:
                under sync debug mode 'error' and timed), every path
                shortest and the summed load equal to link_loads of the
                paths.
+26. overlapped exchange — config 13 (fattree(56), V = 3,968, 8 shards of
+               this card) on the three ring consumers that wait for each
+               step of K3's step form on the exchange stream: (a) every
+               step of the step kernel exactly against its plain version
+               (s = 3 and 8, bf16, int16 and int32 wires, uneven and full
+               width), timed per step beside its bound, Tensor.copy_ and
+               torch._foreach_copy_; (b) the gated chase of an 8,192-pair
+               window, the refresh's column-pipelined next-hop argmin and
+               the DAG step, each bit-equal to its gather twin and to one
+               device over 20 calls of a poisoned exchange delayed by
+               torch.cuda._sleep before each step; (c) the exchange's
+               events: a step's start precedes the end of the consumer
+               work enqueued before its wait; (d) each consumer's
+               overlapped wall, its serial equivalent (the exchange alone
+               plus the consumer on landed data) and their ratio, the
+               refresh leg's set as shard_exchange_overlap_gain and
+               shard_exchange_seconds observed; (e) the step kernel's CTA
+               sweep and the consumers' walls over CTA counts and stream
+               priorities; (f) the ring consumers under sync debug mode
+               'warn', every sync reported; (g) the ring re-route's first
+               call after a refresh split into host (cProfile) and device
+               (profiler) time, beside the host distance twin's download.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
 (phase 5), one steady sharded find_routes_collective and one sharded
-refresh (phase 8), one route_collective_sharded call per mode (phase 9),
+refresh (phase 8: the ring exchange's step form at least once in each),
+one route_collective_sharded call per mode (phase 9: the step form in
+ring mode, K3 in gather mode),
 route_adaptive(dist=None) (phase 10, exactly K1 1, set-up 1, K2 2), each
 pair-batch entry point (phase 11; the greedy leg S1 once, the others no
 S1), each collective policy (phase 12),
 one controller block install (phase 13, K1 0, set-up 1, K2 1), and the
 packet-in burst, the adaptive window install (K1 0, set-up 1, K2 2) and
 the link failure of phase 14, each launcher run of phase 15 (demo and
-restore: K1 0, set-up 1, K2 1; sharded demo: set-up 1, K2 8, K3 at
-least 1), the TCP block install of phase 16 (K1 0, set-up 1, K2 1) and
+restore: K1 0, set-up 1, K2 1; sharded demo: set-up 1, K2 8, K3 or its
+step form at least once), the TCP block install of phase 16 (K1 0, set-up 1, K2 1) and
 each serving run of phase 17, the flap storm of phase 18 (nothing: the
 shortest leg runs no kernel), the collective with the utilization plane
 of phase 19 (K1 0, set-up 1, K2 1), and the flat batches, the phased
@@ -229,9 +253,11 @@ default sample of 64 pairs takes the greedy scanner), phase 21's
 whole-population sentinel sweep (K1 0, set-up 1, K2 1), the launcher run
 of phase 22 (K1 0, set-up 2, K2 2: the demo's install and its
 re-install), phase 23's crashes, storm and failover and every leg of
-phase 24 (K1 and K2 0; K3 at least 1 on each refresh with the ring),
-and phase 25's legs (each window and narrowed re-route: K3 1, nothing
-else; warm_serving: K3 1 per warmed bucket; the shortest collective: K3
+phase 24 (K1 and K2 0; K3 at least 1 on each hier refresh with the
+ring, the step form at least once on the dense sharded refresh), and
+phase 25's legs (each window and narrowed re-route: in ring mode 5
+launches of K3's step form, in gather mode K3 1, nothing else;
+warm_serving: the same per warmed bucket; the shortest collective: K3
 1 on its first call after a refresh, 0 after; each UGAL leg: set-up 1,
 K2 2 per shard, no K1, no K3; the library legs: S1 once per shard,
 nothing else), against the
@@ -1107,6 +1133,7 @@ def counted_wrappers() -> dict:
         "sampler_tables": sampler.sampler_tables,
         "sample_slots": sampler.sample_slots,
         "ring_all_gather": ring.ring_all_gather,
+        "ring_step": ring.ring_step,
         "route_flows_balanced": congestion.route_flows_balanced,
         "pack_greedy": phases._pack_greedy_device,
     }
@@ -1132,11 +1159,19 @@ def path_launches(fn) -> dict:
     return read_launches()
 
 
-def launches_of(k1=0, setup=0, k2=0, k3=0, scan=0, pack=0) -> dict:
-    """The launch counts a path must make: K1, K2's set-up, K2, K3, the
-    scanner S1 and the packer S2."""
+def launches_of(k1=0, setup=0, k2=0, k3=0, step=0, scan=0, pack=0) -> dict:
+    """The launch counts a path must make: K1, K2's set-up, K2, K3, K3's
+    step form, the scanner S1 and the packer S2."""
     return {"bfs_distances": k1, "sampler_tables": setup, "sample_slots": k2,
-            "ring_all_gather": k3, "route_flows_balanced": scan, "pack_greedy": pack}
+            "ring_all_gather": k3, "ring_step": step, "route_flows_balanced": scan,
+            "pack_greedy": pack}
+
+
+def ring_steps(n_shards: int = N_SHARDS) -> int:
+    """Step launches of one streamed exchange over ``n_shards``."""
+    from sdnmpi_tpu_torch.kernels.ring import ring_legs
+
+    return max(ring_legs(n_shards)) + 1
 
 
 def require_one_set_up(counts: dict, what: str) -> None:
@@ -1423,7 +1458,8 @@ def phase_sharded_entry(device) -> dict:
     k2_calls: list = []
     with recording_sampler(k2_calls):
         counts = path_launches(route)
-    require_launched(counts, ("sampler_tables", "sample_slots", "ring_all_gather"),
+    # the ring branch's distance exchange: K3's step form
+    require_launched(counts, ("sampler_tables", "sample_slots", "ring_step"),
                      "steady sharded find_routes_collective")
     # each shard's sampler call of the steady call, fid_base included
     err = check_k2_calls(k2_calls, counts["sample_slots"],
@@ -1448,7 +1484,7 @@ def phase_sharded_entry(device) -> dict:
     t0 = time.perf_counter()
     refresh = path_launches(lambda: oracle.refresh(db))
     log(f"sharded refresh: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    require_launched(refresh, ("ring_all_gather",), "sharded refresh")
+    require_launched(refresh, ("ring_step",), "sharded refresh")
     check_routes("sharded slice", spec, db, macs, src_idx, dst_idx, routes)
     # the same fabric and collective on one device: the same routes
     single = spec.to_topology_db(backend="torch", device=device,
@@ -1552,7 +1588,8 @@ def phase_sharded_program(device) -> dict:
         k2_calls: list = []
         with recording_sampler(k2_calls):
             got = path_launches(lambda: out.update(r=run()))
-        require_launched(got, ("sampler_tables", "sample_slots", "ring_all_gather"),
+        require_launched(got, ("sampler_tables", "sample_slots",
+                               "ring_step" if ring_mode else "ring_all_gather"),
                          f"route_collective_sharded ({what})")
         err = max(err, check_k2_calls(
             k2_calls, got["sample_slots"],
@@ -2686,11 +2723,11 @@ def phase_launcher(device, report: dict, k: int = FATTREE_K,
 
     sharded = ["--shard-oracle", "--ring-exchange", "--mesh-devices", str(shards)]
     counts_c, rec = run_launcher(base + demo + sharded, "launcher sharded demo", report)
-    want(counts_c, {"bfs_distances": 0, "sampler_tables": 1, "sample_slots": shards,
-                    "route_flows_balanced": 0, "pack_greedy": 0},
+    # ring mode streams every exchange with the step form, K3 idle: the
+    # refresh's two column exchanges (its argmin split in two at this V)
+    # and the collective's distance exchange
+    want(counts_c, launches_of(setup=1, k2=shards, step=3 * ring_steps(shards)),
          "launcher sharded demo")
-    if counts_c["ring_all_gather"] < 1:
-        fail(f"launcher sharded demo: K3 did not launch ({counts_c})")
     got = float(installed(rec, "launcher sharded demo").max_congestion)
     if got != max_congestion:
         fail(f"launcher sharded demo: max congestion {got} against "
@@ -4858,9 +4895,10 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
     legs: list = []
     summary: dict = {}
 
-    def leg(fn, name: str, k3_min: int = 0) -> dict:
+    def leg(fn, name: str, k3_min: int = 0, step_min: int = 0) -> dict:
         """One counted leg: its launches, held (no K1, no K2; K3 at least
-        ``k3_min``), and the device programs' calls."""
+        ``k3_min``, its step form at least ``step_min``), and the device
+        programs' calls."""
         with hier_programs(programs):
             counts = path_launches(fn)
         if counts["bfs_distances"] or counts["sampler_tables"] or counts["sample_slots"]:
@@ -4868,6 +4906,9 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
         if counts["ring_all_gather"] < k3_min:
             fail(f"{name}: K3 launched {counts['ring_all_gather']} times, want at "
                  f"least {k3_min}")
+        if counts["ring_step"] < step_min:
+            fail(f"{name}: K3's step form launched {counts['ring_step']} times, "
+                 f"want at least {step_min}")
         legs.append(counts)
         return counts
 
@@ -5051,7 +5092,7 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
     dense_db = twin.to_topology_db(device=device, mesh_devices=shards,
                                    shard_oracle=True, ring_exchange=True)
     leg(timed(lambda: dense_db._oracle_engine().refresh(dense_db), out, "dense_ms"),
-        f"{wt} dense sharded refresh", 1)
+        f"{wt} dense sharded refresh", step_min=1)
     hier_db = twin.to_topology_db(device=device, hier_oracle=True, mesh_devices=shards,
                                   ring_exchange=True)
     one_db = twin.to_topology_db(device=device, hier_oracle=True)
@@ -5199,14 +5240,68 @@ def check_k3_calls(calls: list, launches: int, what: str) -> None:
             f"{blocks[0].dtype} equal to the plain version on every shard")
 
 
+@contextlib.contextmanager
+def recording_step(calls: list, streams: bool = False):
+    """Record every launch of K3's step form while the context is open:
+    ``(blocks, t, views before, views after)``, both copies taken on the
+    launch's stream around it; with ``streams``, ``(blocks, t, the
+    launch's stream handle)`` instead. The wrapper's launch helper is
+    wrapped, so the launch count stays the wrapper's."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    launch = ring._step_launch
+
+    def record(blocks, views, t, ctas):
+        if streams:
+            launch(blocks, views, t, ctas)
+            calls.append((blocks, t, torch.cuda.current_stream(views.device).cuda_stream))
+            return
+        before = views.clone()
+        launch(blocks, views, t, ctas)
+        calls.append((blocks, t, before, views.clone()))
+
+    ring._step_launch = record
+    try:
+        yield
+    finally:
+        ring._step_launch = launch
+
+
+def check_step_calls(calls: list, launches: int, what: str) -> None:
+    """Every recorded launch of K3's step form of one leg equal to the
+    plain step on its own blocks, applied to the views as they stood
+    before the launch."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    if len(calls) != launches:
+        fail(f"{what}: {len(calls)} step calls recorded for {launches} launches")
+    torch.cuda.synchronize()
+    for blocks, t, before, after in calls:
+        ring.ring_step_plain(blocks, before, t)
+        if not torch.equal(after, before):
+            fail(f"step kernel {what}: step {t} differs from the plain version")
+    if calls:
+        blocks = calls[0][0]
+        log(f"step kernel {what}: {len(calls)} steps over {len(blocks)} blocks of "
+            f"{tuple(blocks[0].shape)} {blocks[0].dtype}, each equal to the plain "
+            "step on the views it found")
+    calls.clear()
+
+
 def leg_launches(fn, what: str, want: dict, report: dict) -> tuple:
-    """Run ``fn()`` with the launch counts zeroed and every K2 and K3 call
-    recorded; each K2 call (its set-up's tables included) and each K3
-    call held against its plain version, the K2 launches of one device
+    """Run ``fn()`` with the launch counts zeroed and every K2, K3 and
+    step-form call recorded; each K2 call (its set-up's tables included),
+    each K3 call and each step held against its plain version, the K2
+    launches of one device
     sharing one set-up, and the counts exactly ``want``. Returns (counts,
     the recorded K2 calls, the wall in ms)."""
     k2_calls: list = []
     k3_calls: list = []
+    step_calls: list = []
     wall = {}
 
     def timed_fn():
@@ -5214,12 +5309,14 @@ def leg_launches(fn, what: str, want: dict, report: dict) -> tuple:
         fn()
         wall["ms"] = (time.perf_counter() - t0) * 1e3
 
-    with recording_sampler(k2_calls), recording_ring(k3_calls):
+    with recording_sampler(k2_calls), recording_ring(k3_calls), \
+            recording_step(step_calls):
         counts = path_launches(timed_fn)
     report["sample_slots"]["max_abs_err"] = max(
         report["sample_slots"]["max_abs_err"],
         check_k2_calls(k2_calls, counts["sample_slots"], what))
     check_k3_calls(k3_calls, counts["ring_all_gather"], what)
+    check_step_calls(step_calls, counts["ring_step"], what)
     n_tables = len({id(kw["tables"]) for _, kw, _ in k2_calls})
     if k2_calls and n_tables != counts["sampler_tables"]:
         fail(f"{what}: {counts['sample_slots']} K2 launches on {n_tables} "
@@ -5334,7 +5431,9 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
         lambda: one.find_routes_batch_dispatch(pairs).reap())
     log(f"(a) {n_window:,}-pair window on one device: steady "
         f"{walls['window_one_steady_ms']:.1f} ms ({CARD})")
-    chase = launches_of(k3=1)
+    # the ring chase streams its exchange (K3's step form); the gather
+    # chase gathers with one K3 launch
+    chase = {True: launches_of(step=ring_steps()), False: launches_of(k3=1)}
     for ring_mode in (True, False):
         oracle.ring_exchange = ring_mode
         mode = "ring" if ring_mode else "gather"
@@ -5342,7 +5441,7 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
         out = {}
         counts, _, walls[f"window_{mode}_ms"] = leg_launches(
             lambda: out.update(w=db.find_routes_batch_dispatch(pairs).reap()),
-            what, chase, report)
+            what, chase[ring_mode], report)
         legs.append(counts)
         same_window(out["w"], ref, what)
         check_fdbs(db, pairs, out["w"].fdbs(), what)
@@ -5375,7 +5474,7 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
         what = f"(a) narrowed re-route, {'ring' if ring_mode else 'gather'}"
         counts, _, walls[f"delta_{'ring' if ring_mode else 'gather'}_ms"] = leg_launches(
             lambda: out.update(w=db.find_routes_batch_delta_dispatch(
-                pairs, [d1, d2]).reap()), what, chase, report)
+                pairs, [d1, d2]).reap()), what, chase[ring_mode], report)
         legs.append(counts)
         same_window(out["w"], ref, what)
         check_fdbs(db, pairs, out["w"].fdbs(), what)
@@ -5391,8 +5490,9 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
     for ring_mode in (True, False):
         oracle.ring_exchange = ring_mode
         what = f"(b) warm_serving, {'ring' if ring_mode else 'gather'}"
+        warm = launches_of(step=2 * ring_steps()) if ring_mode else launches_of(k3=2)
         counts, _, _ = leg_launches(lambda: out.update(w=db.warm_serving()), what,
-                                    launches_of(k3=2), report)
+                                    warm, report)
         legs.append(counts)
         w = out["w"]
         if w["shapes"] != [8, 256]:
@@ -5552,9 +5652,603 @@ def phase_shard_legs(device, report: dict, k: int = SHARD_K,
     collect("phase 25")
     summary = {"walls": walls, "k3_next_hop_wire": k3_wire, "k3_next_hop_rows": k3_rows,
                "k3_launches": sum(c["ring_all_gather"] for c in legs),
+               "step_launches": sum(c["ring_step"] for c in legs),
                "k2_launches": sum(c["sample_slots"] for c in legs)}
     log(f"phase 25 summary ({CARD}): " + json.dumps(summary))
     return legs
+
+
+# -- phase 26: the overlapped exchange (config 13, 8 shards) ----------------
+
+#: calls of each consumer under the delayed, poisoned exchange
+OVERLAP_CALLS = 20
+#: spin cycles (torch.cuda._sleep) before each step of the delayed
+#: exchange, taken in turn by the calls: 0, ~0.1, ~0.5 and ~1.5 ms
+OVERLAP_DELAYS = (0, 200_000, 1_000_000, 3_000_000)
+#: calls timed for each wall of (d) and each point of the sweep (e)
+OVERLAP_REPS = 10
+#: CTA counts of the step kernel's sweep
+STEP_SWEEP_CTAS = (8, 16, 32, 64, 128, 256, 1056, 8448)
+#: exchange-stream priorities of the sweep (CUDA: -1 is high, 0 default)
+STEP_SWEEP_PRIORITIES = (0, -1)
+
+
+def wall_ms(fn, n: int = OVERLAP_REPS) -> float:
+    """Median host wall of ``fn()`` in ms, the device synchronized before
+    and after each call (after one call that is not timed)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def step_bytes(s: int, b: int, c: int, item: int, t: int) -> int:
+    """Bytes step t of the exchange must move: each source block read
+    once, each arrival written once."""
+    from sdnmpi_tpu_torch.kernels.ring import step_offsets
+
+    return (s + s * len(step_offsets(t, s))) * b * c * item
+
+
+def step_copies(blocks: list, views, t: int) -> tuple:
+    """Step t's (destination, source) pairs: the ``Tensor.copy_`` calls
+    of the plain version."""
+    from sdnmpi_tpu_torch.kernels.ring import step_offsets
+
+    s = len(blocks)
+    b = blocks[0].shape[0]
+    dst, src = [], []
+    for me in range(s):
+        for d in step_offsets(t, s):
+            q = (me + d) % s
+            dst.append(views[me][q * b:(q + 1) * b])
+            src.append(blocks[q])
+    return dst, src
+
+
+def hold_steps(device) -> None:
+    """(a) Every step of the step kernel exactly against its plain version
+    (both on the card, on the same blocks), at s in {3, 8}, on the bf16,
+    int16 and int32 wires, uneven and at config 13's full width, at the
+    default CTA count and at 8 (many grid strides); the views after the
+    last step equal to ring_all_gather_plain's output, and a poisoned
+    RingExchange's trimmed views equal to the matrix."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    rng = np.random.default_rng(26)
+    cases = [(s, r, c, dt) for dt in (torch.bfloat16, torch.int16, torch.int32)
+             for s, r, c in ((3, 1001, 130), (8, 1001, 384), (8, SHARD_V, SHARD_V))]
+    for s, r, c, dt in cases:
+        x = torch.as_tensor(rng.integers(-30000, 30000, (r, c))).to(device, dt)
+        b = -(-r // s)
+        blocks = [x[q * b:(q + 1) * b] for q in range(s)]
+        padded, b, _ = ring._padded_blocks(blocks)
+        whole = ring.ring_all_gather_plain(padded)
+        for ctas in (None, 8):
+            got = torch.zeros((s, s * b, c), dtype=dt, device=device)
+            want = torch.zeros_like(got)
+            for t in range(max(ring.ring_legs(s)) + 1):
+                ring.ring_step(padded, got, t, ctas=ctas)
+                ring.ring_step_plain(padded, want, t)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"step kernel s={s} R={r} C={c} {dt} ctas={ctas}: step {t} "
+                         "differs from the plain version")
+            for me in range(s):
+                if not torch.equal(got[me], whole[me]):
+                    fail(f"step kernel s={s} R={r} C={c} {dt}: shard {me}'s view "
+                         "differs from ring_all_gather_plain after the last step")
+        ring.POISON = True
+        try:
+            ex = ring.RingExchange(blocks)
+            ex.join()
+        finally:
+            ring.POISON = False
+        torch.cuda.synchronize()
+        for me in range(s):
+            if not torch.equal(ex.view(me), x):
+                fail(f"RingExchange s={s} R={r} C={c} {dt}: shard {me} differs")
+        log(f"step kernel s={s} R={r} C={c} {dt}: every step equal to the plain "
+            "version (default CTAs and 8), the views to ring_all_gather_plain")
+        del x, blocks, padded, whole, got, want, ex
+
+
+def time_steps(device, report: dict) -> list:
+    """The step kernel at config 13's next-hop wire (8 blocks of [496,
+    3968] int16): each step's bare time (queued) at the default CTA
+    count beside its bound, step 1's wrapper, plain version, the same
+    copies as ``Tensor.copy_`` calls and as one ``torch._foreach_copy_``;
+    then the sweep of CTA counts (e). Returns the wire blocks."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    rng = np.random.default_rng(261)
+    v, s = SHARD_V, N_SHARDS
+    rp = v // s
+    x = torch.as_tensor(rng.integers(-1, v, (v, v))).to(device, torch.int16)
+    blocks = [x[q * rp:(q + 1) * rp].contiguous() for q in range(s)]
+    views = torch.empty((s, v, v), dtype=torch.int16, device=device)
+    last = max(ring.ring_legs(s))
+    bare, bounds = [], []
+    for t in range(last + 1):
+        bare.append(queued_ms(lambda: ring.ring_step(blocks, views, t)))
+        bounds.append(bound_ms({"bytes": step_bytes(s, rp, v, 2, t), "ops": 0})[0])
+    log(f"step kernel bare (queued, {ring.STEP_CTAS} CTAs), steps 0-{last}: "
+        + ", ".join(f"{m:.4f}" for m in bare) + " ms; bounds "
+        + ", ".join(f"{m:.4f}" for m in bounds) + f" ms; the exchange {sum(bare):.4f} "
+        f"ms, bound {sum(bounds):.4f} ms, steps 1-{last}: {sum(bare[1:]):.4f} ms, "
+        f"bound {sum(bounds[1:]):.4f} ms ({CARD})")
+    dst, src = step_copies(blocks, views, 1)
+    ms = time_ms(lambda: ring.ring_step(blocks, views, 1), reps=20)
+    plain = time_ms(lambda: ring.ring_step_plain(blocks, views, 1), reps=20)
+    copies = time_ms(lambda: [d.copy_(b) for d, b in zip(dst, src)], reps=20)
+    lib = time_ms(lambda: torch._foreach_copy_(dst, src), reps=20)
+    nbytes = step_bytes(s, rp, v, 2, 1)
+    log(f"step kernel, step 1 ({len(dst)} block copies, {nbytes} B): wrapper "
+        f"{ms:.4f} ms, bare {bare[1]:.4f} ms, plain {plain:.4f} ms, Tensor.copy_ x "
+        f"{len(dst)} {copies:.4f} ms, torch._foreach_copy_ {lib:.4f} ms; bound "
+        f"{bounds[1]:.4f} ms ({CARD})")
+    report["ring_step"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                           "bytes": nbytes, "ops": 0, "library_ms": lib}
+    sweep = []
+    for ctas in STEP_SWEEP_CTAS:
+        per = [queued_ms(lambda: ring.ring_step(blocks, views, t, ctas=ctas))
+               for t in range(last + 1)]
+        sweep.append((ctas, per))
+        log(f"(e) step kernel at {ctas} CTAs: steps " + ", ".join(f"{m:.4f}" for m in per)
+            + f" ms, the exchange {sum(per):.4f} ms ({CARD})")
+    return sweep
+
+
+def sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles in one ms of this card, by events."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    return 20_000_000 / a.elapsed_time(b)
+
+
+def overlap_segments(trace: list) -> list:
+    """The consumer segments of a traced call and the steps in flight in
+    each. A segment runs on the consumer's stream from a ``"ready"`` event
+    (the work after a wait) or from a ``"fork"`` that is followed by its
+    exchange's ``"join"`` (the work queued while the whole exchange is in
+    flight) to the next ``"wait"`` or ``"join"``. A step is in flight in
+    it when its exchange forked before the segment's end was enqueued and
+    no wait on it came before that end. Returns ``(begin, end, [(start,
+    end) of each step in flight])``, with segments that have no step in
+    flight left out."""
+    main = [(i, e) for i, e in enumerate(trace)
+            if e[0] in ("fork", "wait", "ready", "join")]
+    steps = {(e[1], e[2]): [None, None, i] for i, e in enumerate(trace)
+             if e[0] == "start"}
+    for kind, ex, t, ev in trace:
+        if kind in ("start", "end"):
+            steps[(ex, t)][kind == "end"] = ev
+    forked = {e[1]: i for i, e in enumerate(trace) if e[0] == "fork"}
+    covered = {}  # (ex, t) -> index of the first wait that covers step t
+    for i, (kind, ex, t, _) in main:
+        if kind in ("wait", "join"):
+            for (x, u) in steps:
+                if x == ex and u <= t and (x, u) not in covered:
+                    covered[(x, u)] = i
+    out = []
+    for n, (i, (kind, ex, t, ev)) in enumerate(main):
+        nxt = next(((j, e) for j, e in main[n + 1:] if e[0] in ("wait", "join")), None)
+        if nxt is None:
+            continue
+        j, end = nxt
+        if kind == "fork" and not (end[0] == "join" and end[1] == ex):
+            continue
+        if kind not in ("fork", "ready"):
+            continue
+        flying = [(a, b) for key, (a, b, _) in steps.items()
+                  if forked[key[0]] < j and covered.get(key, len(trace)) >= j]
+        if flying:
+            out.append((ev, end[3], flying))
+    return out
+
+
+def trace_overlap(what: str, fn, cycles_per_ms: float) -> dict:
+    """(c) Run ``fn()`` once with the exchange's events traced and every
+    step launch's stream recorded, after a spin on the consumer's stream
+    long enough (about twice ``fn``'s own wall) that the host enqueues the
+    whole call before the card starts it: what runs at the same time on
+    the card then shows, whatever the host's speed. Every step must
+    launch on a stream other than the consumer's, and some consumer
+    segment (:func:`overlap_segments`) must overlap a step in flight on
+    the card: the step starts before the segment ends and ends after it
+    begins. The hidden share is the part of the steps' card time that
+    lies inside consumer segments. A step queued on the consumer's own
+    stream lies wholly before or after each segment, and fails."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    wall = wall_ms(fn, n=1)
+    consumer = torch.cuda.current_stream()
+    launched: list = []
+    with recording_step(launched, streams=True):
+        ring.TRACE = []
+        try:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(2 * wall * cycles_per_ms))
+            spun = torch.cuda.Event(enable_timing=True)
+            spun.record()
+            fn()
+            ahead = not spun.query()
+            torch.cuda.synchronize()
+            trace = ring.TRACE
+        finally:
+            ring.TRACE = None
+    if not launched:
+        fail(f"(c) {what}: no step launched")
+    wrong = [st for *_, st in launched if st == consumer.cuda_stream]
+    if wrong:
+        fail(f"(c) {what}: {len(wrong)} of {len(launched)} step launches on the "
+             "consumer's own stream")
+    segments = [(spun.elapsed_time(b), spun.elapsed_time(e),
+                 [(spun.elapsed_time(x), spun.elapsed_time(y)) for x, y in flying])
+                for b, e, flying in overlap_segments(trace)]
+    if not segments:
+        fail(f"(c) {what}: no consumer segment with a step in flight")
+    overlapped = sum(any(x < e and y > b for x, y in flying) for b, e, flying in segments)
+    steps = {}
+    for kind, ex, t, ev in trace:
+        if kind in ("start", "end"):
+            steps.setdefault((ex, t), [0.0, 0.0])[kind == "end"] = spun.elapsed_time(ev)
+    step_ms = sum(y - x for x, y in steps.values())
+    hidden_ms = sum(max(0.0, min(y, e) - max(x, b))
+                    for x, y in steps.values() for b, e, _ in segments)
+    if not overlapped or hidden_ms <= 0:
+        fail(f"(c) {what}: no consumer segment overlapped a step in flight on the "
+             f"card ({len(segments)} segments)")
+    log(f"(c) {what}: host ahead of the card for the whole call: {ahead}; every "
+        f"step launched on the exchange stream, not the consumer's; "
+        f"{overlapped} of {len(segments)} consumer segment(s) with a step in flight "
+        f"overlapped one on the card; {hidden_ms:.4f} of the steps' {step_ms:.4f} "
+        f"ms ({hidden_ms / step_ms:.1%}) hidden inside consumer work ({CARD})")
+    return {"segments": len(segments), "overlapped": overlapped,
+            "hidden_ms": hidden_ms, "step_ms": step_ms, "host_ahead": ahead}
+
+
+def sync_report(what: str, fn) -> list:
+    """(f) ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronizing calls it made, reported (not failed)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's one-time notice that it is a prototype is not a sync
+    syncs = [str(w.message) for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    log(f"(f) {what}: {len(syncs)} synchronizing call(s) under sync debug mode "
+        f"'warn'" + (f": {sorted(set(s[:120] for s in syncs))}" if syncs else ""))
+    return syncs
+
+
+def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
+                       n_ranks: int = SHARD_RANKS, n_window: int = LEGS_WINDOW,
+                       calls: int = OVERLAP_CALLS) -> dict:
+    """Config 13's overlapped exchange at full width (fattree(56), V =
+    3,968, 8 shards of this card): (a) the step kernel held; (b) the
+    three ring consumers (the gated chase of an 8,192-pair window, the
+    refresh's column-pipelined next-hop argmin, the DAG step) bit-equal
+    to their gather twins and to one device over ``calls`` calls of a
+    poisoned exchange delayed before each step; (c) the overlap shown by
+    the exchange's events; (d) each consumer's overlapped wall beside
+    its serial equivalent (the exchange alone plus the consumer on
+    landed data) and their ratio, the refresh leg's set as
+    ``shard_exchange_overlap_gain``; (e) the step kernel's CTA sweep and
+    the consumers' walls over CTA counts and stream priorities; (f) the
+    ringed legs under sync debug mode 'warn'; (g) the ring re-route's
+    first call after a refresh split into host and device time. Returns
+    the summary."""
+    import torch
+
+    from sdnmpi_tpu_torch import shardplane as sp
+    from sdnmpi_tpu_torch.kernels import ring
+    from sdnmpi_tpu_torch.oracle import engine
+    from sdnmpi_tpu_torch.oracle.dag import route_collective
+    from sdnmpi_tpu_torch.oracle.paths import batch_fdb
+    from sdnmpi_tpu_torch.shardplane import apsp as sp_apsp
+    from sdnmpi_tpu_torch.shardplane import hier as sp_hier
+    from sdnmpi_tpu_torch.shardplane import routes as sp_routes
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    summary: dict = {}
+    hold_steps(device)
+    sweep = time_steps(device, report)
+
+    # the consumers' arguments as the engine passes them at config 13
+    spec = fattree(k)
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD,
+                             mesh_devices=N_SHARDS, shard_oracle=True,
+                             ring_exchange=True)
+    one = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD)
+    oracle, one_oracle = db._oracle_engine(), one._oracle_engine()
+    captured: dict = {}
+
+    def spying(name):
+        real = getattr(sp, name)
+
+        def spy(*args, **kw):
+            captured[name] = (args, kw)
+            return real(*args, **kw)
+
+        return real, spy
+
+    real_nh, spy_nh = spying("apsp_next_hops_ringed")
+    real_ch, spy_ch = spying("batch_fdb_ringed")
+    sp.apsp_next_hops_ringed, sp.batch_fdb_ringed = spy_nh, spy_ch
+    try:
+        t = oracle.refresh(db)
+        hosts = [m for m, _, _ in spec.hosts[:n_ranks]]
+        rng = np.random.default_rng(26)
+        a = rng.integers(0, len(hosts), n_window)
+        b = (a + 1 + rng.integers(0, len(hosts) - 1, n_window)) % len(hosts)
+        pairs = [(hosts[i], hosts[j]) for i, j in zip(a, b)]
+        db.find_routes_batch_dispatch(pairs).reap()
+    finally:
+        sp.apsp_next_hops_ringed, sp.batch_fdb_ringed = real_nh, real_ch
+    one_oracle.refresh(one)
+    one_next = one_oracle._next_d
+    nh_args, nh_kw = captured["apsp_next_hops_ringed"]
+    ch_args, _ = captured["batch_fdb_ringed"]
+    mesh = ch_args[-1]
+    next_hop, port, src, dst, fport, max_len = ch_args[:6]
+    p = shard_problem(device, k, n_ranks)
+    rp = p["t"].v // N_SHARDS
+    dist_sh = [p["dist"][q * rp:(q + 1) * rp] for q in range(N_SHARDS)]
+    kw = dict(levels=p["levels"], rounds=ROUNDS, max_len=p["levels"] + 1,
+              dst_nodes=p["dst_nodes"], neigh=p["t"].neigh)
+    log(f"phase 26: fattree-k{k} V={t.v}, {mesh.n_shards} shards on {device}; "
+        f"window {len(src):,} flows, hop budget {max_len}; next hops over "
+        f"{nh_kw.get('n_occ', 0) or t.v} columns; collective {len(p['src']):,} "
+        "flows")
+
+    consumers = {
+        "chase": (lambda: sp_routes.batch_fdb_ringed(*ch_args),
+                  lambda: sp_routes.batch_fdb_sharded(*ch_args),
+                  lambda: batch_fdb(one_next, port, src, dst, fport, max_len)),
+        "next hops": (lambda: sp_apsp.apsp_next_hops_ringed(*nh_args, **nh_kw),
+                      lambda: sp_apsp.apsp_next_hops_rowsharded(*nh_args, **nh_kw),
+                      lambda: one_next),
+        "collective": (
+            lambda: sp_routes.route_collective_sharded(
+                *p["args"], mesh, dist=dist_sh, ring_exchange=True, **kw),
+            lambda: sp_routes.route_collective_sharded(
+                *p["args"], mesh, dist=dist_sh, ring_exchange=False, **kw),
+            lambda: route_collective(*p["args"], dist=p["dist"], **kw)),
+    }
+
+    def flat(r):
+        """A consumer's result as tensors to compare: the per-shard lists
+        joined; the collective's max congestion apart."""
+        if isinstance(r, tuple) and len(r) == 2 and not isinstance(r[0], list):
+            return [r[0]], r[1]
+        if isinstance(r, tuple) and len(r) == 2:
+            return [torch.cat(r[0])], r[1]
+        if isinstance(r, tuple):
+            return [torch.cat(x) if isinstance(x, list) else x for x in r], None
+        return [torch.cat(r) if isinstance(r, list) else r], None
+
+    # (b) bit-equal to the gather twin and one device, delayed and poisoned
+    for name, (ringed, twin, single) in consumers.items():
+        want, want_c = flat(twin())
+        one_r, one_c = flat(single())
+        for w, o in zip(want, one_r):
+            if not torch.equal(w.to(o.dtype), o):
+                fail(f"(b) {name}: the gather twin differs from one device")
+        if want_c is not None and abs(float(want_c) - float(one_c)) > 1e-5 * abs(
+                float(one_c)):
+            fail(f"(b) {name}: max congestion {float(want_c)} against "
+                 f"{float(one_c)} on one device")
+        delays = []
+        ring.POISON = True
+        try:
+            for i in range(calls):
+                cycles = OVERLAP_DELAYS[i % len(OVERLAP_DELAYS)]
+                ring.BEFORE_STEP = (lambda _t, c=cycles: torch.cuda._sleep(c)) if cycles else None
+                got, got_c = flat(ringed())
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if g.shape != w.shape or not torch.equal(g, w):
+                        fail(f"(b) {name}: call {i} (delay {cycles} cycles a step) "
+                             "differs from the gather twin")
+                if got_c is not None and float(got_c) != float(want_c):
+                    fail(f"(b) {name}: call {i}: max congestion {float(got_c)} "
+                         f"against {float(want_c)}")
+                delays.append(cycles)
+        finally:
+            ring.POISON = False
+            ring.BEFORE_STEP = None
+        log(f"(b) {name}: {calls} calls of a poisoned exchange delayed by "
+            f"{sorted(set(delays))} cycles a step, each bit-equal to the gather "
+            "twin and to one device")
+
+    # (c) the overlap, from the exchange's events
+    per_ms = sleep_cycles_per_ms()
+    summary["trace"] = {name: trace_overlap(name, fns[0], per_ms)
+                        for name, fns in consumers.items()}
+
+    # (d) overlapped walls against the serial equivalent
+    blocks_ch = sp_routes._row_blocks(next_hop, mesh)
+    v_ch = blocks_ch[0].shape[1]
+    wire16 = v_ch <= ring.NEXT_WIRE_MAX_V
+
+    def chase_exchange():
+        return ring.RingExchange(
+            [ring.pack_next_wire(x) if wire16 else x for x in blocks_ch])
+
+    landed_ch = chase_exchange()
+    landed_ch.join()
+    adj, dist_nh, _, max_degree = nh_args[:4]
+    n_occ = nh_kw.get("n_occ", 0)
+    v_nh = adj.shape[0]
+    n_cols = v_nh if n_occ <= 0 else min(v_nh, n_occ)
+    block = sp_apsp._column_block(n_cols, v_nh // N_SHARDS, max_degree, v_nh, True)
+    starts = range(0, n_cols, block)
+
+    def column_exchanges():
+        start = sp_apsp.column_exchanges(dist_nh, n_cols, block)
+        exs = {c: start(c) for c in starts}
+        for ex in exs.values():
+            ex.join()
+        return exs
+
+    landed_nh = column_exchanges()
+
+    def consume_columns():
+        rpn, tables = sp_apsp._tables(adj, mesh, max_degree)
+        return sp_apsp.next_hops_from_columns(
+            tables, dist_nh, rpn, n_cols, block,
+            lambda c: [ring.unpack_dist_wire(landed_nh[c].view(q))
+                       for q in range(N_SHARDS)])
+
+    d_rep = p["dist"]
+    parts = {
+        "chase": (
+            lambda: chase_exchange().join(),
+            lambda: sp_routes.chase_exchange(lambda: landed_ch, port, src, dst, fport,
+                                             max_len, mesh, v_ch)),
+        "next hops": (column_exchanges, consume_columns),
+        "collective": (
+            lambda: ring.finish_distance_exchange(ring.start_distance_exchange(dist_sh)),
+            lambda: sp_routes.route_collective_sharded(
+                *p["args"], mesh, dist=d_rep, ring_exchange=False, **kw)),
+    }
+    got_c, _ = flat(parts["chase"][1]())
+    want_c, _ = flat(consumers["chase"][1]())
+    if not all(torch.equal(g, w) for g, w in zip(got_c, want_c)):
+        fail("(d) the chase on a landed exchange differs from the gather twin")
+    walls = {}
+    for name, (ringed, _, _) in consumers.items():
+        exch, cons = parts[name]
+        # in turns (overlapped, exchange, consumer; then reversed), the
+        # median of each over both rounds: the host's clock drifts
+        runs = {"overlapped_ms": [], "exchange_ms": [], "consumer_ms": []}
+        for order in ((ringed, exch, cons), (cons, exch, ringed)):
+            for fn in order:
+                key = ("overlapped_ms" if fn is ringed else
+                       "exchange_ms" if fn is exch else "consumer_ms")
+                runs[key].append(wall_ms(fn))
+        w = {key: statistics.mean(x) for key, x in runs.items()}
+        w["serial_ms"] = w["exchange_ms"] + w["consumer_ms"]
+        w["overlap_gain"] = w["serial_ms"] / w["overlapped_ms"]
+        walls[name] = w
+        # what explains the ratio: the call's device busy share
+        wall, busy, rows = profile_device(ringed)
+        log_profile(f"(d) {name}, overlapped", wall, busy, rows, top=4)
+        w["profiled_wall_ms"], w["device_busy_ms"] = wall, busy
+        log(f"(d) {name}: overlapped {w['overlapped_ms']:.3f} ms; serial "
+            f"{w['serial_ms']:.3f} ms (the exchange alone {w['exchange_ms']:.3f} + "
+            f"the consumer on landed data {w['consumer_ms']:.3f}); overlap_gain "
+            f"{w['overlap_gain']:.3f} ({CARD})")
+    nh = walls["next hops"]
+    gain = engine.note_exchange_overlap(nh["serial_ms"] / 1e3, nh["overlapped_ms"] / 1e3)
+    sp_hier._m_exchange_s.observe(nh["exchange_ms"] / 1e3)
+    if engine._m_shard_overlap.value != gain or sp_hier._m_exchange_s.count < 1:
+        fail("(d) shard_exchange_overlap_gain / shard_exchange_seconds not set")
+    log(f"(d) shard_exchange_overlap_gain = {engine._m_shard_overlap.value:.3f} "
+        f"(the refresh leg); shard_exchange_seconds observed "
+        f"{sp_hier._m_exchange_s.count} time(s), sum {sp_hier._m_exchange_s.sum:.6f} s")
+    summary["walls"] = walls
+
+    # (e) the consumers' walls over CTA counts and stream priorities: the
+    # step launches take the sweep's CTA count, and the exchange forks
+    # onto a stream of the sweep's priority
+    grid = {}
+    launch, stream_of = ring._step_launch, ring.exchange_stream
+    try:
+        for prio in STEP_SWEEP_PRIORITIES:
+            st = torch.cuda.Stream(device, priority=prio)
+            ring.exchange_stream = lambda _dev, st=st: st
+            for ctas in (16, 64, 128, 1056):
+                ring._step_launch = (lambda b, v, t, _c, ctas=ctas:
+                                     launch(b, v, t, ctas))
+                row = {name: wall_ms(consumers[name][0], n=5)
+                       for name in ("chase", "next hops")}
+                grid[f"{ctas}/{prio}"] = row
+                log(f"(e) {ctas} CTAs, exchange priority {prio}: chase "
+                    f"{row['chase']:.3f} ms, next hops {row['next hops']:.3f} ms "
+                    f"({CARD})")
+    finally:
+        ring._step_launch, ring.exchange_stream = launch, stream_of
+    summary["sweep"] = {"steps": sweep, "walls": grid}
+
+    # (f) host syncs inside the ringed legs
+    summary["syncs"] = {name: len(sync_report(name, fns[0]))
+                        for name, fns in consumers.items()}
+
+    # (g) the ring re-route's first call after a refresh, split
+    d1, d2 = int(t.dpids[0]), int(t.dpids[1])
+
+    def reroute():
+        return db.find_routes_batch_delta_dispatch(pairs, [d1, d2]).reap()
+
+    def once(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    split = {}
+    for when in ("first", "steady"):
+        if when == "first":
+            db._version += 1
+            oracle.refresh(db)
+        what = f"(g) ring re-route, {when} call after a refresh"
+        wall, busy, rows = profile_device(
+            lambda: log_host_profile(what, reroute, top=10))
+        split[when] = {"wall_ms": wall, "device_busy_ms": busy}
+        log_profile(what, wall, busy, rows)
+    for mode in (True, False):
+        oracle.ring_exchange = mode
+        db._version += 1
+        oracle.refresh(db)
+        name = "ring" if mode else "gather"
+        split[f"{name}_first_ms"] = once(reroute)
+        split[f"{name}_second_ms"] = once(reroute)
+    oracle.ring_exchange = True
+    db._version += 1
+    oracle.refresh(db)
+    split["host_twin_ms"] = once(lambda: oracle._dist)
+    split["first_after_twin_ms"] = once(reroute)
+    log(f"(g) re-route after a refresh, unprofiled: ring first "
+        f"{split['ring_first_ms']:.1f} ms, second {split['ring_second_ms']:.1f} ms; "
+        f"gather first {split['gather_first_ms']:.1f} ms, second "
+        f"{split['gather_second_ms']:.1f} ms; "
+        f"after another refresh the host distance twin alone "
+        f"{split['host_twin_ms']:.1f} ms, then the first re-route "
+        f"{split['first_after_twin_ms']:.1f} ms ({CARD})")
+    summary["reroute"] = split
+    del db, one, oracle, one_oracle, p, landed_ch, landed_nh, consumers, parts
+    collect("phase 26")
+    log(f"phase 26 summary ({CARD}): " + json.dumps(summary, default=str))
+    return summary
 
 
 def walled(fn):
@@ -5670,6 +6364,10 @@ def main() -> int:
 
     # phase 25: the remaining sharded legs at config 13
     legs_counts = walled(phase_shard_legs)(device, report)
+    collect("sharded legs")
+
+    # phase 26: the overlapped exchange at config 13
+    walled(phase_ring_overlap)(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
              *launcher_counts, *southbound_counts, *serving_counts,
@@ -5685,6 +6383,9 @@ def main() -> int:
         "sampler_tables": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:270"),
         "sample_slots": ("csrc/sampler.cu", "sdnmpi_tpu/kernels/sampler.py:245"),
         "ring_all_gather": ("csrc/ring.cu", "sdnmpi_tpu/kernels/ring.py:365"),
+        # K3's step form: one step of the Pallas body (ring_stream's
+        # ppermutes, ring.py:166-195, in the JAX twin)
+        "ring_step": ("csrc/ring.cu", "sdnmpi_tpu/kernels/ring.py:251"),
         # S1 and S2 replace jitted lax.scan programs, not Pallas kernels
         "route_flows_balanced": ("csrc/scan.cu", "sdnmpi_tpu/oracle/congestion.py:56"),
         "pack_greedy": ("csrc/pack.cu", "sdnmpi_tpu/sched/phases.py:126"),

@@ -1,4 +1,5 @@
-"""All-gather over the port's shard mesh: kernel K3 and its plain version.
+"""All-gather over the port's shard mesh: kernel K3, its step form, and
+their plain versions.
 
 Counterpart of ``sdnmpi_tpu/kernels/ring.py``. A sharded tensor is a
 list of per-shard row blocks (``shardplane/mesh.py``); the all-gather
@@ -13,11 +14,17 @@ leaves every shard with the whole ``[R, C]`` matrix.
   straight into every shard's output (a mesh placed on one card), or
   raise. Both compute the same function; the ring is what a TPU's
   neighbour-only links need, and a card reaches every output directly.
-- :func:`ring_stream` runs one gather of the shards' wire blocks and then
-  hands every block to a consumer in the reference's arrival order. The
-  shardplane's consumers do not need that order while the exchange is
-  not overlapped with them, so they gather and unpack whole matrices
-  (:func:`exchange_distances`, one launch and one unpack per shard).
+- :func:`ring_step` is K3's step form: it lands the arrivals of one ring
+  step in every shard's own view (CPU: :func:`ring_step_plain`; CUDA:
+  ``ring_step_launch`` in ``csrc/ring.cu``). :class:`RingExchange` runs
+  the steps of one exchange on the device's exchange stream, one event
+  per step, so that a consumer on the current stream waits only for the
+  step it reads while the next one is in flight: the reference's
+  ``ring_stream``, whose next ``ppermute`` overlaps the consumer of the
+  last. :func:`ring_stream` keeps the reference's contract on top of it;
+  the shardplane's three ring consumers (the gated chase, the
+  column-pipelined next-hop argmin, the DAG step's distance exchange)
+  drive an exchange directly.
 - Wire packing: hop counts ride as bf16 while V - 1 fits bf16's exact
   integers, else as int16 with -1 for inf (exact while V <= 2**15), else
   unpacked f32; next hops ride as int16.
@@ -43,6 +50,25 @@ NEXT_WIRE_MAX_V = 1 << 15
 
 #: most shards one launch of the kernel serves (its pointer table)
 MAX_SHARDS = 64
+
+#: CTAs of one step launch: few enough to leave SMs to the consumer
+#: that runs beside the exchange (the sweep in chip_smoke.py picks it)
+STEP_CTAS = 128
+
+#: Test and measurement hooks of :class:`RingExchange`, off when
+#: False/None. ``POISON`` fills each new view with a sentinel (NaN on a
+#: float wire, the integer maximum on an int wire) until its rows land,
+#: so that a read before its wait shows. ``BEFORE_STEP(t)`` runs on the
+#: exchange stream before step t is launched (a delayed exchange).
+#: ``TRACE``, a list, collects timing events ``(kind, exchange, t,
+#: event)`` in the order they are enqueued: on the exchange stream
+#: ``"start"`` and ``"end"`` around step t's copies; on the consumer's
+#: stream ``"fork"`` (t = -1) where the exchange forks, ``"wait"`` just
+#: before it waits for step t, ``"ready"`` just after, and ``"join"``
+#: (t = the last step) just before it joins the exchange.
+POISON = False
+BEFORE_STEP = None
+TRACE = None
 
 
 def dist_wire_dtype(v: int) -> torch.dtype:
@@ -105,6 +131,17 @@ def arrival_steps(shard: int, n_shards: int) -> list[int]:
         out.append(min(d_cw if d_cw <= n_cw else n_shards,
                        d_ccw if d_ccw <= n_ccw else n_shards))
     return out
+
+
+def step_offsets(t: int, n_shards: int) -> list[int]:
+    """The ring's schedule: the blocks that reach shard ``me`` at step
+    ``t`` are those of shards ``(me + d) % n_shards`` for ``d`` in the
+    list, cw before ccw (the reference's arrival order, ``ring.py:185-195``);
+    step 0 is each shard's own block."""
+    if t == 0:
+        return [0]
+    n_cw, n_ccw = ring_legs(n_shards)
+    return [d for legs, d in ((n_cw, -t), (n_ccw, t)) if t <= legs]
 
 
 def exchange_bytes(v_rows: int, n_cols: int, n_shards: int,
@@ -231,32 +268,232 @@ def ring_all_gather(blocks: list, mesh) -> list:
 ring_all_gather.launches = 0
 
 
-def ring_stream(mesh, blocks: list, consume, carry: list) -> list:
-    """Gather the shards' equal ``[B, C]`` wire blocks with one ring
-    all-gather, then hand every block to ``consume(carry, blk, src, step)``
-    in the reference's arrival order (``ring.py:185-195``): for each shard
-    its own block at step 0, then per step t the cw block of shard
-    ``(me - t) % s`` before the ccw block of ``(me + t) % s``. ``carry``
-    holds one carry per shard; returns the final carries."""
-    s = mesh.n_shards
-    n_cw, n_ccw = ring_legs(s)
+def ring_step_plain(blocks: list, views: torch.Tensor, t: int) -> None:
+    """Step ``t`` of the exchange as torch ``copy_`` calls: the arrivals
+    of :func:`ring_all_gather_plain`'s step t at every shard (its own
+    block at step 0), each stored at rows ``origin*B..`` of that shard's
+    ``[s*B, C]`` view ``views[me]``."""
+    s = len(blocks)
     b = blocks[0].shape[0]
-    full = ring_all_gather(blocks, mesh)
-    out = []
     for me in range(s):
-        c = consume(carry[me], blocks[me], me, 0)
-        for t in range(1, max(n_cw, n_ccw) + 1):
-            for legs, src in ((n_cw, (me - t) % s), (n_ccw, (me + t) % s)):
-                if t <= legs:
-                    c = consume(c, full[me][src * b:(src + 1) * b], src, t)
-        out.append(c)
+        for d in step_offsets(t, s):
+            origin = (me + d) % s
+            views[me][origin * b:(origin + 1) * b].copy_(blocks[origin])
+
+
+def _step_launch(blocks: list, views: torch.Tensor, t: int, ctas: int) -> None:
+    """One launch of K3's step form on the current stream."""
+    s = len(blocks)
+    nbytes = blocks[0].numel() * blocks[0].element_size()
+    if nbytes == 0:
+        return
+    base = views.data_ptr()
+    pitch = views.stride(0) * views.element_size()
+    ptrs = [x.data_ptr() for x in blocks] + [base + me * pitch for me in range(s)]
+    unit = _unit(nbytes, ptrs)
+    fn = _build.function("ring", "ring_step_launch", [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ])
+    in_arr = (ctypes.c_void_p * s)(*ptrs[:s])
+    out_arr = (ctypes.c_void_p * s)(*ptrs[s:])
+    err = fn(in_arr, out_arr, s, nbytes // unit, unit, t, ctas,
+             _build.stream_ptr(views.device))
+    _build.check(err, "ring step")
+    ring_step.launches += 1
+
+
+def ring_step(blocks: list, views: torch.Tensor, t: int,
+              ctas: int | None = None) -> None:
+    """Land step ``t`` of the ring exchange of ``blocks`` (s equal
+    contiguous ``[B, C]`` blocks, shard q's at index q) in ``views``
+    (``[s, s*B, C]``, shard me's view at ``views[me]``): for every shard,
+    the blocks that reach it at step t (``arrival_steps``), at rows
+    ``origin*B..``. Steps 0 to ``max(ring_legs(s))`` in order leave every
+    view equal to :func:`ring_all_gather_plain`'s output. CPU tensors
+    take :func:`ring_step_plain`; CUDA tensors launch the step kernel on
+    the current stream with ``ctas`` CTAs (``STEP_CTAS``), or raise."""
+    s = len(blocks)
+    first = blocks[0]
+    b, c = first.shape
+    for x in blocks:
+        if x.shape != first.shape or x.dtype != first.dtype or x.device != first.device:
+            raise ValueError("blocks must be equal [B, C] blocks of one dtype and device")
+        if not x.is_contiguous():
+            raise ValueError("blocks must be contiguous")
+    if views.shape != (s, s * b, c) or views.dtype != first.dtype:
+        raise ValueError(f"views must be [{s}, {s * b}, {c}] {first.dtype}, not "
+                         f"{tuple(views.shape)} {views.dtype}")
+    if views.device != first.device or not views.is_contiguous():
+        raise ValueError("views must be contiguous, on the blocks' device")
+    if not 0 <= t <= max(ring_legs(s)):
+        raise ValueError(f"step {t} outside 0..{max(ring_legs(s))} for {s} shards")
+    if first.device.type == "cpu":
+        ring_step_plain(blocks, views, t)
+    elif first.device.type == "cuda":
+        if s > MAX_SHARDS:
+            raise ValueError(f"ring kernel takes at most {MAX_SHARDS} shards")
+        if first.element_size() not in (2, 4):
+            raise ValueError(f"ring kernel moves 2- or 4-byte words, not {first.dtype}")
+        _step_launch(blocks, views, t, STEP_CTAS if ctas is None else ctas)
+    else:
+        raise ValueError(f"ring_step runs on cpu or cuda, not {first.device}")
+
+
+#: kernel launches of :func:`ring_step` (CPU calls do not count)
+ring_step.launches = 0
+
+_streams: dict = {}
+
+
+def exchange_stream(device) -> "torch.cuda.Stream":
+    """The exchange stream of a CUDA ``device`` (one per device, of the
+    default priority, made at first use)."""
+    dev = torch.device(device)
+    st = _streams.get(dev)
+    if st is None:
+        st = _streams[dev] = torch.cuda.Stream(dev)
+    return st
+
+
+def _sentinel(dtype: torch.dtype):
+    return float("nan") if dtype.is_floating_point else torch.iinfo(dtype).max
+
+
+class RingExchange:
+    """One ring exchange of the shards' wire ``blocks`` (row blocks of one
+    ``[R, C]`` matrix, shard q's at index q; short final blocks are
+    padded), landing step by step in every shard's own view.
+
+    On CUDA the constructor forks the device's exchange stream (it first
+    waits for the current stream, where the wire was packed), launches
+    steps 0 to ``last`` there (:func:`ring_step`) and records an event
+    after each; :meth:`wait` makes the current stream wait for one step's
+    event, and :meth:`join` for the whole exchange. The blocks and the
+    views are marked as used by the exchange stream, so the caching
+    allocator hands their memory out again only after it. On the CPU the
+    steps run in order, in place, inside :meth:`wait`: a step lands only
+    when a consumer asks for it."""
+
+    def __init__(self, blocks: list):
+        padded, b, r = _padded_blocks(blocks)
+        self.blocks = padded
+        self.s = s = len(padded)
+        self.b, self.r = b, r
+        self.last = max(ring_legs(s))
+        first = padded[0]
+        shape = (s, s * b, first.shape[1])
+        if POISON:
+            self.views = torch.full(shape, _sentinel(first.dtype), dtype=first.dtype,
+                                    device=first.device)
+        else:
+            self.views = torch.empty(shape, dtype=first.dtype, device=first.device)
+        self.landed = -1  # the CPU's last landed step
+        self.stream = None
+        if first.device.type != "cuda":
+            return
+        dev = first.device
+        self.main = torch.cuda.current_stream(dev)
+        self.stream = exchange_stream(dev)
+        self.stream.wait_stream(self.main)
+        self._trace("fork", -1, self.main)
+        for x in (*padded, self.views):
+            x.record_stream(self.stream)
+        self.events = []
+        with torch.cuda.stream(self.stream):
+            for t in range(self.last + 1):
+                if BEFORE_STEP is not None:
+                    BEFORE_STEP(t)
+                self._trace("start", t, self.stream)
+                ring_step(padded, self.views, t)
+                self._trace("end", t, self.stream)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+                self.events.append(ev)
+
+    def _trace(self, kind: str, t: int, stream) -> None:
+        if TRACE is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            TRACE.append((kind, self, t, ev))
+
+    def wait(self, t: int) -> None:
+        """Make the current stream wait until step ``t`` has landed (on
+        the CPU: land the steps up to ``t``)."""
+        if self.stream is None:
+            while self.landed < t:
+                self.landed += 1
+                ring_step(self.blocks, self.views, self.landed)
+            return
+        self._trace("wait", t, self.main)
+        self.main.wait_event(self.events[t])
+        self._trace("ready", t, self.main)
+
+    def join(self) -> None:
+        """The current stream waits for the whole exchange."""
+        if self.stream is None:
+            self.wait(self.last)
+        else:
+            self._trace("join", self.last, self.main)
+            self.main.wait_stream(self.stream)
+
+    def origins(self, me: int, t: int) -> list:
+        """The shards whose blocks reach shard ``me`` at step ``t``, cw
+        before ccw (the reference's arrival order)."""
+        return [(me + d) % self.s for d in step_offsets(t, self.s)]
+
+    def view(self, me: int) -> torch.Tensor:
+        """Shard ``me``'s ``[R, C]`` view (rows land as their steps do)."""
+        return self.views[me][: self.r]
+
+    def block(self, me: int, origin: int) -> torch.Tensor:
+        """Shard ``origin``'s ``[B, C]`` block in shard ``me``'s view."""
+        return self.views[me][origin * self.b:(origin + 1) * self.b]
+
+
+def ring_stream(mesh, blocks: list, consume, carry: list) -> list:
+    """Stream the shards' equal ``[B, C]`` wire blocks around the ring
+    (:class:`RingExchange`) and hand every block to ``consume(carry, blk,
+    src, step)`` as its step lands, in the reference's arrival order
+    (``ring.py:185-195``): for each shard its own block at step 0, then
+    per step t the cw block of shard ``(me - t) % s`` before the ccw block
+    of ``(me + t) % s``. The consumers of step t are enqueued after the
+    current stream waits for step t only, while the later steps are in
+    flight. ``carry`` holds one carry per shard; returns the final
+    carries, with the current stream joined to the exchange."""
+    s = mesh.n_shards
+    if len(blocks) != s:
+        raise ValueError(f"{len(blocks)} blocks for a {s}-shard mesh")
+    ex = RingExchange(blocks)
+    out = list(carry)
+    for t in range(ex.last + 1):
+        ex.wait(t)
+        for me in range(s):
+            for src in ex.origins(me, t):
+                out[me] = consume(out[me], ex.block(me, src), src, t)
+    ex.join()
     return out
+
+
+def start_distance_exchange(dist: list) -> RingExchange:
+    """Pack row-sharded f32 hop counts to the wire (on the current
+    stream) and start their exchange (see :func:`dist_wire_dtype`)."""
+    v = dist[0].shape[1]
+    return RingExchange([pack_dist_wire(d, v) for d in dist])
+
+
+def finish_distance_exchange(ex: RingExchange) -> list:
+    """Wait for a distance exchange and unpack every shard's replicated
+    f32 matrix."""
+    ex.join()
+    return [unpack_dist_wire(ex.view(q)) for q in range(ex.s)]
 
 
 def exchange_distances(dist: list, mesh) -> list:
     """Row-sharded f32 hop counts -> the replicated f32 matrix on every
-    shard, packed for the wire (bit-exact, see :func:`dist_wire_dtype`)."""
-    v = dist[0].shape[1]
-    wire = ring_all_gather([pack_dist_wire(d, v) for d in dist], mesh)
-    return [unpack_dist_wire(w) for w in wire]
-
+    shard, packed for the wire (bit-exact, see :func:`dist_wire_dtype`):
+    the blocking exchange, started and awaited at once."""
+    if len(dist) != mesh.n_shards:
+        raise ValueError(f"{len(dist)} blocks for a {mesh.n_shards}-shard mesh")
+    return finish_distance_exchange(start_distance_exchange(dist))

@@ -11,8 +11,9 @@ The next-hop argmin needs every node's distances: in gather mode
 (``apsp_next_hops_rowsharded``) the f32 blocks are replicated by the ring
 all-gather (kernel K3, where the reference left an implicit XLA
 all-gather); in ring mode (``apsp_next_hops_ringed``) destination-column
-slices of the blocks ride the ring as 2-byte wire words, one gather per
-slice, and the argmin runs on each slice once it is unpacked.
+slices of the blocks ride the ring as 2-byte wire words, one exchange per
+slice on the exchange stream (K3's step form), and the argmin of one
+slice runs while the next slice is in flight.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from sdnmpi_tpu_torch.kernels.ring import (
+    RingExchange,
     pack_dist_wire,
     ring_all_gather,
     unpack_dist_wire,
@@ -94,6 +96,34 @@ def _tables(adj, mesh, max_degree):
     ]
 
 
+def _column_block(n_cols: int, rp: int, max_degree: int, v: int,
+                  ringed: bool) -> int:
+    """Destination columns per argmin block (``_fit_block``); the ring
+    form splits a single block in two where the width allows, so that
+    there is a next exchange to hide behind the argmin
+    (``apsp.py:215-220``)."""
+    block = _fit_block(n_cols, rp * min(max_degree, v))
+    if ringed and block == n_cols and n_cols % 2 == 0 and n_cols >= 16:
+        block = n_cols // 2
+    return block
+
+
+def next_hops_from_columns(tables: list, dist: list, rp: int, n_cols: int,
+                           block: int, columns) -> list:
+    """The argmin over replicated distance columns: ``columns(c)`` gives
+    each shard's f32 ``[V, block]`` columns ``c..c+block`` (called once
+    per block, in order); then :func:`_finish`'s tail on every shard."""
+    cores: list[list] = [[] for _ in tables]
+    for c in range(0, n_cols, block):
+        cols = columns(c)
+        for q, (valid_b, safe_b) in enumerate(tables):
+            cores[q].append(_degree_compact_block(valid_b, safe_b, cols[q]))
+    return [
+        _finish(torch.cat(cores[q], dim=1), dist[q], q * rp)
+        for q in range(len(tables))
+    ]
+
+
 def apsp_next_hops_rowsharded(
     adj: torch.Tensor, dist: list, mesh: ShardMesh, max_degree: int,
     n_occ: int = 0,
@@ -106,16 +136,23 @@ def apsp_next_hops_rowsharded(
     v = adj.shape[0]
     rp, tables = _tables(adj, mesh, max_degree)
     n_cols = v if n_occ <= 0 else min(v, n_occ)
-    block = _fit_block(n_cols, rp * min(max_degree, v))
+    block = _column_block(n_cols, rp, max_degree, v, ringed=False)
     full = ring_all_gather(dist, mesh)  # K3: the f32 replication
-    out = []
-    for q, (valid_b, safe_b) in enumerate(tables):
-        core = torch.cat([
-            _degree_compact_block(valid_b, safe_b, full[q][:, c:c + block])
-            for c in range(0, n_cols, block)
-        ], dim=1)
-        out.append(_finish(core, dist[q], q * rp))
-    return out
+    return next_hops_from_columns(
+        tables, dist, rp, n_cols, block,
+        lambda c: [f[:, c:c + block] for f in full],
+    )
+
+
+def column_exchanges(dist: list, n_cols: int, block: int):
+    """The ring form's exchanges, one per destination-column block: the
+    distances packed to the wire once (on the current stream; hop counts
+    are bounded by the FULL matrix's V, not the slice), and a function
+    that starts block c's exchange (:class:`RingExchange`) of the column
+    slices, made contiguous first."""
+    v = dist[0].shape[1]
+    wire = [pack_dist_wire(d[:, :n_cols], v) for d in dist]
+    return lambda c: RingExchange([w[:, c:c + block].contiguous() for w in wire])
 
 
 def apsp_next_hops_ringed(
@@ -123,29 +160,28 @@ def apsp_next_hops_ringed(
     n_occ: int = 0,
 ) -> list:
     """Ring-exchanged twin of :func:`apsp_next_hops_rowsharded`, the same
-    result: each destination-column block of every shard's distances is
-    packed to the wire, gathered by one K3 launch (the column slices are
-    made contiguous first) and unpacked to the block's replicated f32
-    columns, then the argmin runs on them. The column split follows
-    ``apsp.py:215-220``: at least two blocks where the width allows, so
-    a later slice can overlap block c+1's exchange with block c's
-    argmin."""
+    result, as the reference's software pipeline (``apsp.py:250-262``):
+    each destination-column block of every shard's distances rides the
+    ring as wire words on the exchange stream (:func:`column_exchanges`);
+    block c+1's exchange is started before block c's argmin, which waits
+    only for block c's exchange and runs on the unpacked columns while
+    block c+1 is in flight. The column split follows ``apsp.py:215-220``.
+    The current stream is joined to the exchange on return."""
     v = adj.shape[0]
     rp, tables = _tables(adj, mesh, max_degree)
     n_cols = v if n_occ <= 0 else min(v, n_occ)
-    block = _fit_block(n_cols, rp * min(max_degree, v))
-    if block == n_cols and n_cols % 2 == 0 and n_cols >= 16:
-        block = n_cols // 2
-    # hop counts are bounded by the FULL matrix's V, not the slice
-    wire = [pack_dist_wire(d[:, :n_cols], v) for d in dist]
-    cores: list[list] = [[] for _ in tables]
-    for c in range(0, n_cols, block):
-        cols = ring_all_gather([w[:, c:c + block] for w in wire], mesh)
-        for q, (valid_b, safe_b) in enumerate(tables):
-            cores[q].append(_degree_compact_block(
-                valid_b, safe_b, unpack_dist_wire(cols[q])
-            ))
-    return [
-        _finish(torch.cat(cores[q], dim=1), dist[q], q * rp)
-        for q in range(len(tables))
-    ]
+    block = _column_block(n_cols, rp, max_degree, v, ringed=True)
+    start = column_exchanges(dist, n_cols, block)
+    pending = {0: start(0)}
+
+    def columns(c):
+        ex = pending.pop(c)
+        if c + block < n_cols:  # block c+1 in flight behind c's argmin
+            pending[c + block] = start(c + block)
+        ex.wait(ex.last)
+        pending["last"] = ex
+        return [unpack_dist_wire(ex.view(q)) for q in range(ex.s)]
+
+    out = next_hops_from_columns(tables, dist, rp, n_cols, block, columns)
+    pending["last"].join()
+    return out

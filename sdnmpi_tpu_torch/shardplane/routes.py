@@ -11,7 +11,8 @@ rows or int8 slot streams, never an ``[F, V]`` intermediate.
 
 - :func:`batch_fdb_sharded` and :func:`batch_fdb_ringed`: the shortest
   path chase of ``oracle/paths.batch_fdb``, on next hops replicated by
-  one K3 launch, or streamed to the chase as int16 wire blocks.
+  one K3 launch, or streamed to the chase as int16 wire blocks, one ring
+  step at a time.
 - :func:`route_flows_sharded` and :func:`multichip_route_step`: the
   greedy scanner per shard, loads summed over the shards.
 - :func:`route_adaptive_sharded`: the UGAL program, each shard choosing
@@ -22,8 +23,10 @@ rows or int8 slot streams, never an ``[F, V]`` intermediate.
   flows; the per-link loads are summed over the shards in shard order
   (the reference's ``psum``), so every shard reweights on the same
   global load. Distances reach every shard through K3: in gather mode as
-  f32 rows, in ring mode packed to the 2-byte wire
-  (``exchange_distances``).
+  f32 rows by one broadcast launch; in ring mode packed to the 2-byte
+  wire and landed step by step on the exchange stream (K3's step form),
+  started before the distance-independent prep and awaited where the
+  distances are first read.
 
 Work the reference replicates on every shard (the balancer on summed
 traffic, K2's set-up) runs once per device here and is shared by the
@@ -36,10 +39,11 @@ import torch
 
 from sdnmpi_tpu_torch.kernels import ring
 from sdnmpi_tpu_torch.kernels.ring import (
-    exchange_distances,
+    RingExchange,
+    finish_distance_exchange,
     pack_next_wire,
     ring_all_gather,
-    ring_stream,
+    start_distance_exchange,
     unpack_next_wire,
 )
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows_of
@@ -108,8 +112,12 @@ def route_collective_sharded(
     without it the distances are computed row-sharded (the reference
     computes them over the "v" axis only and reshards: the values are
     the same). ``ring_exchange`` streams the distance rows through the
-    ring as wire words (``_dag_step_ringed``); otherwise row-sharded
-    distances are replicated as f32 by the same kernel. ``neigh`` is the
+    ring as wire words on the exchange stream (``_dag_step_ringed``):
+    the exchange starts before the distance-independent prep (the
+    utilization scatter, the traffic blocks, the first congestion
+    reweighting) and the current stream waits for it only where the
+    distances are first read; otherwise row-sharded distances are
+    replicated as f32 by K3. ``neigh`` is the
     compact neighbour table of ``adj`` (``TopoTensors.neigh``); without
     it one is built here. V, F and T must divide by the shard count.
 
@@ -141,21 +149,23 @@ def route_collective_sharded(
     hops = sampled_hops(max_len)
     rp = v // s
     f_per = f // s
+    if dist is None:
+        dist = apsp_distances_rowsharded(adj, mesh)
+    if ring_exchange:  # in flight behind the dist-independent prep
+        exchange = start_distance_exchange(_row_blocks(dist, mesh))
     base = torch.zeros((v, v), dtype=torch.float32, device=adj.device)
     base[link_src.long(), link_dst.long()] = link_util.to(torch.float32)
     adj_f = (adj > 0).to(torch.float32)
-    if dist is None:
-        dist = apsp_distances_rowsharded(adj, mesh)
     if have_dst:
         t_per = dst_nodes.shape[0] // s
         dn_loc = [dst_nodes[q * t_per:(q + 1) * t_per] for q in range(s)]
         traffic_loc = [restrict_dst_traffic(traffic, dn) for dn in dn_loc]
     else:
         traffic_loc = [traffic[q * rp:(q + 1) * rp] for q in range(s)]
-    # dist-independent prep first: in ring mode the exchange follows it
+    # dist-independent prep first: in ring mode the exchange overlaps it
     weights = congestion_weights(adj_f, base)
     if ring_exchange:
-        d_full = exchange_distances(_row_blocks(dist, mesh), mesh)
+        d_full = finish_distance_exchange(exchange)
     else:
         d_full = _replicated(dist, mesh)
     d_t_loc = []
@@ -262,77 +272,83 @@ def batch_fdb_ringed(
     and bit-identical rows (the reference's ``_batch_fdb_ringed_fn``).
 
     Each shard packs its next-hop rows to the int16 wire (int32 past
-    ``ring.NEXT_WIRE_MAX_V``) and :func:`~sdnmpi_tpu_torch.kernels.ring.ring_stream`
-    hands every shard the blocks in the ring's arrival order. Each
-    arrival lands in the shard's view of the rows and advances its flows
-    by ``ceil(max_len / s)`` hops, each hop gated on the row block of the
-    flow's current switch having arrived at that shard; a completion pass
-    of ``max_len`` hops after the last arrival finishes every flow, and
-    the validity tail of ``batch_paths`` keeps only flows that reached
-    their destination. Arrival order changes when a hop happens, never
-    what it reads.
+    ``ring.NEXT_WIRE_MAX_V``) and a :class:`~sdnmpi_tpu_torch.kernels.ring.RingExchange`
+    lands them, one ring step at a time on the exchange stream, in every
+    shard's own ``[V, V]`` view; :func:`chase_exchange` consumes each
+    step's arrivals as they land."""
+    blocks = _row_blocks(next_hop, mesh)
+    wire16 = blocks[0].shape[1] <= ring.NEXT_WIRE_MAX_V
+    return chase_exchange(
+        lambda: RingExchange([pack_next_wire(b) if wire16 else b for b in blocks]),
+        port, src, dst, final_port, max_len, mesh, blocks[0].shape[1],
+    )
 
-    Every shard of a mesh sits on one device, and every shard receives
-    its i-th block at the same step, so the shards chase together: one
-    wire buffer holds the blocks that have arrived anywhere, a per-shard
-    flag row gates each flow on its own shard's arrivals, and each hop is
-    one batch over all the flows. Each shard's hop sequence is the
-    reference's. Every shard's own block arrives first, so every block
-    has landed after the first step and the gate decides only when a hop
-    happens. One K3 launch delivers every block, so the gating is not
-    yet an overlap: it is the consumer an overlapped exchange will feed
-    (``shard_exchange_overlap_gain`` measures that)."""
+
+def chase_exchange(start, port, src, dst, final_port, max_len: int,
+                   mesh: ShardMesh, v: int) -> tuple[list, list, list]:
+    """The gated chase of :func:`batch_fdb_ringed` on the exchange that
+    ``start()`` begins (called once the chase's index tensors are built,
+    so that nothing in the gated loop copies from the host).
+
+    Each arrival sets the shard's flag for its origin and advances its
+    flows by ``ceil(max_len / s)`` hops, each hop gated on the row block
+    of the flow's current switch having arrived at that shard, and
+    reading that shard's view; a completion pass of ``max_len`` hops
+    after the last arrival finishes every flow, and the validity tail of
+    ``batch_paths`` keeps only flows that reached their destination.
+    Arrival order changes when a hop happens, never what it reads.
+
+    Every shard receives its i-th block at the same step, so the shards
+    chase together: each hop is one batch over all the flows. The hops
+    of step t's arrivals wait for step t only, and run while step t+1's
+    copies are in flight; the current stream is joined to the exchange
+    before the completion pass, so a reap reads a finished window."""
     s = mesh_shards(mesh)
     parts = _flow_slices(src.shape[0], mesh)
-    blocks = _row_blocks(next_hop, mesh)
-    v = blocks[0].shape[1]
     if v % s:
         raise ValueError(f"V={v} must divide by {s} shards")
     rp = v // s
-    wire16 = v <= ring.NEXT_WIRE_MAX_V
     # opportunistic hops per arrival; the completion pass has the full
     # budget, so a flow stalled on a late block still finishes
     h_opp = max(1, -(-max_len // s))
-    wire = [pack_next_wire(b) if wire16 else b for b in blocks]
-    # each shard's (origin, block) arrivals, in the reference's order
-    seen = ring_stream(mesh, wire, lambda c, blk, o, _t: c + [(o, blk)],
-                       [[] for _ in range(s)])
-    dev = wire[0].device
-    buf = torch.zeros((v, v), dtype=wire[0].dtype, device=dev)
-    landed = set()
-    arrived = torch.zeros((s, s), dtype=torch.bool, device=dev)
+    dev = mesh.devices[0]
     f_per = parts[0].stop - parts[0].start
-    owner = torch.arange(s, device=dev).repeat_interleave(f_per)
+    shard_ids = torch.arange(s, device=dev)
+    owner = shard_ids.repeat_interleave(f_per)
     node = src.to(dev).long()
     t = dst.to(dev).long()
+    t_safe = t.clamp(min=0)
     rows = torch.arange(node.shape[0], device=dev)
     k = torch.zeros_like(node)
     out = torch.full((node.shape[0], max_len), -1, dtype=torch.int32, device=dev)
-    shard_ids = torch.arange(s, device=dev)
-    origin = torch.tensor([[seen[q][i][0] for q in range(s)] for i in range(s)],
-                          device=dev)
+    arrived = torch.zeros((s, s), dtype=torch.bool, device=dev)
+    raised = torch.ones(s, dtype=torch.bool, device=dev)
+    # each step's origins at every shard, cw before ccw
+    origins = [[(shard_ids + d) % s for d in ring.step_offsets(step, s)]
+               for step in range(max(ring.ring_legs(s)) + 1)]
+    ex = start()
+    views = ex.views  # [s, V, V]: shard q's rows land in views[q]
+    wire16 = views.dtype == torch.int16
 
     def hop(node, k):
         at_dst = node == t
-        safe = node.clamp(min=0)
-        avail = arrived[owner, (safe // rp).clamp(0, s - 1)]
+        safe = node.clamp(0, v - 1)
+        avail = arrived[owner, safe // rp]
         can = (node >= 0) & (k < max_len) & (avail | at_dst)
-        nxt = buf[safe, t.clamp(min=0)]
+        nxt = views[owner, safe, t_safe]
         nxt = (unpack_next_wire(nxt) if wire16 else nxt).long()
         nxt = torch.where(at_dst | (t < 0), -1, nxt)
         kcl = k.clamp(max=max_len - 1)
         out[rows, kcl] = torch.where(can, node, out[rows, kcl].long()).to(torch.int32)
         return torch.where(can, nxt, node), k + can.long()
 
-    for i in range(s):
-        for q in range(s):
-            o, blk = seen[q][i]
-            if o not in landed:
-                buf[o * rp:(o + 1) * rp] = blk
-                landed.add(o)
-        arrived[shard_ids, origin[i]] = True
-        for _ in range(h_opp):
-            node, k = hop(node, k)
+    for step, arrivals in enumerate(origins):
+        ex.wait(step)
+        for origin in arrivals:
+            arrived.index_put_((shard_ids, origin), raised)
+            for _ in range(h_opp):
+                node, k = hop(node, k)
+    ex.join()
     for _ in range(max_len):
         node, k = hop(node, k)
     # batch_paths' validity tail: a flow counts only if it reached

@@ -123,13 +123,14 @@ def test_ringed_chase_int32_wire_is_unchanged(monkeypatch, p_mesh):
     rows are those of the int16 wire."""
     t, nxt, src, dst, fport, max_len = _chase_problem("fattree", seed=3)
     dtypes = []
-    gather = ring.ring_all_gather
+    step = ring.ring_step
 
-    def spy(blocks, mesh):
-        dtypes.append(blocks[0].dtype)
-        return gather(blocks, mesh)
+    def spy(blocks, views, t, ctas=None):
+        if t == 0:  # one record per exchange
+            dtypes.append(blocks[0].dtype)
+        return step(blocks, views, t, ctas)
 
-    monkeypatch.setattr(ring, "ring_all_gather", spy)
+    monkeypatch.setattr(ring, "ring_step", spy)
     args = (shard_rows(nxt, p_mesh), t_(t.port), t_(src), t_(dst), t_(fport),
             max_len, p_mesh)
     narrow = pshard.batch_fdb_ringed(*args)
