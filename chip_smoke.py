@@ -288,6 +288,7 @@ import functools
 import gc
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -5244,29 +5245,28 @@ def check_k3_calls(calls: list, launches: int, what: str) -> None:
 def recording_step(calls: list, streams: bool = False):
     """Record every launch of K3's step form while the context is open:
     ``(blocks, t, views before, views after)``, both copies taken on the
-    launch's stream around it; with ``streams``, ``(blocks, t, the
-    launch's stream handle)`` instead. The wrapper's launch helper is
-    wrapped, so the launch count stays the wrapper's."""
-    import torch
-
+    current stream around it (the plan's, where the port launches it);
+    with ``streams``, ``(blocks, t, the plan's stream handle)`` instead.
+    ``StepPlan.launch`` is wrapped, so the launch count stays the
+    wrapper's."""
     from sdnmpi_tpu_torch.kernels import ring
 
-    launch = ring._step_launch
+    launch = ring.StepPlan.launch
 
-    def record(blocks, views, t, ctas):
+    def record(plan, t):
         if streams:
-            launch(blocks, views, t, ctas)
-            calls.append((blocks, t, torch.cuda.current_stream(views.device).cuda_stream))
+            launch(plan, t)
+            calls.append((plan.blocks, t, plan.stream))
             return
-        before = views.clone()
-        launch(blocks, views, t, ctas)
-        calls.append((blocks, t, before, views.clone()))
+        before = plan.views.clone()
+        launch(plan, t)
+        calls.append((plan.blocks, t, before, plan.views.clone()))
 
-    ring._step_launch = record
+    ring.StepPlan.launch = record
     try:
         yield
     finally:
-        ring._step_launch = launch
+        ring.StepPlan.launch = launch
 
 
 def check_step_calls(calls: list, launches: int, what: str) -> None:
@@ -5667,8 +5667,12 @@ OVERLAP_CALLS = 20
 OVERLAP_DELAYS = (0, 200_000, 1_000_000, 3_000_000)
 #: calls timed for each wall of (d) and each point of the sweep (e)
 OVERLAP_REPS = 10
-#: CTA counts of the step kernel's sweep
-STEP_SWEEP_CTAS = (8, 16, 32, 64, 128, 256, 1056, 8448)
+#: CTA counts of the step kernel's sweep (a bulk step of config 13 has
+#: 968 or 484 chunks, one CTA each at most; one bulk CTA an SM)
+STEP_SWEEP_CTAS = (8, 16, 32, 48, 66, 96, 128, 132, 264)
+#: the sweep's pick: the fewest CTAs whose exchange is within this share
+#: of the sweep's best
+STEP_SWEEP_SLACK = 0.05
 #: exchange-stream priorities of the sweep (CUDA: -1 is high, 0 default)
 STEP_SWEEP_PRIORITIES = (0, -1)
 
@@ -5713,40 +5717,80 @@ def step_copies(blocks: list, views, t: int) -> tuple:
     return dst, src
 
 
+def shifted(shape: tuple, dtype, device, fill=None, elems: int = 1):
+    """A contiguous tensor of ``shape`` that starts ``elems`` elements past
+    an allocation's start (one: 2 or 4 bytes off its alignment);
+    ``fill`` copied in, else zeros."""
+    import torch
+
+    n = math.prod(shape)
+    buf = torch.zeros(n + elems, dtype=dtype, device=device)
+    out = buf[elems:].view(shape)
+    if fill is not None:
+        out.copy_(fill)
+    return out
+
+
 def hold_steps(device) -> None:
     """(a) Every step of the step kernel exactly against its plain version
     (both on the card, on the same blocks), at s in {3, 8}, on the bf16,
     int16 and int32 wires, uneven and at config 13's full width, at the
-    default CTA count and at 8 (many grid strides); the views after the
-    last step equal to ring_all_gather_plain's output, and a poisoned
-    RingExchange's trimmed views equal to the matrix."""
+    default CTA count and at 8 (many chunks or grid strides a CTA); at
+    full width also with the blocks one element (2-byte words) and 8 bytes
+    (8-byte words) off their alignment (the vector path), and with the
+    blocks and the views both one element off (the bulk path with a head
+    and a tail); the views after the last step equal to
+    ring_all_gather_plain's output, and a poisoned RingExchange's trimmed
+    views equal to the matrix. Logs each case's path a step; fails unless
+    the aligned full-width case took the bulk path, the shifted sources
+    the vector path, and both shifted the bulk path."""
     import torch
 
     from sdnmpi_tpu_torch.kernels import ring
 
     rng = np.random.default_rng(26)
-    cases = [(s, r, c, dt) for dt in (torch.bfloat16, torch.int16, torch.int32)
+    cases = [(s, r, c, dt, None) for dt in (torch.bfloat16, torch.int16, torch.int32)
              for s, r, c in ((3, 1001, 130), (8, 1001, 384), (8, SHARD_V, SHARD_V))]
-    for s, r, c, dt in cases:
+    # the shifts: the source one element off, 8 bytes off, source and views
+    # both one element off
+    shifts = {"source": "vector", "source8": "vector", "both": "bulk"}
+    cases += [(N_SHARDS, SHARD_V, SHARD_V, torch.int16, shift) for shift in shifts]
+    want_path = {(N_SHARDS, SHARD_V, SHARD_V, torch.int16, shift): path
+                 for shift, path in (*shifts.items(), (None, "bulk"))}
+    seen = set()
+    for s, r, c, dt, shift in cases:
         x = torch.as_tensor(rng.integers(-30000, 30000, (r, c))).to(device, dt)
+        if shift is not None:
+            x = shifted((r, c), dt, device, x, 8 // x.element_size() if shift == "source8"
+                        else 1)
         b = -(-r // s)
         blocks = [x[q * b:(q + 1) * b] for q in range(s)]
         padded, b, _ = ring._padded_blocks(blocks)
         whole = ring.ring_all_gather_plain(padded)
+        paths = {}
         for ctas in (None, 8):
-            got = torch.zeros((s, s * b, c), dtype=dt, device=device)
-            want = torch.zeros_like(got)
-            for t in range(max(ring.ring_legs(s)) + 1):
-                ring.ring_step(padded, got, t, ctas=ctas)
+            shape = (s, s * b, c)
+            got = (shifted(shape, dt, device) if shift == "both"
+                   else torch.zeros(shape, dtype=dt, device=device))
+            want = torch.zeros(shape, dtype=dt, device=device)
+            plan = ring.StepPlan(padded, got, ctas)
+            paths[ctas or ring.STEP_CTAS] = plan.paths
+            seen.update(plan.paths)
+            for t in range(plan.last + 1):
+                plan.launch(t)
                 ring.ring_step_plain(padded, want, t)
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
-                    fail(f"step kernel s={s} R={r} C={c} {dt} ctas={ctas}: step {t} "
-                         "differs from the plain version")
+                    fail(f"step kernel s={s} R={r} C={c} {dt} shift={shift} ctas={ctas}: "
+                         f"step {t} ({plan.paths[t]} path) differs from the plain version")
             for me in range(s):
                 if not torch.equal(got[me], whole[me]):
-                    fail(f"step kernel s={s} R={r} C={c} {dt}: shard {me}'s view "
-                         "differs from ring_all_gather_plain after the last step")
+                    fail(f"step kernel s={s} R={r} C={c} {dt} shift={shift}: shard {me}'s "
+                         "view differs from ring_all_gather_plain after the last step")
+        need = want_path.get((s, r, c, dt, shift))
+        if need is not None and any(p != need for ps in paths.values() for p in ps):
+            fail(f"step kernel s={s} R={r} C={c} {dt} shift={shift}: paths {paths}, "
+                 f"want {need} on every step")
         ring.POISON = True
         try:
             ex = ring.RingExchange(blocks)
@@ -5756,18 +5800,45 @@ def hold_steps(device) -> None:
         torch.cuda.synchronize()
         for me in range(s):
             if not torch.equal(ex.view(me), x):
-                fail(f"RingExchange s={s} R={r} C={c} {dt}: shard {me} differs")
-        log(f"step kernel s={s} R={r} C={c} {dt}: every step equal to the plain "
-            "version (default CTAs and 8), the views to ring_all_gather_plain")
+                fail(f"RingExchange s={s} R={r} C={c} {dt} shift={shift}: shard {me} "
+                     "differs")
+        log(f"step kernel s={s} R={r} C={c} {dt} shift={shift}: every step equal to "
+            f"the plain version (default CTAs and 8), the views to "
+            f"ring_all_gather_plain; paths by CTAs {paths}")
         del x, blocks, padded, whole, got, want, ex
+    if seen != {"bulk", "vector"}:
+        fail(f"step kernel: the held cases took the paths {sorted(seen)}, not both")
+
+
+def enqueue_ms(fn, n: int = OVERLAP_REPS) -> float:
+    """Median host time of enqueueing ``fn()`` in ms: the host clock around
+    the call alone, the device synchronized before each (after one call
+    that is not timed)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def time_steps(device, report: dict) -> list:
     """The step kernel at config 13's next-hop wire (8 blocks of [496,
-    3968] int16): each step's bare time (queued) at the default CTA
-    count beside its bound, step 1's wrapper, plain version, the same
-    copies as ``Tensor.copy_`` calls and as one ``torch._foreach_copy_``;
-    then the sweep of CTA counts (e). Returns the wire blocks."""
+    3968] int16) through one StepPlan: each step's bare time (queued) at
+    the default CTA count beside its bound; step 1 bare on the vector path
+    at the same shape, with the blocks 8 bytes (8-byte words) and one
+    element (2-byte words) off their alignment; step 1's wrapper as the
+    exchange launches it (``plan.launch``) and through ``ring_step``, its
+    plain version, the same copies as ``Tensor.copy_`` calls and as one
+    ``torch._foreach_copy_``; the whole exchange's host enqueue time (and
+    its plan's alone, built and reused), device time and wall beside one
+    ``torch._foreach_copy_`` of its 64 copies; then the sweep of CTA
+    counts (e) and its pick beside ``STEP_CTAS``. Returns the sweep."""
     import torch
 
     from sdnmpi_tpu_torch.kernels import ring
@@ -5777,36 +5848,95 @@ def time_steps(device, report: dict) -> list:
     rp = v // s
     x = torch.as_tensor(rng.integers(-1, v, (v, v))).to(device, torch.int16)
     blocks = [x[q * rp:(q + 1) * rp].contiguous() for q in range(s)]
+    off8 = shifted((v, v), torch.int16, device, x, 4)
+    off2 = shifted((v, v), torch.int16, device, x)
     views = torch.empty((s, v, v), dtype=torch.int16, device=device)
-    last = max(ring.ring_legs(s))
+    plan = ring.StepPlan(blocks, views)
+    vector = ring.StepPlan([off8[q * rp:(q + 1) * rp] for q in range(s)], views)
+    misaligned = ring.StepPlan([off2[q * rp:(q + 1) * rp] for q in range(s)], views)
+    for p, want in ((plan, "bulk"), (vector, "vector"), (misaligned, "vector")):
+        if set(p.paths) != {want}:
+            fail(f"step kernel timing: paths {p.paths}, want {want}")
+    last = plan.last
     bare, bounds = [], []
     for t in range(last + 1):
-        bare.append(queued_ms(lambda: ring.ring_step(blocks, views, t)))
+        bare.append(queued_ms(lambda: plan.launch(t)))
         bounds.append(bound_ms({"bytes": step_bytes(s, rp, v, 2, t), "ops": 0})[0])
-    log(f"step kernel bare (queued, {ring.STEP_CTAS} CTAs), steps 0-{last}: "
+    log(f"step kernel bare, bulk path (queued, {ring.STEP_CTAS} CTAs), steps 0-{last}: "
         + ", ".join(f"{m:.4f}" for m in bare) + " ms; bounds "
-        + ", ".join(f"{m:.4f}" for m in bounds) + f" ms; the exchange {sum(bare):.4f} "
-        f"ms, bound {sum(bounds):.4f} ms, steps 1-{last}: {sum(bare[1:]):.4f} ms, "
+        + ", ".join(f"{m:.4f}" for m in bounds) + " ms; shares "
+        + ", ".join(f"{b / m:.1%}" for m, b in zip(bare, bounds))
+        + f"; the exchange {sum(bare):.4f} ms, bound {sum(bounds):.4f} ms "
+        f"({sum(bounds) / sum(bare):.1%}), steps 1-{last}: {sum(bare[1:]):.4f} ms, "
         f"bound {sum(bounds[1:]):.4f} ms ({CARD})")
+    vec_ms = queued_ms(lambda: vector.launch(1))
+    mis_ms = queued_ms(lambda: misaligned.launch(1))
+    log(f"step kernel bare step 1 at {ring.STEP_CTAS} CTAs: bulk {bare[1]:.4f} ms; "
+        f"vector path with the blocks 8 bytes off their alignment (8-byte words) "
+        f"{vec_ms:.4f} ms, one element off (2-byte words) {mis_ms:.4f} ms; bulk "
+        f"faster than the vector path: {bare[1] < vec_ms} ({CARD})")
     dst, src = step_copies(blocks, views, 1)
-    ms = time_ms(lambda: ring.ring_step(blocks, views, 1), reps=20)
+    ms = time_ms(lambda: plan.launch(1), reps=20)
+    step_ms = time_ms(lambda: ring.ring_step(blocks, views, 1), reps=20)
     plain = time_ms(lambda: ring.ring_step_plain(blocks, views, 1), reps=20)
     copies = time_ms(lambda: [d.copy_(b) for d, b in zip(dst, src)], reps=20)
     lib = time_ms(lambda: torch._foreach_copy_(dst, src), reps=20)
     nbytes = step_bytes(s, rp, v, 2, 1)
-    log(f"step kernel, step 1 ({len(dst)} block copies, {nbytes} B): wrapper "
-        f"{ms:.4f} ms, bare {bare[1]:.4f} ms, plain {plain:.4f} ms, Tensor.copy_ x "
+    log(f"step kernel, step 1 ({len(dst)} block copies, {nbytes} B): wrapper as the "
+        f"exchange launches it (plan.launch) {ms:.4f} ms, through ring_step "
+        f"{step_ms:.4f} ms, bare {bare[1]:.4f} ms, plain {plain:.4f} ms, Tensor.copy_ x "
         f"{len(dst)} {copies:.4f} ms, torch._foreach_copy_ {lib:.4f} ms; bound "
-        f"{bounds[1]:.4f} ms ({CARD})")
+        f"{bounds[1]:.4f} ms; plan.launch no slower than torch._foreach_copy_: "
+        f"{ms <= lib} ({CARD})")
     report["ring_step"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                            "bytes": nbytes, "ops": 0, "library_ms": lib}
+    all_dst, all_src = [], []
+    for t in range(last + 1):
+        d, b = step_copies(blocks, views, t)
+        all_dst += d
+        all_src += b
+
+    def exchange():
+        ring.RingExchange(blocks).join()
+
+    def foreach():
+        torch._foreach_copy_(all_dst, all_src)
+
+    def planned_anew():
+        ring._PLAN_CALLS.clear()
+        ring.StepPlan(blocks, views)
+
+    def exchange_planned_anew():
+        ring._PLAN_CALLS.clear()
+        ring.RingExchange(blocks)
+
+    ex = {"enqueue_ms": enqueue_ms(lambda: ring.RingExchange(blocks)),
+          "enqueue_planned_anew_ms": enqueue_ms(exchange_planned_anew),
+          "plan_ms": enqueue_ms(lambda: ring.StepPlan(blocks, views)),
+          "plan_built_ms": enqueue_ms(planned_anew),
+          "device_ms": time_ms(exchange, reps=20), "wall_ms": wall_ms(exchange),
+          "lib_enqueue_ms": enqueue_ms(foreach), "lib_device_ms": time_ms(foreach, reps=20),
+          "lib_wall_ms": wall_ms(foreach)}
+    log(f"the exchange ({last + 1} steps, {len(all_dst)} block copies): host enqueue "
+        f"{ex['enqueue_ms']:.4f} ms with its calls reused ({ex['enqueue_planned_anew_ms']:.4f} "
+        f"ms planned anew; its StepPlan alone {ex['plan_ms']:.4f} ms reused, "
+        f"{ex['plan_built_ms']:.4f} ms built), device {ex['device_ms']:.4f} ms, wall "
+        f"{ex['wall_ms']:.4f} ms; torch._foreach_copy_ of the {len(all_dst)} copies: "
+        f"enqueue {ex['lib_enqueue_ms']:.4f} ms, device {ex['lib_device_ms']:.4f} ms, "
+        f"wall {ex['lib_wall_ms']:.4f} ms; bound {sum(bounds):.4f} ms; the exchange's "
+        f"wall no slower than torch._foreach_copy_'s: "
+        f"{ex['wall_ms'] <= ex['lib_wall_ms']} ({CARD})")
     sweep = []
     for ctas in STEP_SWEEP_CTAS:
-        per = [queued_ms(lambda: ring.ring_step(blocks, views, t, ctas=ctas))
-               for t in range(last + 1)]
+        p = ring.StepPlan(blocks, views, ctas)
+        per = [queued_ms(lambda: p.launch(t)) for t in range(last + 1)]
         sweep.append((ctas, per))
         log(f"(e) step kernel at {ctas} CTAs: steps " + ", ".join(f"{m:.4f}" for m in per)
             + f" ms, the exchange {sum(per):.4f} ms ({CARD})")
+    best = min(sum(per) for _, per in sweep)
+    pick = min(c for c, per in sweep if sum(per) <= (1 + STEP_SWEEP_SLACK) * best)
+    log(f"(e) the sweep's best exchange {best:.4f} ms; the fewest CTAs within "
+        f"{STEP_SWEEP_SLACK:.0%} of it: {pick}; STEP_CTAS = {ring.STEP_CTAS} ({CARD})")
     return sweep
 
 
@@ -6149,12 +6279,18 @@ def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
         # in turns (overlapped, exchange, consumer; then reversed), the
         # median of each over both rounds: the host's clock drifts
         runs = {"overlapped_ms": [], "exchange_ms": [], "consumer_ms": []}
+        built, launched = ring.StepPlan.builds, ring.ring_step.launches
         for order in ((ringed, exch, cons), (cons, exch, ringed)):
             for fn in order:
                 key = ("overlapped_ms" if fn is ringed else
                        "exchange_ms" if fn is exch else "consumer_ms")
                 runs[key].append(wall_ms(fn))
         w = {key: statistics.mean(x) for key, x in runs.items()}
+        # the exchanges of these runs, and the plans among them that built
+        # their calls rather than reuse them
+        w["exchanges"] = (ring.ring_step.launches - launched) // (max(ring.ring_legs(
+            N_SHARDS)) + 1)
+        w["plans_built"] = ring.StepPlan.builds - built
         w["serial_ms"] = w["exchange_ms"] + w["consumer_ms"]
         w["overlap_gain"] = w["serial_ms"] / w["overlapped_ms"]
         walls[name] = w
@@ -6165,7 +6301,8 @@ def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
         log(f"(d) {name}: overlapped {w['overlapped_ms']:.3f} ms; serial "
             f"{w['serial_ms']:.3f} ms (the exchange alone {w['exchange_ms']:.3f} + "
             f"the consumer on landed data {w['consumer_ms']:.3f}); overlap_gain "
-            f"{w['overlap_gain']:.3f} ({CARD})")
+            f"{w['overlap_gain']:.3f}; {w['plans_built']} of {w['exchanges']} "
+            f"exchanges built their step calls, the rest reused them ({CARD})")
     nh = walls["next hops"]
     gain = engine.note_exchange_overlap(nh["serial_ms"] / 1e3, nh["overlapped_ms"] / 1e3)
     sp_hier._m_exchange_s.observe(nh["exchange_ms"] / 1e3)
@@ -6180,14 +6317,14 @@ def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
     # step launches take the sweep's CTA count, and the exchange forks
     # onto a stream of the sweep's priority
     grid = {}
-    launch, stream_of = ring._step_launch, ring.exchange_stream
+    plan_init, stream_of = ring.StepPlan.__init__, ring.exchange_stream
     try:
         for prio in STEP_SWEEP_PRIORITIES:
             st = torch.cuda.Stream(device, priority=prio)
             ring.exchange_stream = lambda _dev, st=st: st
-            for ctas in (16, 64, 128, 1056):
-                ring._step_launch = (lambda b, v, t, _c, ctas=ctas:
-                                     launch(b, v, t, ctas))
+            for ctas in (16, 32, 64, 128):
+                ring.StepPlan.__init__ = (
+                    lambda self, b, v, _c=None, ctas=ctas: plan_init(self, b, v, ctas))
                 row = {name: wall_ms(consumers[name][0], n=5)
                        for name in ("chase", "next hops")}
                 grid[f"{ctas}/{prio}"] = row
@@ -6195,7 +6332,7 @@ def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
                     f"{row['chase']:.3f} ms, next hops {row['next hops']:.3f} ms "
                     f"({CARD})")
     finally:
-        ring._step_launch, ring.exchange_stream = launch, stream_of
+        ring.StepPlan.__init__, ring.exchange_stream = plan_init, stream_of
     summary["sweep"] = {"steps": sweep, "walls": grid}
 
     # (f) host syncs inside the ringed legs

@@ -16,15 +16,18 @@ leaves every shard with the whole ``[R, C]`` matrix.
   neighbour-only links need, and a card reaches every output directly.
 - :func:`ring_step` is K3's step form: it lands the arrivals of one ring
   step in every shard's own view (CPU: :func:`ring_step_plain`; CUDA:
-  ``ring_step_launch`` in ``csrc/ring.cu``). :class:`RingExchange` runs
-  the steps of one exchange on the device's exchange stream, one event
-  per step, so that a consumer on the current stream waits only for the
-  step it reads while the next one is in flight: the reference's
-  ``ring_stream``, whose next ``ppermute`` overlaps the consumer of the
-  last. :func:`ring_stream` keeps the reference's contract on top of it;
-  the shardplane's three ring consumers (the gated chase, the
-  column-pipelined next-hop argmin, the DAG step's distance exchange)
-  drive an exchange directly.
+  ``ring_step_run`` in ``csrc/ring.cu``, on the bulk path of TMA copies
+  through shared memory or the vector path, by alignment). A
+  :class:`StepPlan` does the host work of every step of one exchange
+  once, so that a step launches with one C call. :class:`RingExchange`
+  runs the steps of one exchange from one plan on the device's exchange
+  stream, one event per step, so that a consumer on the current stream
+  waits only for the step it reads while the next one is in flight: the
+  reference's ``ring_stream``, whose next ``ppermute`` overlaps the
+  consumer of the last. :func:`ring_stream` keeps the reference's
+  contract on top of it; the shardplane's three ring consumers (the
+  gated chase, the column-pipelined next-hop argmin, the DAG step's
+  distance exchange) drive an exchange directly.
 - Wire packing: hop counts ride as bf16 while V - 1 fits bf16's exact
   integers, else as int16 with -1 for inf (exact while V <= 2**15), else
   unpacked f32; next hops ride as int16.
@@ -36,6 +39,7 @@ dispatch and have no counterpart here.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -54,6 +58,20 @@ MAX_SHARDS = 64
 #: CTAs of one step launch: few enough to leave SMs to the consumer
 #: that runs beside the exchange (the sweep in chip_smoke.py picks it)
 STEP_CTAS = 128
+
+#: the bulk path's alignment: bulk copies take 16-byte aligned addresses
+#: and sizes
+BULK_ALIGN = 16
+
+#: bytes of one shared-memory stage of the bulk path (``kChunk`` in
+#: ``csrc/ring.cu``): a bulk step uses at most one CTA a chunk
+BULK_CHUNK = 49152
+
+#: the step calls of recent plans (:class:`StepPlan`), by the addresses,
+#: block size, stream and CTA count they were built for; cleared when it
+#: holds ``PLAN_CALLS_KEPT``
+_PLAN_CALLS: dict = {}
+PLAN_CALLS_KEPT = 64
 
 #: Test and measurement hooks of :class:`RingExchange`, off when
 #: False/None. ``POISON`` fills each new view with a sentinel (NaN on a
@@ -281,39 +299,54 @@ def ring_step_plain(blocks: list, views: torch.Tensor, t: int) -> None:
             views[me][origin * b:(origin + 1) * b].copy_(blocks[origin])
 
 
-def _step_launch(blocks: list, views: torch.Tensor, t: int, ctas: int) -> None:
-    """One launch of K3's step form on the current stream."""
-    s = len(blocks)
-    nbytes = blocks[0].numel() * blocks[0].element_size()
-    if nbytes == 0:
-        return
-    base = views.data_ptr()
-    pitch = views.stride(0) * views.element_size()
-    ptrs = [x.data_ptr() for x in blocks] + [base + me * pitch for me in range(s)]
-    unit = _unit(nbytes, ptrs)
-    fn = _build.function("ring", "ring_step_launch", [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ])
-    in_arr = (ctypes.c_void_p * s)(*ptrs[:s])
-    out_arr = (ctypes.c_void_p * s)(*ptrs[s:])
-    err = fn(in_arr, out_arr, s, nbytes // unit, unit, t, ctas,
-             _build.stream_ptr(views.device))
-    _build.check(err, "ring step")
-    ring_step.launches += 1
+class StepArgs(NamedTuple):
+    """The step kernel's launch arguments for one step (:func:`step_args`)."""
+
+    #: 3 addresses a source q: its block, then its destinations in
+    #: ``step_offsets`` order, 0 where it has one
+    table: tuple
+    bulk: bool
+    #: the vector path's word in bytes (8, 4 or 2)
+    unit: int
+    #: the bulk path's split of every copy: ``head`` bytes up to the
+    #: first 16-byte boundary and ``tail`` bytes after the last, as 2-byte
+    #: words, ``mid`` bytes through the shared-memory stages
+    head: int
+    mid: int
+    tail: int
+    #: bulk: CTAs; vector: CTAs a source
+    grid: int
 
 
-def ring_step(blocks: list, views: torch.Tensor, t: int,
-              ctas: int | None = None) -> None:
-    """Land step ``t`` of the ring exchange of ``blocks`` (s equal
-    contiguous ``[B, C]`` blocks, shard q's at index q) in ``views``
-    (``[s, s*B, C]``, shard me's view at ``views[me]``): for every shard,
-    the blocks that reach it at step t (``arrival_steps``), at rows
-    ``origin*B..``. Steps 0 to ``max(ring_legs(s))`` in order leave every
-    view equal to :func:`ring_all_gather_plain`'s output. CPU tensors
-    take :func:`ring_step_plain`; CUDA tensors launch the step kernel on
-    the current stream with ``ctas`` CTAs (``STEP_CTAS``), or raise."""
+def step_args(src: list, views: list, nbytes: int, t: int, ctas: int) -> StepArgs:
+    """Step ``t``'s launch arguments from integers alone: ``src[q]`` is the
+    address of shard q's block, ``views[me]`` that of shard me's view,
+    ``nbytes`` a block's size. Source q goes to every shard ``me`` with
+    ``(me + d) % s == q`` for ``d`` in ``step_offsets(t, s)``, at
+    ``views[me] + q * nbytes``. The bulk path takes the step when every
+    address of the table shares one residue mod ``BULK_ALIGN`` and an
+    aligned 16-byte word lies inside a block; else the vector path copies
+    whole blocks in the widest word that ``nbytes`` and every address
+    allow (8, 4 or 2 bytes: addresses that allow 16 go bulk)."""
+    s = len(src)
+    offsets = step_offsets(t, s)
+    pad = [0] * (2 - len(offsets))
+    table = []
+    for q in range(s):
+        table += [src[q], *[views[(q - d) % s] + q * nbytes for d in offsets], *pad]
+    live = [p for p in table if p]
+    phase = live[0] % BULK_ALIGN
+    head = min(nbytes, -phase % BULK_ALIGN)
+    mid = (nbytes - head) // BULK_ALIGN * BULK_ALIGN
+    if mid > 0 and {p % BULK_ALIGN for p in live} == {phase}:
+        grid = min(ctas, s * -(-mid // BULK_CHUNK))
+        return StepArgs(tuple(table), True, 0, head, mid, nbytes - head - mid, grid)
+    return StepArgs(tuple(table), False, _unit(nbytes, live), 0, 0, 0,
+                    min(max(ctas // s, 1), 65535))
+
+
+def _check_step(blocks: list, views: torch.Tensor) -> None:
+    """Raise on blocks and views that the step form does not take."""
     s = len(blocks)
     first = blocks[0]
     b, c = first.shape
@@ -327,18 +360,93 @@ def ring_step(blocks: list, views: torch.Tensor, t: int,
                          f"{tuple(views.shape)} {views.dtype}")
     if views.device != first.device or not views.is_contiguous():
         raise ValueError("views must be contiguous, on the blocks' device")
-    if not 0 <= t <= max(ring_legs(s)):
-        raise ValueError(f"step {t} outside 0..{max(ring_legs(s))} for {s} shards")
-    if first.device.type == "cpu":
-        ring_step_plain(blocks, views, t)
-    elif first.device.type == "cuda":
+    if first.device.type == "cuda":
         if s > MAX_SHARDS:
             raise ValueError(f"ring kernel takes at most {MAX_SHARDS} shards")
         if first.element_size() not in (2, 4):
             raise ValueError(f"ring kernel moves 2- or 4-byte words, not {first.dtype}")
-        _step_launch(blocks, views, t, STEP_CTAS if ctas is None else ctas)
-    else:
+    elif first.device.type != "cpu":
         raise ValueError(f"ring_step runs on cpu or cuda, not {first.device}")
+
+
+class StepPlan:
+    """K3's step form planned once for ``blocks`` and ``views`` as
+    :func:`ring_step` takes them: the checks and, on CUDA, every step's
+    launch arguments (:func:`step_args`) as a prebuilt C call, with the C
+    function and the stream that is current when the plan is built.
+    :meth:`launch` is then one C call a step. The calls are kept by every
+    address, size, stream and CTA count they were built from
+    (``_PLAN_CALLS``), so a plan for memory that the allocator hands out
+    again reuses them."""
+
+    def __init__(self, blocks: list, views: torch.Tensor, ctas: int | None = None):
+        _check_step(blocks, views)
+        self.blocks, self.views = blocks, views
+        self.s = s = len(blocks)
+        self.last = max(ring_legs(s))
+        #: "bulk" or "vector" for each step (CUDA only)
+        self.paths: tuple = ()
+        #: the handle of the stream the steps launch on (CUDA only)
+        self.stream = None
+        self._calls: tuple = ()
+        dev = blocks[0].device
+        nbytes = blocks[0].numel() * blocks[0].element_size()
+        if dev.type != "cuda" or nbytes == 0:
+            return
+        src = [x.data_ptr() for x in blocks]
+        pitch = views.stride(0) * views.element_size()
+        stream = _build.stream_ptr(dev)
+        self.stream = stream.value or 0  # the default stream's handle is 0
+        ctas = STEP_CTAS if ctas is None else ctas
+        key = (*src, views.data_ptr(), pitch, nbytes, self.stream, ctas)
+        planned = _PLAN_CALLS.get(key)
+        if planned is None:
+            view_ptrs = [views.data_ptr() + me * pitch for me in range(s)]
+            calls, paths = [], []
+            for t in range(self.last + 1):
+                a = step_args(src, view_ptrs, nbytes, t, ctas)
+                table = (ctypes.c_void_p * len(a.table))(*a.table)
+                calls.append((table, s, int(a.bulk), nbytes, a.unit, a.head, a.mid,
+                              a.tail, a.grid, stream))
+                paths.append("bulk" if a.bulk else "vector")
+            if len(_PLAN_CALLS) >= PLAN_CALLS_KEPT:
+                _PLAN_CALLS.clear()
+            planned = _PLAN_CALLS[key] = (tuple(calls), tuple(paths))
+            StepPlan.builds += 1
+        self._calls, self.paths = planned
+        self._fn = _build.function("ring", "ring_step_run", [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ])
+
+    #: CUDA plans that built their calls rather than reuse them
+    builds = 0
+
+    def launch(self, t: int) -> None:
+        """Land step ``t``: on CUDA one launch on the plan's stream, on the
+        CPU :func:`ring_step_plain`."""
+        if not 0 <= t <= self.last:
+            raise ValueError(f"step {t} outside 0..{self.last} for {self.s} shards")
+        if self.blocks[0].device.type == "cpu":
+            ring_step_plain(self.blocks, self.views, t)
+        elif self._calls:
+            _build.check(self._fn(*self._calls[t]), "ring step")
+            ring_step.launches += 1
+
+
+def ring_step(blocks: list, views: torch.Tensor, t: int,
+              ctas: int | None = None) -> None:
+    """Land step ``t`` of the ring exchange of ``blocks`` (s equal
+    contiguous ``[B, C]`` blocks, shard q's at index q) in ``views``
+    (``[s, s*B, C]``, shard me's view at ``views[me]``): for every shard,
+    the blocks that reach it at step t (``arrival_steps``), at rows
+    ``origin*B..``. Steps 0 to ``max(ring_legs(s))`` in order leave every
+    view equal to :func:`ring_all_gather_plain`'s output. CPU tensors
+    take :func:`ring_step_plain`; CUDA tensors launch the step kernel on
+    the current stream with ``ctas`` CTAs (``STEP_CTAS``), or raise: a
+    :class:`StepPlan` built for one step."""
+    StepPlan(blocks, views, ctas).launch(t)
 
 
 #: kernel launches of :func:`ring_step` (CPU calls do not count)
@@ -367,14 +475,15 @@ class RingExchange:
     padded), landing step by step in every shard's own view.
 
     On CUDA the constructor forks the device's exchange stream (it first
-    waits for the current stream, where the wire was packed), launches
-    steps 0 to ``last`` there (:func:`ring_step`) and records an event
-    after each; :meth:`wait` makes the current stream wait for one step's
-    event, and :meth:`join` for the whole exchange. The blocks and the
-    views are marked as used by the exchange stream, so the caching
-    allocator hands their memory out again only after it. On the CPU the
-    steps run in order, in place, inside :meth:`wait`: a step lands only
-    when a consumer asks for it."""
+    waits for the current stream, where the wire was packed), plans the
+    steps there once (:class:`StepPlan`), launches steps 0 to ``last``
+    from the plan and records an event after each; :meth:`wait` makes the
+    current stream wait for one step's event, and :meth:`join` for the
+    whole exchange. The blocks and the views are marked as used by the
+    exchange stream, so the caching allocator hands their memory out
+    again only after it. On the CPU the steps run in order, in place,
+    inside :meth:`wait` (:func:`ring_step`): a step lands only when a
+    consumer asks for it."""
 
     def __init__(self, blocks: list):
         padded, b, r = _padded_blocks(blocks)
@@ -402,11 +511,12 @@ class RingExchange:
             x.record_stream(self.stream)
         self.events = []
         with torch.cuda.stream(self.stream):
+            plan = StepPlan(padded, self.views)
             for t in range(self.last + 1):
                 if BEFORE_STEP is not None:
                     BEFORE_STEP(t)
                 self._trace("start", t, self.stream)
-                ring_step(padded, self.views, t)
+                plan.launch(t)
                 self._trace("end", t, self.stream)
                 ev = torch.cuda.Event()
                 ev.record(self.stream)
