@@ -28,7 +28,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 26.
+               printed last, after phases 7 to 27.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -227,6 +227,19 @@ order; the first failure ends the run with a non-zero exit:
                'warn', every sync reported; (g) the ring re-route's first
                call after a refresh split into host (cProfile) and device
                (profiler) time, beside the host distance twin's download.
+27. processes — config 13 uncut on a mesh over two processes of this
+               card (``make_multihost_mesh``: 2 x 4 shards, a gloo group
+               over localhost, both processes spawned): each holds K3
+               and its step form, storing through CUDA IPC pointers into
+               the other process's buffers, against their plain versions
+               (int32, int16, f32 and bf16 rows of ``[496, 3968]``, the
+               views poisoned) and times both per call beside the same
+               call in one process (the host's enqueue apart; two
+               processes time-sliced on one card, not an NVLink time);
+               then the refresh in ring and gather modes, an 8,192-pair
+               window in each mode and route_collective_sharded in each
+               mode, every host result bit-equal to this process's
+               single-process run of the same path.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -255,6 +268,9 @@ of phase 22 (K1 0, set-up 2, K2 2: the demo's install and its
 re-install), phase 23's crashes, storm and failover and every leg of
 phase 24 (K1 and K2 0; K3 at least 1 on each hier refresh with the
 ring, the step form at least once on the dense sharded refresh), and
+phase 27's path in each of its two processes (K3, its step form, K2's
+set-up and K2 at least once each; their counts are added to the
+report's), and
 phase 25's legs (each window and narrowed re-route: in ring mode 5
 launches of K3's step form, in gather mode K3 1, nothing else;
 warm_serving: the same per warmed bucket; the shortest collective: K3
@@ -1510,16 +1526,30 @@ def shard_problem(device, k: int = SHARD_K, n_ranks: int = SHARD_RANKS) -> dict:
     k=56 aggregated to edge-switch flows (as benchmarks/common's
     alltoall_problem builds it), end-padded to the shard count; an idle
     fabric."""
-    import torch
-
     from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
-    from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes
     from sdnmpi_tpu_torch.oracle.engine import tensorize
     from sdnmpi_tpu_torch.topogen import fattree
 
     spec = fattree(k)
     db = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD)
     t = tensorize(db, pad_multiple=SHARD_PAD, device=device)
+    dist = apsp_distances(t.adj)
+    dist_h = dist.cpu().numpy()
+    levels = int(dist_h[np.isfinite(dist_h)].max())
+    return dict(edge_flows(spec, t, n_ranks, device), dist=dist, dist_h=dist_h,
+                levels=levels)
+
+
+def edge_flows(spec, t, n_ranks: int, device) -> dict:
+    """The alltoall of ``spec``'s first ``n_ranks`` hosts aggregated to
+    edge-switch flows (as benchmarks/common's alltoall_problem builds
+    it), end-padded to the shard count, on an idle fabric: the
+    arguments of ``route_collective_sharded`` before the mesh, the
+    destination set and the flows on the host."""
+    import torch
+
+    from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes
+
     host_edge = np.array(
         [t.index[d] for _, d, _ in spec.hosts[:n_ranks]], np.int32
     )
@@ -1538,12 +1568,9 @@ def shard_problem(device, k: int = SHARD_K, n_ranks: int = SHARD_RANKS) -> dict:
     traffic = np.zeros((v, v), np.float32)
     np.add.at(traffic, (udst[live], usrc[live]), weight[live])
     li, lj = (a.astype(np.int32) for a in np.nonzero(t.host_adj() > 0))
-    dist = apsp_distances(t.adj)
-    dist_h = dist.cpu().numpy()
-    levels = int(dist_h[np.isfinite(dist_h)].max())
     put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
     return {
-        "t": t, "dist": dist, "dist_h": dist_h, "levels": levels,
+        "t": t,
         "args": [t.adj, put(li), put(lj), put(np.zeros(len(li), np.float32)),
                  put(traffic), put(usrc), put(udst)],
         "dst_nodes": put(make_dst_nodes(udst[live])), "src": usrc, "dst": udst,
@@ -6324,7 +6351,8 @@ def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
             ring.exchange_stream = lambda _dev, st=st: st
             for ctas in (16, 32, 64, 128):
                 ring.StepPlan.__init__ = (
-                    lambda self, b, v, _c=None, ctas=ctas: plan_init(self, b, v, ctas))
+                    lambda self, b, v, _c=None, ctas=ctas, **kw: plan_init(
+                        self, b, v, ctas, **kw))
                 row = {name: wall_ms(consumers[name][0], n=5)
                        for name in ("chase", "next hops")}
                 grid[f"{ctas}/{prio}"] = row
@@ -6386,6 +6414,346 @@ def phase_ring_overlap(device, report: dict, k: int = SHARD_K,
     collect("phase 26")
     log(f"phase 26 summary ({CARD}): " + json.dumps(summary, default=str))
     return summary
+
+
+#: phase 27: the processes of the mesh, the seconds each has to answer
+#: (also its group's timeout), the calls each time takes, and the calls
+#: of the ordering hold with their delays (torch.cuda._sleep cycles)
+MP_PROCESSES = 2
+MP_TIMEOUT_S = 300.0
+MP_REPS = 10
+MP_HOLD_CALLS = 8
+MP_DELAYS = (0, 200_000, 1_000_000, 3_000_000)
+
+
+def digest(*arrays) -> str:
+    """sha256 of arrays' shapes, dtypes and bytes: equal digests are
+    bit-equal arrays."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.shape}{a.dtype}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def mp_path(device, k: int, n_ranks: int, n_window: int) -> tuple:
+    """Phase 27's path on config 13, as each process of a mesh (or one
+    process alone) runs it through the port's entry points: the sharded
+    refresh in ring mode and again in gather mode, an ``n_window``-pair
+    window in each mode, and ``route_collective_sharded`` on the edge
+    flows in each mode (cached row-sharded distances, the destination
+    set). Returns (the digest of every host result, walls in ms)."""
+    import torch
+
+    from sdnmpi_tpu_torch.shardplane import route_collective_sharded
+    from sdnmpi_tpu_torch.shardplane.mesh import gather_host
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(k)
+    db = spec.to_topology_db(backend="torch", device=device, pad_multiple=SHARD_PAD,
+                             mesh_devices=N_SHARDS, shard_oracle=True,
+                             ring_exchange=True)
+    oracle = db._oracle_engine()
+    got, walls = {}, {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[what] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    for ring_mode in (True, False):
+        mode = "ring" if ring_mode else "gather"
+        oracle.ring_exchange = ring_mode
+        oracle._version = None  # a full refresh in this mode
+        t = timed(f"refresh {mode}", lambda: oracle.refresh(db))
+        got[f"distances ({mode} refresh)"] = digest(oracle._dist)
+        got[f"next hops ({mode} refresh)"] = digest(oracle._next)
+    hosts = [m for m, _, _ in spec.hosts[:n_ranks]]
+    rng = np.random.default_rng(25)
+    a = rng.integers(0, len(hosts), n_window)
+    b = (a + 1 + rng.integers(0, len(hosts) - 1, n_window)) % len(hosts)
+    pairs = [(hosts[i], hosts[j]) for i, j in zip(a, b)]
+    flows = edge_flows(spec, t, n_ranks, oracle.device)
+    levels = int(oracle._dist[np.isfinite(oracle._dist)].max())
+    mesh = oracle._shard_mesh()
+    for ring_mode in (True, False):
+        mode = "ring" if ring_mode else "gather"
+        oracle.ring_exchange = ring_mode
+        w = timed(f"window {mode}", lambda: db.find_routes_batch_dispatch(pairs).reap())
+        got[f"window ({mode})"] = digest(w.hop_dpid, w.hop_port, w.hop_len)
+        slots, maxc = timed(f"collective {mode}", lambda: route_collective_sharded(
+            *flows["args"], mesh, levels=levels, rounds=ROUNDS, max_len=levels + 1,
+            dist=oracle._dist_d, dst_nodes=flows["dst_nodes"], ring_exchange=ring_mode,
+            neigh=t.neigh))
+        got[f"collective slots ({mode})"] = digest(gather_host(slots, mesh),
+                                                   np.float32(maxc.item()))
+    return got, walls
+
+
+def time_calls(fn, reps: int = MP_REPS) -> dict:
+    """``fn()`` ``reps`` times after one warm call: the host's enqueue and
+    wall (to a synchronize) and the device span between CUDA events
+    around the calls, each per call in ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"enqueue_ms": enqueue * 1e3 / reps, "wall_ms": wall * 1e3 / reps,
+            "device_ms": start.elapsed_time(end) / reps}
+
+
+def mp_hold_ring(mesh) -> dict:
+    """K3 and its step form across the processes of ``mesh`` at config
+    13's shapes (``[V/8, V]`` int32 next-hop rows, their int16 wire, f32
+    and bf16 rows), each process launching for its own sources and
+    storing into every shard's output or view: every output and view of
+    this process equal to the plain versions on all eight blocks (the
+    views start poisoned). Then both timed per call beside the same call
+    on a mesh of this process alone (rank 0 only, the others waiting),
+    with the host's enqueue apart. Returns the times."""
+    import torch
+    import torch.distributed as dist
+
+    from sdnmpi_tpu_torch.kernels import ring
+    from sdnmpi_tpu_torch.shardplane import make_mesh
+    from sdnmpi_tpu_torch.shardplane.mesh import all_gather_cpu
+
+    dev = mesh.device
+    s, b = mesh.n_shards, SHARD_V // mesh.n_shards
+    gen = torch.Generator(device=dev).manual_seed(27)  # the same in every process
+    times = {}
+    for dtype in (torch.int32, torch.int16, torch.float32, torch.bfloat16):
+        full = torch.randint(-2 ** 15, 2 ** 15, (s * b, SHARD_V), generator=gen,
+                             device=dev, dtype=torch.int32).to(dtype)
+        every = list(full.split(b))
+        blocks = [x if q in mesh.local else None for q, x in enumerate(every)]
+        want = ring.ring_all_gather_plain(every)
+        got = ring.ring_all_gather(blocks, mesh)
+        views = torch.empty((s, s * b, SHARD_V), dtype=dtype, device=dev)
+        for t in range(max(ring.ring_legs(s)) + 1):
+            ring.ring_step_plain(every, views, t)
+        ring.POISON = True
+        try:
+            ex = ring.RingExchange(blocks, mesh)
+            ex.join()
+        finally:
+            ring.POISON = False
+        torch.cuda.synchronize()
+        for k, q in enumerate(mesh.local):
+            if not torch.equal(got[q], want[q]):
+                fail(f"K3 across processes ({dtype}): shard {q} differs from the plain version")
+            if not torch.equal(ex.views[k], views[q]):
+                fail(f"step form across processes ({dtype}): shard {q}'s view differs "
+                     "from the plain steps")
+        log(f"process {mesh.rank}: K3 and its step form across {mesh.n_processes} "
+            f"processes, {s} blocks of ({b}, {SHARD_V}) {dtype}: shards {mesh.local} "
+            "equal to the plain versions")
+        if dtype == torch.int16:  # the exchange's wire at config 13
+            del got, ex
+            times["K3 across processes"] = time_calls(
+                lambda: ring.ring_all_gather(blocks, mesh))
+            times["exchange across processes"] = time_calls(
+                lambda: ring.RingExchange(blocks, mesh).join())
+            # the host's part: the handshake's all_gather (an exchange's
+            # payload: what the blocks agree on, a buffer and six event
+            # handles) and the barrier
+            payload = torch.zeros(32 + 7 * ring.IPC_HANDLE, dtype=torch.uint8)
+            times["gloo all_gather of 480 B"] = time_calls(
+                lambda: all_gather_cpu(payload, mesh))
+            times["gloo barrier"] = time_calls(dist.barrier)
+            if mesh.rank == 0:
+                one = make_mesh(s, dev)
+                times["K3 in one process"] = time_calls(
+                    lambda: ring.ring_all_gather(every, one))
+                times["exchange in one process"] = time_calls(
+                    lambda: ring.RingExchange(every).join())
+            dist.barrier()
+    mp_hold_order(mesh)
+    return times
+
+
+def mp_hold_order(mesh) -> None:
+    """The order across processes under delays: ``MP_HOLD_CALLS`` calls
+    of K3 and of the exchange (views poisoned) on int32 blocks that
+    change every call, with process 1's stores delayed
+    (``torch.cuda._sleep`` before K3 and before each step) and process
+    0's reads of each result delayed and then copied after its memory
+    is handed out again to the next call. Every copy must equal the
+    plain version of its own call: a read before the other process's
+    stores landed, or a store into a buffer whose last readers had not
+    finished, shows."""
+    import torch
+
+    from sdnmpi_tpu_torch.kernels import ring
+
+    dev = mesh.device
+    s, b = mesh.n_shards, SHARD_V // mesh.n_shards
+    base = torch.arange(s * b * SHARD_V, device=dev, dtype=torch.int32).view(s * b, SHARD_V)
+    copies = []
+    ring.POISON = True
+    try:
+        for i in range(MP_HOLD_CALLS):
+            cycles = MP_DELAYS[i % len(MP_DELAYS)]
+            every = list((base + i).split(b))
+            blocks = [x if q in mesh.local else None for q, x in enumerate(every)]
+            late = mesh.rank == 1 and cycles
+            ring.BEFORE_STEP = (lambda _t, c=cycles: torch.cuda._sleep(c)) if late else None
+            if late:
+                torch.cuda._sleep(cycles)
+            got = ring.ring_all_gather(blocks, mesh)
+            ex = ring.RingExchange(blocks, mesh)
+            ex.join()
+            if mesh.rank == 0 and cycles:
+                torch.cuda._sleep(cycles)  # a slow reader of both results
+            copies.append((i, [got[q] for q in mesh.local], ex.views))
+            # the copies are taken once the next calls own this memory
+            if len(copies) > 1:
+                j, outs, views = copies[-2]
+                copies[-2] = (j, [x.clone() for x in outs], views.clone())
+            del got, ex
+    finally:
+        ring.POISON = False
+        ring.BEFORE_STEP = None
+    j, outs, views = copies[-1]
+    copies[-1] = (j, [x.clone() for x in outs], views.clone())
+    torch.cuda.synchronize()
+    for i, outs, views in copies:
+        every = list((base + i).split(b))
+        want = ring.ring_all_gather_plain(every)
+        want_views = torch.empty((s, s * b, SHARD_V), dtype=torch.int32, device=dev)
+        for t in range(max(ring.ring_legs(s)) + 1):
+            ring.ring_step_plain(every, want_views, t)
+        for k, q in enumerate(mesh.local):
+            if not torch.equal(outs[k], want[q]) or not torch.equal(views[k], want_views[q]):
+                fail(f"process {mesh.rank}: call {i} of the delayed hold differs from "
+                     f"the plain versions at shard {q}")
+    log(f"process {mesh.rank}: {MP_HOLD_CALLS} delayed calls of K3 and the exchange "
+        f"across processes (delays {MP_DELAYS} cycles), each equal to the plain "
+        "versions of its own call")
+
+
+def mp_worker(rank: int, world: int, port: int, device: str, kw: dict, out_q) -> None:
+    """One process of phase 27: join the group, put its shards on
+    ``device`` (``"cuda"``: the card of its rank), hold the ring kernels
+    across processes, run :func:`mp_path` with the launch counts zeroed
+    just before and read just after, and put ``(rank, "ok", result)`` or
+    ``(rank, "error", traceback)`` on ``out_q``."""
+    import traceback
+
+    try:
+        import torch
+
+        from sdnmpi_tpu_torch.kernels import _build, ring
+        from sdnmpi_tpu_torch.shardplane import make_multihost_mesh
+        from sdnmpi_tpu_torch.shardplane.mesh import init_multihost
+
+        init_multihost(f"127.0.0.1:{port}", world, rank, timeout_s=MP_TIMEOUT_S)
+        _build.load_all()  # built by the parent
+        mesh = make_multihost_mesh(N_SHARDS, device=device)
+        times = mp_hold_ring(mesh)
+        zero_launches()
+        digests, walls = mp_path(mesh.device, **kw)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        ring.close_exchanges()
+        out_q.put((rank, "ok", dict(digests=digests, walls=walls, times=times,
+                                    launches=counts, local=mesh.local,
+                                    device=str(mesh.device))))
+    except BaseException:
+        out_q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def phase_multiprocess(device, report: dict, k: int = SHARD_K, n_ranks: int = SHARD_RANKS,
+                       n_window: int = LEGS_WINDOW) -> list:
+    """Config 13 (fattree(56), V = 3,968, 8 shards) uncut on a mesh over
+    two processes of this card, 4 shards each (``make_multihost_mesh``
+    over a gloo group): both spawned processes hold K3 and its step form
+    with stores into the other process's buffers against their plain
+    versions and time them beside one process; then run :func:`mp_path`,
+    every digest of which must equal this process's single-process run.
+    Returns the workers' launch counts of the path."""
+    import multiprocessing
+    import queue
+    import socket
+
+    import torch
+
+    kw = dict(k=k, n_ranks=n_ranks, n_window=n_window)
+    t0 = time.perf_counter()
+    want, walls = mp_path(device, **kw)
+    log(f"phase 27: one process's path, walls {fmt_walls(walls)} ({CARD})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=mp_worker, args=(r, MP_PROCESSES, port, device.type, kw,
+                                                 out_q))
+             for r in range(MP_PROCESSES)]
+    for p in procs:
+        p.start()
+    answers, error = {}, None
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    try:
+        while len(answers) < MP_PROCESSES and error is None:
+            try:
+                rank, status, out = out_q.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                error = f"no answer within {MP_TIMEOUT_S:.0f} s"
+                break
+            if status != "ok":
+                error = f"process {rank} failed:\n{out}"
+            answers[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30 if error is None else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if error is not None:
+        fail(f"phase 27: {error}")
+    counts = []
+    for rank in range(MP_PROCESSES):
+        got = answers[rank]
+        for key, value in want.items():
+            if got["digests"].get(key) != value:
+                fail(f"phase 27: process {rank}'s {key} differs from one process's")
+        log(f"phase 27, process {rank} (shards {got['local']} on {got['device']}): "
+            f"{len(want)} results bit-equal to one process ({', '.join(want)}); "
+            f"walls {fmt_walls(got['walls'])}")
+        require_launched(got["launches"], ("ring_all_gather", "ring_step", "sampler_tables",
+                                           "sample_slots"), f"phase 27 process {rank}")
+        log(f"phase 27, process {rank}: times a call, 8 blocks of ({SHARD_V // N_SHARDS}, "
+            f"{SHARD_V}) int16 ({CARD}; two processes time-sliced on one card, not an "
+            "NVLink time):")
+        for what, tm in got["times"].items():
+            log(f"  {what}: enqueue {tm['enqueue_ms']:.4f} ms, wall {tm['wall_ms']:.4f} "
+                f"ms, device span {tm['device_ms']:.4f} ms")
+        counts.append(got["launches"])
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def fmt_walls(walls: dict) -> str:
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
 
 
 def walled(fn):
@@ -6505,12 +6873,16 @@ def main() -> int:
 
     # phase 26: the overlapped exchange at config 13
     walled(phase_ring_overlap)(device, report)
+    collect("overlapped exchange")
+
+    # phase 27: config 13 on a mesh over two processes of this card
+    mp_counts = walled(phase_multiprocess)(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
              *launcher_counts, *southbound_counts, *serving_counts,
              *churn_counts, *plane_counts, *sched_counts, *audit_counts,
              *traffic_counts, *obs_counts, *chaos_counts, *pair_counts,
-             *hier_counts, *legs_counts)
+             *hier_counts, *legs_counts, *mp_counts)
     launches = {n: sum(c[n] for c in paths) for n in slice_counts}
 
     # phase 6: report

@@ -67,12 +67,13 @@ def tensors_from_numpy(dpids, adj, port, device="cuda") -> TopoTensors:
 def shard_rows(arr, mesh) -> list:
     """The port's row-sharded form of a numpy ``[R, C]`` array: shard q
     of ``mesh`` holds rows ``[q*b, (q+1)*b)``, ``b = ceil(R / s)`` (the
-    final blocks may be short or empty), on its device."""
+    final blocks may be short or empty), on its device (``None`` at the
+    shards another process holds)."""
     arr = np.asarray(arr)
     s = mesh.n_shards
     b = -(-arr.shape[0] // s)
     return [
-        torch.tensor(arr[q * b:(q + 1) * b]).to(dev)
+        torch.tensor(arr[q * b:(q + 1) * b]).to(dev) if q in mesh.local else None
         for q, dev in enumerate(mesh.devices)
     ]
 

@@ -22,9 +22,29 @@
 // stores are the widest unit (16, 8, 4 or 2 bytes) that the block size
 // and every pointer allow, so one kernel serves every wire dtype (bf16,
 // int16, int32, f32). The outputs go through a pointer table, so a
-// launch per card across cards can store through peer pointers over
-// NVLink; completion there needs an arrival flag per (destination,
-// source) pair raised after a system-scope fence (ROADMAP A12).
+// launch can store into memory another process owns.
+//
+// A mesh over several processes (kernels/ring.py, shardplane/mesh.py)
+// launches in each process for its own source blocks only (q0 is the
+// ring index of the first, grid.y runs over them) and stores into every
+// destination shard's output or view, its own or another process's.
+// Each process allocates its receive buffers here (ring_ipc_alloc:
+// cudaMalloc, not torch's caching allocator, since
+// cudaIpcGetMemHandle maps a whole allocation and expandable segments
+// cannot be exported) and exports them; a peer opens them once
+// (ring_ipc_open) and stores through the mapped pointers. Arrival is an
+// interprocess event (ring_ipc_event: cudaEventInterprocess |
+// cudaEventDisableTiming) that a process records after each launch;
+// after one host barrier per exchange every consumer queues a wait on
+// the events of the processes whose sources it reads. The plan of an
+// arrival flag per (destination, source) pair raised after a
+// system-scope fence was not taken: a consumer would have to spin on
+// the flag, and without MPS two processes' kernels on one card run in
+// time slices, so a spin can stall for a whole slice; an event wait
+// costs the consumer nothing until the data is there, on one card or
+// across cards. The same events order a buffer's reuse: a process
+// records one before it hands out a receive buffer again, and the
+// peers' stores into it wait for that event.
 //
 // The step form (ring_step_run) lands one ring step at a time, so that a
 // consumer can read the blocks that have arrived while the next step is
@@ -68,6 +88,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -80,12 +101,13 @@ struct Blocks {
   void* out[kMaxShards];
 };
 
+// grid.y runs over the launch's sources: p.in[y] is shard q0 + y's block
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
-    broadcast_gather(Blocks p, int s, long long n) {
+    broadcast_gather(Blocks p, int s, int q0, long long n) {
   const int q = blockIdx.y;
   const U* in = (const U*)p.in[q];
-  const long long base = (long long)q * n;
+  const long long base = (long long)(q0 + q) * n;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += stride) {
@@ -288,40 +310,42 @@ int launch_bulk(const StepTable& p, int s, int head, long long mid, int tail, in
 }
 
 template <typename U>
-int launch(const Blocks& p, int s, long long n, cudaStream_t stream) {
+int launch(const Blocks& p, int n_src, int q0, int s, long long n, cudaStream_t stream) {
   const long long want = (n + (long long)kThreads * kUnitsPerThread - 1) /
                          ((long long)kThreads * kUnitsPerThread);
   const int nblk = (int)(want < 1 ? 1 : (want > 65535 ? 65535 : want));
-  broadcast_gather<U><<<dim3(nblk, s), kThreads, 0, stream>>>(p, s, n);
+  broadcast_gather<U><<<dim3(nblk, n_src), kThreads, 0, stream>>>(p, s, q0, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// in/out: s device pointers each (in: [n] units, out: [s * n] units).
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int ring_launch(const void* const* in, void* const* out, int s,
-                           long long n_units, int unit, void* stream) {
-  if (s < 2 || s > kMaxShards || n_units < 1) {
+// in: the n_src blocks of shards q0 .. q0 + n_src - 1 ([n] units each);
+// out: s device pointers ([s * n] units each, every shard's output, in
+// this process or mapped from another). Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int ring_launch(const void* const* in, int n_src, int q0, void* const* out,
+                           int s, long long n_units, int unit, void* stream) {
+  if (s < 2 || s > kMaxShards || n_src < 1 || q0 < 0 || q0 + n_src > s || n_units < 1) {
     return (int)cudaErrorInvalidValue;
   }
   Blocks p;
   for (int i = 0; i < s; ++i) {
-    p.in[i] = in[i];
+    p.in[i] = i < n_src ? in[i] : nullptr;
     p.out[i] = out[i];
   }
   cudaStream_t st = (cudaStream_t)stream;
   switch (unit) {
-    case 16: return launch<uint4>(p, s, n_units, st);
-    case 8: return launch<uint2>(p, s, n_units, st);
-    case 4: return launch<unsigned>(p, s, n_units, st);
-    case 2: return launch<unsigned short>(p, s, n_units, st);
+    case 16: return launch<uint4>(p, n_src, q0, s, n_units, st);
+    case 8: return launch<uint2>(p, n_src, q0, s, n_units, st);
+    case 4: return launch<unsigned>(p, n_src, q0, s, n_units, st);
+    case 2: return launch<unsigned short>(p, n_src, q0, s, n_units, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // One ring step as kernels/ring.py's step_args plans it. table: 3 device
-// pointers a source (its block, then its one or two destinations, null
+// pointers for each of the s sources this process launches for (its block, then its one or two destinations, null
 // where it has one). bulk: the bulk path over the bytes [head, head + mid)
 // of every copy, with head and tail as 2-byte words; else the vector path
 // in `unit`-byte words (8, 4 or 2: addresses that allow 16 go bulk) over
@@ -355,4 +379,70 @@ extern "C" int ring_step_run(const void* const* table, int s, int bulk,
     case 2: return launch_copy<unsigned short>(p, s, nbytes / 2, grid, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// -- across processes ---------------------------------------------------
+
+// A receive buffer of `bytes` that other processes can map: *ptr gets
+// the device pointer, `handle` (64 bytes) its cudaIpcMemHandle_t.
+extern "C" int ring_ipc_alloc(long long bytes, void** ptr, void* handle) {
+  if (bytes < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMalloc(ptr, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaIpcGetMemHandle((cudaIpcMemHandle_t*)handle, *ptr);
+  if (err != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return (int)err;
+}
+
+extern "C" int ring_ipc_free(void* ptr) { return (int)cudaFree(ptr); }
+
+// Map another process's receive buffer from its 64-byte handle.
+extern "C" int ring_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int ring_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+// An arrival event other processes can wait on: *event gets the event,
+// `handle` (64 bytes) its cudaIpcEventHandle_t.
+extern "C" int ring_ipc_event(void** event, void* handle) {
+  cudaEvent_t ev;
+  cudaError_t err =
+      cudaEventCreateWithFlags(&ev, cudaEventInterprocess | cudaEventDisableTiming);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaIpcGetEventHandle((cudaIpcEventHandle_t*)handle, ev);
+  if (err != cudaSuccess) {
+    cudaEventDestroy(ev);
+    return (int)err;
+  }
+  *event = (void*)ev;
+  return 0;
+}
+
+// Open another process's arrival event from its 64-byte handle.
+extern "C" int ring_ipc_open_event(const void* handle, void** event) {
+  cudaIpcEventHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  cudaEvent_t ev;
+  cudaError_t err = cudaIpcOpenEventHandle(&ev, h);
+  if (err == cudaSuccess) *event = (void*)ev;
+  return (int)err;
+}
+
+extern "C" int ring_event_record(void* event, void* stream) {
+  return (int)cudaEventRecord((cudaEvent_t)event, (cudaStream_t)stream);
+}
+
+// `stream` waits for the last record of `event` queued before this call.
+extern "C" int ring_stream_wait(void* stream, void* event) {
+  return (int)cudaStreamWaitEvent((cudaStream_t)stream, (cudaEvent_t)event, 0);
+}
+
+extern "C" int ring_event_destroy(void* event) {
+  return (int)cudaEventDestroy((cudaEvent_t)event);
 }

@@ -28,6 +28,17 @@ leaves every shard with the whole ``[R, C]`` matrix.
   contract on top of it; the shardplane's three ring consumers (the
   gated chase, the column-pipelined next-hop argmin, the DAG step's
   distance exchange) drive an exchange directly.
+- Across processes (a mesh of ``shardplane/mesh.py`` over several
+  processes, each holding one arc of the ring): the sharded lists hold
+  this process's blocks, ``None`` elsewhere. On CUDA each process
+  launches K3 or a step for its own sources and stores into every
+  shard's output or view, through pointers that the other processes
+  exported (receive buffers from ``ring_ipc_alloc``, handed to torch
+  without a copy); an interprocess event after each launch, one host
+  barrier per exchange, and each consumer waits on the events of the
+  processes whose blocks it reads (:class:`_Link`). On the CPU the plain
+  versions run the same schedule on blocks gathered over the ``gloo``
+  group. Every process must make the same calls in the same order.
 - Wire packing: hop counts ride as bf16 while V - 1 fits bf16's exact
   integers, else as int16 with -1 for inf (exact while V <= 2**15), else
   unpacked f32; next hops ride as int16.
@@ -39,6 +50,7 @@ dispatch and have no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -231,18 +243,26 @@ def _launch(blocks: list, b: int) -> list:
     out = list(torch.empty((s, s * b, c), dtype=blocks[0].dtype, device=dev))
     if nbytes == 0:
         return out
-    ptrs = [x.data_ptr() for x in blocks] + [o.data_ptr() for o in out]
+    _k3(blocks, 0, [o.data_ptr() for o in out], nbytes, _build.stream_ptr(dev))
+    return out
+
+
+def _k3(blocks: list, q0: int, outs: list, nbytes: int, stream) -> None:
+    """Launch K3 for the sources ``blocks`` (shards ``q0..``) into the
+    output addresses ``outs`` of every shard."""
+    s = len(outs)
+    ptrs = [x.data_ptr() for x in blocks] + outs
     unit = _unit(nbytes, ptrs)
     fn = _build.function("ring", "ring_launch", [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p,
     ])
-    in_arr = (ctypes.c_void_p * s)(*ptrs[:s])
-    out_arr = (ctypes.c_void_p * s)(*ptrs[s:])
-    err = fn(in_arr, out_arr, s, nbytes // unit, unit, _build.stream_ptr(dev))
+    in_arr = (ctypes.c_void_p * len(blocks))(*ptrs[:len(blocks)])
+    out_arr = (ctypes.c_void_p * s)(*outs)
+    err = fn(in_arr, len(blocks), q0, out_arr, s, nbytes // unit, unit, stream)
     _build.check(err, "ring")
     ring_all_gather.launches += 1
-    return out
 
 
 def ring_all_gather(blocks: list, mesh) -> list:
@@ -255,48 +275,88 @@ def ring_all_gather(blocks: list, mesh) -> list:
     onto the wire and the result trimmed, as ``ring.py:386-400`` does.
     Strided blocks are made contiguous first. s = 1 returns the block and
     launches nothing. CPU tensors take the plain version (the ring
-    schedule); CUDA tensors launch kernel K3 (every shard on one card) or
-    raise."""
+    schedule); CUDA tensors launch kernel K3 or raise. On a mesh over
+    several processes, ``blocks`` holds this process's blocks (of one row
+    count in every process; other entries are ignored) and the result
+    this process's outputs, ``None`` elsewhere."""
     s = mesh.n_shards
     if len(blocks) != s:
         raise ValueError(f"{len(blocks)} blocks for a {s}-shard mesh")
     if s == 1:
         return [blocks[0]]
+    if mesh.multiprocess:
+        return _gather_across(blocks, mesh)
+    _check_blocks(blocks)
+    first = blocks[0]
+    padded, b, r = _padded_blocks(blocks)
+    if first.device.type == "cpu":
+        out = ring_all_gather_plain(padded)
+    else:
+        out = _launch(padded, b)
+    return out if r == s * b else [o[:r] for o in out]
+
+
+def _check_blocks(blocks: list) -> None:
+    """Raise on blocks that neither K3 nor its plain version takes."""
     first = blocks[0]
     for x in blocks:
         if x.dim() != 2 or x.shape[1] != first.shape[1]:
             raise ValueError("blocks must be [rows, C] with one C")
         if x.dtype != first.dtype or x.device != first.device:
             raise ValueError("blocks must share one dtype and one device")
-    padded, b, r = _padded_blocks(blocks)
-    if first.device.type == "cpu":
-        out = ring_all_gather_plain(padded)
-    elif first.device.type == "cuda":
-        if s > MAX_SHARDS:
+    if first.device.type == "cuda":
+        if len(blocks) > MAX_SHARDS:
             raise ValueError(f"ring kernel takes at most {MAX_SHARDS} shards")
         if first.element_size() not in (2, 4):
             raise ValueError(f"ring kernel moves 2- or 4-byte words, not {first.dtype}")
-        out = _launch(padded, b)
-    else:
+    elif first.device.type != "cpu":
         raise ValueError(f"ring_all_gather runs on cpu or cuda, not {first.device}")
-    return out if r == s * b else [o[:r] for o in out]
+
+
+def _gather_across(blocks: list, mesh) -> list:
+    """:func:`ring_all_gather` on a mesh over several processes: this
+    process's blocks in, its shards' ``[R, C]`` outputs out (``None`` at
+    the other processes' shards). On CUDA one K3 launch for this
+    process's sources stores into every shard's output (:class:`_Link`);
+    on the CPU every block comes over the group and the plain version
+    runs."""
+    s = mesh.n_shards
+    mine = [blocks[q].contiguous() for q in mesh.local]
+    _check_blocks(mine)
+    if mine[0].device.type == "cpu":
+        out = ring_all_gather_plain(_blocks_over_group(mine, mesh))
+        return [out[q] if q in mesh.local else None for q in range(s)]
+    b, c = mine[0].shape
+    dev = mine[0].device
+    stream = torch.cuda.current_stream(dev)
+    out, handle = _recv_buffer((len(mine), s * b, c), mine[0].dtype, dev)
+    link = _Link(mesh, mine, out, handle, 1, stream)
+    nbytes = b * c * mine[0].element_size()
+    if nbytes:
+        _k3(mine, mesh.local[0], link.targets, nbytes, ctypes.c_void_p(stream.cuda_stream))
+    link.arrive(0, stream)
+    link.barrier()
+    link.wait(0, stream)
+    return [out[mesh.local.index(q)] if q in mesh.local else None for q in range(s)]
 
 
 #: kernel launches of :func:`ring_all_gather` (CPU calls do not count)
 ring_all_gather.launches = 0
 
 
-def ring_step_plain(blocks: list, views: torch.Tensor, t: int) -> None:
+def ring_step_plain(blocks: list, views: torch.Tensor, t: int,
+                    local: tuple | None = None) -> None:
     """Step ``t`` of the exchange as torch ``copy_`` calls: the arrivals
     of :func:`ring_all_gather_plain`'s step t at every shard (its own
     block at step 0), each stored at rows ``origin*B..`` of that shard's
-    ``[s*B, C]`` view ``views[me]``."""
+    ``[s*B, C]`` view ``views[me]``. With ``local`` (the ring indices of
+    the shards ``views`` holds) only those shards' views."""
     s = len(blocks)
     b = blocks[0].shape[0]
-    for me in range(s):
+    for k, me in enumerate(range(s) if local is None else local):
         for d in step_offsets(t, s):
             origin = (me + d) % s
-            views[me][origin * b:(origin + 1) * b].copy_(blocks[origin])
+            views[k][origin * b:(origin + 1) * b].copy_(blocks[origin])
 
 
 class StepArgs(NamedTuple):
@@ -320,8 +380,9 @@ class StepArgs(NamedTuple):
 
 def step_args(src: list, views: list, nbytes: int, t: int, ctas: int) -> StepArgs:
     """Step ``t``'s launch arguments from integers alone: ``src[q]`` is the
-    address of shard q's block, ``views[me]`` that of shard me's view,
-    ``nbytes`` a block's size. Source q goes to every shard ``me`` with
+    address of shard q's block (0 for a source another process launches
+    for: it has no entry in the table), ``views[me]`` that of shard me's
+    view, ``nbytes`` a block's size. Source q goes to every shard ``me`` with
     ``(me + d) % s == q`` for ``d`` in ``step_offsets(t, s)``, at
     ``views[me] + q * nbytes``. The bulk path takes the step when every
     address of the table shares one residue mod ``BULK_ALIGN`` and an
@@ -333,21 +394,24 @@ def step_args(src: list, views: list, nbytes: int, t: int, ctas: int) -> StepArg
     pad = [0] * (2 - len(offsets))
     table = []
     for q in range(s):
-        table += [src[q], *[views[(q - d) % s] + q * nbytes for d in offsets], *pad]
+        if src[q]:
+            table += [src[q], *[views[(q - d) % s] + q * nbytes for d in offsets], *pad]
+    n_src = len(table) // 3
     live = [p for p in table if p]
     phase = live[0] % BULK_ALIGN
     head = min(nbytes, -phase % BULK_ALIGN)
     mid = (nbytes - head) // BULK_ALIGN * BULK_ALIGN
     if mid > 0 and {p % BULK_ALIGN for p in live} == {phase}:
-        grid = min(ctas, s * -(-mid // BULK_CHUNK))
+        grid = min(ctas, n_src * -(-mid // BULK_CHUNK))
         return StepArgs(tuple(table), True, 0, head, mid, nbytes - head - mid, grid)
     return StepArgs(tuple(table), False, _unit(nbytes, live), 0, 0, 0,
-                    min(max(ctas // s, 1), 65535))
+                    min(max(ctas // n_src, 1), 65535))
 
 
-def _check_step(blocks: list, views: torch.Tensor) -> None:
-    """Raise on blocks and views that the step form does not take."""
-    s = len(blocks)
+def _check_step(blocks: list, views: torch.Tensor, s: int) -> None:
+    """Raise on blocks and views that the step form does not take:
+    ``views`` holds ``[s*B, C]`` views of an ``s``-shard ring, one for
+    each block unless another process holds some of the shards."""
     first = blocks[0]
     b, c = first.shape
     for x in blocks:
@@ -355,8 +419,9 @@ def _check_step(blocks: list, views: torch.Tensor) -> None:
             raise ValueError("blocks must be equal [B, C] blocks of one dtype and device")
         if not x.is_contiguous():
             raise ValueError("blocks must be contiguous")
-    if views.shape != (s, s * b, c) or views.dtype != first.dtype:
-        raise ValueError(f"views must be [{s}, {s * b}, {c}] {first.dtype}, not "
+    n = views.shape[0] if views.dim() == 3 else -1
+    if views.shape != (n, s * b, c) or n < 1 or views.dtype != first.dtype:
+        raise ValueError(f"views must be [n, {s * b}, {c}] {first.dtype}, not "
                          f"{tuple(views.shape)} {views.dtype}")
     if views.device != first.device or not views.is_contiguous():
         raise ValueError("views must be contiguous, on the blocks' device")
@@ -377,12 +442,20 @@ class StepPlan:
     :meth:`launch` is then one C call a step. The calls are kept by every
     address, size, stream and CTA count they were built from
     (``_PLAN_CALLS``), so a plan for memory that the allocator hands out
-    again reuses them."""
+    again reuses them.
 
-    def __init__(self, blocks: list, views: torch.Tensor, ctas: int | None = None):
-        _check_step(blocks, views)
+    On a mesh over several processes ``blocks`` are this process's
+    sources, shards ``sources`` of the ring, and ``targets`` the address
+    of every shard's view, this process's in ``views`` and the others'
+    mapped from theirs (:class:`_Link`)."""
+
+    def __init__(self, blocks: list, views: torch.Tensor, ctas: int | None = None,
+                 sources: tuple | None = None, targets: list | None = None):
+        self.s = s = len(blocks) if targets is None else len(targets)
+        _check_step(blocks, views, s)
+        if targets is None and views.shape[0] != s:
+            raise ValueError(f"{views.shape[0]} views for {s} blocks")
         self.blocks, self.views = blocks, views
-        self.s = s = len(blocks)
         self.last = max(ring_legs(s))
         #: "bulk" or "vector" for each step (CUDA only)
         self.paths: tuple = ()
@@ -393,21 +466,24 @@ class StepPlan:
         nbytes = blocks[0].numel() * blocks[0].element_size()
         if dev.type != "cuda" or nbytes == 0:
             return
-        src = [x.data_ptr() for x in blocks]
+        src = [0] * s
+        for q, x in zip(range(s) if sources is None else sources, blocks):
+            src[q] = x.data_ptr()
         pitch = views.stride(0) * views.element_size()
+        if targets is None:
+            targets = [views.data_ptr() + me * pitch for me in range(s)]
         stream = _build.stream_ptr(dev)
         self.stream = stream.value or 0  # the default stream's handle is 0
         ctas = STEP_CTAS if ctas is None else ctas
-        key = (*src, views.data_ptr(), pitch, nbytes, self.stream, ctas)
+        key = (*src, *targets, nbytes, self.stream, ctas)
         planned = _PLAN_CALLS.get(key)
         if planned is None:
-            view_ptrs = [views.data_ptr() + me * pitch for me in range(s)]
             calls, paths = [], []
             for t in range(self.last + 1):
-                a = step_args(src, view_ptrs, nbytes, t, ctas)
+                a = step_args(src, targets, nbytes, t, ctas)
                 table = (ctypes.c_void_p * len(a.table))(*a.table)
-                calls.append((table, s, int(a.bulk), nbytes, a.unit, a.head, a.mid,
-                              a.tail, a.grid, stream))
+                calls.append((table, len(a.table) // 3, int(a.bulk), nbytes, a.unit,
+                              a.head, a.mid, a.tail, a.grid, stream))
                 paths.append("bulk" if a.bulk else "vector")
             if len(_PLAN_CALLS) >= PLAN_CALLS_KEPT:
                 _PLAN_CALLS.clear()
@@ -483,44 +559,83 @@ class RingExchange:
     exchange stream, so the caching allocator hands their memory out
     again only after it. On the CPU the steps run in order, in place,
     inside :meth:`wait` (:func:`ring_step`): a step lands only when a
-    consumer asks for it."""
+    consumer asks for it.
 
-    def __init__(self, blocks: list):
-        padded, b, r = _padded_blocks(blocks)
-        self.blocks = padded
-        self.s = s = len(padded)
-        self.b, self.r = b, r
-        self.last = max(ring_legs(s))
-        first = padded[0]
-        shape = (s, s * b, first.shape[1])
-        if POISON:
-            self.views = torch.full(shape, _sentinel(first.dtype), dtype=first.dtype,
-                                    device=first.device)
+    With a ``mesh`` over several processes, ``blocks`` holds this
+    process's blocks (of one row count in every process), ``views`` the
+    views of this process's shards (:attr:`local`, in ring order), and
+    the steps store into the other processes' views too (:class:`_Link`):
+    an interprocess event after each step, one host barrier after the
+    last, and :meth:`wait` waits for the events of the processes whose
+    blocks have reached this process's shards by then. On the CPU every
+    block comes over the group in the constructor."""
+
+    def __init__(self, blocks: list, mesh=None):
+        self.across = mesh is not None and mesh.multiprocess
+        self.link = None
+        if self.across:
+            #: the ring indices of the shards whose views this process holds
+            self.local = mesh.local
+            mine = [blocks[q].contiguous() for q in self.local]
+            self.s, (self.b, c) = mesh.n_shards, mine[0].shape
+            self.r = self.s * self.b
         else:
-            self.views = torch.empty(shape, dtype=first.dtype, device=first.device)
+            mine, self.b, self.r = _padded_blocks(blocks)
+            self.s, c = len(mine), mine[0].shape[1]
+            self.local = tuple(range(self.s))
+        self.blocks = mine
+        self._slot = {q: k for k, q in enumerate(self.local)}
+        s, b = self.s, self.b
+        self.last = max(ring_legs(s))
+        first = mine[0]
+        shape = (len(self.local), s * b, c)
         self.landed = -1  # the CPU's last landed step
         self.stream = None
+        if first.device.type != "cuda" or not self.across:
+            if POISON:
+                self.views = torch.full(shape, _sentinel(first.dtype), dtype=first.dtype,
+                                        device=first.device)
+            else:
+                self.views = torch.empty(shape, dtype=first.dtype, device=first.device)
         if first.device.type != "cuda":
+            if self.across:
+                self.blocks = _blocks_over_group(mine, mesh)
             return
         dev = first.device
         self.main = torch.cuda.current_stream(dev)
         self.stream = exchange_stream(dev)
         self.stream.wait_stream(self.main)
         self._trace("fork", -1, self.main)
-        for x in (*padded, self.views):
+        for x in mine:
             x.record_stream(self.stream)
+        sources = targets = None
+        if self.across:
+            self.views, handle = _recv_buffer(shape, first.dtype, dev)
+            if POISON:
+                with torch.cuda.stream(self.stream):
+                    self.views.fill_(_sentinel(first.dtype))
+            self.link = _Link(mesh, mine, self.views, handle, self.last + 1, self.stream)
+            self.link.reach = _reach(mesh, self.last)
+            sources, targets = self.local, self.link.targets
+        else:
+            self.views.record_stream(self.stream)
         self.events = []
         with torch.cuda.stream(self.stream):
-            plan = StepPlan(padded, self.views)
+            plan = StepPlan(mine, self.views, sources=sources, targets=targets)
             for t in range(self.last + 1):
                 if BEFORE_STEP is not None:
                     BEFORE_STEP(t)
                 self._trace("start", t, self.stream)
                 plan.launch(t)
                 self._trace("end", t, self.stream)
+                if self.link is not None:
+                    self.link.arrive(t, self.stream)
+                    continue
                 ev = torch.cuda.Event()
                 ev.record(self.stream)
                 self.events.append(ev)
+        if self.link is not None:
+            self.link.barrier()
 
     def _trace(self, kind: str, t: int, stream) -> None:
         if TRACE is not None:
@@ -534,19 +649,28 @@ class RingExchange:
         if self.stream is None:
             while self.landed < t:
                 self.landed += 1
-                ring_step(self.blocks, self.views, self.landed)
+                if self.across:
+                    ring_step_plain(self.blocks, self.views, self.landed, self.local)
+                else:
+                    ring_step(self.blocks, self.views, self.landed)
             return
         self._trace("wait", t, self.main)
-        self.main.wait_event(self.events[t])
+        if self.link is None:
+            self.main.wait_event(self.events[t])
+        else:
+            self.link.wait(t, self.main)
         self._trace("ready", t, self.main)
 
     def join(self) -> None:
         """The current stream waits for the whole exchange."""
         if self.stream is None:
             self.wait(self.last)
-        else:
-            self._trace("join", self.last, self.main)
+            return
+        self._trace("join", self.last, self.main)
+        if self.link is None:
             self.main.wait_stream(self.stream)
+        else:
+            self.link.wait(self.last, self.main)
 
     def origins(self, me: int, t: int) -> list:
         """The shards whose blocks reach shard ``me`` at step ``t``, cw
@@ -555,11 +679,11 @@ class RingExchange:
 
     def view(self, me: int) -> torch.Tensor:
         """Shard ``me``'s ``[R, C]`` view (rows land as their steps do)."""
-        return self.views[me][: self.r]
+        return self.views[self._slot[me]][: self.r]
 
     def block(self, me: int, origin: int) -> torch.Tensor:
         """Shard ``origin``'s ``[B, C]`` block in shard ``me``'s view."""
-        return self.views[me][origin * self.b:(origin + 1) * self.b]
+        return self.views[self._slot[me]][origin * self.b:(origin + 1) * self.b]
 
 
 def ring_stream(mesh, blocks: list, consume, carry: list) -> list:
@@ -571,33 +695,38 @@ def ring_stream(mesh, blocks: list, consume, carry: list) -> list:
     of ``(me + t) % s``. The consumers of step t are enqueued after the
     current stream waits for step t only, while the later steps are in
     flight. ``carry`` holds one carry per shard; returns the final
-    carries, with the current stream joined to the exchange."""
+    carries, with the current stream joined to the exchange (on a mesh
+    over several processes, this process's shards' carries, the others
+    as given)."""
     s = mesh.n_shards
     if len(blocks) != s:
         raise ValueError(f"{len(blocks)} blocks for a {s}-shard mesh")
-    ex = RingExchange(blocks)
+    ex = RingExchange(blocks, mesh)
     out = list(carry)
     for t in range(ex.last + 1):
         ex.wait(t)
-        for me in range(s):
+        for me in ex.local:
             for src in ex.origins(me, t):
                 out[me] = consume(out[me], ex.block(me, src), src, t)
     ex.join()
     return out
 
 
-def start_distance_exchange(dist: list) -> RingExchange:
+def start_distance_exchange(dist: list, mesh=None) -> RingExchange:
     """Pack row-sharded f32 hop counts to the wire (on the current
-    stream) and start their exchange (see :func:`dist_wire_dtype`)."""
-    v = dist[0].shape[1]
-    return RingExchange([pack_dist_wire(d, v) for d in dist])
+    stream) and start their exchange (see :func:`dist_wire_dtype`); on a
+    mesh over several processes, this process's blocks."""
+    v = next(d for d in dist if d is not None).shape[1]
+    return RingExchange([None if d is None else pack_dist_wire(d, v) for d in dist],
+                        mesh)
 
 
 def finish_distance_exchange(ex: RingExchange) -> list:
     """Wait for a distance exchange and unpack every shard's replicated
-    f32 matrix."""
+    f32 matrix (``None`` at another process's shards)."""
     ex.join()
-    return [unpack_dist_wire(ex.view(q)) for q in range(ex.s)]
+    return [unpack_dist_wire(ex.view(q)) if q in ex._slot else None
+            for q in range(ex.s)]
 
 
 def exchange_distances(dist: list, mesh) -> list:
@@ -606,4 +735,251 @@ def exchange_distances(dist: list, mesh) -> list:
     the blocking exchange, started and awaited at once."""
     if len(dist) != mesh.n_shards:
         raise ValueError(f"{len(dist)} blocks for a {mesh.n_shards}-shard mesh")
-    return finish_distance_exchange(start_distance_exchange(dist))
+    return finish_distance_exchange(start_distance_exchange(dist, mesh))
+
+
+# -- across processes -------------------------------------------------------
+
+#: bytes of a CUDA IPC handle (``cudaIpcMemHandle_t``, ``cudaIpcEventHandle_t``)
+IPC_HANDLE = 64
+
+#: receive buffers free for reuse, by (device, bytes)
+_BUFFERS: dict = {}
+#: every receive buffer this process allocated
+_ALLOCATED: list = []
+#: interprocess events free for reuse, by device: (event, handle)
+_EVENTS: dict = {}
+#: event sets of finished exchanges, free from the next handshake on
+_DONE: dict = {}
+#: other processes' buffers and events this process opened, by handle
+_OPENED_BUFFERS: dict = {}
+_OPENED_EVENTS: dict = {}
+
+
+def _ipc(symbol: str, argtypes: list):
+    return _build.function("ring", symbol, argtypes)
+
+
+class _IpcBuffer:
+    """A receive buffer: device memory of the ring library
+    (``ring_ipc_alloc``) that other processes can map by its handle."""
+
+    def __init__(self, dev: torch.device, nbytes: int):
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(IPC_HANDLE)
+        fn = _ipc("ring_ipc_alloc", [ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.c_char_p])
+        with torch.cuda.device(dev):
+            _build.check(fn(nbytes, ctypes.byref(ptr), handle), "ring_ipc_alloc")
+        self.dev, self.nbytes, self.ptr, self.handle = dev, nbytes, ptr.value, handle.raw
+        _ALLOCATED.append(self)
+
+
+class _Lease:
+    """Hands a receive buffer to torch without a copy
+    (``__cuda_array_interface__``); torch holds the lease while any
+    tensor uses the memory, and the buffer goes back to the free list
+    when it lets go."""
+
+    def __init__(self, buf: _IpcBuffer):
+        self.buf = buf
+        self.__cuda_array_interface__ = {
+            "shape": (buf.nbytes,), "typestr": "|u1", "data": (buf.ptr, False),
+            "version": 2,
+        }
+
+    def __del__(self):
+        _BUFFERS.setdefault((self.buf.dev, self.buf.nbytes), []).append(self.buf)
+
+
+def _recv_buffer(shape: tuple, dtype: torch.dtype, dev: torch.device) -> tuple:
+    """A ``shape`` tensor of ``dtype`` in a receive buffer, and the
+    buffer's handle. A buffer is handed out again once torch lets go of
+    its last tensor; the peers' stores into it then wait for the ready
+    event its owner records at the next exchange (:class:`_Link`)."""
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    key = (dev, max(nbytes, BULK_ALIGN))
+    free = _BUFFERS.get(key)
+    buf = free.pop() if free else _IpcBuffer(*key)
+    raw = torch.as_tensor(_Lease(buf), device=dev)
+    return raw[:nbytes].view(dtype).reshape(shape), buf.handle
+
+
+def _new_event(dev: torch.device) -> tuple:
+    ev = ctypes.c_void_p()
+    handle = ctypes.create_string_buffer(IPC_HANDLE)
+    fn = _ipc("ring_ipc_event", [ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p])
+    with torch.cuda.device(dev):
+        _build.check(fn(ctypes.byref(ev), handle), "ring_ipc_event")
+    return ev.value, handle.raw
+
+
+def _opened(cache: dict, symbol: str, handle: bytes) -> int:
+    """Another process's buffer or event, opened once per handle."""
+    got = cache.get(handle)
+    if got is None:
+        out = ctypes.c_void_p()
+        fn = _ipc(symbol, [ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)])
+        _build.check(fn(handle, ctypes.byref(out)), symbol)
+        got = cache[handle] = out.value
+    return got
+
+
+def _record(event: int, stream) -> None:
+    fn = _ipc("ring_event_record", [ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(event, stream.cuda_stream), "ring_event_record")
+
+
+def _stream_wait(stream, event: int) -> None:
+    fn = _ipc("ring_stream_wait", [ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(stream.cuda_stream, event), "ring_stream_wait")
+
+
+def _meta(blocks: list) -> torch.Tensor:
+    """What every process's blocks must agree on: rows (least and most),
+    width and word size."""
+    rows = [x.shape[0] for x in blocks]
+    return torch.tensor([min(rows), max(rows), blocks[0].shape[1],
+                         blocks[0].element_size()], dtype=torch.int64)
+
+
+def _agree(metas: list) -> None:
+    """Raise, in every process alike, unless every process's blocks have
+    one row count, width and word size."""
+    if any(not torch.equal(m, metas[0]) for m in metas) or metas[0][0] != metas[0][1]:
+        raise ValueError(
+            "an exchange across processes takes blocks of one row count, width "
+            f"and word size in every process: (rows min, max, C, bytes) "
+            f"{[m.tolist() for m in metas]}"
+        )
+
+
+def _blocks_over_group(mine: list, mesh) -> list:
+    """Every shard's block, in ring order, from every process's ``mine``
+    over the ``gloo`` group (the CPU's exchange across processes)."""
+    from sdnmpi_tpu_torch.shardplane.mesh import all_gather_cpu
+
+    _agree(all_gather_cpu(_meta(mine), mesh))
+    return [blk for got in all_gather_cpu(torch.stack(mine), mesh) for blk in got]
+
+
+def _reach(mesh, last: int) -> dict:
+    """For each process, the ring steps at which its blocks land in this
+    process's views."""
+    owner = [sh.process_index for sh in mesh.shards]
+    s = mesh.n_shards
+    reach: dict = {p: [] for p in sorted(set(owner))}
+    for t in range(last + 1):
+        for me in mesh.local:
+            for d in step_offsets(t, s):
+                steps = reach[owner[(me + d) % s]]
+                if not steps or steps[-1] != t:
+                    steps.append(t)
+    return reach
+
+
+class _Link:
+    """One exchange's handshake across the processes of a mesh, on CUDA.
+
+    In the constructor this process takes ``n_steps + 1`` interprocess
+    events (a ready event, then one a step) and records the ready event
+    on ``stream``, after everything it had queued there: a receive
+    buffer handed out again is written only after its last readers.
+    Then one ``all_gather`` over the group swaps what the blocks must
+    agree on (:func:`_agree`), the view buffers' handles and the events'
+    handles; the other processes' buffers and events are opened (once
+    per handle), ``targets`` gets every shard's view address, and
+    ``stream`` waits for the other processes' ready events.
+    :meth:`arrive` records step t's event after its launch; one
+    :meth:`barrier` after the last step orders every record before any
+    wait; :meth:`wait` makes a stream wait for every process's last
+    arrival that has reached this process's views (``reach``, all steps
+    of every process unless set). Once a stream has waited for the last
+    step, the exchange's events are taken again from the next handshake
+    on: by then every process has queued its waits on them, since all
+    run the same calls in one order."""
+
+    def __init__(self, mesh, blocks: list, views: torch.Tensor, handle: bytes,
+                 n_steps: int, stream):
+        from sdnmpi_tpu_torch.shardplane.mesh import all_gather_cpu
+
+        dev = views.device
+        free = _EVENTS.setdefault(dev, [])
+        free.extend(_DONE.pop(dev, []))
+        self.dev = dev
+        self.mine = [free.pop() if free else _new_event(dev) for _ in range(n_steps + 1)]
+        _record(self.mine[0][0], stream)
+        meta = _meta(blocks).view(torch.uint8)
+        payload = torch.frombuffer(
+            bytearray(handle + b"".join(h for _, h in self.mine)), dtype=torch.uint8)
+        got = all_gather_cpu(torch.cat([meta, payload]), mesh)
+        n_meta = meta.numel()
+        _agree([g[:n_meta].view(torch.int64) for g in got])
+        owner = [sh.process_index for sh in mesh.shards]
+        pitch = views.stride(0) * views.element_size()
+        self.targets = [0] * mesh.n_shards
+        self.events = {}
+        for p, g in enumerate(got):
+            raw = g[n_meta:].numpy().tobytes()
+            if p == mesh.rank:
+                base, evs = views.data_ptr(), [e for e, _ in self.mine]
+            else:
+                base = _opened(_OPENED_BUFFERS, "ring_ipc_open", raw[:IPC_HANDLE])
+                evs = [_opened(_OPENED_EVENTS, "ring_ipc_open_event",
+                               raw[IPC_HANDLE * (i + 1):IPC_HANDLE * (i + 2)])
+                       for i in range(n_steps + 1)]
+                _stream_wait(stream, evs[0])
+            for k, q in enumerate(q for q in range(mesh.n_shards) if owner[q] == p):
+                self.targets[q] = base + k * pitch
+            self.events[p] = evs
+        self.reach = {p: list(range(n_steps)) for p in self.events}
+        self.n_steps = n_steps
+        self.waited: dict = {}
+
+    def arrive(self, t: int, stream) -> None:
+        _record(self.mine[t + 1][0], stream)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+    def wait(self, t: int, stream) -> None:
+        for p, steps in self.reach.items():
+            landed = [u for u in steps if u <= t]
+            if landed and landed[-1] > self.waited.get(p, -1):
+                _stream_wait(stream, self.events[p][landed[-1] + 1])
+                self.waited[p] = landed[-1]
+        if t == self.n_steps - 1:  # the exchange is over for its events
+            _DONE.setdefault(self.dev, []).extend(self.mine)
+            self.mine = []
+
+
+def close_exchanges() -> None:
+    """End this process's part in the exchanges across processes: every
+    process closes the buffers and events it opened, behind a barrier
+    after every store, and frees its own (those no tensor holds) behind
+    a second, once no process has them open. Every process of the group
+    calls it, after its last exchange."""
+    import torch.distributed as dist
+
+    for dev in {b.dev for b in _ALLOCATED} | set(_EVENTS) | set(_DONE):
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+    void = [ctypes.c_void_p]
+    for ptr in _OPENED_BUFFERS.values():
+        _build.check(_ipc("ring_ipc_close", void)(ptr), "ring_ipc_close")
+    events = list(_OPENED_EVENTS.values())
+    _OPENED_BUFFERS.clear()
+    _OPENED_EVENTS.clear()
+    dist.barrier()
+    for bufs in _BUFFERS.values():
+        for buf in bufs:
+            _build.check(_ipc("ring_ipc_free", void)(buf.ptr), "ring_ipc_free")
+            _ALLOCATED.remove(buf)
+    _BUFFERS.clear()
+    events += [ev for evs in (*_EVENTS.values(), *_DONE.values()) for ev, _ in evs]
+    _EVENTS.clear()
+    _DONE.clear()
+    for ev in events:
+        _build.check(_ipc("ring_event_destroy", void)(ev), "ring_event_destroy")

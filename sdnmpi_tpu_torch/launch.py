@@ -26,9 +26,11 @@ reference's parser under the same name, with these differences
 - ``--backend`` takes ``torch`` (the default) or ``py``, and
   ``--device`` (default ``cuda``) is the only way to run the torch
   oracle on the CPU;
-- a flag that needs a module the port does not have yet fails the
-  launch with ``SystemExit`` naming its ROADMAP item, before anything
-  is built (:data:`REFUSED`);
+- ``--distributed HOST:PORT,NPROC,RANK`` brings up a ``gloo``
+  ``torch.distributed`` group (``shardplane.mesh.init_multihost``)
+  before anything is built; with ``--shard-oracle`` every process then
+  holds an arc of one shard mesh (``--mesh-devices``, split evenly) and
+  runs the same controller on the same inputs;
 - the WebSocket mirror needs the ``websockets`` package (the ``rpc``
   extra): without it, a launch without ``--no-rpc`` fails at once
   instead of losing the mirror in a background task.
@@ -55,26 +57,6 @@ from sdnmpi_tpu_torch.topogen import (
 )
 
 log = logging.getLogger("launch")
-
-#: flags that need a module the port has not ported yet:
-#: (argparse dest, its default, the flag, the module it needs, ROADMAP
-#: item). Given with any other value, the flag fails the launch.
-REFUSED = (
-    ("distributed", None, "--distributed", "multi-host shard meshes",
-     "A12 item 2"),
-)
-
-
-def refuse_unported(args) -> None:
-    """Fail the launch (``SystemExit``) on the first flag of
-    :data:`REFUSED` that ``args`` sets."""
-    for dest, default, flag, needs, item in REFUSED:
-        if getattr(args, dest, default) != default:
-            raise SystemExit(
-                f"{flag} needs {needs}, which is not ported yet "
-                f"(ROADMAP {item})"
-            )
-
 
 def parse_topo(spec: str):
     kind, _, args = spec.partition(":")
@@ -177,7 +159,6 @@ def run_serving_load(controller, fabric, args) -> dict:
 
 
 def config_from_args(args) -> Config:
-    refuse_unported(args)
     listen = getattr(args, "listen", None)
     if listen and not args.observe_links:
         # LLDP discovery is the ONLY link/host source in real-switch
@@ -293,6 +274,26 @@ def parse_ownership(spec) -> tuple[int, int]:
     return idx, cnt
 
 
+def parse_distributed(spec: str) -> tuple[str, int, int]:
+    """'HOST:PORT,NPROC,RANK' -> (coordinator, n_processes, process_id)
+    for shardplane.mesh.init_multihost; raises SystemExit on malformed
+    input so a typo fails the launch instead of silently running
+    single-host."""
+    try:
+        coordinator, nproc_s, rank_s = spec.rsplit(",", 2)
+        nproc, rank = int(nproc_s), int(rank_s)
+    except ValueError:
+        raise SystemExit(
+            f"--distributed wants HOST:PORT,NPROC,RANK (got {spec!r})"
+        )
+    if ":" not in coordinator or nproc < 1 or not 0 <= rank < nproc:
+        raise SystemExit(
+            f"--distributed wants HOST:PORT,NPROC,RANK with "
+            f"0 <= RANK < NPROC (got {spec!r})"
+        )
+    return coordinator, nproc, rank
+
+
 async def run_replica_relay(controller, link, config) -> None:
     """Outbound half of the pair's replication stream: dial
     the peer's RPC WebSocket, relay the link's sends as
@@ -349,6 +350,12 @@ def _report_failure(task: asyncio.Task) -> None:
 
 async def amain(args) -> None:
     listen = getattr(args, "listen", None)
+    if getattr(args, "distributed", None):
+        # multi-process mesh: the process group must exist before any
+        # mesh is built
+        from sdnmpi_tpu_torch.shardplane.mesh import init_multihost
+
+        init_multihost(*parse_distributed(args.distributed))
     config = config_from_args(args)
     if not args.no_rpc and importlib.util.find_spec("websockets") is None:
         raise SystemExit(
@@ -542,6 +549,11 @@ async def amain(args) -> None:
                 await asyncio.sleep(args.duration)
             else:
                 await asyncio.Future()
+            if getattr(args, "distributed", None):
+                # the buffers other processes mapped outlive their stores
+                from sdnmpi_tpu_torch.kernels.ring import close_exchanges
+
+                close_exchanges()
     except asyncio.CancelledError:
         pass
     finally:
@@ -755,9 +767,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.set_defaults(hier_snapshot=True)
     parser.add_argument(
         "--distributed", metavar="HOST:PORT,NPROC,RANK",
-        help="join a multi-host shardplane mesh as process RANK of "
-        "NPROC against the coordinator at HOST:PORT; not ported yet "
-        "(ROADMAP A12 item 2): refused",
+        help="join a multi-process shardplane mesh as process RANK of "
+        "NPROC against the coordinator at HOST:PORT (a gloo "
+        "torch.distributed group; process 0 listens there)",
     )
     parser.add_argument(
         "--no-recovery", action="store_true",

@@ -36,7 +36,11 @@ kernel K3 instead of replicating them first. Under ``shard_oracle`` the
 device chase of pair batches runs flow-sharded on the row-sharded next
 hops (``shardplane.batch_fdb_sharded``, or ``batch_fdb_ringed`` under
 ``ring_exchange``), and with a mesh the adaptive policy runs the
-sharded UGAL program (``shardplane.route_adaptive_sharded``). Every
+sharded UGAL program (``shardplane.route_adaptive_sharded``). When a
+``torch.distributed`` group of several processes is up (``--distributed``,
+``shardplane.mesh.init_multihost``), the mesh spans its processes
+(``make_multihost_mesh``): each holds an arc of the shards on its own
+device and its host results are gathered over the group. Every
 sharded dispatch opens a ``shard_dispatch`` span (and a
 ``shard_exchange`` span where it streams over the ring) and feeds the
 ``shard_*`` instruments.
@@ -163,29 +167,30 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _host(x) -> np.ndarray:
-    """A tensor, or a row-sharded list of them, as one host array."""
+def _host(x, mesh=None) -> np.ndarray:
+    """A tensor, or a row-sharded list of them, as one host array; on a
+    mesh over several processes the list's blocks come from every
+    process."""
     if isinstance(x, list):
-        from sdnmpi_tpu_torch.convert import gather_rows
+        from sdnmpi_tpu_torch.shardplane.mesh import gather_host
 
-        return gather_rows(x)
+        return gather_host(x, mesh)
     return x.cpu().numpy()
 
 
 def _gather_dist(blocks: list, mesh) -> torch.Tensor:
     """Row-sharded f32 hop counts -> one replicated ``[V, V]`` copy: the
-    blocks ride kernel K3 on the 2-byte wire and only the first shard's
-    gathered copy is unpacked."""
+    blocks ride kernel K3 on the 2-byte wire and only this process's
+    first shard's gathered copy is unpacked."""
     from sdnmpi_tpu_torch.kernels.ring import (
         pack_dist_wire,
         ring_all_gather,
         unpack_dist_wire,
     )
 
-    v = blocks[0].shape[1]
-    return unpack_dist_wire(
-        ring_all_gather([pack_dist_wire(d, v) for d in blocks], mesh)[0]
-    )
+    v = blocks[mesh.local[0]].shape[1]
+    wire = [None if d is None else pack_dist_wire(d, v) for d in blocks]
+    return unpack_dist_wire(ring_all_gather(wire, mesh)[mesh.local[0]])
 
 
 def _touched_rows(nodes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -349,9 +354,18 @@ class RouteOracle:
         #: raises at construction (there is no fallback to one device)
         self._mesh = None
         if mesh_devices:
-            from sdnmpi_tpu_torch.shardplane.mesh import make_mesh
+            from sdnmpi_tpu_torch.shardplane.mesh import (
+                make_mesh,
+                make_multihost_mesh,
+                world,
+            )
 
-            self._mesh = make_mesh(mesh_devices, self.device)
+            if world()[0] > 1:
+                # every process of the group holds one arc of the ring
+                self._mesh = make_multihost_mesh(mesh_devices, device=self.device)
+                self.device = self._mesh.device
+            else:
+                self._mesh = make_mesh(mesh_devices, self.device)
             # the sharded DAG step splits V rows and flows over the mesh
             pad_multiple = math.lcm(pad_multiple, mesh_devices)
             _m_shard_mesh.set(mesh_devices)
@@ -493,6 +507,7 @@ class RouteOracle:
                         )
                 elif (
                     mesh is not None
+                    and not mesh.multiprocess  # every process refreshes alone
                     and self.max_diameter == 0
                     and mesh.shape["v"] > 1  # v = 1 would just replicate
                     and tensors.v % mesh.shape["v"] == 0
@@ -561,7 +576,12 @@ class RouteOracle:
             _build.load_all()
         t = self.refresh(db)
         dist = self._dist_d if isinstance(self._dist_d, list) else [self._dist_d]
-        mx = max(torch.where(torch.isfinite(d), d, 0.0).max().item() for d in dist)
+        mx = max(torch.where(torch.isfinite(d), d, 0.0).max().item()
+                 for d in dist if d is not None)
+        if self._mesh is not None:
+            from sdnmpi_tpu_torch.shardplane.mesh import max_over_processes
+
+            mx = max_over_processes(mx, self._mesh)
         max_len = ((int(mx) + 1 + 7) // 8) * 8
         shard_mesh = self._shard_mesh()
         mult = 8 if shard_mesh is None else math.lcm(8, self.mesh_devices)
@@ -577,7 +597,7 @@ class RouteOracle:
                 chase = batch_fdb_ringed if self.ring_exchange else batch_fdb_sharded
                 nodes = chase(
                     self._next_d, t.port, zeros, zeros, zeros, max_len, shard_mesh
-                )[0][0]
+                )[0][shard_mesh.local[0]]
             else:
                 nodes = batch_fdb(
                     self._next_d, t.port, zeros, zeros, zeros, max_len
@@ -610,13 +630,13 @@ class RouteOracle:
         """Host twin of the distance matrix, copied on first use per
         topology version (shard by shard when row-sharded)."""
         if self._dist_h is None and self._dist_d is not None:
-            self._dist_h = _host(self._dist_d)
+            self._dist_h = _host(self._dist_d, self._mesh)
         return self._dist_h
 
     @property
     def _next(self) -> Optional[np.ndarray]:
         if self._next_h is None and self._next_d is not None:
-            self._next_h = _host(self._next_d)
+            self._next_h = _host(self._next_d, self._mesh)
         return self._next_h
 
     def _dist_full(self) -> torch.Tensor:
@@ -778,14 +798,15 @@ class RouteOracle:
         """The next-hop matrix as one ``[V, V]`` tensor on the oracle's
         device. Row-sharded next hops (``shard_oracle``) are gathered by
         one launch of kernel K3 per topology version (the reference's
-        all-gather of its sharded matrix) and the first shard's copy is
-        kept."""
+        all-gather of its sharded matrix) and this process's first shard's
+        copy is kept."""
         if not isinstance(self._next_d, list):
             return self._next_d
         if self._next_full_d is None:
             from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
 
-            self._next_full_d = ring_all_gather(self._next_d, self._dag_mesh())[0]
+            mesh = self._dag_mesh()
+            self._next_full_d = ring_all_gather(self._next_d, mesh)[mesh.local[0]]
         return self._next_full_d
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -1091,8 +1112,13 @@ class RouteOracle:
                         self._put(dst_p), self._put(fport_p), max_len,
                         shard_mesh,
                     )
-            # the shards sit on one device: their blocks join there
-            nodes_d, ports_d, length_d = (torch.cat(b) for b in blocks)
+            if shard_mesh.multiprocess:
+                # each process's blocks stay per shard; the reap gathers
+                # every process's onto every host
+                nodes_d, ports_d, length_d = blocks
+            else:
+                # the shards sit on one device: their blocks join there
+                nodes_d, ports_d, length_d = (torch.cat(b) for b in blocks)
         else:
             nodes_d, ports_d, length_d = batch_fdb(
                 self._next_d, t.port, self._put(src_p), self._put(dst_p),
@@ -1102,16 +1128,20 @@ class RouteOracle:
         if _dirty is not None:
             mask = np.zeros(t.v, bool)
             mask[_dirty[0]] = True
-            touched_d = _touched_rows(nodes_d, self._put(mask))
+            mask_d = self._put(mask)
+            touched_d = (_touched_rows(nodes_d, mask_d) if not isinstance(nodes_d, list)
+                         else [None if x is None else _touched_rows(x, mask_d)
+                               for x in nodes_d])
         pair_rows = np.array([r[0] for r in rows], dtype=np.int64)
         n_pairs = len(pairs)
         dpids = t.dpids
+        mesh = self._mesh
 
         def reap() -> WindowRoutes:
             n_rows = len(pair_rows)
-            nodes = nodes_d.cpu().numpy()[:n_rows]
-            ports = ports_d.cpu().numpy()[:n_rows]
-            length = length_d.cpu().numpy()[:n_rows]
+            nodes = _host(nodes_d, mesh)[:n_rows]
+            ports = _host(ports_d, mesh)[:n_rows]
+            length = _host(length_d, mesh)[:n_rows]
             # the hop axis covers the device's and any scalar-path fdb
             width = max([nodes.shape[1]] + [len(f) for f in results if f])
             od = np.full((n_pairs, width), -1, np.int64)
@@ -1127,7 +1157,7 @@ class RouteOracle:
                 wr.set_fdb(k, results[k])
             if touched_d is not None:
                 touched = np.zeros(n_pairs, bool)
-                touched[pair_rows] = touched_d.cpu().numpy()[:n_rows]
+                touched[pair_rows] = _host(touched_d, mesh)[:n_rows]
                 if fallbacks:
                     touched[fallbacks] = self._host_touched(
                         wr.hop_dpid[fallbacks], _dirty[1]
@@ -1451,8 +1481,8 @@ class RouteOracle:
                 # the occupied block, row-sharded again: each shard's rows
                 # of the copy gathered once for this topology version
                 rp = v_eff // self.mesh_devices
-                dist_eff = [dist_eff[q * rp:(q + 1) * rp]
-                            for q in range(self.mesh_devices)]
+                dist_eff = [dist_eff[q * rp:(q + 1) * rp] if q in self._mesh.local
+                            else None for q in range(self.mesh_devices)]
         else:
             adj_eff, dist_eff = t.adj, self._dist_d
         traffic = np.zeros((v_eff, v_eff), np.float32)
@@ -1488,7 +1518,7 @@ class RouteOracle:
             def reap_sharded() -> np.ndarray:
                 self.last_fractional_congestion = float(maxc_d)
                 _m_frac_congestion.set(self.last_fractional_congestion)
-                slots = _host(slots_sh)[: len(src_idx)]
+                slots = _host(slots_sh, mesh)[: len(src_idx)]
                 return self._decode(slots, src_idx, dst_idx)
 
             return reap_sharded

@@ -14,6 +14,10 @@ all-gather); in ring mode (``apsp_next_hops_ringed``) destination-column
 slices of the blocks ride the ring as 2-byte wire words, one exchange per
 slice on the exchange stream (K3's step form), and the argmin of one
 slice runs while the next slice is in flight.
+
+On a mesh over several processes each process computes its own
+shards' blocks (``None`` at the others'), and the exchanges store into
+every process's views (``kernels/ring.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from sdnmpi_tpu_torch.oracle.apsp import (
     _degree_compact_block,
     _fit_block,
 )
-from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, mesh_shards
+from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, later, mesh_shards
 
 
 def _bfs_block(adj: torch.Tensor, row0: int, n_rows: int, device) -> torch.Tensor:
@@ -48,6 +52,7 @@ def apsp_distances_sharded(adj: torch.Tensor, mesh: ShardMesh) -> list:
     """Distances row-sharded over the mesh's "v" axis only (the
     mesh-only refresh): returns ``mesh.shape["v"]`` row blocks, block j
     on the device of shard j."""
+    later("the v-axis refresh", mesh)
     v = adj.shape[0]
     nv = mesh.shape["v"]
     if v % nv:
@@ -58,13 +63,15 @@ def apsp_distances_sharded(adj: torch.Tensor, mesh: ShardMesh) -> list:
 
 def apsp_distances_rowsharded(adj: torch.Tensor, mesh: ShardMesh) -> list:
     """Distances with BFS sources split over every shard: one ``[V/s, V]``
-    block per shard, bit-identical to ``oracle.apsp.apsp_distances``."""
+    block per shard of this process, bit-identical to
+    ``oracle.apsp.apsp_distances``."""
     v = adj.shape[0]
     s = mesh_shards(mesh)
     if v % s:
         raise ValueError(f"V={v} must divide by {s} mesh shards")
     rp = v // s
-    return [_bfs_block(adj, q * rp, rp, dev) for q, dev in enumerate(mesh.devices)]
+    return [_bfs_block(adj, q * rp, rp, mesh.devices[q]) if q in mesh.local else None
+            for q in range(s)]
 
 
 def _finish(core: torch.Tensor, dist_mine: torch.Tensor, row0: int) -> torch.Tensor:
@@ -81,7 +88,8 @@ def _finish(core: torch.Tensor, dist_mine: torch.Tensor, row0: int) -> torch.Ten
 
 
 def _tables(adj, mesh, max_degree):
-    """Each shard's rows of the sorted-neighbour table (valid, safe)."""
+    """Each shard's rows of the sorted-neighbour table (valid, safe);
+    ``None`` at another process's shards."""
     from sdnmpi_tpu_torch.oracle.dag import neighbor_table
 
     v = adj.shape[0]
@@ -92,6 +100,7 @@ def _tables(adj, mesh, max_degree):
     _, valid, safe = neighbor_table(adj, max_degree)
     return rp, [
         (valid[q * rp:(q + 1) * rp].to(dev), safe[q * rp:(q + 1) * rp].to(dev))
+        if q in mesh.local else None
         for q, dev in enumerate(mesh.devices)
     ]
 
@@ -112,14 +121,16 @@ def next_hops_from_columns(tables: list, dist: list, rp: int, n_cols: int,
                            block: int, columns) -> list:
     """The argmin over replicated distance columns: ``columns(c)`` gives
     each shard's f32 ``[V, block]`` columns ``c..c+block`` (called once
-    per block, in order); then :func:`_finish`'s tail on every shard."""
+    per block, in order); then :func:`_finish`'s tail on every shard
+    (those with a table: this process's)."""
     cores: list[list] = [[] for _ in tables]
+    mine = [q for q, tb in enumerate(tables) if tb is not None]
     for c in range(0, n_cols, block):
         cols = columns(c)
-        for q, (valid_b, safe_b) in enumerate(tables):
-            cores[q].append(_degree_compact_block(valid_b, safe_b, cols[q]))
+        for q in mine:
+            cores[q].append(_degree_compact_block(*tables[q], cols[q]))
     return [
-        _finish(torch.cat(cores[q], dim=1), dist[q], q * rp)
+        _finish(torch.cat(cores[q], dim=1), dist[q], q * rp) if q in mine else None
         for q in range(len(tables))
     ]
 
@@ -140,19 +151,21 @@ def apsp_next_hops_rowsharded(
     full = ring_all_gather(dist, mesh)  # K3: the f32 replication
     return next_hops_from_columns(
         tables, dist, rp, n_cols, block,
-        lambda c: [f[:, c:c + block] for f in full],
+        lambda c: [None if f is None else f[:, c:c + block] for f in full],
     )
 
 
-def column_exchanges(dist: list, n_cols: int, block: int):
+def column_exchanges(dist: list, n_cols: int, block: int, mesh: ShardMesh | None = None):
     """The ring form's exchanges, one per destination-column block: the
     distances packed to the wire once (on the current stream; hop counts
     are bounded by the FULL matrix's V, not the slice), and a function
     that starts block c's exchange (:class:`RingExchange`) of the column
-    slices, made contiguous first."""
-    v = dist[0].shape[1]
-    wire = [pack_dist_wire(d[:, :n_cols], v) for d in dist]
-    return lambda c: RingExchange([w[:, c:c + block].contiguous() for w in wire])
+    slices, made contiguous first (across the processes of ``mesh`` when
+    it spans several)."""
+    v = next(d for d in dist if d is not None).shape[1]
+    wire = [None if d is None else pack_dist_wire(d[:, :n_cols], v) for d in dist]
+    return lambda c: RingExchange(
+        [None if w is None else w[:, c:c + block].contiguous() for w in wire], mesh)
 
 
 def apsp_next_hops_ringed(
@@ -171,7 +184,7 @@ def apsp_next_hops_ringed(
     rp, tables = _tables(adj, mesh, max_degree)
     n_cols = v if n_occ <= 0 else min(v, n_occ)
     block = _column_block(n_cols, rp, max_degree, v, ringed=True)
-    start = column_exchanges(dist, n_cols, block)
+    start = column_exchanges(dist, n_cols, block, mesh)
     pending = {0: start(0)}
 
     def columns(c):
@@ -180,7 +193,8 @@ def apsp_next_hops_ringed(
             pending[c + block] = start(c + block)
         ex.wait(ex.last)
         pending["last"] = ex
-        return [unpack_dist_wire(ex.view(q)) for q in range(ex.s)]
+        return [unpack_dist_wire(ex.view(q)) if q in mesh.local else None
+                for q in range(ex.s)]
 
     out = next_hops_from_columns(tables, dist, rp, n_cols, block, columns)
     pending["last"].join()

@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from sdnmpi_tpu_torch.shardplane.mesh import mesh_shards
+from sdnmpi_tpu_torch.shardplane.mesh import later, mesh_shards
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 
 # the border-plane exchange is the one blocking ring leg of the hier
@@ -146,6 +146,7 @@ def pod_stack_apsp_async(adj, mesh=None, device="cuda"):
             False,
         )
     if mesh is not None:
+        later("the hier oracle's pod blocks", mesh)
         shards = mesh_shards(mesh)
         if shards > 1 and n >= shards:
             pad = (-n) % shards
@@ -259,6 +260,7 @@ def sweep_rows_sharded(deg_buckets, n_borders, targets, mesh):
     The row count pads to a pow2 number of quanta, the reference's
     program ladder; pad rows are -1 targets, all-inf rows that converge
     in one sweep and touch no real row."""
+    later("the hier oracle's row sweep", mesh)
     t = len(targets)
     if t == 0 or n_borders == 0:
         return np.zeros((t, n_borders), np.float32), None
@@ -330,6 +332,7 @@ def ring_exchange_border_plane(state) -> dict[int, np.ndarray]:
     pod size, so the wire is exact)."""
     from sdnmpi_tpu_torch.kernels.ring import ring_all_gather, unpack_dist_wire
 
+    later("the hier border plane", state.mesh)
     t0 = time.perf_counter()
     out: dict[int, np.ndarray] = {}
     for bi, b in enumerate(state.buckets):

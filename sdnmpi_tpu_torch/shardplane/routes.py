@@ -31,6 +31,13 @@ rows or int8 slot streams, never an ``[F, V]`` intermediate.
 Work the reference replicates on every shard (the balancer on summed
 traffic, K2's set-up) runs once per device here and is shared by the
 shards placed there.
+
+On a mesh over several processes each process runs its own shards:
+the per-shard lists hold its blocks and ``None`` at the others' shards,
+the loads are summed over every shard in shard order after K3 gathers
+them, and the chase takes this process's flows. The greedy balancer,
+the UGAL program and ``multichip_route_step`` raise there
+(ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -54,30 +61,42 @@ from sdnmpi_tpu_torch.shardplane.apsp import (
     apsp_distances_rowsharded,
     apsp_distances_sharded,
 )
-from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, mesh_shards
+from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, later, mesh_shards
 
 INF = float("inf")
 
 
 def _row_blocks(x, mesh: ShardMesh) -> list:
     """Row-sharded form of ``x``: a list passes through; a replicated
-    tensor is cut into each shard's rows (views, on its device)."""
+    tensor is cut into each shard's rows (views, on its device; ``None``
+    at another process's shards)."""
     if isinstance(x, (list, tuple)):
         return list(x)
     rp = x.shape[0] // mesh_shards(mesh)
-    return [x[q * rp:(q + 1) * rp].to(d) for q, d in enumerate(mesh.devices)]
+    return [x[q * rp:(q + 1) * rp].to(d) if q in mesh.local else None
+            for q, d in enumerate(mesh.devices)]
 
 
 def _replicated(x, mesh: ShardMesh) -> list:
     """Every shard's full copy of ``x``: a row-sharded list is gathered
-    by kernel K3 (on a card); a replicated tensor is read in place."""
+    by kernel K3 (on a card); a replicated tensor is read in place
+    (``None`` at another process's shards)."""
     if isinstance(x, (list, tuple)):
         return ring_all_gather(list(x), mesh)
-    return [x.to(d) for d in mesh.devices]
+    return [x.to(d) if q in mesh.local else None for q, d in enumerate(mesh.devices)]
 
 
-def _sum_over_shards(parts: list) -> torch.Tensor:
-    """The ``psum``: shard 0's part plus the others, in shard order."""
+def _sum_over_shards(parts: list, mesh: ShardMesh) -> torch.Tensor:
+    """The ``psum``: shard 0's part plus the others, in shard order. On a
+    mesh over several processes the parts (this process's shards' entries
+    of ``parts``) are gathered by kernel K3 first, so every process adds
+    the same parts in the same order and gets one process's sum bit for
+    bit."""
+    if mesh.multiprocess:
+        shape = next(p for p in parts if p is not None).shape
+        flat = [None if p is None else p.reshape(1, -1) for p in parts]
+        every = ring_all_gather(flat, mesh)[mesh.local[0]]
+        parts = [row.reshape(shape) for row in every]
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
@@ -152,14 +171,15 @@ def route_collective_sharded(
     if dist is None:
         dist = apsp_distances_rowsharded(adj, mesh)
     if ring_exchange:  # in flight behind the dist-independent prep
-        exchange = start_distance_exchange(_row_blocks(dist, mesh))
+        exchange = start_distance_exchange(_row_blocks(dist, mesh), mesh)
     base = torch.zeros((v, v), dtype=torch.float32, device=adj.device)
     base[link_src.long(), link_dst.long()] = link_util.to(torch.float32)
     adj_f = (adj > 0).to(torch.float32)
     if have_dst:
         t_per = dst_nodes.shape[0] // s
         dn_loc = [dst_nodes[q * t_per:(q + 1) * t_per] for q in range(s)]
-        traffic_loc = [restrict_dst_traffic(traffic, dn) for dn in dn_loc]
+        traffic_loc = [restrict_dst_traffic(traffic, dn_loc[q]) if q in mesh.local
+                       else None for q in range(s)]
     else:
         traffic_loc = [traffic[q * rp:(q + 1) * rp] for q in range(s)]
     # dist-independent prep first: in ring mode the exchange overlaps it
@@ -168,21 +188,23 @@ def route_collective_sharded(
         d_full = finish_distance_exchange(exchange)
     else:
         d_full = _replicated(dist, mesh)
-    d_t_loc = []
-    for q, d in enumerate(d_full):
+    d_t_loc = [None] * s
+    for q in mesh.local:
+        d = d_full[q]
         if have_dst:
             dn = dn_loc[q]
-            d_t_loc.append(torch.where(
+            d_t_loc[q] = torch.where(
                 (dn >= 0)[:, None], d.T[dn.long().clamp(min=0)], INF
-            ))
+            )
         else:
-            d_t_loc.append(d.T[q * rp:(q + 1) * rp])
+            d_t_loc[q] = d.T[q * rp:(q + 1) * rp]
 
     def load_of(w):
         return _sum_over_shards([
             propagate_levels(w.to(dev), d_t_loc[q], traffic_loc[q].to(dev), levels)
+            if q in mesh.local else None
             for q, dev in enumerate(mesh.devices)
-        ])
+        ], mesh)
 
     load = load_of(weights)
     for _ in range(rounds - 1):
@@ -194,17 +216,18 @@ def route_collective_sharded(
     # K2's set-up once per device, shared by the launches of its shards;
     # one launch per shard, each with its own flows and fid_base
     tables = {}
-    slots = []
-    for q, dev in enumerate(mesh.devices):
+    slots = [None] * s
+    for q in mesh.local:
+        dev = mesh.devices[q]
         w_q = weights.to(dev)
         dn_q = dst_nodes.to(dev) if have_dst else None
         if dev not in tables:
             tables[dev] = sampler_tables(w_q, d_full[q], dn_q, neigh=neigh.to(dev))
-        slots.append(sample_slots(
+        slots[q] = sample_slots(
             w_q, d_full[q], src[q * f_per:(q + 1) * f_per].to(dev),
             dst[q * f_per:(q + 1) * f_per].to(dev), hops, salt=salt,
             dst_nodes=dn_q, fid_base=q * f_per, tables=tables[dev],
-        ))
+        )
     return slots, maxc
 
 
@@ -221,9 +244,9 @@ def _flow_slices(n: int, mesh: ShardMesh) -> list:
 def _per_device(mesh: ShardMesh, fn) -> dict:
     """``fn(device)`` once for each device of the mesh: the work the
     reference replicates on every shard, shared by the shards placed on
-    one device."""
+    one device (this process's)."""
     out = {}
-    for dev in mesh.devices:
+    for dev in (mesh.devices[q] for q in mesh.local):
         if dev not in out:
             out[dev] = fn(dev)
     return out
@@ -247,15 +270,14 @@ def batch_fdb_sharded(
     read them back with ``convert.gather_rows``. Requires ``F % s == 0``."""
     parts = _flow_slices(src.shape[0], mesh)
     full = _replicated(next_hop, mesh)
-    nodes, ports, length = [], [], []
-    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
-        n, p, ln = batch_fdb(
+    s = mesh_shards(mesh)
+    nodes, ports, length = [None] * s, [None] * s, [None] * s
+    for q in mesh.local:
+        sl, dev = parts[q], mesh.devices[q]
+        nodes[q], ports[q], length[q] = batch_fdb(
             full[q], port.to(dev), src[sl].to(dev), dst[sl].to(dev),
             final_port[sl].to(dev), max_len,
         )
-        nodes.append(n)
-        ports.append(p)
-        length.append(ln)
     return nodes, ports, length
 
 
@@ -277,10 +299,12 @@ def batch_fdb_ringed(
     shard's own ``[V, V]`` view; :func:`chase_exchange` consumes each
     step's arrivals as they land."""
     blocks = _row_blocks(next_hop, mesh)
-    wire16 = blocks[0].shape[1] <= ring.NEXT_WIRE_MAX_V
+    v = blocks[mesh.local[0]].shape[1]
+    wire16 = v <= ring.NEXT_WIRE_MAX_V
     return chase_exchange(
-        lambda: RingExchange([pack_next_wire(b) if wire16 else b for b in blocks]),
-        port, src, dst, final_port, max_len, mesh, blocks[0].shape[1],
+        lambda: RingExchange([b if b is None or not wire16 else pack_next_wire(b)
+                              for b in blocks], mesh),
+        port, src, dst, final_port, max_len, mesh, v,
     )
 
 
@@ -302,7 +326,10 @@ def chase_exchange(start, port, src, dst, final_port, max_len: int,
     chase together: each hop is one batch over all the flows. The hops
     of step t's arrivals wait for step t only, and run while step t+1's
     copies are in flight; the current stream is joined to the exchange
-    before the completion pass, so a reap reads a finished window."""
+    before the completion pass, so a reap reads a finished window.
+
+    On a mesh over several processes a process chases its own shards'
+    flows, on its shards' views."""
     s = mesh_shards(mesh)
     parts = _flow_slices(src.shape[0], mesh)
     if v % s:
@@ -311,18 +338,23 @@ def chase_exchange(start, port, src, dst, final_port, max_len: int,
     # opportunistic hops per arrival; the completion pass has the full
     # budget, so a flow stalled on a late block still finishes
     h_opp = max(1, -(-max_len // s))
-    dev = mesh.devices[0]
+    dev = mesh.device
     f_per = parts[0].stop - parts[0].start
-    shard_ids = torch.arange(s, device=dev)
-    owner = shard_ids.repeat_interleave(f_per)
-    node = src.to(dev).long()
-    t = dst.to(dev).long()
+    mine = slice(parts[mesh.local[0]].start, parts[mesh.local[-1]].stop)
+    n_local = len(mesh.local)
+    # each flow's shard: its index among this process's (the row of
+    # ``arrived`` and the view it reads) and its ring index
+    owner = torch.arange(n_local, device=dev).repeat_interleave(f_per)
+    shard_ids = torch.arange(mesh.local[0], mesh.local[-1] + 1, device=dev)
+    node = src[mine].to(dev).long()
+    t = dst[mine].to(dev).long()
     t_safe = t.clamp(min=0)
     rows = torch.arange(node.shape[0], device=dev)
     k = torch.zeros_like(node)
     out = torch.full((node.shape[0], max_len), -1, dtype=torch.int32, device=dev)
-    arrived = torch.zeros((s, s), dtype=torch.bool, device=dev)
-    raised = torch.ones(s, dtype=torch.bool, device=dev)
+    arrived = torch.zeros((n_local, s), dtype=torch.bool, device=dev)
+    raised = torch.ones(n_local, dtype=torch.bool, device=dev)
+    rows_local = torch.arange(n_local, device=dev)
     # each step's origins at every shard, cw before ccw
     origins = [[(shard_ids + d) % s for d in ring.step_offsets(step, s)]
                for step in range(max(ring.ring_legs(s)) + 1)]
@@ -345,7 +377,7 @@ def chase_exchange(start, port, src, dst, final_port, max_len: int,
     for step, arrivals in enumerate(origins):
         ex.wait(step)
         for origin in arrivals:
-            arrived.index_put_((shard_ids, origin), raised)
+            arrived.index_put_((rows_local, origin), raised)
             for _ in range(h_opp):
                 node, k = hop(node, k)
     ex.join()
@@ -357,8 +389,12 @@ def chase_exchange(start, port, src, dst, final_port, max_len: int,
     reached = (ln > 0) & (last == t)
     n = torch.where(reached[:, None], out, -1)
     ln = torch.where(reached, ln, 0).to(torch.int32)
-    p = fdb_ports(port.to(dev), n, ln, final_port.to(dev))
-    return (list(n.split(f_per)), list(p.split(f_per)), list(ln.split(f_per)))
+    p = fdb_ports(port.to(dev), n, ln, final_port[mine].to(dev))
+    out = ([None] * s, [None] * s, [None] * s)
+    for lst, x in zip(out, (n, p, ln)):
+        for q, blk in zip(mesh.local, x.split(f_per)):
+            lst[q] = blk
+    return out
 
 
 def window_readback_nbytes(wr) -> int:
@@ -391,6 +427,7 @@ def route_flows_sharded(
     ``psum``). Returns ``(nodes, load, max_congestion)``: the per-shard
     ``[U/s, max_len]`` node blocks, the summed ``[V, V]`` f32 load and
     its max over real links."""
+    later("route_flows_sharded", mesh)
     parts = _flow_slices(src.shape[0], mesh)
     full = _replicated(dist, mesh)
     if neigh is None:
@@ -404,7 +441,7 @@ def route_flows_sharded(
         )
         nodes.append(n)
         loads.append(load)
-    load = _sum_over_shards(loads)
+    load = _sum_over_shards(loads, mesh)
     maxc = torch.where(adj.to(load.device) > 0, load, 0.0).max()
     return nodes, load, maxc
 
@@ -460,6 +497,7 @@ def route_adaptive_sharded(
         sampled_hops,
     )
 
+    later("route_adaptive_sharded (the sharded UGAL program)", mesh)
     v = adj.shape[0]
     parts = _flow_slices(src.shape[0], mesh)
     if neigh is None:
@@ -498,7 +536,7 @@ def route_adaptive_sharded(
         seg.append((inter, s.to(torch.int32), mid.to(torch.int32),
                     s2.to(torch.int32), d2.to(torch.int32)))
     # the one collective: every shard balances the whole batch's traffic
-    traffic = _sum_over_shards(traffic_parts).to(torch.float32).reshape(v, v)
+    traffic = _sum_over_shards(traffic_parts, mesh).to(torch.float32).reshape(v, v)
     balanced = _per_device(mesh, lambda dev: balance_rounds(
         adj.to(dev), d_dev[dev], util.to(dev), traffic.to(dev),
         levels=levels, rounds=rounds,
@@ -540,6 +578,7 @@ def multichip_route_step(
     mesh's "v" axis (the matmul BFS, no kernel K1), the blocks joined
     into the replicated matrix (the reference's implicit XLA all-gather,
     not its ring kernel), then :func:`route_flows_sharded`."""
+    later("multichip_route_step", mesh)
     blocks = apsp_distances_sharded(adj, mesh)
     dist = torch.cat([b.to(adj.device) for b in blocks])
     return route_flows_sharded(

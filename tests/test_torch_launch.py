@@ -3,9 +3,10 @@
 ``sdnmpi_tpu_torch.launch`` takes every flag of ``sdnmpi_tpu.launch``
 under the same name. For a table of argument lists both packages'
 ``config_from_args`` agree field by field, except the deliberate
-differences of ROADMAP C (:data:`DIFFERENCES`); ``--distributed``, which
-needs a module the port does not have yet, fails the launch naming its
-item, also beside the flags of the planes that are ported.
+differences of ROADMAP C (:data:`DIFFERENCES`); ``--distributed`` is
+parsed as the reference parses it, and a malformed spec fails the launch
+with the reference's message before anything is built (a two-process
+launch runs in ``tests/test_torch_multiprocess.py``).
 The demo run writes the same checkpoint in both packages, and each
 package's checkpoint restores into the other's launcher.
 """
@@ -14,6 +15,7 @@ import asyncio
 import dataclasses
 import json
 import logging
+import re
 import runpy
 import sys
 
@@ -123,26 +125,37 @@ def test_every_reference_flag_is_accepted():
     assert (len(ref_flags), len(got_flags)) == (69, 70)
 
 
-REFUSED = [
+#: ``--distributed`` beside the flags of other planes, each with a
+#: malformed twin of its spec
+DISTRIBUTED = [
     (["--replica-peer", "ws://peer:8080/v1.0/sdnmpi/ws", "--distributed",
-      "127.0.0.1:1234,2,0"], "A12 item 2"),
+      "127.0.0.1:1234,2,0"], "127.0.0.1:1234,2"),
     (["--flight-dump", "bundles", "--distributed", "127.0.0.1:1234,2,1"],
-     "A12 item 2"),
+     "127.0.0.1:1234,2,2"),
     (["--sentinel-divergence-factor", "3", "--distributed",
-      "127.0.0.1:1234,3,2"], "A12 item 2"),
-    (["--distributed", "127.0.0.1:1234,2,0"], "A12 item 2"),
+      "127.0.0.1:1234,3,2"], "1234,3,2"),
+    (["--distributed", "127.0.0.1:1234,2,0"], "127.0.0.1:1234,two,0"),
 ]
 
 
-@pytest.mark.parametrize("argv,item", REFUSED, ids=lambda x: x if isinstance(x, str) else x[0])
-def test_unported_flags_refuse_the_launch(argv, item):
-    """Both parsers take the flag; the port's launch stops, naming the
-    ROADMAP item, before anything is built."""
-    ref_launch.build_parser().parse_args(argv)
-    args = port_launch.build_parser().parse_args(argv + ["--device", "cpu", "--no-rpc"])
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        port_launch.config_from_args(args)
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+# the ids these cases had while the port refused --distributed
+@pytest.mark.parametrize("argv,bad", DISTRIBUTED,
+                         ids=[f"{argv[0]}-A12 item 2" for argv, _ in DISTRIBUTED])
+def test_unported_flags_refuse_the_launch(argv, bad):
+    """Both parsers take ``--distributed``; the port's config equals the
+    reference's beside the other planes' flags, and its
+    ``parse_distributed`` the reference's. A malformed spec fails the
+    launch with the reference's message, before anything is built."""
+    ref, got = _configs(argv)
+    for field in sorted(got):
+        assert got[field] == DIFFERENCES.get(field, ref.get(field)), field
+    spec = argv[argv.index("--distributed") + 1]
+    assert port_launch.parse_distributed(spec) == ref_launch.parse_distributed(spec)
+    with pytest.raises(SystemExit) as want:
+        ref_launch.parse_distributed(bad)
+    args = port_launch.build_parser().parse_args(
+        argv[:-1] + [bad, "--device", "cpu", "--no-rpc"])
+    with pytest.raises(SystemExit, match=re.escape(str(want.value))):
         asyncio.run(port_launch.amain(args))
 
 

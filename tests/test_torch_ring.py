@@ -237,15 +237,19 @@ def test_mesh_facts_match_reference(virtual_mesh):
 
 
 def test_unbuildable_meshes_raise():
-    """Meshes across cards or hosts are later work; too many shards and
-    a missing card raise; nothing falls back to fewer shards."""
-    with pytest.raises(NotImplementedError, match="A12"):
+    """Shards on several devices of one process are later work (ROADMAP
+    A4 item 1); too many shards and a missing card raise; nothing falls
+    back to fewer shards. Without a process group the multi-process
+    calls are the single-process mesh: ``init_multihost`` of one process
+    is a no-op, ``make_multihost_mesh`` is ``make_mesh``'s mesh and it
+    spans one process."""
+    with pytest.raises(NotImplementedError, match="A4 item 1"):
         pmesh.ShardMesh(["cpu", "meta"])
-    for fn, args in ((pmesh.init_multihost, ("h:1", 2, 0)),
-                     (pmesh.make_multihost_mesh, (8,)),
-                     (pmesh.mesh_processes, (None,))):
-        with pytest.raises(NotImplementedError, match="A12"):
-            fn(*args)
+    assert pmesh.init_multihost("h:1", 1, 0) is False
+    one = pmesh.make_multihost_mesh(8, device="cpu")
+    assert (one.shape, one.local, one.devices) == (
+        pmesh.make_mesh(8, device="cpu").shape, tuple(range(8)), (torch.device("cpu"),) * 8)
+    assert (pmesh.mesh_processes(one), one.multiprocess) == (1, False)
     with pytest.raises(ValueError):
         pmesh.make_mesh(ring.MAX_SHARDS + 1, device="cpu")
     with pytest.raises(ValueError):
@@ -253,6 +257,8 @@ def test_unbuildable_meshes_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pmesh.make_mesh(8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pmesh.make_multihost_mesh(8)
 
 
 def test_gather_refuses_bad_blocks(p_mesh8):
