@@ -28,7 +28,7 @@ order; the first failure ends the run with a non-zero exit:
                bench-config-4 shape (~86k aggregated edge-pair flows,
                rounds=2): K1 and K2 in one call.
 6. report   — one JSON line of per-kernel numbers, then the result line;
-               printed last, after phases 7 to 27.
+               printed last, after phases 7 to 28.
 7. ring     — K3 against its plain version (s in {2, 3, 8}, uneven rows,
                bf16/int16/int32/f32 words, exactly, three calls each),
                timed at the distance exchange's shape beside
@@ -236,10 +236,29 @@ order; the first failure ends the run with a non-zero exit:
                views poisoned) and times both per call beside the same
                call in one process (the host's enqueue apart; two
                processes time-sliced on one card, not an NVLink time);
+               each holds the psum of the greedy balancer and the UGAL
+               program (eight [3968, 3968] f32 and f64 parts, the f64 as
+               int32 pairs, every process's parts stored once into each
+               process by K3) against the plain version and the
+               shard-order sum, timed beside the same sum in one process;
                then the refresh in ring and gather modes, an 8,192-pair
-               window in each mode and route_collective_sharded in each
-               mode, every host result bit-equal to this process's
-               single-process run of the same path.
+               window in each mode, route_collective_sharded in each
+               mode, route_flows_sharded and multichip_route_step on the
+               edge flows (S1 per local shard, the same form in both
+               processes), find_routes_batch_adaptive on the window's
+               pairs (the sharded UGAL program) and the mesh-only refresh
+               of a TopologyDB without shard_oracle, every host result
+               bit-equal to this process's single-process run of the
+               same path.
+28. hier processes — config 15 uncut through the hierarchical oracle on
+               a mesh over two processes of this card (2 x 4 shards, the
+               ring on, both processes spawned, each building the
+               TopologyDB): the cold refresh (each process's pod blocks,
+               the host stacks gathered, the border plane over K3), the
+               first and a steady route (each process sweeping its own
+               rows, K3 replicating the plane), one intra-pod flap's
+               repair and the route after it, every digest equal to phase
+               24's single-process result.
 
 Launch counts are zeroed just before one call of each path and read just
 after it: find_routes_collective (phase 4), route_collective(dist=None)
@@ -269,8 +288,9 @@ re-install), phase 23's crashes, storm and failover and every leg of
 phase 24 (K1 and K2 0; K3 at least 1 on each hier refresh with the
 ring, the step form at least once on the dense sharded refresh), and
 phase 27's path in each of its two processes (K3, its step form, K2's
-set-up and K2 at least once each; their counts are added to the
-report's), and
+set-up, K2 and S1 at least once each; their counts are added to the
+report's), phase 28's in each of its two (K3 at least once, no K1 and
+no K2; added too), and
 phase 25's legs (each window and narrowed re-route: in ring mode 5
 launches of K3's step form, in gather mode K3 1, nothing else;
 warm_serving: the same per warmed bucket; the shortest collective: K3
@@ -4814,13 +4834,12 @@ def time_hier_programs(state, record: dict) -> list:
                               for p in sorted(state.rows)]).astype(np.int32)
     t = len(targets)
     tloc = np.concatenate([targets, np.full(shier._ladder(t, shards) - t, -1, np.int32)])
-    dev = mesh.devices[0]
     sweep: dict = {}
     with hier_programs(sweep):
-        shier._sweep_padded(state.deg_buckets, state.n_borders, tloc, shards, dev)
+        shier._sweep_local(state.deg_buckets, state.n_borders, tloc, mesh)
     per_row = sum(int(np.asarray(c).size) for _, c, _ in state.deg_buckets)
-    ms = time_ms(lambda: shier._sweep_padded(state.deg_buckets, state.n_borders, tloc,
-                                             shards, dev), reps=3)
+    ms = time_ms(lambda: shier._sweep_local(state.deg_buckets, state.n_borders, tloc,
+                                            mesh), reps=3)
     rows.append({
         "name": "_sweep_core", "shape": f"[{len(tloc)}, {state.n_borders}] rows "
         f"({t} real), {per_row:,} gathers a row, "
@@ -4884,7 +4903,8 @@ def check_hier_ring(state, what: str) -> int:
         if not bmax:
             continue
         got = check_k3(blocks, state.mesh, f"{what} bucket {bi}")
-        plane = unpack_dist_wire(got[0]).cpu().numpy().reshape(len(b.pods), bmax, b.s)
+        plane = unpack_dist_wire(got[0][:len(b.pods)]).cpu().numpy().reshape(
+            len(b.pods), bmax, b.s)
         for i, p in enumerate(b.pods):
             lo = int(state.pod_bstart[p])
             bl = state.border_local[lo:lo + int(counts[i])]
@@ -4896,6 +4916,47 @@ def check_hier_ring(state, what: str) -> int:
             "version and to the host slice")
         held += 1
     return held
+
+
+def hier_state_digests(state) -> dict:
+    """Digests of a hier state: its pod blocks (every bucket's host
+    distances and next hops) and its level 2 (the border numbering and
+    the skeleton's candidate table, built from the border plane)."""
+    return {
+        "pod blocks": digest(*(a for b in state.buckets for a in (b.dist, b.nxt))),
+        "level 2": digest(state.pod_bstart, state.border_local, state.cstart,
+                          state.ccand, state.cw, state.cport),
+    }
+
+
+def hier_plane_digest(state) -> str:
+    """Digest of the border plane as the ring exchanges it (K3 once per
+    bucket)."""
+    from sdnmpi_tpu_torch.shardplane.hier import ring_exchange_border_plane
+
+    planes = ring_exchange_border_plane(state)
+    return digest(*(planes[i] for i in sorted(planes)))
+
+
+def hier_route_digest(routes) -> str:
+    return digest(*(np.asarray(getattr(routes, key)) for key in (
+        "pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len")))
+
+
+def intra_pod_cable(spec):
+    """The first cable of ``spec`` inside one pod."""
+    pm = spec.podmap
+    return next(c for c in spec.links if pm.pod_of[c[0]] == pm.pod_of[c[2]])
+
+
+def flip_cable(db, cable, add: bool) -> None:
+    """Add or delete both directions of ``cable`` (a, port, b, port)."""
+    from sdnmpi_tpu_torch.core.topology_db import Link, Port
+
+    a, pa, b, pb = cable
+    for x, px, y, py in ((a, pa, b, pb), (b, pb, a, pa)):
+        link = Link(Port(x, px), Port(y, py))
+        (db.add_link if add else db.delete_link)(link)
 
 
 def same_routes(a, b, what: str) -> None:
@@ -4968,6 +5029,9 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
     out: dict = {}
     c = leg(timed(lambda: oracle.refresh(db), out, "refresh_ms"), "cold refresh", 1)
     state = out["refresh_ms_result"]
+    # what phase 28's processes must reproduce, bit for bit
+    digests = hier_state_digests(state)
+    digests["border plane"] = hier_plane_digest(state)
     log(f"{what}: V={state.v:,} pods={state.n_pods} borders={state.n_borders:,} "
         f"buckets {[(len(b.pods), b.s) for b in state.buckets]}; DB built in "
         f"{summary['db_build_s']:.1f} s, cold refresh {out['refresh_ms']:.1f} ms, "
@@ -4979,6 +5043,8 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
         leg(timed(route, out, "steady"), "steady route")
         steady.append(out["steady"])
     check_hier_routes(db, macs, si, di, routes, what)
+    digests["first route"] = hier_route_digest(routes)
+    digests["steady route"] = hier_route_digest(out["steady_result"])
     # where a steady route's time goes: the device's busy share, the host's
     # functions
     log_profile(f"{what}: steady route", *profile_device(route))
@@ -5063,19 +5129,14 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
 
     # (d) churn: one intra-pod and one inter-pod flap, each beside a cold
     # rebuild of the flapped fabric and back to the original routes
-    from sdnmpi_tpu_torch.core.topology_db import Link, Port
-
     pm = spec.podmap
     core = pm.n_pods - 1
-    intra = next(c for c in spec.links if pm.pod_of[c[0]] == pm.pod_of[c[2]])
+    intra = intra_pod_cable(spec)
     inter = next(c for c in spec.links
                  if (pm.pod_of[c[0]] == core) != (pm.pod_of[c[2]] == core))
 
     def flip(cable, add: bool) -> None:
-        a, pa, b, pb = cable
-        for x, px, y, py in ((a, pa, b, pb), (b, pb, a, pa)):
-            link = Link(Port(x, px), Port(y, py))
-            (db.add_link if add else db.delete_link)(link)
+        flip_cable(db, cable, add)
 
     for name, cable, want in (("intra-pod", intra, [1, 1, 0]),
                               ("inter-pod", inter, [0, 1, 0])):
@@ -5084,6 +5145,10 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
         leg(timed(lambda: oracle.refresh(db), out, "flap_refresh"),
             f"{name} flap refresh", 1)
         leg(timed(route, out, "flap_route"), f"{name} flap route")
+        if name == "intra-pod":
+            digests.update({f"{key} after the flap": value for key, value in
+                            hier_state_digests(out["flap_refresh_result"]).items()})
+            digests["route after the flap"] = hier_route_digest(out["flap_route_result"])
         moved = [b - a for a, b in zip(v0, hier_counters())]
         if moved != want:
             fail(f"{what}: a {name} flap moved {dict(zip(HIER_COUNTERS, moved))}, "
@@ -5216,6 +5281,7 @@ def phase_hier(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
                            for r in program_rows]
     summary["k3_launches"] = sum(c["ring_all_gather"] for c in legs)
     programs.clear()
+    report["hier digests"] = digests
     log("phase 24 summary: " + json.dumps(summary))
     return legs
 
@@ -6445,10 +6511,20 @@ def mp_path(device, k: int, n_ranks: int, n_window: int) -> tuple:
     refresh in ring mode and again in gather mode, an ``n_window``-pair
     window in each mode, and ``route_collective_sharded`` on the edge
     flows in each mode (cached row-sharded distances, the destination
-    set). Returns (the digest of every host result, walls in ms)."""
+    set); then the routing legs: ``route_flows_sharded`` on the edge
+    flows from the row-sharded distances, ``multichip_route_step``,
+    ``find_routes_batch_adaptive`` on the window's pairs (the sharded
+    UGAL program through the engine) and the mesh-only refresh of a
+    ``TopologyDB(mesh_devices=8)`` without ``shard_oracle``. Returns (the
+    digest of every host result, walls in ms)."""
     import torch
 
-    from sdnmpi_tpu_torch.shardplane import route_collective_sharded
+    from sdnmpi_tpu_torch.oracle.congestion import scan_form
+    from sdnmpi_tpu_torch.shardplane import (
+        multichip_route_step,
+        route_collective_sharded,
+        route_flows_sharded,
+    )
     from sdnmpi_tpu_torch.shardplane.mesh import gather_host
     from sdnmpi_tpu_torch.topogen import fattree
 
@@ -6492,6 +6568,35 @@ def mp_path(device, k: int, n_ranks: int, n_window: int) -> tuple:
             neigh=t.neigh))
         got[f"collective slots ({mode})"] = digest(gather_host(slots, mesh),
                                                    np.float32(maxc.item()))
+    # the routing legs: the greedy balancer per shard (S1), its loads
+    # summed over the processes by K3
+    put = lambda a: torch.as_tensor(a).to(oracle.device)  # noqa: E731
+    base = torch.zeros((t.v, t.v), dtype=torch.float32, device=oracle.device)
+    flow_args = (put(flows["src"]), put(flows["dst"]), put(flows["weight"]), mesh,
+                 levels + 1)
+    for name, fn in (
+        ("route_flows_sharded", lambda: route_flows_sharded(
+            t.adj, oracle._dist_d, base, *flow_args, neigh=t.neigh)),
+        ("multichip_route_step", lambda: multichip_route_step(
+            t.adj, base, *flow_args, neigh=t.neigh)),
+    ):
+        nodes, load, maxc = timed(name, fn)
+        got[name] = digest(gather_host(nodes, mesh), load.cpu().numpy(),
+                           np.float32(maxc.item()))
+    # the form each process's shards take (the spread form's cooperative
+    # launch synchronises one process's grid only)
+    got["S1 form of a shard"] = scan_form(t.v, t.neigh.shape[1], 1024,
+                                          len(flows["src"]) // N_SHARDS)
+    fdbs, detours, cong = timed("adaptive batch", lambda: db.find_routes_batch_adaptive(
+        pairs))
+    got["adaptive batch (shard_oracle)"] = digest(
+        np.frombuffer(json.dumps([fdbs, detours, cong]).encode(), np.uint8))
+    del db, oracle
+    mesh_only = spec.to_topology_db(backend="torch", device=device,
+                                    pad_multiple=SHARD_PAD, mesh_devices=N_SHARDS)
+    plain = mesh_only._oracle_engine()
+    timed("mesh-only refresh", lambda: plain.refresh(mesh_only))
+    got["mesh-only refresh"] = digest(plain._dist, plain._next)
     return got, walls
 
 
@@ -6647,6 +6752,73 @@ def mp_hold_order(mesh) -> None:
         "versions of its own call")
 
 
+def mp_hold_psum(mesh) -> dict:
+    """The psum of the greedy balancer and the UGAL program across the
+    processes of ``mesh`` at config 13's shapes: eight ``[V, V]`` parts
+    (f32 loads; f64 traffic, on the wire as int32 pairs), made alike in
+    every process, this process holding its shards' parts. K3's gather of
+    every process's parts (``routes._parts_over_processes``, one copy a
+    process) equal bit for bit to the parts and to the plain version on
+    the processes' blocks, and the sum equal to the shard-order sum of
+    the parts. Then the psum timed per call beside the same sum on a mesh
+    of this process alone (rank 0 only, the others waiting), with its
+    receive bytes; the pooled receive buffers must not grow over the
+    timed calls. Returns the times."""
+    import torch
+    import torch.distributed as dist
+
+    from sdnmpi_tpu_torch.kernels import ring
+    from sdnmpi_tpu_torch.shardplane import make_mesh, routes
+
+    dev = mesh.device
+    s, v = mesh.n_shards, SHARD_V
+    gen = torch.Generator(device=dev).manual_seed(28)  # the same in every process
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        every = [torch.randint(0, 64, (v, v), generator=gen, device=dev).to(dtype) / 8
+                 for _ in range(s)]
+        parts = [x if q in mesh.local else None for q, x in enumerate(every)]
+        got = routes._parts_over_processes(parts, mesh)
+        per = len(mesh.local)
+        wire = [torch.stack([x.reshape(-1) for x in every[p * per:(p + 1) * per]])
+                for p in range(mesh.n_processes)]
+        if dtype == torch.float64:
+            wire = [w.view(torch.int32) for w in wire]
+        plain = ring.ring_all_gather_plain(wire)[mesh.rank]
+        total = routes._sum_over_shards(parts, mesh)
+        want = every[0]
+        for x in every[1:]:
+            want = want + x
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, x) for g, x in zip(got, every)):
+            fail(f"psum across processes ({dtype}): a part differs after K3")
+        back = torch.stack(got).reshape(plain.shape[0], -1).view(plain.dtype)
+        if not torch.equal(back, plain):
+            fail(f"psum across processes ({dtype}): K3 differs from the plain version")
+        if not torch.equal(total, want):
+            fail(f"psum across processes ({dtype}): the sum differs from the shard-order sum")
+        nbytes = s * v * v * every[0].element_size()
+        what = f"psum of {s} [{v}, {v}] {dtype} parts"
+        log(f"process {mesh.rank}: {what} across {mesh.n_processes} processes: K3 "
+            f"equal to the plain version and to the parts, the sum to the shard-order "
+            f"sum; {nbytes:,} B received a process")
+        del got, total, back
+        pooled = len(ring._ALLOCATED)
+        times[f"{what} ({nbytes:,} B received a process)"] = time_calls(
+            lambda: routes._sum_over_shards(parts, mesh))
+        if len(ring._ALLOCATED) != pooled:
+            fail(f"process {mesh.rank}: {what}: the receive buffers grew from {pooled} "
+                 f"to {len(ring._ALLOCATED)} over {MP_REPS + 1} calls")
+        if mesh.rank == 0:
+            one = make_mesh(s, dev)
+            times[f"{what} in one process"] = time_calls(
+                lambda: routes._sum_over_shards(every, one))
+        dist.barrier()
+        del every, parts, wire, plain
+    torch.cuda.empty_cache()
+    return times
+
+
 def mp_worker(rank: int, world: int, port: int, device: str, kw: dict, out_q) -> None:
     """One process of phase 27: join the group, put its shards on
     ``device`` (``"cuda"``: the card of its rank), hold the ring kernels
@@ -6666,6 +6838,7 @@ def mp_worker(rank: int, world: int, port: int, device: str, kw: dict, out_q) ->
         _build.load_all()  # built by the parent
         mesh = make_multihost_mesh(N_SHARDS, device=device)
         times = mp_hold_ring(mesh)
+        times.update(mp_hold_psum(mesh))
         zero_launches()
         digests, walls = mp_path(mesh.device, **kw)
         torch.cuda.synchronize()
@@ -6679,34 +6852,23 @@ def mp_worker(rank: int, world: int, port: int, device: str, kw: dict, out_q) ->
         raise
 
 
-def phase_multiprocess(device, report: dict, k: int = SHARD_K, n_ranks: int = SHARD_RANKS,
-                       n_window: int = LEGS_WINDOW) -> list:
-    """Config 13 (fattree(56), V = 3,968, 8 shards) uncut on a mesh over
-    two processes of this card, 4 shards each (``make_multihost_mesh``
-    over a gloo group): both spawned processes hold K3 and its step form
-    with stores into the other process's buffers against their plain
-    versions and time them beside one process; then run :func:`mp_path`,
-    every digest of which must equal this process's single-process run.
-    Returns the workers' launch counts of the path."""
+def run_workers(target, device, kw: dict, what: str) -> dict:
+    """Spawn ``MP_PROCESSES`` processes running ``target(rank, world,
+    port, device type, kw, queue)`` as one gloo group on a free local
+    port, and return each one's result by rank; a process that fails or
+    gives no answer within ``MP_TIMEOUT_S`` fails the run, and every
+    process is ended before this returns."""
     import multiprocessing
     import queue
     import socket
 
-    import torch
-
-    kw = dict(k=k, n_ranks=n_ranks, n_window=n_window)
-    t0 = time.perf_counter()
-    want, walls = mp_path(device, **kw)
-    log(f"phase 27: one process's path, walls {fmt_walls(walls)} ({CARD})")
-    gc.collect()
-    torch.cuda.empty_cache()
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     out_q = ctx.Queue()
-    procs = [ctx.Process(target=mp_worker, args=(r, MP_PROCESSES, port, device.type, kw,
-                                                 out_q))
+    procs = [ctx.Process(target=target, args=(r, MP_PROCESSES, port, device.type, kw,
+                                              out_q))
              for r in range(MP_PROCESSES)]
     for p in procs:
         p.start()
@@ -6729,7 +6891,28 @@ def phase_multiprocess(device, report: dict, k: int = SHARD_K, n_ranks: int = SH
                 p.kill()
                 p.join()
     if error is not None:
-        fail(f"phase 27: {error}")
+        fail(f"{what}: {error}")
+    return answers
+
+
+def phase_multiprocess(device, report: dict, k: int = SHARD_K, n_ranks: int = SHARD_RANKS,
+                       n_window: int = LEGS_WINDOW) -> list:
+    """Config 13 (fattree(56), V = 3,968, 8 shards) uncut on a mesh over
+    two processes of this card, 4 shards each (``make_multihost_mesh``
+    over a gloo group): both spawned processes hold K3 and its step form
+    with stores into the other process's buffers against their plain
+    versions and time them beside one process; then run :func:`mp_path`,
+    every digest of which must equal this process's single-process run.
+    Returns the workers' launch counts of the path."""
+    import torch
+
+    kw = dict(k=k, n_ranks=n_ranks, n_window=n_window)
+    t0 = time.perf_counter()
+    want, walls = mp_path(device, **kw)
+    log(f"phase 27: one process's path, walls {fmt_walls(walls)} ({CARD})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    answers = run_workers(mp_worker, device, kw, "phase 27")
     counts = []
     for rank in range(MP_PROCESSES):
         got = answers[rank]
@@ -6740,15 +6923,124 @@ def phase_multiprocess(device, report: dict, k: int = SHARD_K, n_ranks: int = SH
             f"{len(want)} results bit-equal to one process ({', '.join(want)}); "
             f"walls {fmt_walls(got['walls'])}")
         require_launched(got["launches"], ("ring_all_gather", "ring_step", "sampler_tables",
-                                           "sample_slots"), f"phase 27 process {rank}")
-        log(f"phase 27, process {rank}: times a call, 8 blocks of ({SHARD_V // N_SHARDS}, "
-            f"{SHARD_V}) int16 ({CARD}; two processes time-sliced on one card, not an "
-            "NVLink time):")
+                                           "sample_slots", "route_flows_balanced"),
+                         f"phase 27 process {rank}")
+        log(f"phase 27, process {rank}: times a call: K3 and the exchange on 8 blocks of "
+            f"({SHARD_V // N_SHARDS}, {SHARD_V}) int16, the psums on 8 parts "
+            f"({CARD}; two processes time-sliced on one card, not an NVLink time):")
         for what, tm in got["times"].items():
             log(f"  {what}: enqueue {tm['enqueue_ms']:.4f} ms, wall {tm['wall_ms']:.4f} "
                 f"ms, device span {tm['device_ms']:.4f} ms")
         counts.append(got["launches"])
     log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# -- phase 28: the hier oracle on a mesh over two processes (config 15) -----
+
+
+def hier_mp_path(device, k: int, pods: int, n_ranks: int) -> tuple:
+    """Phase 28's path on config 15, as each process of a mesh over
+    processes runs it: the DB build, the cold refresh (pod blocks and
+    level 2), the border plane as the ring exchanges it, the first and a
+    steady route of phase 24's alltoall, one intra-pod flap's repair
+    refresh and the route after it. Returns (the digest of every result,
+    in phase 24's names, and walls in ms)."""
+    import torch
+
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    walls = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[what] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    spec = fattree(k, pods=pods, hosts_per_edge=1)
+    db = timed("DB build", lambda: spec.to_topology_db(
+        device=device, hier_oracle=True, mesh_devices=N_SHARDS, ring_exchange=True))
+    hosts = sorted(db.hosts)
+    macs = hosts[::max(1, len(hosts) // n_ranks)][:n_ranks]
+    si, di = alltoall_idx(len(macs))
+    oracle = db._oracle_engine()
+    state = timed("cold refresh", lambda: oracle.refresh(db))
+    got = hier_state_digests(state)
+    got["border plane"] = timed("border plane", lambda: hier_plane_digest(state))
+
+    def route():
+        return db.find_routes_collective(macs, si, di, policy="shortest")
+
+    got["first route"] = hier_route_digest(timed("first route", route))
+    got["steady route"] = hier_route_digest(timed("steady route", route))
+    flip_cable(db, intra_pod_cable(spec), add=False)
+    state = timed("intra-pod flap refresh", lambda: oracle.refresh(db))
+    got.update({f"{key} after the flap": value
+                for key, value in hier_state_digests(state).items()})
+    got["route after the flap"] = hier_route_digest(timed("route after the flap", route))
+    return got, walls
+
+
+def mp_hier_worker(rank: int, world: int, port: int, device: str, kw: dict,
+                   out_q) -> None:
+    """One process of phase 28: join the group, run :func:`hier_mp_path`
+    with the launch counts zeroed just before and read just after, and
+    put ``(rank, "ok", result)`` or ``(rank, "error", traceback)`` on
+    ``out_q``."""
+    import traceback
+
+    try:
+        import torch
+
+        from sdnmpi_tpu_torch.kernels import _build, ring
+        from sdnmpi_tpu_torch.shardplane.mesh import init_multihost
+
+        init_multihost(f"127.0.0.1:{port}", world, rank, timeout_s=MP_TIMEOUT_S)
+        _build.load_all()  # built by the parent
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        digests, walls = hier_mp_path(device, **kw)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        ring.close_exchanges()
+        out_q.put((rank, "ok", dict(digests=digests, walls=walls, launches=counts,
+                                    peak=torch.cuda.max_memory_allocated())))
+    except BaseException:
+        out_q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def phase_hier_multiprocess(device, report: dict, k: int = HIER_K, pods: int = HIER_PODS,
+                            n_ranks: int = HIER_RANKS) -> list:
+    """Config 15 (fattree(64, pods=1008), 65,536 switches) uncut through
+    the hierarchical oracle on a mesh over two processes of this card,
+    4 of 8 shards each, the ring on: both spawned processes run
+    :func:`hier_mp_path`, every digest of which must equal phase 24's
+    single-process result. Returns the workers' launch counts."""
+    want = report.get("hier digests")
+    if not want:
+        fail("phase 28: phase 24 left no digests to hold the processes against")
+    t0 = time.perf_counter()
+    answers = run_workers(mp_hier_worker, device,
+                          dict(k=k, pods=pods, n_ranks=n_ranks), "phase 28")
+    counts = []
+    for rank in range(MP_PROCESSES):
+        got = answers[rank]
+        for key, value in want.items():
+            if got["digests"].get(key) != value:
+                fail(f"phase 28: process {rank}'s {key} differs from phase 24's")
+        log(f"phase 28, process {rank}: {len(want)} results bit-equal to phase 24's one "
+            f"process ({', '.join(want)}); walls {fmt_walls(got['walls'])}; peak "
+            f"{got['peak']:,} B allocated ({CARD}; two processes time-sliced on one "
+            "card, not an NVLink time)")
+        require_launched(got["launches"], ("ring_all_gather",), f"phase 28 process {rank}")
+        for name in ("bfs_distances", "sampler_tables", "sample_slots"):
+            if got["launches"][name]:
+                fail(f"phase 28 process {rank}: the hierarchy launched {name}")
+        counts.append(got["launches"])
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -6877,6 +7169,10 @@ def main() -> int:
 
     # phase 27: config 13 on a mesh over two processes of this card
     mp_counts = walled(phase_multiprocess)(device, report)
+    collect("processes")
+
+    # phase 28: config 15's hier oracle on a mesh over two processes
+    mp_counts += walled(phase_hier_multiprocess)(device, report)
     paths = (slice_counts, program_counts, entry_counts, shard_counts, ugal_counts,
              *batch_counts, *policy_counts, *ctl_counts, *packet_in_counts,
              *launcher_counts, *southbound_counts, *serving_counts,

@@ -507,13 +507,14 @@ class RouteOracle:
                         )
                 elif (
                     mesh is not None
-                    and not mesh.multiprocess  # every process refreshes alone
                     and self.max_diameter == 0
                     and mesh.shape["v"] > 1  # v = 1 would just replicate
                     and tensors.v % mesh.shape["v"] == 0
                 ):
                     # mesh-only refresh: the BFS row-shards over the "v" axis,
-                    # K3 replicates it, the next hops run on one device
+                    # K3 replicates it, the next hops run on one device; on a
+                    # mesh over processes every process holds every block
+                    # (its own, or crossed by K3) and joins them on its device
                     from sdnmpi_tpu_torch.shardplane import (
                         ShardMesh,
                         apsp_distances_sharded,
@@ -522,7 +523,7 @@ class RouteOracle:
                     nv = mesh.shape["v"]
                     dist = _gather_dist(
                         apsp_distances_sharded(tensors.adj, mesh),
-                        ShardMesh(mesh.devices[:nv]),
+                        ShardMesh([mesh.device] * nv),
                     )
                     nxt = apsp_next_hops(
                         tensors.adj, dist, max_degree=tensors.max_degree,
@@ -1331,8 +1332,8 @@ class RouteOracle:
         )
         mesh = self._dag_mesh()
         if mesh is not None:
-            from sdnmpi_tpu_torch.convert import gather_rows
             from sdnmpi_tpu_torch.shardplane import route_adaptive_sharded
+            from sdnmpi_tpu_torch.shardplane.mesh import gather_host
 
             src_p, dst_p, w_p = self._pad_flows(
                 np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32),
@@ -1345,10 +1346,11 @@ class RouteOracle:
                     packed=True, dist=self._dist_full(), neigh=t.neigh,
                     **kwargs,
                 )
-            inter = np.concatenate([x.cpu().numpy() for x in inter_sh])
+            # every process's shards' flows, on every process's host
+            inter = gather_host(inter_sh, mesh)
             n1, n2 = decode_segments(
-                t.host_adj(), src_p, dst_p, inter, gather_rows(s1_sh),
-                gather_rows(s2_sh), max_len, order=self._order,
+                t.host_adj(), src_p, dst_p, inter, gather_host(s1_sh, mesh),
+                gather_host(s2_sh, mesh), max_len, order=self._order,
             )
             return inter[:n], n1[:n], n2[:n]
         src_a, dst_a = pad_flow_batch(

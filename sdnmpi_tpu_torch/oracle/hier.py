@@ -426,7 +426,7 @@ def build_state(
     state.podmap = podmap
     state.mesh = mesh
     state.ring = bool(ring)
-    state.device = mesh.devices[0] if mesh is not None else torch.device(device)
+    state.device = mesh.device if mesh is not None else torch.device(device)
 
     # node set: every dpid mentioned anywhere, like tensorize()
     dpid_set = set(db.switches)
@@ -542,9 +542,9 @@ def build_state(
                     # the device twins feed the ring-exchanged border
                     # plane — carrying them stale would rebuild level 2
                     # from pre-delta distances; re-shard the repaired
-                    # host stacks instead
-                    b.dist_d = shard_pod_stack(b.dist, mesh)
-                    b.nxt_d = shard_pod_stack(b.nxt, mesh)
+                    # pods' blocks (in the process that holds them)
+                    b.dist_d = _repair_twin(pb.dist_d, b.dist, dirty, mesh)
+                    b.nxt_d = _repair_twin(pb.nxt_d, b.nxt, dirty, mesh)
                 else:
                     b.dist_d, b.nxt_d = pb.dist_d, pb.nxt_d
                 carried = True
@@ -558,8 +558,8 @@ def build_state(
     pre = _derive_borders(state, src_g, dst_g, intra)
 
     for b, dd, nd, nn, sharded in pend:
-        b.dist = _host_stack(dd)[:nn]
-        b.nxt = _host_stack(nd)[:nn]
+        b.dist = _host_stack(dd, mesh)[:nn]
+        b.nxt = _host_stack(nd, mesh)[:nn]
         if mesh is not None:
             if sharded:
                 # the padded device output already carries the
@@ -583,6 +583,22 @@ def build_state(
         )
         _m_pod_imbalance.set(padded_cells / real_cells)
     return state
+
+
+def _repair_twin(twin: list, host: np.ndarray, dirty: list, mesh) -> list:
+    """A pod-sharded device twin after a block repair: the blocks of
+    this process's shards that hold a repaired pod (slots ``dirty``) are
+    uploaded again from the repaired ``host`` stack (the
+    :func:`~sdnmpi_tpu_torch.shardplane.hier.shard_pod_stack` layout),
+    every other block carries over."""
+    per = twin[mesh.local[0]].shape[0]
+    out = list(twin)
+    for q in sorted({i // per for i in dirty} & set(mesh.local)):
+        blk = np.zeros((per, *host.shape[1:]), host.dtype)
+        part = host[q * per:(q + 1) * per]
+        blk[:len(part)] = part
+        out[q] = torch.as_tensor(blk).to(mesh.devices[q])
+    return out
 
 
 def _derive_borders(state: HierState, src_g, dst_g, intra):

@@ -36,7 +36,7 @@ from sdnmpi_tpu_torch.oracle.apsp import (
     _degree_compact_block,
     _fit_block,
 )
-from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, later, mesh_shards
+from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, mesh_shards
 
 
 def _bfs_block(adj: torch.Tensor, row0: int, n_rows: int, device) -> torch.Tensor:
@@ -48,17 +48,52 @@ def _bfs_block(adj: torch.Tensor, row0: int, n_rows: int, device) -> torch.Tenso
     return _bfs_rows(a, reached0, dist0, v)
 
 
+def v_block_shards(mesh: ShardMesh, rank: int | None = None) -> list:
+    """For each index j of the mesh's "v" axis, the shard of process
+    ``rank`` (this process by default) that computes distance block j:
+    its first shard whose "v" index (``q % v``, the row-major (flow, v)
+    layout) is j, or ``None`` where the process holds no such shard."""
+    nv = mesh.shape["v"]
+    rank = mesh.rank if rank is None else rank
+    mine = [sh.id for sh in mesh.shards if sh.process_index == rank]
+    return [next((q for q in mine if q % nv == j), None) for j in range(nv)]
+
+
+def v_blocks_cross(mesh: ShardMesh) -> bool:
+    """Whether some process of the mesh lacks a "v" index, so that the
+    blocks cross processes (by K3) in :func:`apsp_distances_sharded`:
+    the same answer in every process, read off the mesh alone."""
+    return any(q is None for p in range(mesh.n_processes)
+               for q in v_block_shards(mesh, p))
+
+
 def apsp_distances_sharded(adj: torch.Tensor, mesh: ShardMesh) -> list:
     """Distances row-sharded over the mesh's "v" axis only (the
     mesh-only refresh): returns ``mesh.shape["v"]`` row blocks, block j
-    on the device of shard j."""
-    later("the v-axis refresh", mesh)
+    computed on a shard whose "v" index is j (the reference's
+    ``P("v", None)``, replicated over "flow"), on that shard's device.
+
+    On a mesh over several processes every process returns every block
+    on its own device: a process computes the blocks of the "v" indexes
+    it holds (with an even shard count a process, an arc holds them
+    all), and where some process lacks one (one shard a process) each
+    process's block reaches every process by one K3 launch over the
+    mesh, as f32 rows."""
     v = adj.shape[0]
     nv = mesh.shape["v"]
     if v % nv:
         raise ValueError(f"V={v} must divide by v-axis size {nv}")
     rp = v // nv
-    return [_bfs_block(adj, j * rp, rp, mesh.devices[j]) for j in range(nv)]
+    at = v_block_shards(mesh)
+    blocks = [None if q is None else _bfs_block(adj, j * rp, rp, mesh.devices[q])
+              for j, q in enumerate(at)]
+    if not v_blocks_cross(mesh):
+        return blocks
+    # every shard supplies the block of its own "v" index
+    own = [blocks[q % nv] if q in mesh.local else None for q in range(mesh.n_shards)]
+    full = ring_all_gather(own, mesh)[mesh.local[0]]
+    return [b if b is not None else full[j * rp:(j + 1) * rp]
+            for j, b in enumerate(blocks)]
 
 
 def apsp_distances_rowsharded(adj: torch.Tensor, mesh: ShardMesh) -> list:

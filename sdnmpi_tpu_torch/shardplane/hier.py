@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from sdnmpi_tpu_torch.shardplane.mesh import later, mesh_shards
+from sdnmpi_tpu_torch.shardplane.mesh import gather_host, gather_processes, mesh_shards
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 
 # the border-plane exchange is the one blocking ring leg of the hier
@@ -116,10 +116,14 @@ def _stack_apsp_core(adj: torch.Tensor, cb: int):
     return dist, nxt
 
 
-def _host_stack(x) -> np.ndarray:
+def _host_stack(x, mesh=None) -> np.ndarray:
     """Host numpy of a device stack: a tensor, or a list of per-shard
-    blocks concatenated in shard order."""
+    blocks concatenated in shard order (on a ``mesh`` over several
+    processes, this process's blocks and the others' gathered over the
+    group, so every process's host holds the whole stack)."""
     if isinstance(x, list):
+        if mesh is not None:
+            return gather_host(x, mesh)
         return np.concatenate([b.cpu().numpy() for b in x], axis=0)
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
@@ -133,7 +137,10 @@ def pod_stack_apsp_async(adj, mesh=None, device="cuda"):
     outputs are lists of per-shard blocks, padded to the shard quantum
     (``sharded`` True, the :func:`shard_pod_stack` layout, kept as the
     resident twin), else single tensors on ``device`` (the mesh's
-    device when there is one)."""
+    device when there is one). On a mesh over several processes each
+    process runs its own shards' pods (``None`` at the others' shards;
+    :func:`_host_stack` with the mesh gathers the host stack), or the
+    whole stack where there are fewer pods than shards."""
     from sdnmpi_tpu_torch.convert import shard_rows
 
     adj = np.ascontiguousarray(adj, np.float32)
@@ -146,16 +153,17 @@ def pod_stack_apsp_async(adj, mesh=None, device="cuda"):
             False,
         )
     if mesh is not None:
-        later("the hier oracle's pod blocks", mesh)
         shards = mesh_shards(mesh)
         if shards > 1 and n >= shards:
             pad = (-n) % shards
             if pad:
                 adj = np.concatenate([adj, np.zeros((pad, s, s), np.float32)])
             cb = _col_chunk(adj.shape[0] // shards, s)
-            outs = [_stack_apsp_core(blk, cb) for blk in shard_rows(adj, mesh)]
-            return [d for d, _ in outs], [x for _, x in outs], n, True
-        device = mesh.devices[0]
+            outs = [None if blk is None else _stack_apsp_core(blk, cb)
+                    for blk in shard_rows(adj, mesh)]
+            dist = [None if o is None else o[0] for o in outs]
+            return dist, [None if o is None else o[1] for o in outs], n, True
+        device = mesh.device
     cb = _col_chunk(n, s)
     dist, nxt = _stack_apsp_core(torch.as_tensor(adj).to(device), cb)
     return dist, nxt, n, False
@@ -165,7 +173,7 @@ def pod_stack_apsp(adj, mesh=None, device="cuda"):
     """(dist [nP, s, s] f32, next [nP, s, s] int32) for a stacked pod
     bucket, as host arrays (see :func:`pod_stack_apsp_async`)."""
     dist, nxt, n, _ = pod_stack_apsp_async(adj, mesh, device)
-    return _host_stack(dist)[:n], _host_stack(nxt)[:n]
+    return _host_stack(dist, mesh)[:n], _host_stack(nxt, mesh)[:n]
 
 
 def shard_pod_stack(arr: np.ndarray, mesh) -> list:
@@ -228,17 +236,22 @@ def _row_chunk(deg_buckets) -> int:
     return max(1, _SWEEP_GATHER_FLOATS // max(1, per_row))
 
 
-def _sweep_padded(deg_buckets, n_borders: int, tloc: np.ndarray, shards: int, dev):
-    """Sweep the padded target list ``tloc`` (length a multiple of
-    ``shards``), one row block per shard; returns the ``[len, B]`` plane
-    whose block q is shard q's."""
+def _sweep_local(deg_buckets, n_borders: int, tloc: np.ndarray, mesh):
+    """Sweep this process's row blocks of the padded target list ``tloc``
+    (length a multiple of the shard count), one block per shard of the
+    process, on its device; returns the ``[len * local / shards, B]``
+    rows of its arc, whose block k is its k-th shard's (every row on one
+    process)."""
+    shards = mesh_shards(mesh)
+    dev = mesh.device
     buckets = _device_buckets(deg_buckets, dev)
     rc = _row_chunk(deg_buckets)
-    t_all = torch.as_tensor(tloc.astype(np.int64)).to(dev)
-    out = torch.empty((len(tloc), n_borders), dtype=torch.float32, device=dev)
     tl = len(tloc) // shards
-    for q in range(shards):
-        _sweep_core(out[q * tl:(q + 1) * tl], t_all[q * tl:(q + 1) * tl], buckets, rc)
+    lo, hi = mesh.local[0] * tl, (mesh.local[-1] + 1) * tl
+    t_mine = torch.as_tensor(tloc[lo:hi].astype(np.int64)).to(dev)
+    out = torch.empty((hi - lo, n_borders), dtype=torch.float32, device=dev)
+    for k in range(len(mesh.local)):
+        _sweep_core(out[k * tl:(k + 1) * tl], t_mine[k * tl:(k + 1) * tl], buckets, rc)
     return out
 
 
@@ -259,8 +272,11 @@ def sweep_rows_sharded(deg_buckets, n_borders, targets, mesh):
 
     The row count pads to a pow2 number of quanta, the reference's
     program ladder; pad rows are -1 targets, all-inf rows that converge
-    in one sweep and touch no real row."""
-    later("the hier oracle's row sweep", mesh)
+    in one sweep and touch no real row. On a mesh over several processes
+    each process sweeps its own shards' rows and K3 replicates the f32
+    plane, one copy a process (``mesh.gather_processes``), so every
+    process gets the whole plane and the host rows (from it); every
+    process must ask for the same targets in the same order."""
     t = len(targets)
     if t == 0 or n_borders == 0:
         return np.zeros((t, n_borders), np.float32), None
@@ -269,14 +285,15 @@ def sweep_rows_sharded(deg_buckets, n_borders, targets, mesh):
     tloc = np.concatenate([
         np.asarray(targets, np.int32), np.full(total - t, -1, np.int32)
     ])
-    rows_d = _sweep_padded(deg_buckets, int(n_borders), tloc, shards, mesh.devices[0])
+    rows_d = gather_processes(_sweep_local(deg_buckets, int(n_borders), tloc, mesh), mesh)
     return rows_d[:t].cpu().numpy(), rows_d
 
 
 def warm_sweep_ladder(deg_buckets, n_borders, mesh, max_rows) -> list[int]:
     """Run the row-sweep ladder once: one all-pad (-1) block per rung of
     :func:`_ladder` up to the rung covering ``max_rows`` (each converges
-    in a single sweep). Returns the row counts run."""
+    in a single sweep; each process sweeps its own shards' blocks, with
+    no exchange). Returns the row counts run."""
     if n_borders == 0 or max_rows <= 0 or not deg_buckets:
         return []
     shards = mesh_shards(mesh)
@@ -284,8 +301,7 @@ def warm_sweep_ladder(deg_buckets, n_borders, mesh, max_rows) -> list[int]:
     while warmed[-1] < max_rows:
         warmed.append(2 * warmed[-1])
     for rows in warmed:
-        _sweep_padded(deg_buckets, int(n_borders), np.full(rows, -1, np.int32),
-                      shards, mesh.devices[0])
+        _sweep_local(deg_buckets, int(n_borders), np.full(rows, -1, np.int32), mesh)
     return warmed
 
 
@@ -293,11 +309,14 @@ def warm_sweep_ladder(deg_buckets, n_borders, mesh, max_rows) -> list[int]:
 
 
 def border_plane_blocks(state, b):
-    """One bucket's wire blocks for the ring: shard q's ``[k_q, bmax*s]``
+    """One bucket's wire blocks for the ring: shard q's ``[per, bmax*s]``
     rows of its own real pods' border->member slices, packed (the pods
     of shard q are ``[q*per, (q+1)*per)`` of the padded stack). Returns
     (blocks, per-pod border counts, bmax); no blocks when no pod of the
-    bucket has a border."""
+    bucket has a border. Each block is padded to the shard's pod count
+    (an exchange across processes takes blocks of one row count), and on
+    a mesh over several processes the list holds this process's blocks
+    (``None`` at the others' shards)."""
     from sdnmpi_tpu_torch.kernels.ring import pack_dist_wire
 
     nP = len(b.pods)
@@ -310,14 +329,19 @@ def border_plane_blocks(state, b):
         lo = int(state.pod_bstart[p])
         c = int(counts[i])
         bl[i, :c] = state.border_local[lo:lo + c]
-    src = b.dist_d if b.dist_d is not None else shard_pod_stack(b.dist, state.mesh)
-    per = src[0].shape[0]
-    blocks = []
-    for q, blk in enumerate(src):
+    mesh = state.mesh
+    src = b.dist_d if b.dist_d is not None else shard_pod_stack(b.dist, mesh)
+    per = src[mesh.local[0]].shape[0]
+    blocks = [None] * len(src)
+    for q in mesh.local:
+        blk = src[q]
         k = max(0, min(per, nP - q * per))
         idx = torch.as_tensor(bl[q * per:q * per + k]).to(blk.device)
         pl = blk[torch.arange(k, device=blk.device)[:, None], idx, :]
-        blocks.append(pack_dist_wire(pl.reshape(k, bmax * b.s), v=b.s))
+        wire = pack_dist_wire(pl.reshape(k, bmax * b.s), v=b.s)
+        if k < per:
+            wire = torch.cat([wire, wire.new_zeros((per - k, bmax * b.s))])
+        blocks[q] = wire
     return blocks, counts, bmax
 
 
@@ -326,22 +350,23 @@ def ring_exchange_border_plane(state) -> dict[int, np.ndarray]:
     ``[nP, bmax, s]`` border->member slices of the pod-sharded distance
     stacks) over kernel K3 on the packed wire: shard q gathers the rows of
     its own pods (:func:`border_plane_blocks`), the all-gather hands every
-    shard all ``nP`` rows, and the host reads shard 0's copy. The level-2
+    shard all ``nP`` rows (across processes too), and the host reads the
+    copy of this process's first shard. The level-2
     build consumes exactly these bytes for its intra-pod skeleton
     weights (bit-equal to the host slice; hop counts are bounded by the
     pod size, so the wire is exact)."""
     from sdnmpi_tpu_torch.kernels.ring import ring_all_gather, unpack_dist_wire
 
-    later("the hier border plane", state.mesh)
     t0 = time.perf_counter()
+    mine = state.mesh.local[0]
     out: dict[int, np.ndarray] = {}
     for bi, b in enumerate(state.buckets):
         blocks, counts, bmax = border_plane_blocks(state, b)
         if bmax == 0:
             out[bi] = np.full((len(b.pods), 0, b.s), np.inf, np.float32)
             continue
-        rep = ring_all_gather(blocks, state.mesh)
-        plane = unpack_dist_wire(rep[0]).cpu().numpy().reshape(len(b.pods), bmax, b.s)
+        rep = ring_all_gather(blocks, state.mesh)[mine][:len(b.pods)]
+        plane = unpack_dist_wire(rep).cpu().numpy().reshape(len(b.pods), bmax, b.s)
         # pad slots (gathered from border 0) -> inf so no consumer can
         # mistake them for real border rows
         plane[np.arange(bmax)[None, :] >= counts[:, None]] = np.inf

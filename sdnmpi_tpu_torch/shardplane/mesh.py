@@ -21,7 +21,8 @@ through kernel K3 and its step form with stores through peer pointers
 (``kernels/ring.py``); host results are gathered over the group
 (:func:`gather_host`). When one process raises, the others fail at
 their next collective, at the latest when the group's timeout ends.
-Shards on several devices of one process raise (ROADMAP A4 item 1).
+Every sharded leg runs on such a mesh; shards on several devices of one
+process raise (ROADMAP A4 item 1).
 """
 
 from __future__ import annotations
@@ -252,13 +253,20 @@ def mesh_processes(mesh: ShardMesh) -> int:
     return len({s.process_index for s in mesh.shards})
 
 
-def later(what: str, mesh: ShardMesh) -> None:
-    """Raise for a leg that does not run on a multi-process mesh yet."""
-    if mesh.multiprocess:
-        raise NotImplementedError(
-            f"{what} on a mesh over {mesh.n_processes} processes: ROADMAP A4 "
-            "queues it; it does not run on part of the shards"
-        )
+def gather_processes(block: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """Every process's ``block`` (``[rows, C]`` of one shape and a 2- or
+    4-byte dtype in every process), concatenated in process order on this
+    process's device: one copy a process, by one K3 launch over the mesh
+    of the processes (one shard each; the plain version over the group on
+    the CPU). On one process, ``block`` itself."""
+    from sdnmpi_tpu_torch.kernels.ring import ring_all_gather
+
+    if not mesh.multiprocess:
+        return block
+    n = mesh.n_processes
+    procs = ShardMesh([mesh.device] * n, processes=range(n), rank=mesh.rank)
+    return ring_all_gather([block if p == mesh.rank else None for p in range(n)],
+                           procs)[mesh.rank]
 
 
 def all_gather_cpu(x: torch.Tensor, mesh: ShardMesh) -> list:

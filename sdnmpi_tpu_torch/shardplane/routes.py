@@ -34,10 +34,10 @@ shards placed there.
 
 On a mesh over several processes each process runs its own shards:
 the per-shard lists hold its blocks and ``None`` at the others' shards,
-the loads are summed over every shard in shard order after K3 gathers
-them, and the chase takes this process's flows. The greedy balancer,
-the UGAL program and ``multichip_route_step`` raise there
-(ROADMAP A4).
+the loads and traffic are summed over every shard in shard order after
+K3 gathers every part once into each process (:func:`_sum_over_shards`),
+and the chase, the balancer and the UGAL program take this process's
+flows.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from sdnmpi_tpu_torch.shardplane.apsp import (
     apsp_distances_rowsharded,
     apsp_distances_sharded,
 )
-from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, later, mesh_shards
+from sdnmpi_tpu_torch.shardplane.mesh import ShardMesh, gather_processes, mesh_shards
 
 INF = float("inf")
 
@@ -88,19 +88,35 @@ def _replicated(x, mesh: ShardMesh) -> list:
 
 def _sum_over_shards(parts: list, mesh: ShardMesh) -> torch.Tensor:
     """The ``psum``: shard 0's part plus the others, in shard order. On a
-    mesh over several processes the parts (this process's shards' entries
-    of ``parts``) are gathered by kernel K3 first, so every process adds
-    the same parts in the same order and gets one process's sum bit for
-    bit."""
+    mesh over several processes every process first gets every shard's
+    part (:func:`_parts_over_processes`), so every process adds the same
+    parts in the same order and gets one process's sum bit for bit."""
     if mesh.multiprocess:
-        shape = next(p for p in parts if p is not None).shape
-        flat = [None if p is None else p.reshape(1, -1) for p in parts]
-        every = ring_all_gather(flat, mesh)[mesh.local[0]]
-        parts = [row.reshape(shape) for row in every]
+        parts = _parts_over_processes(parts, mesh)
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
     return total
+
+
+def _parts_over_processes(parts: list, mesh: ShardMesh) -> list:
+    """Every shard's part, in shard order, in every process: this
+    process's parts (its shards' entries of ``parts``, one shape and
+    dtype) are stacked into one ``[local, N]`` block, and K3 stores each
+    process's block once into every process (``gather_processes``), not
+    once into every shard's output. K3 moves 2- and 4-byte words, so
+    8-byte parts (the UGAL program's float64 traffic) travel as pairs of
+    int32 words, bit for bit."""
+    mine = [parts[q] for q in mesh.local]
+    shape, dtype = mine[0].shape, mine[0].dtype
+    block = torch.stack([p.reshape(-1) for p in mine])
+    wide = block.element_size() == 8
+    if wide:
+        block = block.view(torch.int32)
+    every = gather_processes(block, mesh)
+    if wide:
+        every = every.view(dtype)
+    return [row.reshape(shape) for row in every]
 
 
 def route_collective_sharded(
@@ -426,21 +442,23 @@ def route_flows_sharded(
     them), and the shards' link loads are summed in shard order (the
     ``psum``). Returns ``(nodes, load, max_congestion)``: the per-shard
     ``[U/s, max_len]`` node blocks, the summed ``[V, V]`` f32 load and
-    its max over real links."""
-    later("route_flows_sharded", mesh)
+    its max over real links. On a mesh over several processes each
+    process balances its own shards' flows (``None`` at the others'
+    shards; read the blocks back with ``mesh.gather_host``) and every
+    process gets the same load and max."""
     parts = _flow_slices(src.shape[0], mesh)
     full = _replicated(dist, mesh)
     if neigh is None:
         neigh = neighbor_rows_of(adj)
-    nodes, loads = [], []
-    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
-        n, load, _ = route_flows_balanced(
+    s = mesh_shards(mesh)
+    nodes, loads = [None] * s, [None] * s
+    for q in mesh.local:
+        sl, dev = parts[q], mesh.devices[q]
+        nodes[q], loads[q], _ = route_flows_balanced(
             adj.to(dev), full[q], base_cost.to(dev), src[sl].to(dev),
             dst[sl].to(dev), weight[sl].to(dev), max_len, chunk=chunk,
             neigh=neigh.to(dev),
         )
-        nodes.append(n)
-        loads.append(load)
     load = _sum_over_shards(loads, mesh)
     maxc = torch.where(adj.to(load.device) > 0, load, 0.0).max()
     return nodes, load, maxc
@@ -484,7 +502,12 @@ def route_adaptive_sharded(
     load)``: per-shard lists of ``[F/s]`` intermediates and
     ``[F/s, max_len]`` node rows, and the replicated ``[V, V]`` load. With
     ``packed=True`` the segments come back as the int8 slot streams;
-    decode them with ``oracle.adaptive.decode_segments``."""
+    decode them with ``oracle.adaptive.decode_segments``. On a mesh over
+    several processes each process chooses, builds the traffic of and
+    samples its own shards' flows (``None`` at the others' shards; read
+    the lists back with ``mesh.gather_host``); the traffic parts are
+    summed in shard order in every process, so every process balances
+    the same traffic to the same load."""
     from sdnmpi_tpu_torch.oracle.adaptive import (
         congestion_cost,
         dag_weighted_costs,
@@ -497,7 +520,6 @@ def route_adaptive_sharded(
         sampled_hops,
     )
 
-    later("route_adaptive_sharded (the sharded UGAL program)", mesh)
     v = adj.shape[0]
     parts = _flow_slices(src.shape[0], mesh)
     if neigh is None:
@@ -507,14 +529,16 @@ def route_adaptive_sharded(
     else:
         full = _replicated(dist, mesh)
         d_dev = {}
-        for q, dev in enumerate(mesh.devices):
-            d_dev.setdefault(dev, full[q])
+        for q in mesh.local:
+            d_dev.setdefault(mesh.devices[q], full[q])
     dmin = _per_device(mesh, lambda dev: dag_weighted_costs(
         adj.to(dev), d_dev[dev], congestion_cost(adj.to(dev), util.to(dev)),
         levels, neigh=neigh.to(dev),
     ))
-    seg, traffic_parts = [], []
-    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
+    n_sh = mesh_shards(mesh)
+    seg, traffic_parts = [None] * n_sh, [None] * n_sh
+    for q in mesh.local:
+        sl, dev = parts[q], mesh.devices[q]
         s, t = src[sl].to(dev), dst[sl].to(dev)
         inter = ugal_choose(
             dmin[dev], s, t, n_valid, n_candidates=n_candidates, bias=bias,
@@ -532,11 +556,12 @@ def route_adaptive_sharded(
                       torch.where(s >= 0, w_live, 0.0))
         tr.index_add_(0, d2.clamp(min=0) * v + s2.clamp(min=0),
                       torch.where(detour, w_live, 0.0))
-        traffic_parts.append(tr)
-        seg.append((inter, s.to(torch.int32), mid.to(torch.int32),
-                    s2.to(torch.int32), d2.to(torch.int32)))
+        traffic_parts[q] = tr
+        seg[q] = (inter, s.to(torch.int32), mid.to(torch.int32),
+                  s2.to(torch.int32), d2.to(torch.int32))
     # the one collective: every shard balances the whole batch's traffic
     traffic = _sum_over_shards(traffic_parts, mesh).to(torch.float32).reshape(v, v)
+    del traffic_parts
     balanced = _per_device(mesh, lambda dev: balance_rounds(
         adj.to(dev), d_dev[dev], util.to(dev), traffic.to(dev),
         levels=levels, rounds=rounds,
@@ -545,8 +570,9 @@ def route_adaptive_sharded(
     tables = _per_device(mesh, lambda dev: sampler_tables(
         balanced[dev][0], d_dev[dev], None, neigh=neigh.to(dev)))
     hops = sampled_hops(max_len)
-    inters, out1, out2 = [], [], []
-    for q, (sl, dev) in enumerate(zip(parts, mesh.devices)):
+    inters, out1, out2 = [None] * n_sh, [None] * n_sh, [None] * n_sh
+    for q in mesh.local:
+        sl, dev = parts[q], mesh.devices[q]
         inter, s, mid, s2, d2 = seg[q]
         w, d = balanced[dev][0], d_dev[dev]
         sl1 = sample_slots(w, d, s, mid, hops, fid_base=sl.start,
@@ -557,10 +583,8 @@ def route_adaptive_sharded(
             a = adj.to(dev)
             sl1 = decode_slots_device(a, sl1, s, mid)[:, :max_len]
             sl2 = decode_slots_device(a, sl2, s2, d2)[:, :max_len]
-        inters.append(inter)
-        out1.append(sl1)
-        out2.append(sl2)
-    return inters, out1, out2, balanced[mesh.devices[0]][1]
+        inters[q], out1[q], out2[q] = inter, sl1, sl2
+    return inters, out1, out2, balanced[mesh.device][1]
 
 
 def multichip_route_step(
@@ -577,8 +601,10 @@ def multichip_route_step(
     """The whole sharded oracle step: distances row-sharded over the
     mesh's "v" axis (the matmul BFS, no kernel K1), the blocks joined
     into the replicated matrix (the reference's implicit XLA all-gather,
-    not its ring kernel), then :func:`route_flows_sharded`."""
-    later("multichip_route_step", mesh)
+    not its ring kernel), then :func:`route_flows_sharded`. On a mesh
+    over several processes every process holds every block
+    (``apsp_distances_sharded``: its own, and any that crossed by K3)
+    and joins them the same way."""
     blocks = apsp_distances_sharded(adj, mesh)
     dist = torch.cat([b.to(adj.device) for b in blocks])
     return route_flows_sharded(

@@ -20,12 +20,19 @@ the reference's ``make_multihost_mesh(8)`` on its virtual CPU mesh:
   ``warm_serving``, the shortest and balanced collectives and the host
   twins, ring on and off;
 - ``--distributed`` through the launcher (demo and checkpoint as one
-  process writes them);
-- every leg left for later raises ``NotImplementedError`` naming ROADMAP
-  A4;
+  process writes them), with ``--shard-oracle`` and with
+  ``--hier-oracle``;
+- the legs a single-process mesh runs, each bit-equal in every process
+  to one process's run: the greedy balancer, the UGAL program (packed
+  and decoded), ``multichip_route_step`` and the v-axis refresh against
+  the reference's sharded legs too; the hier oracle's pod blocks, row
+  sweep and border plane against its single-device oracle and host
+  executor; the engine's adaptive batches, and the hier oracle's routes
+  and flap repair;
 - without processes: each process's step table (its own sources, the
-  destinations one process gives them) and the steps at which each
-  process's blocks reach it (``ring._reach``), on synthetic addresses.
+  destinations one process gives them), the steps at which each
+  process's blocks reach it (``ring._reach``), on synthetic addresses,
+  and which process computes which "v" block at one shard a process.
 
 Each test waits at most its own time limit for both processes, and the
 group's timeout is short, so a hang fails the test instead of the suite.
@@ -36,6 +43,7 @@ import queue
 import socket
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,10 +51,15 @@ import torch
 
 from sdnmpi_tpu import shardplane as jshard
 from sdnmpi_tpu.oracle import dag as jdag
+from sdnmpi_tpu.oracle import hier as j_hier
+from sdnmpi_tpu.oracle.apsp import apsp_distances as j_apsp
 from sdnmpi_tpu.oracle.engine import tensorize as j_tensorize
+from sdnmpi_tpu.shardplane import hier as j_shier
 from sdnmpi_tpu.shardplane import mesh as jmesh
+from sdnmpi_tpu.topogen import dragonfly as j_dragonfly
 from sdnmpi_tpu.topogen import fattree as j_fattree
 from sdnmpi_tpu_torch.kernels import ring
+from sdnmpi_tpu_torch.shardplane import apsp as papsp
 from sdnmpi_tpu_torch.shardplane import mesh as pmesh
 from tests import torch_multiprocess_worker as W
 from tests.conftest import N_VIRTUAL_DEVICES
@@ -315,7 +328,7 @@ def test_engine_entry_points_bit_equal(pair, ring_on):
             _same(got[key], single[key], f"process {rank}: host {key}")
 
 
-# -- the launcher and the legs left for later ----------------------------------
+# -- the launcher ------------------------------------------------------------
 
 
 def test_distributed_launch(pair):
@@ -330,14 +343,287 @@ def test_distributed_launch(pair):
         assert got["checkpoint"] == single["checkpoint"], rank
 
 
-def test_legs_left_for_later_raise(pair):
-    """The greedy balancer, the UGAL program, ``multichip_route_step``,
-    the v-axis refresh and the hier oracle's three sharded planes raise
-    on a two-process mesh, naming ROADMAP A4, in both processes."""
-    for got in pair().ask("later"):
-        for name, msg in got.items():
-            assert "ROADMAP A4" in msg and "processes" in msg, (name, msg)
-        assert len(got) == 7
+def test_distributed_hier_launch(pair):
+    """``--distributed HOST:PORT,2,RANK --device cpu --hier-oracle
+    --ring-exchange --demo``: both processes install the demo's flows
+    and write the checkpoint (border plane included) one process
+    writes."""
+    single = W.run_launch([], hier=True)
+    assert single["demo"] and "flows installed" in single["demo"][0]
+    assert single["checkpoint"]["hier_border"]["pods"]
+    for rank, got in enumerate(pair().ask("launch", hier=True)):
+        assert got["demo"] == single["demo"], rank
+        assert got["checkpoint"] == single["checkpoint"], rank
+
+
+# -- the sharded legs on two processes -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def single_routing():
+    """One process's routing legs on ``make_mesh(8)``."""
+    return W.scenario_routing()
+
+
+@pytest.fixture(scope="module")
+def single_hier():
+    """One process's hier legs on ``make_mesh(8)``."""
+    return W.scenario_hier()
+
+
+_J_ADAPTIVE: dict = {}
+
+
+def _j_route_adaptive(mesh, n_valid, cached, **kw):
+    """The reference's ``route_adaptive_sharded`` under ``jax.jit`` (one
+    program per configuration; the eager shard_map takes tens of seconds
+    a call)."""
+    key = (n_valid, cached, tuple(sorted(kw.items())))
+    if key not in _J_ADAPTIVE:
+        _J_ADAPTIVE[key] = jax.jit(lambda a, u, s, d, w, dd: jshard.route_adaptive_sharded(
+            a, u, s, d, w, n_valid, mesh, dist=dd, **kw))
+    return _J_ADAPTIVE[key]
+
+
+def _reference_routing(leg: str, j_mesh, t) -> dict:
+    """The reference's sharded legs on ``make_multihost_mesh(8)``, fed the
+    worker's seeded problems (:func:`W.balance_problem`,
+    :func:`W.ugal_problem`)."""
+    if leg in ("flows", "flows_fractional", "step"):
+        p = W.balance_problem(np.asarray(t.adj), t.n_real,
+                              fractional=leg == "flows_fractional")
+        args = (jnp.asarray(p["base"]), jnp.asarray(p["src"]), jnp.asarray(p["dst"]),
+                jnp.asarray(p["weight"]), j_mesh, W.FLOW_KW["max_len"])
+        kw = dict(chunk=W.FLOW_KW["chunk"], max_degree=t.max_degree)
+        if leg != "step":
+            got = jshard.route_flows_sharded(t.adj, j_apsp(t.adj), *args, **kw)
+        else:
+            got = jshard.multichip_route_step(t.adj, *args, **kw)
+        return {"out": [np.asarray(x) for x in got],
+                "v_blocks": np.asarray(jshard.apsp_distances_sharded(t.adj, j_mesh))}
+    dt = j_tensorize(j_dragonfly(4, 4).to_topology_db(backend="jax", pad_multiple=W.PAD),
+                     W.PAD)
+    if leg == "ugal_fractional":
+        u = W.ugal_problem(np.asarray(dt.adj), dt.n_real, seed=2, fractional=True)
+        fn = _j_route_adaptive(j_mesh, dt.n_real, False, packed=True,
+                               max_degree=dt.max_degree, **W.UGAL_KW)
+        return {"out": [np.asarray(x) for x in fn(
+            dt.adj, jnp.asarray(u["util"]), jnp.asarray(u["src"]), jnp.asarray(u["dst"]),
+            jnp.asarray(u["weight"]), None)]}
+    u = W.ugal_problem(np.asarray(dt.adj), dt.n_real)
+    out = {}
+    for cached in (False, True):
+        fn = _j_route_adaptive(j_mesh, dt.n_real, cached, packed=leg == "ugal_packed",
+                               max_degree=dt.max_degree, **W.UGAL_KW)
+        got = fn(dt.adj, jnp.asarray(u["util"]), jnp.asarray(u["src"]),
+                 jnp.asarray(u["dst"]), jnp.asarray(u["weight"]),
+                 j_apsp(dt.adj) if cached else None)
+        out[cached] = [np.asarray(x) for x in got]
+    return out
+
+
+@pytest.fixture(scope="module")
+def j_hier_state():
+    """The reference's single-device hier oracle on fattree(8) after the
+    worker's pairs and collective, its row sweep of every border, and
+    its fdbs after each half of the worker's intra-pod flap."""
+    from sdnmpi_tpu.core.topology_db import Link as JLink
+    from sdnmpi_tpu.core.topology_db import Port as JPort
+
+    db = j_fattree(8).to_topology_db(backend="jax", hier_oracle=True)
+    pairs = W.hier_pairs(db)
+    out = {"fdbs": db.find_routes_batch(pairs)}
+    macs = sorted(db.hosts)[:12]
+    si, di = np.nonzero(~np.eye(12, dtype=bool))
+    out["collective"] = db.find_routes_collective(
+        macs, si.astype(np.int32), di.astype(np.int32), "shortest").fdbs()
+    st = db._jax_oracle()._hier
+    out["state"] = st
+    out["sweep"] = j_hier.sweep_rows_host(st.deg_buckets, st.n_borders,
+                                          np.arange(st.n_borders, dtype=np.int64))
+    out["rows"] = {p: np.asarray(r).copy() for p, r in st.rows.items()}
+    a, pa, b, pb = W.hier_cable()
+    out["flap"] = []
+    for add in (False, True):
+        for x, px, y, py in ((a, pa, b, pb), (b, pb, a, pa)):
+            link = JLink(JPort(x, px), JPort(y, py))
+            (db.add_link if add else db.delete_link)(link)
+        out["flap"].append(db.find_routes_batch(pairs))
+    return out
+
+
+ROUTING_LEGS = ["psum", "flows", "flows_fractional", "ugal_packed", "ugal_decoded",
+                "ugal_fractional", "step", "v_refresh"]
+HIER_LEGS = ["pod_blocks", "row_sweep", "border_plane"]
+
+
+@pytest.mark.parametrize("leg", ROUTING_LEGS + HIER_LEGS)
+def test_sharded_leg_bit_equal_across_processes(leg, pair, j_mesh, j_problem,
+                                                single_routing, single_hier, j_hier_state):
+    """Each leg on two processes, 4 of 8 CPU shards each: every process's
+    result equal bit for bit to one process's 8-shard mesh, and to the
+    reference: its sharded legs on ``make_multihost_mesh(8)`` for the
+    routing legs (the UGAL load to rtol 1e-5, f32 products summed in
+    another order, as ``tests/test_torch_shard_legs.py`` holds it), its
+    single-device hier oracle and host executors for the hier legs.
+    The fractional cases' sums depend on their order, so they hold the
+    shard-order psum across processes: bit-equal to one process, and to
+    the reference's load to rtol 1e-6 (balancer) and 1e-5 (UGAL), its
+    ``psum`` adding in another order."""
+    if leg in ROUTING_LEGS:
+        answers, single = pair().ask("routing"), single_routing
+        want = (None if leg in ("psum", "v_refresh")
+                else _reference_routing(leg, j_mesh, j_problem))
+    else:
+        answers, single = pair().ask("hier"), single_hier
+    if leg == "psum":
+        for dtype in (torch.float32, torch.float64):
+            parts = W.psum_parts(dtype)
+            total = parts[0]
+            for x in parts[1:]:
+                total = total + x
+            back = parts[-1]
+            for x in reversed(parts[:-1]):
+                back = back + x
+            assert not torch.equal(total, back)  # the order shows
+            _same(single[leg][str(dtype)], total, f"one process's {dtype} psum")
+            for rank, got in enumerate(answers):
+                _same(got[leg][str(dtype)], total, f"process {rank}: {dtype} psum")
+    elif leg in ("flows", "step"):
+        nodes, load, maxc = single[leg]
+        j_nodes, j_load, j_maxc = want["out"]
+        _same(nodes, j_nodes, f"one process's {leg} nodes")
+        _same(load, j_load, f"one process's {leg} load")
+        assert maxc == float(j_maxc)
+        assert (nodes[:-3, 0] >= 0).all() and (nodes[-3:] == -1).all()
+        for rank, got in enumerate(answers):
+            for g, o, what in zip(got[leg], single[leg], ("nodes", "load", "maxc")):
+                _same(g, o, f"process {rank}: {leg} {what}")
+        if leg == "step":
+            _same(np.concatenate(single["v_blocks"]), want["v_blocks"], "v blocks")
+            for got in answers:
+                for g, o in zip(got["v_blocks"], single["v_blocks"]):
+                    _same(g, o, "v blocks")
+    elif leg == "flows_fractional":
+        nodes, load, maxc = single[leg]
+        j_nodes, j_load, j_maxc = want["out"]
+        _same(nodes, j_nodes, "one process's nodes")
+        np.testing.assert_allclose(load, j_load, rtol=1e-6)
+        np.testing.assert_allclose(maxc, float(j_maxc), rtol=1e-6)
+        for rank, got in enumerate(answers):
+            for g, o, what in zip(got[leg], single[leg], ("nodes", "load", "maxc")):
+                _same(g, o, f"process {rank}: {leg} {what}")
+    elif leg == "ugal_fractional":
+        np.testing.assert_allclose(single[leg][3], want["out"][3], rtol=1e-5)
+        for rank, got in enumerate(answers):
+            for g, o in zip(got[leg], single[leg]):
+                _same(g, o, f"process {rank}: {leg}")
+    elif leg.startswith("ugal"):
+        packed = leg == "ugal_packed"
+        for cached in (False, True):
+            one = single[("ugal", packed, cached)]
+            for k, (o, j) in enumerate(zip(one, want[cached])):
+                if k < 3:
+                    _same(o, j, f"one process's {leg} output {k} (cached {cached})")
+                else:
+                    np.testing.assert_allclose(o, j, rtol=1e-5, atol=1e-5)
+            assert (one[0] >= 0).any()  # some flows detour
+            for rank, got in enumerate(answers):
+                for g, o in zip(got[("ugal", packed, cached)], one):
+                    _same(g, o, f"process {rank}: {leg} (cached {cached})")
+    elif leg == "v_refresh":
+        jdb = j_fattree(4).to_topology_db(backend="jax", pad_multiple=W.PAD)
+        jdb.mesh_devices = N_VIRTUAL_DEVICES
+        jo = jdb._jax_oracle()
+        jo.refresh(jdb)
+        for o, j in zip(single["refresh"], (jo._dist, jo._next)):
+            _same(o, j, "one process's mesh-only refresh")
+        for rank, got in enumerate(answers):
+            for g, o in zip(got["refresh"], single["refresh"]):
+                _same(g, o, f"process {rank}: mesh-only refresh")
+    elif leg == "pod_blocks":
+        for seed, n, s in W.HIER_STACKS:
+            jd, jn = (np.asarray(x) for x in j_shier.pod_stack_apsp(
+                W.hier_stack(seed, n, s), mesh=None))
+            d, nx, twins, sharded = single[("pods", seed)]
+            _same(d, jd, "one process's pod distances")
+            _same(nx, jn, "one process's pod next hops")
+            assert sharded == (n >= N_VIRTUAL_DEVICES)
+            _same(twins[0][:n], jd, "resident distance twins")
+            _same(twins[1][:n], jn, "resident next-hop twins")
+            for rank, got in enumerate(answers):
+                g = got[("pods", seed)]
+                for x, o in zip((*g[:2], *g[2]), (d, nx, *twins)):
+                    _same(x, o, f"process {rank}: pod blocks of stack {seed}")
+                assert g[3] == sharded
+    elif leg == "row_sweep":
+        rows, plane = single["sweep"]
+        _same(rows, j_hier_state["sweep"], "one process's border rows")
+        _same(plane[:len(rows)], rows, "one process's device plane")
+        assert plane.shape[0] % N_VIRTUAL_DEVICES == 0
+        for rank, got in enumerate(answers):
+            for g, o in zip(got["sweep"], single["sweep"]):
+                _same(g, o, f"process {rank}: row sweep")
+            for p, r in single["rows"].items():
+                _same(got["rows"][p], r, f"process {rank}: lazy rows of pod {p}")
+                _same(r, j_hier_state["rows"][p], f"lazy rows of pod {p}")
+    else:
+        js = j_hier_state["state"]
+        for bi, b in enumerate(js.buckets):
+            plane = single["plane"][bi]
+            for i, p in enumerate(b.pods):
+                lo, hi = int(js.pod_bstart[p]), int(js.pod_bstart[p + 1])
+                bl = js.border_local[lo:hi]
+                _same(plane[i, :hi - lo], np.asarray(b.dist)[i][bl, :],
+                      f"border plane of pod {p}")
+                assert np.isinf(plane[i, hi - lo:]).all()
+        for rank, got in enumerate(answers):
+            assert sorted(got["plane"]) == sorted(single["plane"])
+            for bi, plane in single["plane"].items():
+                _same(got["plane"][bi], plane, f"process {rank}: border plane {bi}")
+
+
+@pytest.mark.parametrize("shard_oracle", [False, True])
+def test_engine_adaptive_batch_across_processes(pair, single_routing, shard_oracle):
+    """``find_routes_batch_adaptive`` on ``TopologyDB(mesh_devices=8)``
+    (the mesh-only refresh) and with ``shard_oracle``: the sharded UGAL
+    program through the engine, every process's fdbs, detours and
+    congestion equal to one process's."""
+    key = "adaptive_shard_oracle" if shard_oracle else "adaptive"
+    fdbs, detours, maxc = single_routing[key]
+    assert detours >= 0 and all(fdbs)
+    for rank, got in enumerate(pair().ask("routing")):
+        assert got[key] == single_routing[key], rank
+
+
+def test_hier_oracle_routes_and_flap_across_processes(pair, single_hier, j_hier_state):
+    """``TopologyDB(hier_oracle=True, mesh_devices=8, ring_exchange=True)``
+    on two processes: fdbs and a collective equal to one process's and
+    to the reference's single device; an intra-pod flap repairs the pod
+    blocks in place (no full build), its routes and the link's return
+    equal to the reference's, the repaired resident twins equal to the
+    host stacks."""
+    assert single_hier["fdbs"] == j_hier_state["fdbs"]
+    assert single_hier["collective"] == j_hier_state["collective"]
+    flap, builds = single_hier["flap"]
+    assert builds == 0
+    for (fdbs, twins, _), want in zip(flap, j_hier_state["flap"]):
+        assert fdbs == want
+        for twin, host in twins:
+            _same(twin, host, "repaired twin")
+    for rank, got in enumerate(pair().ask("hier")):
+        for key in ("fdbs", "collective"):
+            assert got[key] == single_hier[key], (rank, key)
+        g_flap, g_builds = got["flap"]
+        assert g_builds == 0
+        for (g, g_twins, g_rows), (o, o_twins, o_rows) in zip(g_flap, flap):
+            assert g == o, rank
+            for (gt, gh), (ot, oh) in zip(g_twins, o_twins):
+                _same(gt, ot, f"process {rank}: repaired twin")
+                _same(gh, oh, f"process {rank}: repaired host stack")
+            assert sorted(g_rows) == sorted(o_rows)
+            for p, r in o_rows.items():
+                _same(g_rows[p], r, f"process {rank}: rows of pod {p} after the flap")
 
 
 # -- each process's part of a step (no processes needed) -----------------------
@@ -383,3 +669,44 @@ def test_reach_follows_the_schedule(rank):
                        for q in range(4 * p, 4 * p + 4)}) for p in (0, 1)}
     assert ring._reach(m, last) == want
     assert want[rank][0] == 0 and want[1 - rank][0] > 0
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_v_blocks_of_one_shard_a_process(rank):
+    """Four processes of one shard (a 2 x 2 mesh): each computes the
+    "v" block of its own shard's "v" index, every block crosses to the
+    processes that lack it (one K3 launch over the mesh), and the blocks
+    this process returns are the whole matrix's. On two processes of
+    four shards each process holds both indexes and nothing crosses."""
+    m = pmesh.ShardMesh(["cpu"] * 4, processes=range(4), rank=rank)
+    assert m.shape == {"flow": 2, "v": 2}
+    assert papsp.v_block_shards(m) == [rank if j == rank % 2 else None for j in (0, 1)]
+    assert [papsp.v_block_shards(m, p) for p in range(4)] == [
+        [0, None], [None, 1], [2, None], [None, 3]]
+    assert papsp.v_blocks_cross(m)
+    two = _two_process_mesh(rank % 2)
+    assert papsp.v_block_shards(two) == [4 * (rank % 2), 4 * (rank % 2) + 1]
+    assert not papsp.v_blocks_cross(two)
+    # the crossing, with K3's gather played by the other processes' blocks
+    from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
+
+    adj = torch.as_tensor(W.hier_stack(4, 1, 16)[0])
+    whole = apsp_distances(adj)
+    sent = []
+
+    def gather(blocks, mesh):
+        assert mesh is m and [q for q, b in enumerate(blocks) if b is not None] == [rank]
+        sent.append(blocks[rank])
+        rows = [whole[(q % 2) * 8:(q % 2 + 1) * 8] for q in range(4)]
+        rows[rank] = blocks[rank]
+        return [torch.cat(rows) if q == rank else None for q in range(4)]
+
+    saved = papsp.ring_all_gather
+    papsp.ring_all_gather = gather
+    try:
+        got = papsp.apsp_distances_sharded(adj, m)
+    finally:
+        papsp.ring_all_gather = saved
+    assert len(sent) == 1
+    _same(sent[0], whole[(rank % 2) * 8:(rank % 2 + 1) * 8], "the block this process sends")
+    _same(torch.cat(got), whole, "the blocks this process holds")

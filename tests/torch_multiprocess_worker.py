@@ -241,58 +241,248 @@ def scenario_engine(ring: bool) -> dict:
     return run_engine(sharded_db(ring))
 
 
-def scenario_later() -> dict:
-    """The legs left for later, each given a multi-process mesh: the
-    message each raises (NotImplementedError only)."""
+def balance_problem(adj: np.ndarray, n_real: int, seed: int = 3, n: int = 64,
+                    fractional: bool = False) -> dict:
+    """A seeded flow batch for the greedy balancer on ``adj``: ``n``
+    flows with integer weights, or fractional ones of several magnitudes
+    (whose sums depend on their order), the last three dead pads, and an
+    integer base cost on the links."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_real, n).astype(np.int32)
+    dst = rng.integers(0, n_real, n).astype(np.int32)
+    src[-3:] = -1
+    dst[-3:] = -1
+    weight = (rng.uniform(0.1, 3.0, n) * 10.0 ** rng.integers(-3, 4, n) if fractional
+              else rng.integers(1, 4, n)).astype(np.float32)
+    weight[-3:] = 0
+    v = adj.shape[0]
+    base = np.where(adj > 0, rng.integers(0, 3, (v, v)), 0).astype(np.float32)
+    return dict(src=src, dst=dst, weight=weight, base=base)
+
+
+def ugal_problem(adj: np.ndarray, n_real: int, seed: int = 1, n: int = 64,
+                 fractional: bool = False) -> dict:
+    """``tests/test_torch_shard_legs.py``'s UGAL problem on dragonfly(4, 4):
+    flows toward the next group, whose links are hot, so that some
+    detour; integer weights, or fractional ones of several magnitudes,
+    the last three flows dead pads."""
+    v = adj.shape[0]
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_real, n).astype(np.int32)
+    dst = ((((src // 4) + 1) % 4) * 4 + rng.integers(0, 4, n)).astype(np.int32)
+    src[-3:] = -1
+    dst[-3:] = -1
+    w = (rng.uniform(0.1, 3.0, n) * 10.0 ** rng.integers(-3, 4, n) if fractional
+         else rng.integers(1, 4, n)).astype(np.float32)
+    groups = np.arange(v) // 4
+    util = np.zeros((v, v), np.float32)
+    util[(groups[None, :] == (groups[:, None] + 1) % 4) & (adj > 0)] = 50.0
+    return dict(src=src, dst=dst, weight=w, util=util)
+
+
+def psum_parts(dtype, seed: int = 11, shape=(6, 7)) -> list:
+    """One part a shard for the psum, alike in every process: values
+    spread over 16 decades, so that their sum depends on its order (in
+    float64 too)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (N_SHARDS, *shape)
+    vals = rng.uniform(1.0, 2.0, shape) * 10.0 ** rng.integers(-8, 8, shape)
+    return list(torch.as_tensor(vals).to(dtype))
+
+
+#: the UGAL program's knobs in :func:`scenario_routing`
+UGAL_KW = dict(levels=4, max_len=8, n_candidates=8)
+#: the greedy balancer's hop budget and chunk in :func:`scenario_routing`
+FLOW_KW = dict(max_len=6, chunk=16)
+
+
+def adaptive_pairs(db) -> list:
+    macs = sorted(db.hosts)[:8]
+    return [(a, b) for a in macs for b in macs if a != b]
+
+
+def scenario_routing() -> dict:
+    """The routing legs on a mesh of this process group (one process's
+    8-shard mesh in the test's own process): the greedy balancer on
+    fat-tree k=4 from cached distances, ``multichip_route_step``, the
+    UGAL program on dragonfly(4, 4), packed and decoded, with and
+    without cached distances; then the engine: the mesh-only refresh's
+    host distances and next hops (no ``shard_oracle``), and the adaptive
+    pair batch with and without ``shard_oracle``."""
     import torch
 
     from sdnmpi_tpu_torch import shardplane as pshard
+    from sdnmpi_tpu_torch.convert import shard_rows
+    from sdnmpi_tpu_torch.oracle.apsp import apsp_distances
     from sdnmpi_tpu_torch.oracle.engine import tensorize
-    from sdnmpi_tpu_torch.shardplane import hier
+    from sdnmpi_tpu_torch.shardplane import routes
+    from sdnmpi_tpu_torch.shardplane.mesh import gather_host
+    from sdnmpi_tpu_torch.topogen import dragonfly
 
     m = pshard.make_multihost_mesh(N_SHARDS, device="cpu")
-    db = fabric().to_topology_db(backend="torch", device="cpu", pad_multiple=PAD)
-    t = tensorize(db, pad_multiple=PAD, device="cpu")
-    v = t.v
-    f = torch.zeros(N_SHARDS, dtype=torch.int32)
-    w = torch.zeros(N_SHARDS)
-    zeros = torch.zeros((v, v))
-    legs = {
-        "route_flows_sharded": lambda: pshard.route_flows_sharded(
-            t.adj, zeros, zeros, f, f, w, m, 4),
-        "route_adaptive_sharded": lambda: pshard.route_adaptive_sharded(
-            t.adj, zeros, f, f, w, 0, m, 3),
-        "multichip_route_step": lambda: pshard.multichip_route_step(
-            t.adj, zeros, f, f, w, m, 4),
-        "apsp_distances_sharded": lambda: pshard.apsp_distances_sharded(t.adj, m),
-        "pod_stack_apsp": lambda: hier.pod_stack_apsp(
-            np.zeros((16, 4, 4), np.float32), m, device="cpu"),
-        "sweep_rows_sharded": lambda: hier.sweep_rows_sharded([], 4, [0], m),
-        "ring_exchange_border_plane": lambda: hier.ring_exchange_border_plane(
-            type("State", (), {"mesh": m, "buckets": []})()),
-    }
+    t = tensorize(fabric().to_topology_db(backend="torch", device="cpu", pad_multiple=PAD),
+                  pad_multiple=PAD, device="cpu")
+    p = {k: torch.as_tensor(x) for k, x in balance_problem(t.host_adj(), t.n_real).items()}
+    args = (p["src"], p["dst"], p["weight"], m, FLOW_KW["max_len"])
+    dist = apsp_distances(t.adj).numpy()
     out = {}
-    for name, fn in legs.items():
-        try:
-            fn()
-            out[name] = "ran"
-        except NotImplementedError as err:
-            out[name] = str(err)
+    for name, got in (
+        ("flows", pshard.route_flows_sharded(
+            t.adj, shard_rows(dist, m), p["base"], *args, chunk=FLOW_KW["chunk"])),
+        ("step", pshard.multichip_route_step(
+            t.adj, p["base"], *args, chunk=FLOW_KW["chunk"])),
+    ):
+        nodes, load, maxc = got
+        out[name] = (gather_host(nodes, m), load.numpy(), float(maxc))
+    out["v_blocks"] = [b.numpy() for b in pshard.apsp_distances_sharded(t.adj, m)]
+    f = {k: torch.as_tensor(x)
+         for k, x in balance_problem(t.host_adj(), t.n_real, fractional=True).items()}
+    nodes, load, maxc = pshard.route_flows_sharded(
+        t.adj, shard_rows(dist, m), f["base"], f["src"], f["dst"], f["weight"], m,
+        FLOW_KW["max_len"], chunk=FLOW_KW["chunk"])
+    out["flows_fractional"] = (gather_host(nodes, m), load.numpy(), float(maxc))
+    dt = tensorize(dragonfly(4, 4).to_topology_db(backend="torch", device="cpu",
+                                                   pad_multiple=PAD),
+                   pad_multiple=PAD, device="cpu")
+    u = {k: torch.as_tensor(x) for k, x in ugal_problem(dt.host_adj(), dt.n_real).items()}
+    d_full = apsp_distances(dt.adj).numpy()
+    for packed in (True, False):
+        for cached in (False, True):
+            got = pshard.route_adaptive_sharded(
+                dt.adj, u["util"], u["src"], u["dst"], u["weight"], dt.n_real, m,
+                dist=shard_rows(d_full, m) if cached else None, packed=packed, **UGAL_KW)
+            out[("ugal", packed, cached)] = (
+                *(gather_host(x, m) for x in got[:3]), got[3].numpy())
+    u = {k: torch.as_tensor(x) for k, x in ugal_problem(
+        dt.host_adj(), dt.n_real, seed=2, fractional=True).items()}
+    got = pshard.route_adaptive_sharded(dt.adj, u["util"], u["src"], u["dst"],
+                                        u["weight"], dt.n_real, m, packed=True, **UGAL_KW)
+    out["ugal_fractional"] = (*(gather_host(x, m) for x in got[:3]), got[3].numpy())
+    out["psum"] = {}
+    for dtype in (torch.float32, torch.float64):
+        parts = [x if q in m.local else None for q, x in enumerate(psum_parts(dtype))]
+        out["psum"][str(dtype)] = routes._sum_over_shards(parts, m).numpy()
+    mesh_only = fabric().to_topology_db(backend="torch", device="cpu", pad_multiple=PAD,
+                                        mesh_devices=N_SHARDS)
+    oracle = mesh_only._oracle_engine()
+    oracle.refresh(mesh_only)
+    out["refresh"] = (oracle._dist.copy(), oracle._next.copy())
+    out["adaptive"] = mesh_only.find_routes_batch_adaptive(adaptive_pairs(mesh_only))
+    sharded = sharded_db(False)
+    out["adaptive_shard_oracle"] = sharded.find_routes_batch_adaptive(
+        adaptive_pairs(sharded))
     return out
 
 
-def scenario_launch() -> dict:
+def hier_stack(seed: int, n: int, s: int, p: float = 0.3) -> np.ndarray:
+    """A seeded stack of ``n`` symmetric pod adjacencies of size ``s``,
+    the last member of every pod cut off (inf distances, -1 next hops),
+    as ``tests/test_torch_hier.py`` builds them."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, s, s)) < p).astype(np.float32)
+    a = np.maximum(a, a.transpose(0, 2, 1))
+    a[:, np.arange(s), np.arange(s)] = 0
+    a[:, :, -1] = a[:, -1, :] = 0
+    return a
+
+
+#: the pod stacks of :func:`scenario_hier`: (seed, pods, pod size), pods
+#: off the shard count and fewer pods than shards
+HIER_STACKS = ((1, 12, 8), (2, 3, 16))
+
+
+def hier_db(**kw):
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    return fattree(8).to_topology_db(device="cpu", hier_oracle=True, **kw)
+
+
+def hier_pairs(db, n: int = 12) -> list:
+    hosts = sorted(db.hosts)[:n]
+    return [(a, b) for a in hosts for b in hosts if a != b]
+
+
+def hier_cable():
+    """An intra-pod cable of fattree(8)."""
+    from sdnmpi_tpu_torch.topogen import fattree
+
+    spec = fattree(8)
+    pm = spec.podmap
+    return next(c for c in spec.links if pm.pod_of[c[0]] == pm.pod_of[c[2]])
+
+
+def flip(db, cable, add: bool) -> None:
+    from sdnmpi_tpu_torch.core.topology_db import Link, Port
+
+    a, pa, b, pb = cable
+    for x, px, y, py in ((a, pa, b, pb), (b, pb, a, pa)):
+        (db.add_link if add else db.delete_link)(Link(Port(x, px), Port(y, py)))
+
+
+def scenario_hier() -> dict:
+    """The hier oracle's three sharded planes on a mesh of this process
+    group: the pod blocks (host stacks and resident twins) of seeded
+    stacks, then ``TopologyDB(hier_oracle=True, mesh_devices=8,
+    ring_exchange=True)`` on fattree(8): its routes, the row sweep of
+    every border (host rows and device plane), the border plane, and an
+    intra-pod flap's repair (routes, rows and twins after it)."""
+    import torch
+
+    from sdnmpi_tpu_torch.shardplane import hier as shier
+    from sdnmpi_tpu_torch.shardplane.mesh import gather_host, make_multihost_mesh
+
+    m = make_multihost_mesh(N_SHARDS, device="cpu")
+    out = {}
+    for seed, n, s in HIER_STACKS:
+        adj = hier_stack(seed, n, s)
+        dd, nd, nn, sharded = shier.pod_stack_apsp_async(adj, m)
+        twins = ((gather_host(dd, m), gather_host(nd, m)) if sharded
+                 else (dd.numpy(), nd.numpy()))
+        out[("pods", seed)] = (*shier.pod_stack_apsp(adj, m), twins, sharded)
+    db = hier_db(mesh_devices=N_SHARDS, ring_exchange=True)
+    pairs = hier_pairs(db)
+    out["fdbs"] = db.find_routes_batch(pairs)
+    macs = sorted(db.hosts)[:12]
+    si, di = np.nonzero(~np.eye(12, dtype=bool))
+    out["collective"] = db.find_routes_collective(
+        macs, si.astype(np.int32), di.astype(np.int32), "shortest").fdbs()
+    oracle = db._oracle_engine()
+    st = oracle._hier
+    targets = np.arange(st.n_borders, dtype=np.int64)
+    rows, rows_d = shier.sweep_rows_sharded(st.deg_buckets, st.n_borders, targets, m)
+    out["sweep"] = (rows, rows_d.numpy())
+    out["plane"] = shier.ring_exchange_border_plane(st)
+    out["rows"] = {p: r.copy() for p, r in st.rows.items()}
+    builds = oracle.full_refresh_count
+    cable = hier_cable()
+    flap = []
+    for add in (False, True):
+        flip(db, cable, add)
+        fdbs = db.find_routes_batch(pairs)
+        st = oracle._hier
+        twins = [(gather_host(b.dist_d, m)[:len(b.pods)], b.dist.copy())
+                 for b in st.buckets if isinstance(b.dist_d, list)]
+        flap.append((fdbs, twins, {p: r.copy() for p, r in st.rows.items()}))
+    out["flap"] = (flap, oracle.full_refresh_count - builds)
+    return out
+
+
+def scenario_launch(hier: bool = False) -> dict:
     """``python -m sdnmpi_tpu_torch --distributed 127.0.0.1:PORT,2,RANK
     --device cpu --shard-oracle --demo`` in this process (its group is
-    up already, so ``init_multihost`` is a no-op): the demo's log line
-    and the checkpoint it writes."""
+    up already, so ``init_multihost`` is a no-op), or with
+    ``--hier-oracle`` in place of ``--shard-oracle`` (the hierarchy, the
+    ring carrying its border plane): the demo's log line and the
+    checkpoint it writes."""
     import torch.distributed as dist
 
     spec = f"127.0.0.1:{PORT[0]},{dist.get_world_size()},{dist.get_rank()}"
-    return dict(run_launch(["--distributed", spec]), spec=spec)
+    return dict(run_launch(["--distributed", spec], hier=hier), spec=spec)
 
 
-def run_launch(extra: list) -> dict:
+def run_launch(extra: list, hier: bool = False) -> dict:
     import json
 
     from sdnmpi_tpu_torch import launch
@@ -314,7 +504,8 @@ def run_launch(extra: list) -> dict:
         try:
             launch.main(["--device", "cpu", "--topo", "fattree:4", "--demo",
                          "--demo-ranks", "16", "--mesh-devices", str(N_SHARDS),
-                         "--shard-oracle", "--ring-exchange", "--no-rpc",
+                         "--hier-oracle" if hier else "--shard-oracle",
+                         "--ring-exchange", "--no-rpc",
                          "--profile", "no-monitor", "--duration", "0.05",
                          "--checkpoint", "ck.json", *extra])
             with open("ck.json") as fh:
@@ -335,7 +526,8 @@ def run_launch(extra: list) -> dict:
 
 SCENARIOS = {
     "mesh": scenario_mesh, "ring": scenario_ring, "shardplane": scenario_shardplane,
-    "engine": scenario_engine, "later": scenario_later, "launch": scenario_launch,
+    "engine": scenario_engine, "routing": scenario_routing, "hier": scenario_hier,
+    "launch": scenario_launch,
 }
 
 
