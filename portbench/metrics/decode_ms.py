@@ -1,0 +1,13 @@
+"""Host ms a collective in the program's ``decode`` stage (a child of
+its ``collective_reap`` span): the slot decode (``native.decode_slots``,
+the DAG leg). Read from the traced run's profile
+(:mod:`portbench.stages`); a program without the stage has nothing to
+read."""
+
+from portbench import stages
+
+watch = stages.watch
+
+
+def read(run):
+    return stages.stage_ms(run, "decode")

@@ -64,7 +64,7 @@ from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows
 from sdnmpi_tpu_torch.oracle.apsp import apsp_distances, apsp_next_hops, occ_bucket
 from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
-from sdnmpi_tpu_torch.utils.tracing import STATS
+from sdnmpi_tpu_torch.utils.tracing import NULL_STAGES, STATS, Stages, start_child_span
 
 if TYPE_CHECKING:
     from sdnmpi_tpu_torch.core.topology_db import TopologyDB
@@ -714,10 +714,10 @@ class RouteOracle:
         import time
 
         @functools.wraps(reap_fn)
-        def timed():
+        def timed(*args):
             t0 = time.perf_counter()
             try:
-                return reap_fn()
+                return reap_fn(*args)
             finally:
                 _m_shard_reap_s.observe(time.perf_counter() - t0)
 
@@ -1460,8 +1460,10 @@ class RouteOracle:
     ):
         """Launch ``dag.route_collective`` for the sub-flow batch on the
         oracle's device (torch enqueues the work and returns) and hand
-        back a zero-argument *reap* closure that copies the slots back
-        and decodes them: ``[S, max_len]`` int32 node paths, -1 padded."""
+        back a *reap* closure that copies the slots back and decodes them:
+        ``[S, max_len]`` int32 node paths, -1 padded. A staged caller
+        passes the reap its :class:`~sdnmpi_tpu_torch.utils.tracing.Stages`
+        (the collective's reap: ``wait``, then ``decode``)."""
         from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
         from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes, route_collective
 
@@ -1517,10 +1519,12 @@ class RouteOracle:
                 )
 
             @self._shard_timed_reap
-            def reap_sharded() -> np.ndarray:
+            def reap_sharded(stages: Stages = NULL_STAGES) -> np.ndarray:
+                stages.stage("wait")
                 self.last_fractional_congestion = float(maxc_d)
                 _m_frac_congestion.set(self.last_fractional_congestion)
                 slots = _host(slots_sh, mesh)[: len(src_idx)]
+                stages.stage("decode")
                 return self._decode(slots, src_idx, dst_idx)
 
             return reap_sharded
@@ -1538,12 +1542,14 @@ class RouteOracle:
             dst_nodes=put(dn) if len(dn) < v_eff else None, neigh=neigh_eff,
         )
 
-        def reap() -> np.ndarray:
+        def reap(stages: Stages = NULL_STAGES) -> np.ndarray:
+            stages.stage("wait")
             slots = slots_d.cpu().numpy()
             # the balancer's FRACTIONAL max-link bound, kept beside the
             # discrete figure the caller computes from the sampled paths
             self.last_fractional_congestion = float(maxc_d)
             _m_frac_congestion.set(self.last_fractional_congestion)
+            stages.stage("decode")
             return self._decode(slots[: len(src_idx)], src_idx, dst_idx)
 
         return reap
@@ -1625,7 +1631,7 @@ class RouteOracle:
         ugal_bias: float = 1.0,
         schedule: Optional[int] = None,
         _phase_scan: Optional[int] = None,
-        _phase: bool = False,
+        _phase: Optional[int] = None,
     ):
         """Route an entire collective given in compressed array form,
         split-phase: the device work is launched here and the returned
@@ -1651,8 +1657,16 @@ class RouteOracle:
         ``_phase_scan`` and ``_phase`` are the phased dispatch's: the
         first routes a balanced phase with the greedy scanner at that
         chunk width, members dealt round-robin by their rank in the
-        group; the second keeps the phase out of the flat congestion
-        figures."""
+        group; the second, the phase's id, keeps the phase out of the
+        flat congestion figures.
+
+        With tracing live (a sink armed, or the profiler recording) the
+        call is a ``collective`` span (``n_pairs``, ``policy``, and
+        ``phase`` for a phase) of stages ``resolve``, ``group``,
+        ``deal``, ``enqueue`` (the hop budget), ``base``, ``enqueue`` (the
+        policy's device leg, uploads included), and its reap a
+        ``collective_reap`` span of ``wait``, ``decode`` (the DAG leg),
+        ``fdbs`` and ``congestion``."""
         from sdnmpi_tpu_torch import native
         from sdnmpi_tpu_torch.oracle.adaptive import link_loads
         from sdnmpi_tpu_torch.oracle.batch import CollectiveRoutes, RouteWindow
@@ -1666,199 +1680,216 @@ class RouteOracle:
                 ugal_bias=ugal_bias,
             )
 
-        t = self.refresh(db)
-        src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
-        dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
-        f = src_idx.shape[0]
-        edge, fport = self._resolve_endpoints_array(db, t, macs)
-        final_port = fport[dst_idx]
-        vv = t.v * t.v
+        fields = {"n_pairs": len(src_idx), "policy": policy}
+        if _phase is not None:
+            fields["phase"] = _phase
+        with Stages(start_child_span("collective", **fields)) as st:
+            st.stage("resolve")
+            t = self.refresh(db)
+            src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
+            dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
+            f = src_idx.shape[0]
+            edge, fport = self._resolve_endpoints_array(db, t, macs)
+            final_port = fport[dst_idx]
+            vv = t.v * t.v
 
-        def unrouted(n_sub: int, width: int) -> RouteWindow:
-            return RouteWindow(result=CollectiveRoutes(
-                np.full(f, -1, np.int32), final_port,
-                np.full((n_sub, width), -1, np.int64),
-                np.full((n_sub, width), -1, np.int32),
-                np.zeros(n_sub, np.int32), endpoint_port=fport,
-            ))
+            def unrouted(n_sub: int, width: int) -> RouteWindow:
+                return RouteWindow(result=CollectiveRoutes(
+                    np.full(f, -1, np.int32), final_port,
+                    np.full((n_sub, width), -1, np.int64),
+                    np.full((n_sub, width), -1, np.int32),
+                    np.zeros(n_sub, np.int32), endpoint_port=fport,
+                ))
 
-        # aggregate to unique (edge, edge) groups over the dense [V^2]
-        # key space: the C++ kernel fuses the endpoint gathers and the
-        # histogram; numpy runs the same computation otherwise
-        fused = (
-            native.group_pairs(src_idx, dst_idx, edge, t.v)
-            if vv <= (16 << 20)
-            else None
-        )
-        if fused is not None:
-            key_all, counts_all = fused
-            uniq = np.nonzero(counts_all)[0]
-            counts = counts_all[uniq]
-        else:
-            src_sw = edge[src_idx]
-            dst_sw = edge[dst_idx]
-            ok = (src_sw >= 0) & (dst_sw >= 0)
-            all_ok = bool(ok.all())
-            if not all_ok and not ok.any():
-                return unrouted(0, 1)
-            sw_src_ok = src_sw if all_ok else src_sw[ok]
-            sw_dst_ok = dst_sw if all_ok else dst_sw[ok]
-            key = sw_src_ok * np.int64(t.v) + sw_dst_ok
-            if vv <= (16 << 20):
-                counts_all = np.bincount(key, minlength=vv)
+            st.stage("group")
+            # aggregate to unique (edge, edge) groups over the dense [V^2]
+            # key space: the C++ kernel fuses the endpoint gathers and the
+            # histogram; numpy runs the same computation otherwise
+            fused = (
+                native.group_pairs(src_idx, dst_idx, edge, t.v)
+                if vv <= (16 << 20)
+                else None
+            )
+            if fused is not None:
+                key_all, counts_all = fused
                 uniq = np.nonzero(counts_all)[0]
                 counts = counts_all[uniq]
+            else:
+                src_sw = edge[src_idx]
+                dst_sw = edge[dst_idx]
+                ok = (src_sw >= 0) & (dst_sw >= 0)
+                all_ok = bool(ok.all())
+                if not all_ok and not ok.any():
+                    return unrouted(0, 1)
+                sw_src_ok = src_sw if all_ok else src_sw[ok]
+                sw_dst_ok = dst_sw if all_ok else dst_sw[ok]
+                key = sw_src_ok * np.int64(t.v) + sw_dst_ok
+                if vv <= (16 << 20):
+                    counts_all = np.bincount(key, minlength=vv)
+                    uniq = np.nonzero(counts_all)[0]
+                    counts = counts_all[uniq]
+                    lookup = np.zeros(vv, np.int64)
+                    lookup[uniq] = np.arange(len(uniq))
+                    inv = lookup[key]
+                else:
+                    uniq, inv, counts = np.unique(
+                        key, return_inverse=True, return_counts=True
+                    )
+            if not len(uniq):
+                return unrouted(0, 1)
+
+            g_src = (uniq // t.v).astype(np.int32)
+            g_dst = (uniq % t.v).astype(np.int32)
+            ways = 1 if policy == "shortest" else max(1, ecmp_ways)
+            nsub = np.minimum(ways, counts).astype(np.int32)
+            sub_base = np.zeros(len(uniq), np.int64)
+            np.cumsum(nsub[:-1], out=sub_base[1:])
+            n_sub = int(nsub.sum())
+            sub_src = np.repeat(g_src, nsub)
+            sub_dst = np.repeat(g_dst, nsub)
+            sub_w = np.repeat((counts / nsub).astype(np.float32), nsub)
+
+            st.stage("deal")
+            # deal each group's members across its sub-flows by endpoint hash
+            if _phase_scan is not None:
+                # exact round-robin deal (phased leg only): the phase-grain
+                # scanner balances each sub-flow as carrying exactly sub_w
+                # members, so members are dealt by their rank in the group
+                if fused is not None:
+                    lookup = np.zeros(vv, np.int64)
+                    lookup[uniq] = np.arange(len(uniq))
+                    okm = key_all >= 0
+                    all_ok = bool(okm.all())
+                    inv_ok = lookup[key_all if all_ok else key_all[okm]]
+                else:
+                    okm = ok
+                    inv_ok = inv
+                order = np.argsort(inv_ok, kind="stable")
+                starts = np.zeros(len(uniq), np.int64)
+                np.cumsum(counts[:-1], out=starts[1:])
+                g_ord = inv_ok[order]
+                pos = np.arange(len(g_ord), dtype=np.int64) - starts[g_ord]
+                dealt = np.empty(len(g_ord), np.int32)
+                dealt[order] = (sub_base[g_ord] + pos % nsub[g_ord]).astype(np.int32)
+                if all_ok:
+                    pair_sub = dealt
+                else:
+                    pair_sub = np.full(f, -1, np.int32)
+                    pair_sub[okm] = dealt
+            elif fused is not None:
                 lookup = np.zeros(vv, np.int64)
                 lookup[uniq] = np.arange(len(uniq))
-                inv = lookup[key]
-            else:
-                uniq, inv, counts = np.unique(
-                    key, return_inverse=True, return_counts=True
+                pair_sub = native.deal_subflows_keyed(
+                    key_all, src_idx, dst_idx, lookup, nsub, sub_base
                 )
-        if not len(uniq):
-            return unrouted(0, 1)
-
-        g_src = (uniq // t.v).astype(np.int32)
-        g_dst = (uniq % t.v).astype(np.int32)
-        ways = 1 if policy == "shortest" else max(1, ecmp_ways)
-        nsub = np.minimum(ways, counts).astype(np.int32)
-        sub_base = np.zeros(len(uniq), np.int64)
-        np.cumsum(nsub[:-1], out=sub_base[1:])
-        n_sub = int(nsub.sum())
-        sub_src = np.repeat(g_src, nsub)
-        sub_dst = np.repeat(g_dst, nsub)
-        sub_w = np.repeat((counts / nsub).astype(np.float32), nsub)
-
-        # deal each group's members across its sub-flows by endpoint hash
-        if _phase_scan is not None:
-            # exact round-robin deal (phased leg only): the phase-grain
-            # scanner balances each sub-flow as carrying exactly sub_w
-            # members, so members are dealt by their rank in the group
-            if fused is not None:
-                lookup = np.zeros(vv, np.int64)
-                lookup[uniq] = np.arange(len(uniq))
-                okm = key_all >= 0
-                all_ok = bool(okm.all())
-                inv_ok = lookup[key_all if all_ok else key_all[okm]]
             else:
-                okm = ok
-                inv_ok = inv
-            order = np.argsort(inv_ok, kind="stable")
-            starts = np.zeros(len(uniq), np.int64)
-            np.cumsum(counts[:-1], out=starts[1:])
-            g_ord = inv_ok[order]
-            pos = np.arange(len(g_ord), dtype=np.int64) - starts[g_ord]
-            dealt = np.empty(len(g_ord), np.int32)
-            dealt[order] = (sub_base[g_ord] + pos % nsub[g_ord]).astype(np.int32)
-            if all_ok:
-                pair_sub = dealt
-            else:
-                pair_sub = np.full(f, -1, np.int32)
-                pair_sub[okm] = dealt
-        elif fused is not None:
-            lookup = np.zeros(vv, np.int64)
-            lookup[uniq] = np.arange(len(uniq))
-            pair_sub = native.deal_subflows_keyed(
-                key_all, src_idx, dst_idx, lookup, nsub, sub_base
-            )
-        else:
-            dealt = native.deal_subflows(
-                inv,
-                src_idx if all_ok else src_idx[ok],
-                dst_idx if all_ok else dst_idx[ok],
-                nsub,
-                sub_base,
-            )
-            if all_ok:
-                pair_sub = dealt
-            else:
-                pair_sub = np.full(f, -1, np.int32)
-                pair_sub[ok] = dealt
+                dealt = native.deal_subflows(
+                    inv,
+                    src_idx if all_ok else src_idx[ok],
+                    dst_idx if all_ok else dst_idx[ok],
+                    nsub,
+                    sub_base,
+                )
+                if all_ok:
+                    pair_sub = dealt
+                else:
+                    pair_sub = np.full(f, -1, np.int32)
+                    pair_sub[ok] = dealt
 
-        max_len = self._batch_max_len(sub_src, sub_dst, multiple=1)
-        if max_len == 0:
-            return unrouted(n_sub, 1)
+            st.stage("enqueue")
+            max_len = self._batch_max_len(sub_src, sub_dst, multiple=1)
+            if max_len == 0:
+                return unrouted(n_sub, 1)
 
-        base = self._normalized_base(db, t, link_util, alpha, link_capacity, f)
-        inter_h = None
-        if policy == "balanced" and _phase_scan is not None:
-            # phase-grain scanner leg (phased dispatch only): a phase is a
-            # small near-matching, and the greedy scanner routes each
-            # sub-flow against the load every earlier one placed, which
-            # lands each phase within about one flow of its split
-            from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+            st.stage("base")
+            base = self._normalized_base(db, t, link_util, alpha, link_capacity, f)
+            st.stage("enqueue")
+            inter_h = None
+            if policy == "balanced" and _phase_scan is not None:
+                # phase-grain scanner leg (phased dispatch only): a phase is a
+                # small near-matching, and the greedy scanner routes each
+                # sub-flow against the load every earlier one placed, which
+                # lands each phase within about one flow of its split
+                from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
     
-            src_p, dst_p = pad_flow_batch(
-                sub_src.astype(np.int32), sub_dst.astype(np.int32), pow2=True,
-            )
-            w_p = np.zeros(len(src_p), np.float32)
-            w_p[:n_sub] = sub_w
-            nodes_d, _, _ = route_flows_balanced(
-                t.adj, self._dist_full(), self._base_tensor(base),
-                self._put(src_p), self._put(dst_p), self._put(w_p),
-                max_len, chunk=int(_phase_scan), neigh=t.neigh,
-            )
+                src_p, dst_p = pad_flow_batch(
+                    sub_src.astype(np.int32), sub_dst.astype(np.int32), pow2=True,
+                )
+                w_p = np.zeros(len(src_p), np.float32)
+                w_p[:n_sub] = sub_w
+                nodes_d, _, _ = route_flows_balanced(
+                    t.adj, self._dist_full(), self._base_tensor(base),
+                    self._put(src_p), self._put(dst_p), self._put(w_p),
+                    max_len, chunk=int(_phase_scan), neigh=t.neigh,
+                )
 
-            def paths_reap() -> np.ndarray:
-                return nodes_d.cpu().numpy()[:n_sub]
-        elif policy == "adaptive":
-            from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
+                def paths_reap(stages: Stages) -> np.ndarray:
+                    stages.stage("wait")
+                    return nodes_d.cpu().numpy()[:n_sub]
+            elif policy == "adaptive":
+                from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
 
-            inter_h, n1, n2 = self._adaptive_paths(
-                t, sub_src, sub_dst, sub_w, base, max_len, rounds,
-                ugal_candidates, ugal_bias,
-            )
-            stitched = stitch_paths(n1, n2, inter_h)
+                inter_h, n1, n2 = self._adaptive_paths(
+                    t, sub_src, sub_dst, sub_w, base, max_len, rounds,
+                    ugal_candidates, ugal_bias,
+                )
+                stitched = stitch_paths(n1, n2, inter_h)
 
-            def paths_reap() -> np.ndarray:
-                return stitched
-        elif policy == "shortest":
-            from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
-            from sdnmpi_tpu_torch.oracle.paths import batch_paths
+                def paths_reap(stages: Stages) -> np.ndarray:
+                    return stitched
+            elif policy == "shortest":
+                from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+                from sdnmpi_tpu_torch.oracle.paths import batch_paths
 
-            ssrc_p, sdst_p = pad_flow_batch(
-                sub_src.astype(np.int32), sub_dst.astype(np.int32)
-            )
-            nodes_d, _ = batch_paths(
-                self._next_full(), self._put(ssrc_p), self._put(sdst_p), max_len
-            )
+                ssrc_p, sdst_p = pad_flow_batch(
+                    sub_src.astype(np.int32), sub_dst.astype(np.int32)
+                )
+                nodes_d, _ = batch_paths(
+                    self._next_full(), self._put(ssrc_p), self._put(sdst_p), max_len
+                )
 
-            def paths_reap() -> np.ndarray:
-                return nodes_d.cpu().numpy()[:n_sub]
-        else:
-            paths_reap = self._dag_paths_dispatch(
-                t, sub_src.astype(np.int32), sub_dst.astype(np.int32), sub_w,
-                base, max_len, rounds,
-            )
-        sub_dst32 = sub_dst.astype(np.int32)
+                def paths_reap(stages: Stages) -> np.ndarray:
+                    stages.stage("wait")
+                    return nodes_d.cpu().numpy()[:n_sub]
+            else:
+                paths_reap = self._dag_paths_dispatch(
+                    t, sub_src.astype(np.int32), sub_dst.astype(np.int32), sub_w,
+                    base, max_len, rounds,
+                )
+            sub_dst32 = sub_dst.astype(np.int32)
 
-        def reap():
-            paths = paths_reap()
-            od, op, ln = native.materialize_fdbs(
-                paths, self._port, t.dpids, sub_dst32,
-                np.full(n_sub, -1, np.int32),  # final port is per pair
-            )
-            routes = CollectiveRoutes(
-                pair_sub, final_port, od, op, ln, endpoint_port=fport
-            )
-            # routed members per sub-flow: shift ids by 1 so unresolved
-            # pairs (-1) land in bin 0, then zero unroutable sub-flows
-            counts_sub = np.bincount(
-                pair_sub.astype(np.int64) + 1, minlength=n_sub + 1
-            )[1:].astype(np.float32)
-            counts_sub[ln == 0] = 0.0
-            routes.max_congestion = float(
-                link_loads(paths, counts_sub, t.v).max(initial=0.0)
-            )
-            self._note_congestion(
-                routes.max_congestion, dag=policy == "balanced",
-                phase=_phase or _phase_scan is not None,
-            )
-            if inter_h is not None:
-                routes.n_detours = int(counts_sub[inter_h >= 0].sum())
-            return routes
+            st.done()
 
-        return RouteWindow(reap)
+            def reap():
+                with Stages(start_child_span("collective_reap", **fields)) as rs:
+                    paths = paths_reap(rs)
+                    rs.stage("fdbs")
+                    od, op, ln = native.materialize_fdbs(
+                        paths, self._port, t.dpids, sub_dst32,
+                        np.full(n_sub, -1, np.int32),  # final port is per pair
+                    )
+                    routes = CollectiveRoutes(
+                        pair_sub, final_port, od, op, ln, endpoint_port=fport
+                    )
+                    rs.stage("congestion")
+                    # routed members per sub-flow: shift ids by 1 so unresolved
+                    # pairs (-1) land in bin 0, then zero unroutable sub-flows
+                    counts_sub = np.bincount(
+                        pair_sub.astype(np.int64) + 1, minlength=n_sub + 1
+                    )[1:].astype(np.float32)
+                    counts_sub[ln == 0] = 0.0
+                    routes.max_congestion = float(
+                        link_loads(paths, counts_sub, t.v).max(initial=0.0)
+                    )
+                    self._note_congestion(
+                        routes.max_congestion, dag=policy == "balanced",
+                        phase=_phase is not None or _phase_scan is not None,
+                    )
+                    if inter_h is not None:
+                        routes.n_detours = int(counts_sub[inter_h >= 0].sum())
+                    return routes
+
+            return RouteWindow(reap)
 
     # -- phased collectives (sched/) -----------------------------------------
 
@@ -1914,7 +1945,9 @@ class RouteOracle:
 
         Returns a :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`;
         pairs whose endpoints do not resolve are in no phase
-        (``pair_phase == -1``)."""
+        (``pair_phase == -1``). With tracing live the call is a ``phased``
+        span: a ``pack`` stage (refresh, resolve, grouping, the base's
+        sums and the packer) and then each phase's ``collective``."""
         from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
         from sdnmpi_tpu_torch.sched.phases import (
             PHASE_SUBFLOW_BUDGET,
@@ -1922,57 +1955,61 @@ class RouteOracle:
         )
         from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan
 
-        t = self.refresh(db)
-        src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
-        dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
-        f = src_idx.shape[0]
-        edge, _ = self._resolve_endpoints_array(db, t, macs)
-        src_sw = edge[src_idx]
-        dst_sw = edge[dst_idx]
-        ok = (src_sw >= 0) & (dst_sw >= 0)
-        pair_phase = np.full(f, -1, np.int32)
-        k = choose_n_phases(0, n_phases)
-        group_phase = np.empty(0, np.int32)
-        if ok.any():
-            _, uniq, inv, _, g_src, g_dst, w_pack = aggregate_groups(
-                src_sw[ok], dst_sw[ok], t.v
-            )
-            k = choose_n_phases(len(uniq), n_phases)
-            # per-switch background load from the same normalized base the
-            # balancer scores with; a plane's base reduces on the device
-            base = self._normalized_base(
-                db, t, link_util, alpha, link_capacity, max(1, f)
-            )
-            if isinstance(base, torch.Tensor):
-                util_out, util_in = base.sum(dim=1), base.sum(dim=0)
-            else:
-                b = np.asarray(base, np.float32)
-                util_out = b.sum(axis=1, dtype=np.float32)
-                util_in = b.sum(axis=0, dtype=np.float32)
-            group_phase = pack_phases(
-                g_src, g_dst, w_pack, k, t.v, util_out, util_in,
-                device=self.device,
-            )
-            pair_phase[ok] = group_phase[inv]
-
-        phases: list = []
-        for p in range(k):
-            sel = np.nonzero(pair_phase == p)[0]
-            if not len(sel):
-                continue  # the packer left this phase empty
-            phase_kwargs = dict(kwargs)
-            phase_kwargs["_phase"] = True
-            if policy == "balanced":
-                n_groups = max(1, int((group_phase == p).sum()))
-                phase_kwargs["ecmp_ways"] = max(
-                    phase_kwargs.get("ecmp_ways", 4),
-                    -(-PHASE_SUBFLOW_BUDGET // n_groups),
+        phased = start_child_span("phased", n_pairs=len(src_idx), policy=policy)
+        with Stages(phased) as st:
+            st.stage("pack")
+            t = self.refresh(db)
+            src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
+            dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
+            f = src_idx.shape[0]
+            edge, _ = self._resolve_endpoints_array(db, t, macs)
+            src_sw = edge[src_idx]
+            dst_sw = edge[dst_idx]
+            ok = (src_sw >= 0) & (dst_sw >= 0)
+            pair_phase = np.full(f, -1, np.int32)
+            k = choose_n_phases(0, n_phases)
+            group_phase = np.empty(0, np.int32)
+            if ok.any():
+                _, uniq, inv, _, g_src, g_dst, w_pack = aggregate_groups(
+                    src_sw[ok], dst_sw[ok], t.v
                 )
-                phase_kwargs["_phase_scan"] = int(scan_chunk)
-            window = self.routes_collective_dispatch(
-                db, macs, src_idx[sel], dst_idx[sel], policy,
-                link_util=link_util, alpha=alpha,
-                link_capacity=link_capacity, **phase_kwargs,
-            )
-            phases.append(PhasePlan(p, sel, window))
-        return PhasedFlowProgram(k, pair_phase, phases)
+                k = choose_n_phases(len(uniq), n_phases)
+                # per-switch background load from the same normalized base the
+                # balancer scores with; a plane's base reduces on the device
+                base = self._normalized_base(
+                    db, t, link_util, alpha, link_capacity, max(1, f)
+                )
+                if isinstance(base, torch.Tensor):
+                    util_out, util_in = base.sum(dim=1), base.sum(dim=0)
+                else:
+                    b = np.asarray(base, np.float32)
+                    util_out = b.sum(axis=1, dtype=np.float32)
+                    util_in = b.sum(axis=0, dtype=np.float32)
+                group_phase = pack_phases(
+                    g_src, g_dst, w_pack, k, t.v, util_out, util_in,
+                    device=self.device,
+                )
+                pair_phase[ok] = group_phase[inv]
+
+            st.done()
+            phases: list = []
+            for p in range(k):
+                sel = np.nonzero(pair_phase == p)[0]
+                if not len(sel):
+                    continue  # the packer left this phase empty
+                phase_kwargs = dict(kwargs)
+                phase_kwargs["_phase"] = p
+                if policy == "balanced":
+                    n_groups = max(1, int((group_phase == p).sum()))
+                    phase_kwargs["ecmp_ways"] = max(
+                        phase_kwargs.get("ecmp_ways", 4),
+                        -(-PHASE_SUBFLOW_BUDGET // n_groups),
+                    )
+                    phase_kwargs["_phase_scan"] = int(scan_chunk)
+                window = self.routes_collective_dispatch(
+                    db, macs, src_idx[sel], dst_idx[sel], policy,
+                    link_util=link_util, alpha=alpha,
+                    link_capacity=link_capacity, **phase_kwargs,
+                )
+                phases.append(PhasePlan(p, sel, window))
+            return PhasedFlowProgram(k, pair_phase, phases)

@@ -14,14 +14,26 @@ Layers:
   install) yields one reconstructable span tree in the JSONL sink.
   Fan-in (many packet-ins coalescing into one window) is recorded as
   ``span_link`` records from the extra parents to the window span.
+- :class:`Stages` — a span whose children run one after another, the
+  stages of one call (the oracle's collective path: ``collective`` with
+  ``resolve``, ``group``, ``deal``, ``base``, ``enqueue``;
+  ``collective_reap`` with ``wait``, ``decode``, ``fdbs``,
+  ``congestion``; ``phased`` with ``pack`` and its phases'
+  ``collective`` spans).
 - :func:`device_trace` — optional ``torch.profiler`` context writing a
   Chrome trace when ``Config.profile_dir`` is set; a no-op otherwise.
 
 All layers emit structured JSONL records through ``trace_event`` when a
 sink is installed (``set_trace_sink``), giving the structured event log
-the reference lacks. Without a sink, spans collapse to a shared no-op
-singleton and ``trace_event`` is one ``is None`` test — the hot path
-pays nothing for the capability.
+the reference lacks. Spans are also live while ``torch.profiler`` is
+recording: each then opens a profiler range named ``sdnmpi.<span
+name>`` for its lifetime, so the profiler lays the program's stages on
+its own timeline beside the device's operations (``--profile-dir`` and
+``--profile-dump`` traces, a benchmark's traced run). The JSONL record
+is the same either way: ``t0``/``t1`` stay ``perf_counter`` stamps.
+With neither armed, spans collapse to a shared no-op singleton and
+``trace_event`` is one ``is None`` test — the hot path pays nothing for
+the capability.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ import statistics
 import threading
 import time
 from typing import Callable, Optional
+
+from torch.autograd import profiler as _torch_profiler
 
 from sdnmpi_tpu_torch.utils.metrics import CURRENT_SPAN, REGISTRY
 
@@ -111,6 +125,16 @@ def trace_event(kind: str, **fields) -> None:
 #: 0 is reserved for "no parent" (a root span).
 _span_seq = 0
 
+#: prefix of the profiler range a live span opens while the profiler records
+RANGE_PREFIX = "sdnmpi."
+
+
+def _live() -> bool:
+    """Whether a span opened now is recorded: a sink is armed, or
+    ``torch.profiler`` is recording (the module flag its start and stop
+    set, the cheapest read of it)."""
+    return _sink is not None or bool(_extra_sinks) or _torch_profiler._is_profiler_enabled
+
 
 class Span:
     """One timed stage of a request, emitted as a single ``span`` JSONL
@@ -118,9 +142,12 @@ class Span:
     a reconstructed tree's stage ordering is monotonic even when the
     wall clock steps). Create through :func:`start_span` (explicit
     lifecycle — the coalescer parks spans across handler returns) or
-    :func:`span` (context manager)."""
+    :func:`span` (context manager). Opened while the profiler records,
+    it also holds a profiler range, ``sdnmpi.<name>``, closed at
+    :meth:`end`; ranges may close out of LIFO order, as parked spans
+    do."""
 
-    __slots__ = ("id", "parent", "name", "t0", "fields", "_done")
+    __slots__ = ("id", "parent", "name", "t0", "fields", "_done", "_range")
 
     def __init__(self, name: str, parent: int, **fields) -> None:
         global _span_seq
@@ -131,6 +158,10 @@ class Span:
         self.t0 = time.perf_counter()
         self.fields = fields
         self._done = False
+        self._range = (
+            _torch_profiler.record_function(RANGE_PREFIX + name).__enter__()
+            if _torch_profiler._is_profiler_enabled else None
+        )
         # exemplar attribution: histogram observations inside this
         # span's scope pick up its id (utils/metrics.CURRENT_SPAN)
         CURRENT_SPAN[0] = self.id
@@ -156,6 +187,9 @@ class Span:
             # when still active: parked spans end out of LIFO order)
             CURRENT_SPAN[0] = self.parent
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         trace_event(
             "span",
             name=self.name,
@@ -169,9 +203,10 @@ class Span:
 
 
 class _NullSpan:
-    """Shared do-nothing span handed out while no sink is installed, so
-    instrumented code threads span objects unconditionally but the
-    disabled path allocates nothing per request."""
+    """Shared do-nothing span handed out while no sink is installed and
+    the profiler is not recording, so instrumented code threads span
+    objects unconditionally but the disabled path allocates nothing per
+    request."""
 
     __slots__ = ()
     id = 0
@@ -191,10 +226,11 @@ NULL_SPAN = _NullSpan()
 
 
 def start_span(name: str, parent=None, **fields):
-    """Open a span (returns :data:`NULL_SPAN` when tracing is off).
-    ``parent`` is a Span or None (root). The caller owns the lifecycle:
-    call ``end()`` when the stage completes."""
-    if _sink is None and not _extra_sinks:
+    """Open a span (returns :data:`NULL_SPAN` when tracing is off: no
+    sink armed and the profiler not recording). ``parent`` is a Span or
+    None (root). The caller owns the lifecycle: call ``end()`` when the
+    stage completes."""
+    if not _live():
         return NULL_SPAN
     pid = 0 if parent is None else parent.id
     return Span(name, pid, **fields)
@@ -209,7 +245,7 @@ def start_child_span(name: str, **fields):
     when the engine runs, so the shardplane leg nests under it in
     flight-recorder bundles exactly like the single-chip stages, with
     no oracle-API change. Parent id 0 (no ambient span) makes a root."""
-    if _sink is None and not _extra_sinks:
+    if not _live():
         return NULL_SPAN
     return Span(name, CURRENT_SPAN[0], **fields)
 
@@ -222,6 +258,42 @@ def span(name: str, parent=None, **fields):
         yield sp
     finally:
         sp.end()
+
+
+class Stages:
+    """The children of ``span`` that run one after another: the stages
+    of one call. :meth:`stage` ends the open stage and opens the next, a
+    child of ``span``; :meth:`done` ends the open stage, so what follows
+    runs in ``span``'s own time. As a context manager it ends the open
+    stage and ``span``, also when the body raises. Over
+    :data:`NULL_SPAN` (tracing off, or :data:`NULL_STAGES` for a caller
+    outside a staged call) every stage is :data:`NULL_SPAN` too."""
+
+    __slots__ = ("span", "_stage")
+
+    def __init__(self, span) -> None:
+        self.span = span
+        self._stage = NULL_SPAN
+
+    def stage(self, name: str, **fields) -> None:
+        self._stage.end()
+        self._stage = self.span.child(name, **fields)
+
+    def done(self) -> None:
+        self._stage.end()
+        self._stage = NULL_SPAN
+
+    def __enter__(self) -> "Stages":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.done()
+        self.span.end()
+
+
+#: stages that record nothing: what a staged leg's reap gets when its
+#: caller is not itself staged
+NULL_STAGES = Stages(NULL_SPAN)
 
 
 def read_span_tree(records) -> dict[int, dict]:
