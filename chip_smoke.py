@@ -278,7 +278,7 @@ each serving run of phase 17, the flap storm of phase 18 (nothing: the
 shortest leg runs no kernel), the collective with the utilization plane
 of phase 19 (K1 0, set-up 1, K2 1), and the flat batches, the phased
 programs (S2 once each; adaptive: set-up 1 and K2 2 per phase; balanced:
-S1 once per phase) and the phased Controller installs of phase 20, the
+S1 once, a block a phase) and the phased Controller installs of phase 20, the
 Monitor passes of phase
 13 and the audited passes of phase 21 (no K1, no K3; the sentinel's
 default sample of 64 pairs takes the greedy scanner), phase 21's
@@ -965,11 +965,17 @@ def recording_sampler(calls: list):
 
 
 @contextlib.contextmanager
-def recording_scanner(calls: list):
+def recording_scanner(calls: list, batched: list | None = None):
     """Record ``(args, kwargs, result)`` of every greedy scanner call
-    (kernel S1) that ``oracle.engine`` (the balanced pair batch and the
+    (kernel S1) that ``oracle.engine`` (the balanced pair batch, the
     phase-grain leg) and ``shardplane.routes`` (one call per shard) make
-    while the context is open."""
+    while the context is open. A phased program's one launch for its
+    phases (``route_flows_balanced_phases``) is recorded as one call a
+    phase in ``route_flows_balanced``'s form: the phase's own arguments,
+    and its nodes, its slot loads scattered to ``[V, V]`` and their max;
+    the launch itself goes to ``batched`` where given."""
+    import torch
+
     from sdnmpi_tpu_torch.oracle import congestion, engine
     from sdnmpi_tpu_torch.shardplane import routes
 
@@ -978,12 +984,59 @@ def recording_scanner(calls: list):
         calls.append((args, kw, out))
         return out
 
+    def record_phases(*args, **kw):
+        out = congestion.route_flows_balanced_phases(*args, **kw)
+        adj, dist, bases, src, dst, weight, offsets, max_lens = args
+        neigh = kw["neigh"]
+        for p, (nodes, slots) in enumerate(zip(*out)):
+            part = slice(int(offsets[p]), int(offsets[p + 1]))
+            load = congestion.slot_loads_to_dense(slots, neigh, adj.shape[0])
+            calls.append((
+                (adj, dist, bases[p], src[part], dst[part], weight[part], max_lens[p]),
+                {"chunk": kw["chunk"], "neigh": neigh},
+                (nodes, load, torch.where(adj > 0, load, 0.0).max())))
+        if batched is not None:
+            batched.append((args, {k: x for k, x in kw.items() if k != "out"}, out))
+        return out
+
     engine.route_flows_balanced = routes.route_flows_balanced = record
+    engine.route_flows_balanced_phases = record_phases
     try:
         yield
     finally:
         engine.route_flows_balanced = congestion.route_flows_balanced
         routes.route_flows_balanced = congestion.route_flows_balanced
+        engine.route_flows_balanced_phases = congestion.route_flows_balanced_phases
+
+
+def hold_scan_batch(batched: list, calls: list, what: str) -> tuple:
+    """A phased program's one S1 launch for its K phases (the single
+    call ``recording_scanner`` put in ``batched``; ``calls`` its phases
+    in ``route_flows_balanced``'s form): every phase equal bit for bit
+    to a single-block launch of its own table, and the launch timed
+    against the K single launches in turn. Returns (the batched launch's
+    ms, the single launches' summed ms)."""
+    from sdnmpi_tpu_torch.oracle.congestion import (
+        route_flows_balanced,
+        route_flows_balanced_phases,
+    )
+
+    if len(batched) != 1 or len(calls) != len(batched[0][0][7]):
+        fail(f"S1 {what}: {len(batched)} batched launches for {len(calls)} phases, "
+             "want one launch for all of them")
+    args, kw, _ = batched[0]
+    for q, (p_args, p_kw, got) in enumerate(calls):
+        if not same_scan(route_flows_balanced(*p_args, **p_kw), got):
+            fail(f"S1 {what}: phase {q} of the batched launch differs from a "
+                 "single-block launch of its table")
+    batch_ms = time_ms(lambda: route_flows_balanced_phases(*args, **kw), reps=3, warm=1)
+    singles_ms = time_ms(lambda: [route_flows_balanced(*a, **k) for a, k, _ in calls],
+                         reps=3, warm=1)
+    log(f"S1 {what}: one launch of {len(calls)} phases, each equal bit for bit to a "
+        f"single-block launch of its table: {batch_ms:.2f} ms against "
+        f"{singles_ms:.2f} ms for the {len(calls)} single launches in turn "
+        f"({singles_ms / batch_ms:.2f}x) ({CARD})")
+    return batch_ms, singles_ms
 
 
 def check_scan(args: tuple, kw: dict, got, what: str) -> float:
@@ -1179,6 +1232,9 @@ def counted_wrappers() -> dict:
 def zero_launches() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
+    from sdnmpi_tpu_torch.oracle import congestion
+
+    congestion.route_flows_balanced.phases = 0
 
 
 def read_launches() -> dict:
@@ -3411,17 +3467,22 @@ def phased_launches(fn, what: str, report: dict, program_of, want_k2: bool) -> d
     """:func:`path_launches` of ``fn()`` with every K2 call recorded, held
     to the launches a phased program makes: no K1 and no K3; S2 once;
     per non-empty phase of ``program_of()`` (read after the run) one K2
-    set-up and two K2 launches sharing it on the adaptive policy, or one
-    S1 launch on the balanced policy; every K2 call and its tables held
-    against the plain versions."""
+    set-up and two K2 launches sharing it on the adaptive policy, or on
+    the balanced policy one S1 launch for all of them, a block a phase;
+    every K2 call and its tables held against the plain versions."""
+    from sdnmpi_tpu_torch.oracle import congestion
+
     k2_calls: list = []
     with recording_sampler(k2_calls):
         counts = path_launches(fn)
     n = len(program_of().phases)
     want = (launches_of(setup=n, k2=2 * n, pack=1) if want_k2
-            else launches_of(scan=n, pack=1))
+            else launches_of(scan=1, pack=1))
     if counts != want:
         fail(f"{what}: launches {counts}, want {want}")
+    if not want_k2 and congestion.route_flows_balanced.phases != n:
+        fail(f"{what}: S1's launch scanned {congestion.route_flows_balanced.phases} "
+             f"phases, want {n}")
     report["sample_slots"]["max_abs_err"] = max(
         report["sample_slots"]["max_abs_err"],
         check_k2_calls(k2_calls, counts["sample_slots"], what))
@@ -3809,12 +3870,14 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     flat balanced collective for the fractional bound. (c)
     ``routes_collective_phased`` with auto K on the adaptive policy and
     (d) on the balanced policy, whose phases route every sub-flow through
-    the greedy scanner (kernel S1, chunk 1): first a ``hold_ranks``
-    program (two pods: cross-pod paths through the cores), one phase's
-    scanner call held against the plain version and timed, and
-    :func:`hold_scan_wide`; then the full program, every phase's scanner load equal to
-    ``link_loads_from_paths`` of its own paths, its device time, the
-    sub-flows scanned and the time per sub-flow. Each program is checked
+    the greedy scanner (kernel S1, chunk 1, one launch for the program's
+    phases): first a ``hold_ranks`` program (two pods: cross-pod paths
+    through the cores), every phase of its launch held against the plain
+    version and a single-block launch (:func:`hold_scan_batch`), one
+    phase timed, and :func:`hold_scan_wide`; then the full program, its
+    launch held and timed against single launches in turn, every phase's
+    scanner load equal to ``link_loads_from_paths`` of its own paths, its
+    device time, the sub-flows scanned and the time per sub-flow. Each program is checked
     with :func:`check_phased`, its wall logged, and reported as total
     discrete congestion over the flat fractional bound. (e) The same
     alltoall through the Controller with ``schedule_collectives``
@@ -3946,16 +4009,22 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     quality(what, program, frac)
     log(f"{what}: {sum(r.n_detours for r in program.reap_all())} detoured pairs")
 
-    # (d) the scanner's program: one phase of a small one held against the
-    # plain version, then the full program
+    # (d) the scanner's program: every phase of a small one's launch held
+    # against the plain version, one phase timed, then the full program
     h_macs = all_macs[:hold_ranks]
     h_src, h_dst = alltoall_idx(hold_ranks)
     scans: list = []
-    with recording_scanner(scans):
-        counts, _, _ = phased_run(f"phased balanced ({hold_ranks} ranks)", oracle, db,
-                                  spec, h_macs, h_src, h_dst, "balanced", report,
-                                  want_k2=False)
+    batched: list = []
+    what = f"phased balanced ({hold_ranks} ranks)"
+    with recording_scanner(scans, batched):
+        counts, _, _ = phased_run(what, oracle, db, spec, h_macs, h_src, h_dst,
+                                  "balanced", report, want_k2=False)
     all_counts.append(counts)
+    # every phase of the one launch against the plain version, then
+    # against a single-block launch of its table
+    plain_ms = [check_scan(args, kw, got_scan, f"{what}, phase {q} of the one launch")
+                for q, (args, kw, got_scan) in enumerate(scans)]
+    hold_scan_batch(batched, scans, what)
     # the phase of fewest rows (the plain version runs the pads too)
     q = min(range(len(scans)), key=lambda i: scans[i][0][3].shape[0])
     args, kw, got_scan = scans[q]
@@ -3964,7 +4033,7 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
              "hold must cross pods")
     what = (f"phase {q} of the {hold_ranks}-rank balanced program, chunk "
             f"{kw['chunk']}, max_len {got_scan[0].shape[1]}")
-    scan_plain_ms = check_scan(args, kw, got_scan, what)
+    scan_plain_ms = plain_ms[q]
     hold_scan_forms(args, kw, got_scan, what, "resident")
     for form in ("resident", "spread"):
         without_sync(lambda: route_flows_balanced(*args, **kw, _form=form),
@@ -4009,11 +4078,13 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
     del ddb, d_oracle
 
     scans = []
+    batched = []
     what = f"phased balanced ({n_ranks} ranks)"
-    with recording_scanner(scans):
+    with recording_scanner(scans, batched):
         counts, program, wall = phased_run(what, oracle, db, spec, macs, src_idx,
                                            dst_idx, "balanced", report, want_k2=False)
     all_counts.append(counts)
+    batch_ms, singles_ms = hold_scan_batch(batched, scans, what)
     per_phase, n_sub, n_steps, total_ms, spread_ms = [], 0, 0, 0.0, 0.0
     clocks = []
     with sm_clocks(clocks):
@@ -4051,8 +4122,9 @@ def phase_sched(device, report: dict, k: int = SCHED_K, n_ranks: int = SCHED_RAN
         f"{max(clocks, default=float('nan')):.0f}); the spread form "
         f"{spread_ms:.1f} ms, {per_step(spread_ms, n_steps, mhz)}; steps x "
         f"{STEP_FLOOR_CYCLES} cycles (a per-step floor, an estimate) "
-        f"{n_steps * STEP_FLOOR_CYCLES / (mhz * 1e3):.1f} ms; program wall "
-        f"{wall:.1f} ms ({CARD})")
+        f"{n_steps * STEP_FLOOR_CYCLES / (mhz * 1e3):.1f} ms; the program's one "
+        f"launch {batch_ms:.1f} ms (the phases in turn {singles_ms:.1f}); program "
+        f"wall {wall:.1f} ms ({CARD})")
     quality(what, program, frac)
     del scans, program
 

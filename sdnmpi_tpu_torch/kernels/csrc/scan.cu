@@ -12,7 +12,7 @@
 //   neighbour row (dist[nbr, dst] == dist[node, dst] - 1) as
 //   base + float32(load), reading the load as it stood at the start of
 //   the hop;
-// - tied minima are dealt round-robin by the flow's batch-wide row id
+// - tied minima are dealt round-robin by the flow's row id in its batch
 //   (row mod the tie count picks the tie, in slot order), and with no
 //   candidate at all slot 0 is taken, clamped to V-1, as the plain
 //   version's argmax of an empty pick does;
@@ -60,7 +60,11 @@
 // The resident form (scan_resident), where the tables fit one block's
 // 227 KB of shared memory (congestion.scan_form; config 12's V = 320,
 // D = 16: 175,364 bytes) and the chunk is narrow (the phased leg's
-// chunk 1, the sentinel's and the pair batches' few rows):
+// chunk 1, the sentinel's and the pair batches' few rows). One launch
+// may scan several batches that share the fabric (a phased program's
+// phases, each from its own base and a zeroed load): a block a batch,
+// each on its own SM, its rows, hop budget, base, nodes and slot loads
+// read from a per-batch table (congestion.route_flows_balanced_phases):
 // - bound: the latency of a step inside one SM. A step with one
 //   candidate is a neighbour read and then a hop-count read from shared
 //   memory, a warp vote and the pick handed on by a shuffle; where
@@ -554,14 +558,28 @@ __device__ __forceinline__ void run_resident(const SharedTabs& tb, const float* 
   }
 }
 
+// one block a batch: with `batches` null the call's one batch, else
+// block b's (row0, rows, max_len, nodes0) at batches[4b .. 4b + 3], its
+// base at base + b V^2 and its slot loads at slot_load + b V D
 __global__ void __launch_bounds__(kResidentThreads, 1)
 scan_resident(const int* __restrict__ neigh, int v, int d, const float* __restrict__ dist,
               const float* __restrict__ base, const int* __restrict__ src,
               const int* __restrict__ dst, const float* __restrict__ weight, long long u,
               int max_len, long long chunk, int* __restrict__ nodes,
-              double* __restrict__ slot_load) {
+              double* __restrict__ slot_load, const long long* __restrict__ batches) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vd = v * d;
+  if (batches != nullptr) {
+    const long long* m = batches + 4LL * blockIdx.x;
+    src += m[0];
+    dst += m[0];
+    weight += m[0];
+    u = m[1];
+    max_len = (int)m[2];
+    nodes += m[3];
+    base += (long long)blockIdx.x * v * v;
+    slot_load += (long long)blockIdx.x * vd;
+  }
   double* ld = reinterpret_cast<double*>(smem);
   float* bs = reinterpret_cast<float*>(smem + 8LL * vd);
   int16_t* nb = reinterpret_cast<int16_t*>(smem + 12LL * vd);
@@ -688,13 +706,20 @@ bool g_resident_attr = false;
 // form. The caller zeroes nothing for the resident form; for the spread
 // form it passes zeroed `slot_load` [V, D] f64 and `flags` [5] int32,
 // and scratch `hop8` [V, hs8] uint8 (hs8 a multiple of 16, >= V) and
-// `base_slot` [V, D] f32. `nodes` [u, max_len] int32 holds -1.
+// `base_slot` [V, D] f32. `nodes` [u, max_len] int32 holds -1. With
+// `batches` > 1 (the resident form only), `batch` [batches, 4] int64 on
+// the card holds each batch's (row0, rows, max_len, nodes0) into the
+// concatenated src, dst, weight and nodes, `base` [batches, V, V] and
+// `slot_load` [batches, V, D]; `u` and `max_len` are then the largest
+// batch's rows and hop budget.
 extern "C" int scan_launch(int form, const int* neigh, int v, int d, const float* dist,
                            const float* base, const int* src, const int* dst,
                            const float* weight, long long u, int max_len, long long chunk,
                            int* nodes, double* slot_load, uint8_t* hop8, int hs8,
-                           float* base_slot, int* flags, void* stream) {
-  if (v < 1 || d < 1 || u < 1 || u > 0x7fffffffLL || max_len < 1 || chunk < 1) {
+                           float* base_slot, int* flags, int batches,
+                           const long long* batch, void* stream) {
+  if (v < 1 || d < 1 || u < 1 || u > 0x7fffffffLL || max_len < 1 || chunk < 1 ||
+      batches < 1 || (batches > 1 && (form != 0 || batch == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
@@ -708,8 +733,9 @@ extern "C" int scan_launch(int form, const int* neigh, int v, int d, const float
       if (e != cudaSuccess) return (int)e;
       g_resident_attr = true;
     }
-    scan_resident<<<1, kResidentThreads, (size_t)bytes, st>>>(
-        neigh, v, d, dist, base, src, dst, weight, u, max_len, chunk, nodes, slot_load);
+    scan_resident<<<batches, kResidentThreads, (size_t)bytes, st>>>(
+        neigh, v, d, dist, base, src, dst, weight, u, max_len, chunk, nodes, slot_load,
+        batches > 1 ? batch : nullptr);
     return (int)cudaGetLastError();
   }
   if (form != 1 || hs8 < v || hs8 % 16 != 0) return (int)cudaErrorInvalidValue;

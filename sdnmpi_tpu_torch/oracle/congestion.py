@@ -19,6 +19,9 @@ Counterpart of ``sdnmpi_tpu/oracle/congestion.py``:
   (one warp per flow of a chunk over many SMs, for fabrics whose tables
   do not fit or wide chunks). Both keep the load per link slot
   (``[V, D]``), which :func:`slot_loads_to_dense` scatters to ``[V, V]``.
+- :func:`route_flows_balanced_phases` scans a phased program's phases,
+  each on its own base, in one launch of the resident form: a block a
+  phase.
 - :func:`link_loads_from_paths` recomputes the load of chosen paths.
 
 Loads accumulate in float64 and are cast to float32 where they are read.
@@ -86,6 +89,18 @@ def route_flows_balanced_plain(
     absent), which takes the place of the reference's ``max_degree``.
     """
     v = adj.shape[0]
+    nodes, load = _scan_plain(adj, dist, base_cost, src, dst, weight, max_len, chunk,
+                              neigh)
+    load32 = load.to(torch.float32).reshape(v, v)
+    max_congestion = torch.where(adj > 0, load32, 0.0).max()
+    return nodes, load32, max_congestion
+
+
+def _scan_plain(adj, dist, base_cost, src, dst, weight, max_len: int, chunk: int,
+                neigh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan of :func:`route_flows_balanced_plain`: ``(nodes [U,
+    max_len] int32, load [V * V] float64)``."""
+    v = adj.shape[0]
     dev = adj.device
     u = src.shape[0]
     n_chunks = -(-u // chunk)
@@ -137,10 +152,7 @@ def route_flows_balanced_plain(
             # a flow that has emitted its destination parks at -1
             node = nxt
         chunks.append(torch.stack(rows, dim=1))
-    load32 = load.to(torch.float32).reshape(v, v)
-    nodes = torch.cat(chunks)[:u].to(torch.int32)
-    max_congestion = torch.where(adj > 0, load32, 0.0).max()
-    return nodes, load32, max_congestion
+    return torch.cat(chunks)[:u].to(torch.int32), load
 
 
 #: dynamic shared memory one block may use on an H100 (sm_90)
@@ -265,29 +277,133 @@ def route_flows_balanced(
         hop8 = torch.empty(v * hs8, dtype=torch.uint8, device=dev)
         base_slot = torch.empty(v * d, dtype=torch.float32, device=dev)
         flags = torch.zeros(5, dtype=torch.int32, device=dev)
-    fn = _build.function("scan", "scan_launch", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ])
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    err = fn(
+    err = _scan_launch()(
         0 if form == "resident" else 1, neigh.data_ptr(), v, d, dist.data_ptr(),
         base_cost.data_ptr(), src.data_ptr(), dst.data_ptr(), weight.data_ptr(), u,
         max_len, chunk, nodes.data_ptr(), slot_load.data_ptr(), ptr(hop8), hs8,
-        ptr(base_slot), ptr(flags), _build.stream_ptr(dev),
+        ptr(base_slot), ptr(flags), 1, None, _build.stream_ptr(dev),
     )
     _build.check(err, "scan")
     route_flows_balanced.launches += 1
+    route_flows_balanced.phases += 1
     load32 = slot_loads_to_dense(slot_load.view(v, d), neigh, v)
     max_congestion = torch.where(adj > 0, load32, 0.0).max()
     return nodes, load32, max_congestion
 
 
-#: kernel launches of :func:`route_flows_balanced` (CPU calls do not count)
+#: kernel launches of :func:`route_flows_balanced` and
+#: :func:`route_flows_balanced_phases` (CPU calls do not count), and the
+#: batches they scanned: ``phases / launches`` is the batches a launch
 route_flows_balanced.launches = 0
+route_flows_balanced.phases = 0
+
+
+def _scan_launch():
+    """``scan.cu``'s ``scan_launch``, built at first use."""
+    return _build.function("scan", "scan_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ])
+
+
+def route_flows_balanced_phases(
+    adj: torch.Tensor,  # [V, V] 0/1
+    dist: torch.Tensor,  # [V, V] f32 hop counts (inf unreachable)
+    bases: torch.Tensor,  # [K, V, V] f32: each phase's base cost
+    src: torch.Tensor,  # [U] int32: the K phases' rows, concatenated
+    dst: torch.Tensor,  # [U] int32
+    weight: torch.Tensor,  # [U] f32
+    offsets,  # K + 1 ints: phase p's rows are offsets[p]:offsets[p + 1]
+    max_lens,  # K ints: each phase's hop budget
+    chunk: int = 1,
+    neigh: torch.Tensor | None = None,  # [V, D] int32 topology neighbour table
+    *,
+    out: torch.Tensor | None = None,
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """K independent scans of :func:`route_flows_balanced` on one fabric,
+    each from its own base and a zeroed load: a phased program's phases.
+    Returns ``(nodes, slot_load)``: each phase's ``[U_p, max_len_p]``
+    int32 nodes, views in phase order of one buffer (``out``, of ``sum
+    U_p * max_len_p`` int32, where the caller gives one), and the
+    ``[K, V, D]`` float64 loads of each phase's link slots (slot i of
+    node n is the link to ``neigh[n, i]``; :func:`slot_loads_to_dense`
+    makes one phase's ``[V, V]`` load). Ties are dealt by the row id
+    within the phase, so phase p equals ``route_flows_balanced`` on its
+    own rows and base.
+
+    CPU tensors run :func:`route_flows_balanced_plain`'s scan once a
+    phase. CUDA tensors launch S1's resident form once, a block a phase,
+    each on its own SM; it takes what :func:`route_flows_balanced` takes
+    (``bases`` contiguous ``[K, V, V]`` f32), every phase at least one
+    row, and raises where the resident form does not take a phase
+    (:func:`scan_form`'s tables, more than :data:`RESIDENT_THREADS`
+    flows a chunk). Nothing here waits for the card."""
+    dev = adj.device
+    v = adj.shape[0]
+    if neigh is None:
+        neigh = neighbor_rows_of(adj)
+    d = neigh.shape[1]
+    offsets = [int(x) for x in offsets]
+    max_lens = [int(x) for x in max_lens]
+    k = len(max_lens)
+    rows = [b - a for a, b in zip(offsets[:-1], offsets[1:])]
+    if (k < 1 or len(offsets) != k + 1 or offsets[0] != 0 or offsets[-1] != src.shape[0]
+            or min(rows) < 1 or min(max_lens) < 1
+            or tuple(bases.shape) != (k, v, v)):
+        raise ValueError(
+            f"route_flows_balanced_phases takes K >= 1 phases of at least one row "
+            f"and hop: K + 1 offsets from 0 to U = {src.shape[0]}, K max_lens and "
+            f"[K, V, V] bases; got offsets {offsets[:8]}..., max_lens "
+            f"{max_lens[:8]}..., bases {tuple(bases.shape)}")
+    sizes = [r * n for r, n in zip(rows, max_lens)]
+    starts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    if out is None:
+        out = torch.empty(starts[-1], dtype=torch.int32, device=dev)
+    elif (out.dtype != torch.int32 or tuple(out.shape) != (starts[-1],)
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(
+            f"route_flows_balanced_phases writes nodes into a contiguous int32 "
+            f"[{starts[-1]}] tensor on {dev}; got {out.dtype} {tuple(out.shape)} "
+            f"on {out.device}")
+    nodes = [out[a:a + n].view(r, m)
+             for a, n, r, m in zip(starts, sizes, rows, max_lens)]
+    if dev.type == "cpu":
+        col = neigh.clamp(max=v - 1).long() + torch.arange(0, v * v, v)[:, None]
+        # a pad slot takes load only as slot 0 of an empty row
+        real = (neigh < v) | (torch.arange(d) == 0)
+        slot_load = torch.zeros((k, v, d), dtype=torch.float64)
+        for p in range(k):
+            part = slice(offsets[p], offsets[p + 1])
+            got, load = _scan_plain(adj, dist, bases[p], src[part], dst[part],
+                                    weight[part], max_lens[p], chunk, neigh)
+            nodes[p].copy_(got)
+            slot_load[p] = torch.where(real, load[col], 0.0)
+        return nodes, slot_load
+    if dev.type != "cuda":
+        raise ValueError(f"route_flows_balanced_phases runs on cpu or cuda, not {dev}")
+    check_phases_kernel_args(adj, dist, bases, src, dst, weight, offsets, max_lens,
+                             chunk, neigh)
+    batch = None
+    if k > 1:
+        batch = torch.tensor([[a, r, m, n0] for a, r, m, n0 in
+                              zip(offsets, rows, max_lens, starts)],
+                             dtype=torch.int64).to(dev)
+    out.fill_(-1)
+    slot_load = torch.empty((k, v, d), dtype=torch.float64, device=dev)
+    err = _scan_launch()(
+        0, neigh.data_ptr(), v, d, dist.data_ptr(), bases.data_ptr(), src.data_ptr(),
+        dst.data_ptr(), weight.data_ptr(), max(rows), max(max_lens), chunk,
+        out.data_ptr(), slot_load.data_ptr(), None, 0, None, None, k,
+        None if batch is None else batch.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(err, "scan")
+    route_flows_balanced.launches += 1
+    route_flows_balanced.phases += k
+    return nodes, slot_load
 
 
 def check_kernel_args(adj, dist, base_cost, src, dst, weight, max_len: int,
@@ -315,6 +431,31 @@ def check_kernel_args(adj, dist, base_cost, src, dst, weight, max_len: int,
         raise ValueError(
             f"route_flows_balanced kernel takes U, max_len, chunk and D >= 1, got "
             f"{u}, {max_len}, {chunk}, {neigh.shape[1]}")
+
+
+def check_phases_kernel_args(adj, dist, bases, src, dst, weight, offsets, max_lens,
+                             chunk: int, neigh: torch.Tensor) -> None:
+    """Raise unless one launch of S1's resident form takes these
+    arguments of :func:`route_flows_balanced_phases`: what
+    :func:`check_kernel_args` asks of one call, ``bases`` a contiguous
+    ``[K, V, V]`` f32 tensor, and tables and phases the resident form
+    takes."""
+    v, d = adj.shape[0], neigh.shape[-1]
+    if (bases.dtype != torch.float32 or bases.dim() != 3 or not bases.is_contiguous()
+            or bases.device != adj.device):
+        raise ValueError(
+            f"route_flows_balanced_phases kernel takes bases as a contiguous "
+            f"float32 [K, V, V] tensor on {adj.device}; got {bases.dtype} "
+            f"{tuple(bases.shape)} on {bases.device}")
+    check_kernel_args(adj, dist, bases[0], src, dst, weight, max(max_lens), chunk,
+                      neigh)
+    width = max(min(chunk, b - a) for a, b in zip(offsets[:-1], offsets[1:]))
+    if resident_bytes(v, d) > RESIDENT_SMEM_BYTES or width > RESIDENT_THREADS:
+        raise ValueError(
+            f"route_flows_balanced_phases runs S1's resident form, which takes at "
+            f"most {RESIDENT_SMEM_BYTES} bytes of tables and {RESIDENT_THREADS} "
+            f"flows a chunk; V={v}, D={d} need {resident_bytes(v, d)} bytes at "
+            f"a widest min(chunk, U_p) of {width}")
 
 
 def link_loads_from_paths(

@@ -62,7 +62,11 @@ import torch
 
 from sdnmpi_tpu_torch.kernels.bfs import neighbor_rows
 from sdnmpi_tpu_torch.oracle.apsp import apsp_distances, apsp_next_hops, occ_bucket
-from sdnmpi_tpu_torch.oracle.congestion import route_flows_balanced
+from sdnmpi_tpu_torch.oracle.congestion import (
+    route_flows_balanced,
+    route_flows_balanced_phases,
+    scan_form,
+)
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 from sdnmpi_tpu_torch.utils.tracing import NULL_STAGES, STATS, Stages, start_child_span
 
@@ -311,6 +315,70 @@ def tensorize(
         port_host=port,
         n_links=len(edges),
     )
+
+
+class _PhaseScans:
+    """The greedy scanner's calls for the balanced phases of one phased
+    program. A phase whose call takes S1's resident form
+    (``congestion.scan_form``) hands its padded rows, hop budget and base
+    to :meth:`add`; once every phase is dispatched, :meth:`launch` uploads
+    them together and routes them by one launch of
+    ``route_flows_balanced_phases``, a block a phase, each on its own SM.
+    A phase that takes the spread form launches ``route_flows_balanced``
+    in :meth:`add`, as before. Each phase gets a reader of its
+    ``[U_p, max_len_p]`` nodes on the host: the first read of a batched
+    phase copies the whole batch home, later reads slice that copy."""
+
+    def __init__(self, oracle: "RouteOracle", t: TopoTensors, chunk: int) -> None:
+        self.oracle, self.t, self.chunk = oracle, t, int(chunk)
+        self.rows: list = []  # (src, dst, weight) of each held phase
+        self.max_lens: list = []
+        self.bases: list = []
+        self._nodes: Optional[torch.Tensor] = None  # every held phase's nodes
+        self._views: list = []  # each held phase's part of them
+        self._host: Optional[list] = None
+
+    def add(self, src: np.ndarray, dst: np.ndarray, weight: np.ndarray, max_len: int,
+            base):
+        o, t = self.oracle, self.t
+        if scan_form(t.v, t.neigh.shape[1], self.chunk, len(src)) != "resident":
+            nodes_d, _, _ = route_flows_balanced(
+                t.adj, o._dist_full(), o._base_tensor(base), o._put(src), o._put(dst),
+                o._put(weight), max_len, chunk=self.chunk, neigh=t.neigh,
+            )
+            return lambda: nodes_d.cpu().numpy()
+        q = len(self.max_lens)
+        self.rows.append((src, dst, weight))
+        self.max_lens.append(int(max_len))
+        self.bases.append(base)
+        return lambda: self._phase_nodes(q)
+
+    def launch(self) -> None:
+        """Route the held phases by one launch; their rows go up as one
+        ``[3, U]`` int32 table (source, destination, weight's bits)."""
+        o, t = self.oracle, self.t
+        counts = [len(r[0]) for r in self.rows]
+        src, dst, weight = (np.concatenate(x) for x in zip(*self.rows))
+        tab_d = o._put(np.stack([src, dst, weight.view(np.int32)]))
+        if any(isinstance(b, torch.Tensor) for b in self.bases):
+            bases = torch.stack([o._base_tensor(b) for b in self.bases])
+        else:
+            bases = o._put(np.stack(self.bases).astype(np.float32, copy=False))
+        self._nodes = torch.empty(
+            sum(c * m for c, m in zip(counts, self.max_lens)), dtype=torch.int32,
+            device=o.device)
+        self._views, _ = route_flows_balanced_phases(
+            t.adj, o._dist_full(), bases, tab_d[0], tab_d[1],
+            tab_d[2].view(torch.float32), np.concatenate([[0], np.cumsum(counts)]),
+            self.max_lens, chunk=self.chunk, neigh=t.neigh, out=self._nodes,
+        )
+
+    def _phase_nodes(self, q: int) -> np.ndarray:
+        if self._host is None:
+            flat = self._nodes.cpu().numpy()
+            self._host = [flat[n.storage_offset():][:n.numel()].reshape(n.shape)
+                          for n in self._views]
+        return self._host[q]
 
 
 class RouteOracle:
@@ -1630,7 +1698,7 @@ class RouteOracle:
         ugal_candidates: int = 4,
         ugal_bias: float = 1.0,
         schedule: Optional[int] = None,
-        _phase_scan: Optional[int] = None,
+        _phase_scan: Optional[_PhaseScans] = None,
         _phase: Optional[int] = None,
     ):
         """Route an entire collective given in compressed array form,
@@ -1655,10 +1723,13 @@ class RouteOracle:
         and returns its
         :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`.
         ``_phase_scan`` and ``_phase`` are the phased dispatch's: the
-        first routes a balanced phase with the greedy scanner at that
-        chunk width, members dealt round-robin by their rank in the
-        group; the second, the phase's id, keeps the phase out of the
-        flat congestion figures.
+        first, the program's :class:`_PhaseScans`, routes a balanced phase
+        with the greedy scanner at its chunk width, members dealt
+        round-robin by their rank in the group, and where the scanner
+        takes the resident form it launches the phase together with the
+        program's other phases after the last one is dispatched; the
+        second, the phase's id, keeps the phase out of the flat
+        congestion figures.
 
         With tracing live (a sink armed, or the profiler recording) the
         call is a ``collective`` span (``n_pairs``, ``policy``, and
@@ -1817,15 +1888,11 @@ class RouteOracle:
                 )
                 w_p = np.zeros(len(src_p), np.float32)
                 w_p[:n_sub] = sub_w
-                nodes_d, _, _ = route_flows_balanced(
-                    t.adj, self._dist_full(), self._base_tensor(base),
-                    self._put(src_p), self._put(dst_p), self._put(w_p),
-                    max_len, chunk=int(_phase_scan), neigh=t.neigh,
-                )
+                phase_nodes = _phase_scan.add(src_p, dst_p, w_p, max_len, base)
 
                 def paths_reap(stages: Stages) -> np.ndarray:
                     stages.stage("wait")
-                    return nodes_d.cpu().numpy()[:n_sub]
+                    return phase_nodes()[:n_sub]
             elif policy == "adaptive":
                 from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
 
@@ -1940,14 +2007,18 @@ class RouteOracle:
         :meth:`routes_collective_dispatch` as their own batch, all of them
         before this returns. A balanced phase routes with the greedy
         scanner at ``scan_chunk`` (``_phase_scan``), its groups split
-        toward weight-1 sub-flows under ``PHASE_SUBFLOW_BUDGET``; shortest
-        and adaptive phases route as their flat batches would.
+        toward weight-1 sub-flows under ``PHASE_SUBFLOW_BUDGET``; the
+        phases whose scans take S1's resident form are launched together
+        after the last phase's dispatch, a block a phase
+        (:class:`_PhaseScans`). Shortest and adaptive phases route as
+        their flat batches would.
 
         Returns a :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`;
         pairs whose endpoints do not resolve are in no phase
         (``pair_phase == -1``). With tracing live the call is a ``phased``
         span: a ``pack`` stage (refresh, resolve, grouping, the base's
-        sums and the packer) and then each phase's ``collective``."""
+        sums and the packer), each phase's ``collective``, and an
+        ``enqueue`` stage where the phases' scans launch together."""
         from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
         from sdnmpi_tpu_torch.sched.phases import (
             PHASE_SUBFLOW_BUDGET,
@@ -1993,6 +2064,7 @@ class RouteOracle:
 
             st.done()
             phases: list = []
+            scans = _PhaseScans(self, t, scan_chunk)
             for p in range(k):
                 sel = np.nonzero(pair_phase == p)[0]
                 if not len(sel):
@@ -2005,11 +2077,14 @@ class RouteOracle:
                         phase_kwargs.get("ecmp_ways", 4),
                         -(-PHASE_SUBFLOW_BUDGET // n_groups),
                     )
-                    phase_kwargs["_phase_scan"] = int(scan_chunk)
+                    phase_kwargs["_phase_scan"] = scans
                 window = self.routes_collective_dispatch(
                     db, macs, src_idx[sel], dst_idx[sel], policy,
                     link_util=link_util, alpha=alpha,
                     link_capacity=link_capacity, **phase_kwargs,
                 )
                 phases.append(PhasePlan(p, sel, window))
+            if scans.rows:
+                st.stage("enqueue")
+                scans.launch()
             return PhasedFlowProgram(k, pair_phase, phases)

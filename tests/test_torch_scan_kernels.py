@@ -125,9 +125,11 @@ def test_kernel_argument_checks():
 
 def test_call_sites_pass_what_the_kernel_takes(monkeypatch):
     """Every call of the scanner on the balanced pair batch, the
-    phase-grain leg (with the host's base cost and with the utilization
-    plane's) and route_flows_sharded passes arguments kernel S1 takes
-    (checked on the CPU tensors the call sites hand the wrapper)."""
+    phase-grain leg's batched launch (with the host's base cost and with
+    the utilization plane's) and route_flows_sharded passes arguments
+    kernel S1 takes (checked on the CPU tensors the call sites hand the
+    wrappers)."""
+    from sdnmpi_tpu_torch.oracle import engine
     from sdnmpi_tpu_torch.oracle.utilplane import UtilPlane
     from sdnmpi_tpu_torch.shardplane import make_mesh
     from sdnmpi_tpu_torch.shardplane.routes import route_flows_sharded
@@ -135,6 +137,7 @@ def test_call_sites_pass_what_the_kernel_takes(monkeypatch):
 
     seen = []
     plain = congestion.route_flows_balanced_plain
+    batched = congestion.route_flows_balanced_phases
 
     def checked(adj, dist, base, src, dst, weight, max_len, chunk=4096, neigh=None):
         congestion.check_kernel_args(adj, dist, base, src, dst, weight, max_len,
@@ -143,7 +146,16 @@ def test_call_sites_pass_what_the_kernel_takes(monkeypatch):
         return plain(adj, dist, base, src, dst, weight, max_len, chunk=chunk,
                      neigh=neigh)
 
+    def checked_phases(adj, dist, bases, src, dst, weight, offsets, max_lens,
+                       chunk=1, neigh=None, *, out=None):
+        congestion.check_phases_kernel_args(adj, dist, bases, src, dst, weight,
+                                            list(offsets), max_lens, chunk, neigh)
+        seen.append(("phases", chunk, len(max_lens)))
+        return batched(adj, dist, bases, src, dst, weight, offsets, max_lens,
+                       chunk=chunk, neigh=neigh, out=out)
+
     monkeypatch.setattr(congestion, "route_flows_balanced_plain", checked)
+    monkeypatch.setattr(engine, "route_flows_balanced_phases", checked_phases)
     spec = fattree(4)
     db = spec.to_topology_db(backend="torch", device="cpu")
     macs = sorted(m for m, _, _ in spec.hosts)
@@ -163,7 +175,9 @@ def test_call_sites_pass_what_the_kernel_takes(monkeypatch):
     fd = torch.from_numpy(rng.integers(0, v, 64).astype(np.int32))
     route_flows_sharded(t.adj, oracle._dist_full(), torch.zeros((v, v)), fs, fd,
                         torch.ones(64), make_mesh(4, device="cpu"), 5, neigh=t.neigh)
-    assert seen[0] == 4096 and 1 in seen and seen.count(1024) == 4
+    assert seen[0] == 4096 and seen.count(1024) == 4
+    # each phased program's phases in one launch, with either base
+    assert [x for x in seen if isinstance(x, tuple)] == [("phases", 1, 4)] * 2
 
 
 def test_packer_at_config12_shape_is_bit_equal():
