@@ -79,6 +79,13 @@ _m_repairs = REGISTRY.counter(
 _m_full_refreshes = REGISTRY.counter(
     "oracle_full_refreshes_total", "full tensorize + APSP recomputes"
 )
+_m_ugal_subflows = REGISTRY.counter(
+    "oracle_ugal_subflows_total", "sub-flows routed by the UGAL program"
+)
+_m_ugal_detours = REGISTRY.counter(
+    "oracle_ugal_detours_total",
+    "sub-flows the UGAL program sent through a Valiant intermediate",
+)
 _m_disc_congestion = REGISTRY.gauge(
     "congestion_discrete_max",
     "max discrete link load (flows per link) of the last balanced pass's "
@@ -1379,7 +1386,7 @@ class RouteOracle:
 
     def _adaptive_paths(
         self, t, src_idx, dst_idx, weight, base, max_len, rounds,
-        ugal_candidates, ugal_bias,
+        ugal_candidates, ugal_bias, stages: Stages = NULL_STAGES,
     ):
         """The UGAL program for a sub-flow batch, end-padded to a multiple
         of 8 with dead flows (their ids, hence the real flows' hash
@@ -1389,7 +1396,12 @@ class RouteOracle:
         batch pads to the shard count instead and runs the sharded
         program (``shardplane.route_adaptive_sharded``): flows split over
         the shards, the batch's traffic summed once, hash streams keyed
-        by global flow id, so the real flows choose as on one device."""
+        by global flow id, so the real flows choose as on one device.
+
+        The caller's ``stages`` get ``ugal``: on one device the program's
+        launches, uploads included, then ``ugal_wait`` (its three copies
+        home) and ``segments`` (the host decode); with a mesh the whole
+        sharded leg."""
         from sdnmpi_tpu_torch.oracle.adaptive import decode_segments, route_adaptive
         from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
 
@@ -1398,6 +1410,7 @@ class RouteOracle:
             levels=max_len - 1, rounds=rounds, max_len=max_len,
             n_candidates=ugal_candidates, bias=ugal_bias,
         )
+        stages.stage("ugal")
         mesh = self._dag_mesh()
         if mesh is not None:
             from sdnmpi_tpu_torch.shardplane import route_adaptive_sharded
@@ -1420,7 +1433,7 @@ class RouteOracle:
                 t.host_adj(), src_p, dst_p, inter, gather_host(s1_sh, mesh),
                 gather_host(s2_sh, mesh), max_len, order=self._order,
             )
-            return inter[:n], n1[:n], n2[:n]
+            return self._count_ugal(inter[:n]), n1[:n], n2[:n]
         src_a, dst_a = pad_flow_batch(
             np.asarray(src_idx, np.int32), np.asarray(dst_idx, np.int32)
         )
@@ -1431,12 +1444,21 @@ class RouteOracle:
             self._put(dst_a), self._put(w_a), t.n_real, packed=True,
             dist=self._dist_full(), neigh=t.neigh, **kwargs,
         )
+        stages.stage("ugal_wait")
         inter = inter_d.cpu().numpy()
+        s1, s2 = s1_d.cpu().numpy(), s2_d.cpu().numpy()
+        stages.stage("segments")
         n1, n2 = decode_segments(
-            t.host_adj(), src_a, dst_a, inter, s1_d.cpu().numpy(),
-            s2_d.cpu().numpy(), max_len, order=self._order,
+            t.host_adj(), src_a, dst_a, inter, s1, s2, max_len, order=self._order,
         )
-        return inter[:n], n1[:n], n2[:n]
+        return self._count_ugal(inter[:n]), n1[:n], n2[:n]
+
+    @staticmethod
+    def _count_ugal(inter: np.ndarray) -> np.ndarray:
+        """Count a UGAL batch's sub-flows and detours; returns ``inter``."""
+        _m_ugal_subflows.inc(len(inter))
+        _m_ugal_detours.inc(int(np.count_nonzero(inter >= 0)))
+        return inter
 
     def _resolve_endpoints_array(
         self, db: "TopologyDB", t: TopoTensors, macs: list[str]
@@ -1737,7 +1759,10 @@ class RouteOracle:
         ``deal``, ``enqueue`` (the hop budget), ``base``, ``enqueue`` (the
         policy's device leg, uploads included), and its reap a
         ``collective_reap`` span of ``wait``, ``decode`` (the DAG leg),
-        ``fdbs`` and ``congestion``."""
+        ``fdbs`` and ``congestion``. The adaptive policy's device leg is
+        ``ugal``, ``ugal_wait``, ``segments`` and ``stitch`` (with a mesh
+        ``ugal`` and ``stitch``) in place of the second ``enqueue``, and
+        its reap has no ``wait``."""
         from sdnmpi_tpu_torch import native
         from sdnmpi_tpu_torch.oracle.adaptive import link_loads
         from sdnmpi_tpu_torch.oracle.batch import CollectiveRoutes, RouteWindow
@@ -1874,7 +1899,8 @@ class RouteOracle:
 
             st.stage("base")
             base = self._normalized_base(db, t, link_util, alpha, link_capacity, f)
-            st.stage("enqueue")
+            if policy != "adaptive":  # the UGAL leg stages itself
+                st.stage("enqueue")
             inter_h = None
             if policy == "balanced" and _phase_scan is not None:
                 # phase-grain scanner leg (phased dispatch only): a phase is a
@@ -1898,8 +1924,9 @@ class RouteOracle:
 
                 inter_h, n1, n2 = self._adaptive_paths(
                     t, sub_src, sub_dst, sub_w, base, max_len, rounds,
-                    ugal_candidates, ugal_bias,
+                    ugal_candidates, ugal_bias, stages=st,
                 )
+                st.stage("stitch")
                 stitched = stitch_paths(n1, n2, inter_h)
 
                 def paths_reap(stages: Stages) -> np.ndarray:

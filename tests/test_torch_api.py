@@ -16,6 +16,7 @@ import json
 import pytest
 
 from tests.test_api import FakeClient
+from tests.test_torch_telemetry import PORT_ONLY
 from tests.test_torch_control import (
     MAC,
     PORT,
@@ -151,8 +152,9 @@ def test_telemetry_and_timeline_requests_name_a11():
     assert got["n_rows"] == ref["n_rows"] == 2 and got["pushed"] == ref["pushed"] == 2
     assert got["timeline"] == ref["timeline"]
     assert got["telemetry"] == ref["telemetry"]
-    # every counter the port's snapshot carries, the reference's carries
-    assert set(got["counters"]) <= set(ref["counters"])
+    # every counter the port's snapshot carries, the reference's carries,
+    # but the port's own UGAL counters
+    assert set(got["counters"]) - set(PORT_ONLY) <= set(ref["counters"])
 
 
 def _golden_stack():

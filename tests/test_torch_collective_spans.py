@@ -5,18 +5,21 @@ A flat balanced collective and a phased one on a k=4 fat-tree, run under
 the spans are: the stages inside their ``collective`` or
 ``collective_reap``, the phases' ``collective`` inside ``phased`` and,
 after them, the ``enqueue`` that launches the phases' scans together, no
-stage inside another. A list sink sees the same spans with the same
-parent links; with neither armed no span is live; and the routes are
-bit-equal with tracing on and off.
+stage inside another. An adaptive (UGAL) collective on a small dragonfly
+splits its device leg into ``ugal``, ``ugal_wait``, ``segments`` and
+``stitch``, and advances the UGAL counters by its sub-flows and its
+detours. A list sink sees the same spans with the same parent links;
+with neither armed no span is live; and the routes are bit-equal with
+tracing on and off.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sdnmpi_tpu_torch.topogen import fattree
+from sdnmpi_tpu_torch.topogen import dragonfly, fattree
 from sdnmpi_tpu_torch.utils import tracing
-from sdnmpi_tpu_torch.utils.metrics import CURRENT_SPAN
+from sdnmpi_tpu_torch.utils.metrics import CURRENT_SPAN, REGISTRY
 
 #: each span of the path by the span that holds it (None: the caller's)
 FLAT = {
@@ -33,8 +36,15 @@ PHASED = {
     "phased": None, "pack": "phased", "collective": "phased",
     "enqueue": ("collective", "phased"),
 }
+#: the adaptive policy: the UGAL leg in place of the device leg's
+#: ``enqueue``, its reap with no ``wait`` or slot decode
+ADAPTIVE = {
+    **{k: v for k, v in FLAT.items() if k not in ("wait", "decode")},
+    "ugal": "collective", "ugal_wait": "collective", "segments": "collective",
+    "stitch": "collective",
+}
 LEAVES = {"resolve", "group", "deal", "enqueue", "base", "wait", "decode", "fdbs",
-          "congestion", "pack"}
+          "congestion", "pack", "ugal", "ugal_wait", "segments", "stitch"}
 
 
 @pytest.fixture(autouse=True)
@@ -114,6 +124,48 @@ def test_stages_are_profiler_ranges_nested_as_the_spans(phased):
         n_phases = sum(n == "collective" for n, _ in holders)
         assert n_phases >= 2
         assert sum(n == "collective_reap" for n, _ in holders) == n_phases
+
+
+def _route_adaptive():
+    """An alltoall over dragonfly(4, 4, 2, 2) through the adaptive policy,
+    the direct global links from each group to the next hot (config 5's
+    skew), so that some sub-flows detour; returns the routes and the
+    oracle's hop distances."""
+    db = dragonfly(4, 4, 2, 2).to_topology_db(backend="torch", device="cpu")
+    macs = sorted(db.hosts)
+    src, dst = np.nonzero(~np.eye(len(macs), dtype=bool))
+    oracle = db._oracle_engine()
+    t = oracle.refresh(db)
+    group = {dpid: (dpid - 1) // 4 for dpid in db.switches}
+    util = {(a, link.src.port_no): 9e9 if group[b] == (group[a] + 1) % 4 else 1e8
+            for a, ends in db.links.items() for b, link in ends.items()}
+    routes = oracle.routes_collective(
+        db, macs, src.astype(np.int32), dst.astype(np.int32), "adaptive",
+        ugal_candidates=8, link_util=util)
+    return routes, oracle._dist, t.index
+
+
+def test_adaptive_stages_and_counters():
+    counters = [REGISTRY.counter(n) for n in
+                ("oracle_ugal_subflows_total", "oracle_ugal_detours_total")]
+    before = [c.value for c in counters]
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        routes, dist, index = _route_adaptive()
+    holders = _holders(_ranges(prof))
+    assert {name for name, _ in holders} == set(ADAPTIVE)
+    for name, holder in holders:
+        assert holder == ADAPTIVE[name], (name, holder)
+    assert [n for n, h in holders if h == "collective"] == [
+        "resolve", "group", "deal", "enqueue", "base", "ugal", "ugal_wait", "segments",
+        "stitch"]
+    assert [n for n, h in holders if h == "collective_reap"] == ["fdbs", "congestion"]
+    # a detour is a route longer than the shortest between its ends
+    rows = np.vectorize(lambda d: index.get(int(d), -1))(routes.hop_dpid)
+    last = rows[np.arange(routes.n_subflows), routes.hop_len - 1]
+    detours = int((routes.hop_len - 1 > dist[rows[:, 0], last]).sum())
+    assert detours > 0 and routes.n_detours > 0
+    assert [c.value - b for c, b in zip(counters, before)] == [routes.n_subflows, detours]
 
 
 @pytest.mark.parametrize("phased", [False, True], ids=["flat", "phased"])
