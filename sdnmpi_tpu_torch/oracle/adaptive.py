@@ -272,25 +272,28 @@ def decode_segments(
     """Host-side decode of ``route_adaptive(packed=True)`` results.
 
     Rebuilds each flow's segment endpoints from ``inter`` as the device
-    program derives them and decodes both int8 slot streams through
-    ``native.decode_slots``. Returns ``(nodes1, nodes2)`` ``[F, max_len]``
-    int32, equal to the unpacked return. ``order`` is the cached
-    sorted-neighbour table (``native.neighbor_order(adj_host)``)."""
+    program derives them and decodes the int8 slot streams through
+    ``native.decode_slots``: segment 1 of every flow, segment 2 of the
+    detour flows (a minimal flow's is all -1). Returns ``(nodes1,
+    nodes2)`` ``[F, max_len]`` int32, equal to the unpacked return.
+    ``order`` is the cached sorted-neighbour table
+    (``native.neighbor_order(adj_host)``)."""
     from sdnmpi_tpu_torch import native
 
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     inter = np.asarray(inter, np.int32)
-    detour = inter >= 0
-    mid = np.where(detour, inter, dst)
-    s2 = np.where(detour, mid, -1)
-    d2 = np.where(detour, dst, -1)
+    slots2 = np.asarray(slots2, np.int8)
     if order is None:
         order = native.neighbor_order(adj_host)
-    n1 = native.decode_slots(np.asarray(slots1, np.int8), order, src, mid,
-                             complete=True)
-    n2 = native.decode_slots(np.asarray(slots2, np.int8), order, s2, d2,
-                             complete=True)
+    n1 = native.decode_slots(np.asarray(slots1, np.int8), order, src,
+                             np.where(inter >= 0, inter, dst), complete=True)
+    # segment 2 exists on detour rows only (inter -> dst); a dead row's
+    # endpoints are -1, which decodes to all -1
+    idx = np.flatnonzero(inter >= 0)
+    n2 = np.full((len(inter), slots2.shape[1] + 2), -1, np.int32)
+    n2[idx] = native.decode_slots(np.take(slots2, idx, axis=0), order,
+                                  inter[idx], dst[idx], complete=True)
     return n1[:, :max_len], n2[:, :max_len]
 
 
@@ -308,15 +311,20 @@ def stitch_paths(nodes1, nodes2, inter) -> np.ndarray:
     f, l = n1.shape
     out = np.full((f, 2 * l - 1), -1, np.int32)
     out[:, :l] = n1
-    len1 = (n1 >= 0).sum(axis=1)
-    len2 = (n2 >= 0).sum(axis=1)
+    # only detour rows get a tail, so the row lengths and the splice
+    # touch those rows alone
+    idx = np.flatnonzero(inter >= 0)
+    d2 = n2[idx]
+    # valid-node counts as a product with ones: numpy's sum(axis=1) pays
+    # a per-row cost on rows this short
+    ones = np.ones(l, np.int32)
+    len1 = (n1[idx] >= 0) @ ones
+    len2 = (d2 >= 0) @ ones
     j = np.arange(l - 1)
-    # detour rows with a real tail: n2[i, 1:len2[i]] to columns len1[i]..
-    mask = (inter >= 0)[:, None] & (j[None, :] < (len2 - 1)[:, None])
-    if mask.any():
-        rows = np.nonzero(mask)[0]
-        cols = (len1[:, None] + j[None, :])[mask]
-        out[rows, cols] = n2[:, 1:][mask]
+    # rows with a real tail: n2[i, 1:len2[i]] to columns len1[i]..
+    mask = j[None, :] < (len2 - 1)[:, None]
+    rows, k = np.nonzero(mask)
+    out[idx[rows], len1[rows] + k] = d2[:, 1:][mask]
     return out
 
 
