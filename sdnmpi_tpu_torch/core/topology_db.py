@@ -664,13 +664,11 @@ class TopologyDB:
                 **kwargs,
             )
         from sdnmpi_tpu_torch.oracle.batch import RouteWindow
-        from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
-        from sdnmpi_tpu_torch.sched.phases import aggregate_groups
+        from sdnmpi_tpu_torch.sched import plan_phases
         from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan
 
         src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
         dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
-        f = len(src_idx)
         # compact switch index over sorted dpids (the tensor path's row
         # order), so both packers see the same group ids
         dpids = sorted(self.switches)
@@ -681,18 +679,7 @@ class TopologyDB:
             resolved = self._resolve_endpoint(mac)
             if resolved is not None and resolved[0] in index:
                 edge[i] = index[resolved[0]]
-        src_sw = edge[src_idx]
-        dst_sw = edge[dst_idx]
-        ok = (src_sw >= 0) & (dst_sw >= 0)
-        pair_phase = np.full(f, -1, np.int32)
-        k = choose_n_phases(0, n_phases)
-        if ok.any():
-            _, uniq, inv, _, g_src, g_dst, w = aggregate_groups(
-                src_sw[ok], dst_sw[ok], v
-            )
-            k = choose_n_phases(len(uniq), n_phases)
-            packed = pack_phases(g_src, g_dst, w, k, v, device=None)
-            pair_phase[ok] = packed[inv]
+        k, pair_phase, _ = plan_phases(edge[src_idx], edge[dst_idx], v, n_phases)
         phases = []
         for p in range(k):
             sel = np.nonzero(pair_phase == p)[0]

@@ -55,7 +55,7 @@ import contextlib
 import dataclasses
 import logging
 import math
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -386,6 +386,99 @@ class _PhaseScans:
             self._host = [flat[n.storage_offset():][:n.numel()].reshape(n.shape)
                           for n in self._views]
         return self._host[q]
+
+
+class _Phase(NamedTuple):
+    """One phase of a phased program, handed to the batch that routes it
+    as ``routes_collective_dispatch(schedule=)``: the phase's id and, for
+    a balanced phase, the program's :class:`_PhaseScans`."""
+
+    id: int
+    scans: Optional[_PhaseScans]
+
+
+class _SubflowBatch(NamedTuple):
+    """A collective batch's sub-flows (:func:`_group_and_deal`): the S =
+    ``n_sub`` sub-flows' switches and weights, and each of the F pairs'
+    sub-flow (-1 where an endpoint does not resolve)."""
+
+    sub_src: np.ndarray  # [S] int32
+    sub_dst: np.ndarray  # [S] int32
+    sub_w: np.ndarray  # [S] f32: members / nsub
+    pair_sub: np.ndarray  # [F] int32
+    n_sub: int
+
+
+def _group_and_deal(src_idx, dst_idx, edge, v: int, ways: int, rank: bool,
+                    stages: Stages) -> Optional[_SubflowBatch]:
+    """Group a batch's pairs (``[F]`` int32 endpoint indices; ``edge``,
+    each endpoint's switch row or -1) and deal them onto sub-flows; None
+    when no pair resolves.
+
+    In the caller's open ``group`` stage the pairs aggregate to unique
+    (edge, edge) groups in key order: by the C++ library's fused gather
+    and histogram over the dense ``[V^2]`` key space where the library
+    loaded and V^2 <= 16M, by ``np.unique`` otherwise. Each group splits
+    into ``min(ways, members)`` sub-flows. A ``deal`` stage then deals
+    each group's members onto its sub-flows: by endpoint hash
+    (``native.deal_subflows*``, the reference's hash), or with ``rank``
+    round-robin by their rank in the group, so every sub-flow carries
+    exactly its weight (the phase-grain scanner's deal)."""
+    from sdnmpi_tpu_torch import native
+
+    vv = v * v
+    fused = native.group_pairs(src_idx, dst_idx, edge, v) if vv <= (16 << 20) else None
+    ok = None  # the resolved pairs, where some are not
+    if fused is not None:
+        key, counts_all = fused
+        uniq = np.nonzero(counts_all)[0]
+        counts = counts_all[uniq]
+    else:
+        src_sw, dst_sw = edge[src_idx], edge[dst_idx]
+        mask = (src_sw >= 0) & (dst_sw >= 0)
+        if not mask.all():
+            ok, src_sw, dst_sw = mask, src_sw[mask], dst_sw[mask]
+        uniq, inv, counts = np.unique(src_sw.astype(np.int64) * v + dst_sw,
+                                      return_inverse=True, return_counts=True)
+    if not len(uniq):
+        return None
+    g_src = (uniq // v).astype(np.int32)
+    g_dst = (uniq % v).astype(np.int32)
+    nsub = np.minimum(ways, counts).astype(np.int32)
+    sub_base = np.zeros(len(uniq), np.int64)
+    np.cumsum(nsub[:-1], out=sub_base[1:])
+    n_sub = int(nsub.sum())
+    sub_src, sub_dst = np.repeat(g_src, nsub), np.repeat(g_dst, nsub)
+    sub_w = np.repeat((counts / nsub).astype(np.float32), nsub)
+
+    stages.stage("deal")
+    if fused is not None:
+        lookup = np.zeros(vv, np.int64)
+        lookup[uniq] = np.arange(len(uniq))
+        if rank:  # each resolved pair's group row
+            mask = key >= 0
+            if not mask.all():
+                ok, key = mask, key[mask]
+            inv = lookup[key]
+    if rank:
+        order = np.argsort(inv, kind="stable")
+        starts = np.zeros(len(uniq), np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        g_ord = inv[order]
+        pos = np.arange(len(g_ord), dtype=np.int64) - starts[g_ord]
+        dealt = np.empty(len(g_ord), np.int32)
+        dealt[order] = (sub_base[g_ord] + pos % nsub[g_ord]).astype(np.int32)
+    elif fused is not None:  # the hash deal in one keyed pass over the pairs
+        dealt = native.deal_subflows_keyed(
+            key, src_idx, dst_idx, lookup, nsub, sub_base)
+    else:
+        pairs = (src_idx, dst_idx) if ok is None else (src_idx[ok], dst_idx[ok])
+        dealt = native.deal_subflows(inv, *pairs, nsub, sub_base)
+    pair_sub = dealt
+    if ok is not None:
+        pair_sub = np.full(len(src_idx), -1, np.int32)
+        pair_sub[ok] = dealt
+    return _SubflowBatch(sub_src, sub_dst, sub_w, pair_sub, n_sub)
 
 
 class RouteOracle:
@@ -1694,15 +1787,12 @@ class RouteOracle:
         or, with ``schedule=``, the
         :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram` with
         every phase reaped."""
-        if kwargs.get("schedule") is not None:
-            program = self.routes_collective_dispatch(
-                db, macs, src_idx, dst_idx, policy, **kwargs
-            )
-            program.reap_all()
-            return program
-        return self.routes_collective_dispatch(
-            db, macs, src_idx, dst_idx, policy, **kwargs
-        ).reap()
+        window = self.routes_collective_dispatch(
+            db, macs, src_idx, dst_idx, policy, **kwargs)
+        if kwargs.get("schedule") is None:
+            return window.reap()
+        window.reap_all()
+        return window
 
     @_timed_batch("routes_collective_dispatch")
     def routes_collective_dispatch(
@@ -1719,9 +1809,7 @@ class RouteOracle:
         rounds: int = 2,
         ugal_candidates: int = 4,
         ugal_bias: float = 1.0,
-        schedule: Optional[int] = None,
-        _phase_scan: Optional[_PhaseScans] = None,
-        _phase: Optional[int] = None,
+        schedule=None,
     ):
         """Route an entire collective given in compressed array form,
         split-phase: the device work is launched here and the returned
@@ -1739,19 +1827,15 @@ class RouteOracle:
         ``"balanced"``, or any other name as in the reference, with the
         DAG balancer and kernel K2.
 
-        ``schedule`` not None routes the collective as a phased flow
-        program instead (:meth:`routes_collective_phased_dispatch`; 0 =
-        auto phase count, K > 0 that many, rounded up to a power of two)
-        and returns its
-        :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`.
-        ``_phase_scan`` and ``_phase`` are the phased dispatch's: the
-        first, the program's :class:`_PhaseScans`, routes a balanced phase
-        with the greedy scanner at its chunk width, members dealt
-        round-robin by their rank in the group, and where the scanner
-        takes the resident form it launches the phase together with the
-        program's other phases after the last one is dispatched; the
-        second, the phase's id, keeps the phase out of the flat
-        congestion figures.
+        ``schedule`` None routes the pairs as one batch
+        (:meth:`_dispatch_batch`); an int routes the collective as a
+        phased flow program instead (:meth:`routes_collective_phased_dispatch`;
+        0 = auto phase count, K > 0 that many, rounded up to a power of
+        two) and returns its
+        :class:`~sdnmpi_tpu_torch.sched.program.PhasedFlowProgram`. The
+        program routes each phase back through here, ``schedule`` that
+        phase's :class:`_Phase`, so every batch of the oracle, flat or a
+        phase, passes through this entry.
 
         With tracing live (a sink armed, or the profiler recording) the
         call is a ``collective`` span (``n_pairs``, ``policy``, and
@@ -1763,22 +1847,36 @@ class RouteOracle:
         ``ugal``, ``ugal_wait``, ``segments`` and ``stitch`` (with a mesh
         ``ugal`` and ``stitch``) in place of the second ``enqueue``, and
         its reap has no ``wait``."""
+        if schedule is None or isinstance(schedule, _Phase):
+            return self._dispatch_batch(
+                db, macs, src_idx, dst_idx, policy, link_util, schedule,
+                alpha=alpha, link_capacity=link_capacity, ecmp_ways=ecmp_ways,
+                rounds=rounds, ugal_candidates=ugal_candidates, ugal_bias=ugal_bias)
+        return self.routes_collective_phased_dispatch(
+            db, macs, src_idx, dst_idx, policy, n_phases=int(schedule),
+            link_util=link_util, alpha=alpha, link_capacity=link_capacity,
+            ecmp_ways=ecmp_ways, rounds=rounds, ugal_candidates=ugal_candidates,
+            ugal_bias=ugal_bias,
+        )
+
+    def _dispatch_batch(self, db: "TopologyDB", macs, src_idx, dst_idx, policy: str,
+                        link_util, phase: Optional[_Phase], *, alpha, link_capacity,
+                        ecmp_ways, rounds, ugal_candidates, ugal_bias):
+        """One batch of a collective (:meth:`routes_collective_dispatch`
+        describes it and its options): resolve, group and deal
+        (:func:`_group_and_deal`), then the policy's leg. A phase's batch
+        (``phase``) carries the phase id in its span and stays out of the
+        flat congestion figures; a balanced phase deals its members by
+        their rank in the group and routes with the program's greedy
+        scanner (:meth:`_scan_leg`)."""
         from sdnmpi_tpu_torch import native
-        from sdnmpi_tpu_torch.oracle.adaptive import link_loads
+        from sdnmpi_tpu_torch.oracle.adaptive import link_loads, stitch_paths
         from sdnmpi_tpu_torch.oracle.batch import CollectiveRoutes, RouteWindow
 
-        if schedule is not None:
-            return self.routes_collective_phased_dispatch(
-                db, macs, src_idx, dst_idx, policy,
-                n_phases=int(schedule), link_util=link_util, alpha=alpha,
-                link_capacity=link_capacity, ecmp_ways=ecmp_ways,
-                rounds=rounds, ugal_candidates=ugal_candidates,
-                ugal_bias=ugal_bias,
-            )
-
+        scans = phase.scans if phase is not None else None
         fields = {"n_pairs": len(src_idx), "policy": policy}
-        if _phase is not None:
-            fields["phase"] = _phase
+        if phase is not None:
+            fields["phase"] = phase.id
         with Stages(start_child_span("collective", **fields)) as st:
             st.stage("resolve")
             t = self.refresh(db)
@@ -1787,7 +1885,6 @@ class RouteOracle:
             f = src_idx.shape[0]
             edge, fport = self._resolve_endpoints_array(db, t, macs)
             final_port = fport[dst_idx]
-            vv = t.v * t.v
 
             def unrouted(n_sub: int, width: int) -> RouteWindow:
                 return RouteWindow(result=CollectiveRoutes(
@@ -1798,160 +1895,38 @@ class RouteOracle:
                 ))
 
             st.stage("group")
-            # aggregate to unique (edge, edge) groups over the dense [V^2]
-            # key space: the C++ kernel fuses the endpoint gathers and the
-            # histogram; numpy runs the same computation otherwise
-            fused = (
-                native.group_pairs(src_idx, dst_idx, edge, t.v)
-                if vv <= (16 << 20)
-                else None
-            )
-            if fused is not None:
-                key_all, counts_all = fused
-                uniq = np.nonzero(counts_all)[0]
-                counts = counts_all[uniq]
-            else:
-                src_sw = edge[src_idx]
-                dst_sw = edge[dst_idx]
-                ok = (src_sw >= 0) & (dst_sw >= 0)
-                all_ok = bool(ok.all())
-                if not all_ok and not ok.any():
-                    return unrouted(0, 1)
-                sw_src_ok = src_sw if all_ok else src_sw[ok]
-                sw_dst_ok = dst_sw if all_ok else dst_sw[ok]
-                key = sw_src_ok * np.int64(t.v) + sw_dst_ok
-                if vv <= (16 << 20):
-                    counts_all = np.bincount(key, minlength=vv)
-                    uniq = np.nonzero(counts_all)[0]
-                    counts = counts_all[uniq]
-                    lookup = np.zeros(vv, np.int64)
-                    lookup[uniq] = np.arange(len(uniq))
-                    inv = lookup[key]
-                else:
-                    uniq, inv, counts = np.unique(
-                        key, return_inverse=True, return_counts=True
-                    )
-            if not len(uniq):
+            ways = 1 if policy == "shortest" else max(1, ecmp_ways)
+            b = _group_and_deal(
+                src_idx, dst_idx, edge, t.v, ways, scans is not None, st)
+            if b is None:
                 return unrouted(0, 1)
 
-            g_src = (uniq // t.v).astype(np.int32)
-            g_dst = (uniq % t.v).astype(np.int32)
-            ways = 1 if policy == "shortest" else max(1, ecmp_ways)
-            nsub = np.minimum(ways, counts).astype(np.int32)
-            sub_base = np.zeros(len(uniq), np.int64)
-            np.cumsum(nsub[:-1], out=sub_base[1:])
-            n_sub = int(nsub.sum())
-            sub_src = np.repeat(g_src, nsub)
-            sub_dst = np.repeat(g_dst, nsub)
-            sub_w = np.repeat((counts / nsub).astype(np.float32), nsub)
-
-            st.stage("deal")
-            # deal each group's members across its sub-flows by endpoint hash
-            if _phase_scan is not None:
-                # exact round-robin deal (phased leg only): the phase-grain
-                # scanner balances each sub-flow as carrying exactly sub_w
-                # members, so members are dealt by their rank in the group
-                if fused is not None:
-                    lookup = np.zeros(vv, np.int64)
-                    lookup[uniq] = np.arange(len(uniq))
-                    okm = key_all >= 0
-                    all_ok = bool(okm.all())
-                    inv_ok = lookup[key_all if all_ok else key_all[okm]]
-                else:
-                    okm = ok
-                    inv_ok = inv
-                order = np.argsort(inv_ok, kind="stable")
-                starts = np.zeros(len(uniq), np.int64)
-                np.cumsum(counts[:-1], out=starts[1:])
-                g_ord = inv_ok[order]
-                pos = np.arange(len(g_ord), dtype=np.int64) - starts[g_ord]
-                dealt = np.empty(len(g_ord), np.int32)
-                dealt[order] = (sub_base[g_ord] + pos % nsub[g_ord]).astype(np.int32)
-                if all_ok:
-                    pair_sub = dealt
-                else:
-                    pair_sub = np.full(f, -1, np.int32)
-                    pair_sub[okm] = dealt
-            elif fused is not None:
-                lookup = np.zeros(vv, np.int64)
-                lookup[uniq] = np.arange(len(uniq))
-                pair_sub = native.deal_subflows_keyed(
-                    key_all, src_idx, dst_idx, lookup, nsub, sub_base
-                )
-            else:
-                dealt = native.deal_subflows(
-                    inv,
-                    src_idx if all_ok else src_idx[ok],
-                    dst_idx if all_ok else dst_idx[ok],
-                    nsub,
-                    sub_base,
-                )
-                if all_ok:
-                    pair_sub = dealt
-                else:
-                    pair_sub = np.full(f, -1, np.int32)
-                    pair_sub[ok] = dealt
-
             st.stage("enqueue")
-            max_len = self._batch_max_len(sub_src, sub_dst, multiple=1)
+            max_len = self._batch_max_len(b.sub_src, b.sub_dst, multiple=1)
             if max_len == 0:
-                return unrouted(n_sub, 1)
+                return unrouted(b.n_sub, 1)
 
             st.stage("base")
             base = self._normalized_base(db, t, link_util, alpha, link_capacity, f)
-            if policy != "adaptive":  # the UGAL leg stages itself
-                st.stage("enqueue")
-            inter_h = None
-            if policy == "balanced" and _phase_scan is not None:
-                # phase-grain scanner leg (phased dispatch only): a phase is a
-                # small near-matching, and the greedy scanner routes each
-                # sub-flow against the load every earlier one placed, which
-                # lands each phase within about one flow of its split
-                from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
-    
-                src_p, dst_p = pad_flow_batch(
-                    sub_src.astype(np.int32), sub_dst.astype(np.int32), pow2=True,
-                )
-                w_p = np.zeros(len(src_p), np.float32)
-                w_p[:n_sub] = sub_w
-                phase_nodes = _phase_scan.add(src_p, dst_p, w_p, max_len, base)
-
-                def paths_reap(stages: Stages) -> np.ndarray:
-                    stages.stage("wait")
-                    return phase_nodes()[:n_sub]
-            elif policy == "adaptive":
-                from sdnmpi_tpu_torch.oracle.adaptive import stitch_paths
-
-                inter_h, n1, n2 = self._adaptive_paths(
-                    t, sub_src, sub_dst, sub_w, base, max_len, rounds,
+            # the policy's leg opens its own first stage; paths_reap(stages)
+            # brings the [S, L] node paths home, -1 padded
+            inter = None  # the UGAL leg's per-sub-flow intermediate
+            if scans is not None:
+                paths_reap = self._scan_leg(scans, b, base, max_len, st)
+            elif policy == "shortest":
+                paths_reap = self._shortest_leg(b, max_len, st)
+            elif policy == "adaptive":  # the UGAL program, from its ``ugal`` stage on
+                inter, n1, n2 = self._adaptive_paths(
+                    t, b.sub_src, b.sub_dst, b.sub_w, base, max_len, rounds,
                     ugal_candidates, ugal_bias, stages=st,
                 )
                 st.stage("stitch")
-                stitched = stitch_paths(n1, n2, inter_h)
-
-                def paths_reap(stages: Stages) -> np.ndarray:
-                    return stitched
-            elif policy == "shortest":
-                from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
-                from sdnmpi_tpu_torch.oracle.paths import batch_paths
-
-                ssrc_p, sdst_p = pad_flow_batch(
-                    sub_src.astype(np.int32), sub_dst.astype(np.int32)
-                )
-                nodes_d, _ = batch_paths(
-                    self._next_full(), self._put(ssrc_p), self._put(sdst_p), max_len
-                )
-
-                def paths_reap(stages: Stages) -> np.ndarray:
-                    stages.stage("wait")
-                    return nodes_d.cpu().numpy()[:n_sub]
-            else:
+                stitched = stitch_paths(n1, n2, inter)
+                paths_reap = lambda rs: stitched  # noqa: E731
+            else:  # "balanced", or any other name: the DAG balancer and K2
+                st.stage("enqueue")
                 paths_reap = self._dag_paths_dispatch(
-                    t, sub_src.astype(np.int32), sub_dst.astype(np.int32), sub_w,
-                    base, max_len, rounds,
-                )
-            sub_dst32 = sub_dst.astype(np.int32)
-
+                    t, b.sub_src, b.sub_dst, b.sub_w, base, max_len, rounds)
             st.done()
 
             def reap():
@@ -1959,17 +1934,17 @@ class RouteOracle:
                     paths = paths_reap(rs)
                     rs.stage("fdbs")
                     od, op, ln = native.materialize_fdbs(
-                        paths, self._port, t.dpids, sub_dst32,
-                        np.full(n_sub, -1, np.int32),  # final port is per pair
+                        paths, self._port, t.dpids, b.sub_dst,
+                        np.full(b.n_sub, -1, np.int32),  # final port is per pair
                     )
                     routes = CollectiveRoutes(
-                        pair_sub, final_port, od, op, ln, endpoint_port=fport
+                        b.pair_sub, final_port, od, op, ln, endpoint_port=fport
                     )
                     rs.stage("congestion")
                     # routed members per sub-flow: shift ids by 1 so unresolved
                     # pairs (-1) land in bin 0, then zero unroutable sub-flows
                     counts_sub = np.bincount(
-                        pair_sub.astype(np.int64) + 1, minlength=n_sub + 1
+                        b.pair_sub.astype(np.int64) + 1, minlength=b.n_sub + 1
                     )[1:].astype(np.float32)
                     counts_sub[ln == 0] = 0.0
                     routes.max_congestion = float(
@@ -1977,13 +1952,48 @@ class RouteOracle:
                     )
                     self._note_congestion(
                         routes.max_congestion, dag=policy == "balanced",
-                        phase=_phase is not None or _phase_scan is not None,
+                        phase=phase is not None,
                     )
-                    if inter_h is not None:
-                        routes.n_detours = int(counts_sub[inter_h >= 0].sum())
+                    if inter is not None:
+                        routes.n_detours = int(counts_sub[inter >= 0].sum())
                     return routes
 
             return RouteWindow(reap)
+
+    def _shortest_leg(self, b: _SubflowBatch, max_len: int, stages: Stages):
+        """``"shortest"``: the device next-hop chase."""
+        from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+        from sdnmpi_tpu_torch.oracle.paths import batch_paths
+
+        stages.stage("enqueue")
+        src_p, dst_p = pad_flow_batch(b.sub_src, b.sub_dst)
+        nodes_d, _ = batch_paths(
+            self._next_full(), self._put(src_p), self._put(dst_p), max_len)
+
+        def paths_reap(rs: Stages) -> np.ndarray:
+            rs.stage("wait")
+            return nodes_d.cpu().numpy()[: b.n_sub]
+
+        return paths_reap
+
+    def _scan_leg(self, scans: _PhaseScans, b: _SubflowBatch, base, max_len: int,
+                  stages: Stages):
+        """A balanced phase: a small near-matching, which the greedy scanner
+        (``scans``) lands within about one flow of its split by routing
+        each sub-flow against the load every earlier one placed."""
+        from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
+
+        stages.stage("enqueue")
+        src_p, dst_p = pad_flow_batch(b.sub_src, b.sub_dst, pow2=True)
+        w_p = np.zeros(len(src_p), np.float32)
+        w_p[: b.n_sub] = b.sub_w
+        phase_nodes = scans.add(src_p, dst_p, w_p, max_len, base)
+
+        def paths_reap(rs: Stages) -> np.ndarray:
+            rs.stage("wait")
+            return phase_nodes()[: b.n_sub]
+
+        return paths_reap
 
     # -- phased collectives (sched/) -----------------------------------------
 
@@ -2023,18 +2033,16 @@ class RouteOracle:
     ):
         """Decompose a collective into phases and route each one.
 
-        The collective's pairs aggregate into (edge switch, edge switch)
-        traffic groups as the flat path groups them
-        (``sched.phases.aggregate_groups``); the greedy link-load-aware
-        packer (``sched.pack_phases``, on the oracle's device) puts the
-        groups into ``n_phases`` phases (0 = auto,
-        :func:`~sdnmpi_tpu_torch.sched.choose_n_phases`), seeded with the
-        per-switch sums of the normalized base, so measured load steers
-        the packing; each phase's pairs then dispatch through
-        :meth:`routes_collective_dispatch` as their own batch, all of them
-        before this returns. A balanced phase routes with the greedy
-        scanner at ``scan_chunk`` (``_phase_scan``), its groups split
-        toward weight-1 sub-flows under ``PHASE_SUBFLOW_BUDGET``; the
+        The phase plan is :func:`~sdnmpi_tpu_torch.sched.plan_phases`:
+        the pairs' (edge switch, edge switch) traffic groups, packed into
+        ``n_phases`` phases (0 = auto) on the oracle's device, seeded with
+        the per-switch sums of the normalized base, so measured load
+        steers the packing. Each phase's pairs then dispatch as their own
+        batch, through :meth:`routes_collective_dispatch` with the phase's
+        :class:`_Phase` as ``schedule``, all of them before this returns.
+        A balanced phase routes with the greedy scanner at ``scan_chunk``
+        (:meth:`_scan_leg`), its groups split toward weight-1 sub-flows
+        under ``PHASE_SUBFLOW_BUDGET``; the
         phases whose scans take S1's resident form are launched together
         after the last phase's dispatch, a block a phase
         (:class:`_PhaseScans`). Shortest and adaptive phases route as
@@ -2046,11 +2054,8 @@ class RouteOracle:
         span: a ``pack`` stage (refresh, resolve, grouping, the base's
         sums and the packer), each phase's ``collective``, and an
         ``enqueue`` stage where the phases' scans launch together."""
-        from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
-        from sdnmpi_tpu_torch.sched.phases import (
-            PHASE_SUBFLOW_BUDGET,
-            aggregate_groups,
-        )
+        from sdnmpi_tpu_torch.sched import plan_phases
+        from sdnmpi_tpu_torch.sched.phases import PHASE_SUBFLOW_BUDGET
         from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan
 
         phased = start_child_span("phased", n_pairs=len(src_idx), policy=policy)
@@ -2059,36 +2064,20 @@ class RouteOracle:
             t = self.refresh(db)
             src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
             dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
-            f = src_idx.shape[0]
             edge, _ = self._resolve_endpoints_array(db, t, macs)
-            src_sw = edge[src_idx]
-            dst_sw = edge[dst_idx]
-            ok = (src_sw >= 0) & (dst_sw >= 0)
-            pair_phase = np.full(f, -1, np.int32)
-            k = choose_n_phases(0, n_phases)
-            group_phase = np.empty(0, np.int32)
-            if ok.any():
-                _, uniq, inv, _, g_src, g_dst, w_pack = aggregate_groups(
-                    src_sw[ok], dst_sw[ok], t.v
-                )
-                k = choose_n_phases(len(uniq), n_phases)
-                # per-switch background load from the same normalized base the
-                # balancer scores with; a plane's base reduces on the device
-                base = self._normalized_base(
-                    db, t, link_util, alpha, link_capacity, max(1, f)
-                )
-                if isinstance(base, torch.Tensor):
-                    util_out, util_in = base.sum(dim=1), base.sum(dim=0)
-                else:
-                    b = np.asarray(base, np.float32)
-                    util_out = b.sum(axis=1, dtype=np.float32)
-                    util_in = b.sum(axis=0, dtype=np.float32)
-                group_phase = pack_phases(
-                    g_src, g_dst, w_pack, k, t.v, util_out, util_in,
-                    device=self.device,
-                )
-                pair_phase[ok] = group_phase[inv]
 
+            def background():  # per-switch sums of the base the balancer scores with
+                base = self._normalized_base(
+                    db, t, link_util, alpha, link_capacity, max(1, len(src_idx)))
+                if isinstance(base, torch.Tensor):  # a plane's, on the device
+                    return base.sum(dim=1), base.sum(dim=0)
+                b = np.asarray(base, np.float32)
+                return b.sum(axis=1, dtype=np.float32), b.sum(axis=0, dtype=np.float32)
+
+            k, pair_phase, group_phase = plan_phases(
+                edge[src_idx], edge[dst_idx], t.v, n_phases, background,
+                device=self.device,
+            )
             st.done()
             phases: list = []
             scans = _PhaseScans(self, t, scan_chunk)
@@ -2097,18 +2086,17 @@ class RouteOracle:
                 if not len(sel):
                     continue  # the packer left this phase empty
                 phase_kwargs = dict(kwargs)
-                phase_kwargs["_phase"] = p
                 if policy == "balanced":
                     n_groups = max(1, int((group_phase == p).sum()))
                     phase_kwargs["ecmp_ways"] = max(
                         phase_kwargs.get("ecmp_ways", 4),
                         -(-PHASE_SUBFLOW_BUDGET // n_groups),
                     )
-                    phase_kwargs["_phase_scan"] = scans
                 window = self.routes_collective_dispatch(
                     db, macs, src_idx[sel], dst_idx[sel], policy,
-                    link_util=link_util, alpha=alpha,
-                    link_capacity=link_capacity, **phase_kwargs,
+                    link_util=link_util, alpha=alpha, link_capacity=link_capacity,
+                    schedule=_Phase(p, scans if policy == "balanced" else None),
+                    **phase_kwargs,
                 )
                 phases.append(PhasePlan(p, sel, window))
             if scans.rows:

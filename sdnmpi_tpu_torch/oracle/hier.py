@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from sdnmpi_tpu_torch.oracle.batch import bucket_len, bucket_pow2
-from sdnmpi_tpu_torch.oracle.engine import RouteOracle, _timed_batch
+from sdnmpi_tpu_torch.oracle.engine import RouteOracle, _Phase, _timed_batch
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 from sdnmpi_tpu_torch.utils.tracing import STATS
 
@@ -1457,25 +1457,13 @@ class HierOracle(RouteOracle):
 
     # -- collectives -------------------------------------------------------
 
-    @_timed_batch("routes_collective_dispatch")
-    def routes_collective_dispatch(
-        self, db: "TopologyDB", macs, src_idx, dst_idx,
-        policy: str = "balanced",
-        link_util=None, alpha: float = 1.0, link_capacity: float = 10e9,
-        ecmp_ways: int = 4, rounds: int = 2, ugal_candidates: int = 4,
-        ugal_bias: float = 1.0, schedule: Optional[int] = None,
-        _phase_scan: Optional[int] = None, _phase: bool = False,
-    ):
+    def _dispatch_batch(self, db: "TopologyDB", macs, src_idx, dst_idx, policy: str,
+                        link_util, phase: Optional[_Phase], **_flat_opts):
+        """One collective batch, each pair its own composed route; the flat
+        path's other options (``alpha``, ``ecmp_ways``, ...) do not apply.
+        ``phase`` is set for a phased program's phase."""
         from sdnmpi_tpu_torch.oracle.batch import CollectiveRoutes, RouteWindow
 
-        if schedule is not None:
-            return self.routes_collective_phased_dispatch(
-                db, macs, src_idx, dst_idx, policy,
-                n_phases=int(schedule), link_util=link_util,
-                alpha=alpha, link_capacity=link_capacity,
-                ecmp_ways=ecmp_ways, rounds=rounds,
-                ugal_candidates=ugal_candidates, ugal_bias=ugal_bias,
-            )
         state = self.refresh(db)
         src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
         dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
@@ -1541,9 +1529,7 @@ class HierOracle(RouteOracle):
                     hop_port[k, h] = port
                 hop_port[k, len(fdb) - 1] = -1  # per-pair placeholder
         maxc = window_congestion(hop_dpid)
-        self._note_congestion(
-            maxc, dag=False, phase=_phase or _phase_scan is not None
-        )
+        self._note_congestion(maxc, dag=False, phase=phase is not None)
         return RouteWindow(result=CollectiveRoutes(
             pair_sub, final_port, hop_dpid, hop_port, hop_len,
             max_congestion=maxc, endpoint_port=fport,
@@ -1552,40 +1538,25 @@ class HierOracle(RouteOracle):
     @_timed_batch("routes_collective_phased_dispatch")
     def routes_collective_phased_dispatch(
         self, db: "TopologyDB", macs, src_idx, dst_idx,
-        policy: str = "balanced", n_phases: int = 0,
-        link_util=None, alpha: float = 1.0, link_capacity: float = 10e9,
-        scan_chunk: int = 1, **kwargs,
+        policy: str = "balanced", n_phases: int = 0, link_util=None,
+        **_flat_opts,
     ):
-        """Phased programs under the hierarchy: the shared host packer
-        (sched.pack_phases host twin) decomposes the pair set exactly
-        like the py backend's differential leg, and each phase routes
-        through the hierarchical collective path. The packer's
+        """Phased programs under the hierarchy: the shared phase plan
+        (``sched.plan_phases``, the packer's host twin) decomposes the pair
+        set exactly like the py backend's differential leg, and each phase
+        routes through the hierarchical collective path. The packer's
         background-utilization terms are idle — the [V, V] base the
         dense packer reduces is the plane this oracle exists to avoid;
         per-phase border steering still spreads load inside phases."""
-        from sdnmpi_tpu_torch.sched import choose_n_phases, pack_phases
-        from sdnmpi_tpu_torch.sched.phases import aggregate_groups
+        from sdnmpi_tpu_torch.sched import plan_phases
         from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan
 
         state = self.refresh(db)
         src_idx = np.ascontiguousarray(src_idx, dtype=np.int32)
         dst_idx = np.ascontiguousarray(dst_idx, dtype=np.int32)
-        f = src_idx.shape[0]
         edge, _ = self._resolve_endpoints_array(db, state, macs)
-        src_sw = edge[src_idx] if f else np.zeros(0, np.int32)
-        dst_sw = edge[dst_idx] if f else np.zeros(0, np.int32)
-        ok = (src_sw >= 0) & (dst_sw >= 0)
-        pair_phase = np.full(f, -1, np.int32)
-        k = choose_n_phases(0, n_phases)
-        if ok.any():
-            _, uniq, inv, _, g_src, g_dst, w = aggregate_groups(
-                src_sw[ok], dst_sw[ok], max(state.v, 1)
-            )
-            k = choose_n_phases(len(uniq), n_phases)
-            packed = pack_phases(
-                g_src, g_dst, w, k, max(state.v, 1), device=None
-            )
-            pair_phase[ok] = packed[inv]
+        k, pair_phase, _ = plan_phases(edge[src_idx], edge[dst_idx], max(state.v, 1),
+                                       n_phases)
         phases: list[PhasePlan] = []
         for p in range(k):
             sel = np.nonzero(pair_phase == p)[0]
@@ -1593,9 +1564,7 @@ class HierOracle(RouteOracle):
                 continue
             window = self.routes_collective_dispatch(
                 db, macs, src_idx[sel], dst_idx[sel], policy,
-                link_util=link_util, alpha=alpha,
-                link_capacity=link_capacity, _phase=True,
-            )
+                link_util=link_util, schedule=_Phase(p, None))
             phases.append(PhasePlan(p, sel, window))
         return PhasedFlowProgram(k, pair_phase, phases)
 

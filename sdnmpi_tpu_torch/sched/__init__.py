@@ -21,5 +21,6 @@ from sdnmpi_tpu_torch.sched.phases import (  # noqa: F401
     choose_n_phases,
     pack_phases,
     pack_phases_host,
+    plan_phases,
 )
 from sdnmpi_tpu_torch.sched.program import PhasedFlowProgram, PhasePlan  # noqa: F401

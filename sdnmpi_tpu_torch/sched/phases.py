@@ -41,7 +41,7 @@ from sdnmpi_tpu_torch.oracle.batch import bucket_pow2
 MAX_AUTO_PHASES = 32
 
 #: per-phase sub-flow budget of the phase-grain scanner leg
-#: (``RouteOracle.routes_collective_dispatch(_phase_scan=)``): each
+#: (``RouteOracle._dispatch_batch`` of a balanced phase): each
 #: phase's groups split toward weight-1 sub-flows, at most this many
 PHASE_SUBFLOW_BUDGET = 1 << 17
 
@@ -61,8 +61,7 @@ def choose_n_phases(n_groups: int, requested: int = 0) -> int:
 
 def aggregate_groups(src_sw: np.ndarray, dst_sw: np.ndarray, v: int):
     """(edge, edge) traffic groups of a collective's resolved pairs, the
-    one group-build of the device path (``oracle/engine.py``) and the
-    pure-Python backend (``core/topology_db.py``).
+    group-build of the phase plan (:func:`plan_phases`).
 
     ``src_sw``/``dst_sw`` are the pairs' compact switch indices (all
     >= 0). Returns ``(key, uniq, inv, counts, g_src, g_dst, w_pack)``:
@@ -88,6 +87,27 @@ def aggregate_groups(src_sw: np.ndarray, dst_sw: np.ndarray, v: int):
         np.float32
     )
     return key, uniq, inv, counts, g_src, g_dst, w_pack
+
+
+def plan_phases(src_sw: np.ndarray, dst_sw: np.ndarray, v: int, n_phases: int,
+                background=None, device=None) -> tuple[int, np.ndarray, np.ndarray]:
+    """A collective's phase plan, shared by every phased program: the resolved
+    pairs' groups (:func:`aggregate_groups`; ``src_sw``/``dst_sw`` are
+    each pair's edge switch, -1 where unresolved), K
+    (:func:`choose_n_phases`) and the groups packed (:func:`pack_phases`).
+    ``background()``, called only once there are groups, gives the packer's
+    ``(util_out, util_in)``. Returns ``(k, pair_phase, group_phase)``, the
+    phases int32 and -1 for an unresolved pair."""
+    ok = (src_sw >= 0) & (dst_sw >= 0)
+    pair_phase = np.full(len(src_sw), -1, np.int32)
+    if not ok.any():
+        return choose_n_phases(0, n_phases), pair_phase, np.empty(0, np.int32)
+    _, uniq, inv, _, g_src, g_dst, w = aggregate_groups(src_sw[ok], dst_sw[ok], v)
+    k = choose_n_phases(len(uniq), n_phases)
+    util_out, util_in = background() if background is not None else (None, None)
+    group_phase = pack_phases(g_src, g_dst, w, k, v, util_out, util_in, device=device)
+    pair_phase[ok] = group_phase[inv]
+    return k, pair_phase, group_phase
 
 
 #: shared memory that kernel S2's one block has on an H100 for its

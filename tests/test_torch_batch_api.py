@@ -355,7 +355,8 @@ def test_reference_policy_knobs_are_accepted():
     """The knobs the reference's blocking APIs take pass through the
     split-phase entry point; an unknown collective policy routes as the
     reference routes it, through the balanced (DAG) leg, flat and phased:
-    routes equal to the reference's exactly."""
+    routes equal to the reference's exactly. ``"scan"`` is one such name:
+    no caller's policy picks the phase scanner's leg."""
     jdb, pdb, macs = _fabric("diamond")
     pairs = _pairs(macs)
     w = pdb.find_routes_batch_dispatch(
@@ -365,13 +366,14 @@ def test_reference_policy_knobs_are_accepted():
         pairs, policy="balanced", alpha=2.0, chunk=4, link_capacity=1e9,
         ecmp_ways=2, rounds=3, dag_threshold=10_000).reap().fdbs()
     src, dst = np.nonzero(~np.eye(len(macs), dtype=bool))
-    want = jdb.find_routes_collective(macs, src, dst, policy="valiant")
-    got = pdb.find_routes_collective(macs, src, dst, policy="valiant")
-    for field in ("pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len"):
-        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
-    assert got.max_congestion == want.max_congestion
-    want = jdb.find_routes_collective_phased(macs, src, dst, "valiant", n_phases=2)
-    got = pdb.find_routes_collective_phased(macs, src, dst, "valiant", n_phases=2)
-    np.testing.assert_array_equal(got.pair_phase, want.pair_phase)
-    for a, b in zip(got.phases, want.phases):
-        np.testing.assert_array_equal(a.reap().hop_dpid, b.reap().hop_dpid)
+    for policy in ("valiant", "scan"):
+        want = jdb.find_routes_collective(macs, src, dst, policy=policy)
+        got = pdb.find_routes_collective(macs, src, dst, policy=policy)
+        for field in ("pair_sub", "final_port", "hop_dpid", "hop_port", "hop_len"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+        assert got.max_congestion == want.max_congestion
+        want = jdb.find_routes_collective_phased(macs, src, dst, policy, n_phases=2)
+        got = pdb.find_routes_collective_phased(macs, src, dst, policy, n_phases=2)
+        np.testing.assert_array_equal(got.pair_phase, want.pair_phase)
+        for a, b in zip(got.phases, want.phases):
+            np.testing.assert_array_equal(a.reap().hop_dpid, b.reap().hop_dpid)
