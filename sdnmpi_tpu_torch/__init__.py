@@ -49,7 +49,8 @@ Package map:
                 MAC codec, LLDP and announcement codecs
   utils/        MAC helpers, metrics registry, tracing, event log,
                 device-memory telemetry, flight recorder, metrics timeline
-  native.py     host codecs (C++ over native/, numpy fallbacks)
+  csrc/         the host C++ of native.py
+  native.py     host codecs (C++ over csrc/, numpy fallbacks)
   convert.py    topology and tensors carried across from sdnmpi_tpu
 """
 

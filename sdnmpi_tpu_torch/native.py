@@ -1,18 +1,20 @@
-"""ctypes bindings for the native host-runtime kernels (native/).
+"""ctypes bindings for the port's native host-runtime kernels (csrc/).
 
 The device computes routes; the host decodes and installs them. These
 bindings accelerate the host side of that pipeline — slot-stream
-decoding, link-load accounting, fdb materialization, pair grouping,
-the block install's member scatter, announcement parsing —
-with the C++ library built from ``native/sdnmpi_native.cpp``
-(the same source the JAX package binds). Every entry point but the
-fused grouping pair (``group_pairs``, ``deal_subflows_keyed``) has a
-pure-numpy fallback with identical semantics, so the package works
-without the shared library; ``available()`` reports which path is live.
+decoding, link-load accounting, fdb materialization, pair grouping and
+the deal's per-sub-flow member counts, the block install's member
+scatter, announcement parsing — with the C++ library built from the
+port's own ``sdnmpi_tpu_torch/csrc/sdnmpi_native.cpp``. Every entry
+point but the fused grouping pair (``group_pairs``,
+``deal_subflows_keyed``) has a pure-numpy fallback with identical
+semantics, so the package works without the shared library;
+``available()`` reports which path is live.
 
 The library is compiled on first use with the host C++ compiler into
-``sdnmpi_tpu_torch/kernels/build/`` (written to a temporary name and
-renamed, so concurrent processes never load a half-written file).
+``sdnmpi_tpu_torch/kernels/build/libsdnmpi_torch_host.so`` (written to a
+temporary name and renamed, so concurrent processes never load a
+half-written file).
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ from typing import Optional
 
 import numpy as np
 
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "native" / "sdnmpi_native.cpp"
+_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "sdnmpi_native.cpp"
 _LIB_PATH = (
     pathlib.Path(__file__).resolve().parent / "kernels" / "build"
-    / "libsdnmpi_native.so"
+    / "libsdnmpi_torch_host.so"
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -92,12 +94,14 @@ def _load() -> Optional[ctypes.CDLL]:
             i32p, i32p, i64p, i32p, i32p, i64, i64, i64, i64p, i32p, i32p,
         ]
         lib.materialize_fdbs.restype = None
-        lib.deal_subflows.argtypes = [i32p, i32p, i32p, i32p, i64p, i64, i32p]
+        lib.deal_subflows.argtypes = [
+            i32p, i32p, i32p, i32p, i64p, i64, i32p, i32p,
+        ]
         lib.deal_subflows.restype = None
         lib.group_pairs.argtypes = [i32p, i32p, i32p, i64, i64, i64p, i64p]
         lib.group_pairs.restype = None
         lib.deal_subflows_keyed.argtypes = [
-            i64p, i32p, i32p, i64p, i32p, i64p, i64, i32p,
+            i64p, i32p, i32p, i64p, i32p, i64p, i64, i32p, i32p,
         ]
         lib.deal_subflows_keyed.restype = None
         lib.decode_announcements.argtypes = [u8p, i64, i32p, i32p]
@@ -261,6 +265,11 @@ def group_pairs(
     return key, counts_all
 
 
+def _n_subflows(nsub: np.ndarray, sub_base: np.ndarray) -> int:
+    """S, the sub-flow id space a deal writes into."""
+    return int((sub_base + nsub).max(initial=0))
+
+
 def deal_subflows_keyed(
     key: np.ndarray,
     src_idx: np.ndarray,
@@ -268,24 +277,26 @@ def deal_subflows_keyed(
     lookup: np.ndarray,
     nsub: np.ndarray,
     sub_base: np.ndarray,
-) -> np.ndarray:
+) -> tuple[np.ndarray, np.ndarray]:
     """group_pairs' companion deal (see deal_subflows for the hash
-    contract); key < 0 pairs come back as -1. C++ only — callers
-    without the library use the inv-based numpy path."""
+    contract and the return); key < 0 pairs come back as -1 and are in
+    no sub-flow's count. C++ only — callers without the library use the
+    inv-based numpy path."""
     lib = _load()
     if lib is None:
         raise RuntimeError("deal_subflows_keyed requires the native library")
+    nsub = np.ascontiguousarray(nsub, np.int32)
+    sub_base = np.ascontiguousarray(sub_base, np.int64)
     out = np.empty(len(key), np.int32)
+    members = np.zeros(_n_subflows(nsub, sub_base), np.int32)
     lib.deal_subflows_keyed(
         np.ascontiguousarray(key, np.int64),
         np.ascontiguousarray(src_idx, np.int32),
         np.ascontiguousarray(dst_idx, np.int32),
         np.ascontiguousarray(lookup, np.int64),
-        np.ascontiguousarray(nsub, np.int32),
-        np.ascontiguousarray(sub_base, np.int64),
-        len(key), out,
+        nsub, sub_base, len(key), out, members,
     )
-    return out
+    return out, members
 
 
 def deal_subflows(
@@ -294,11 +305,13 @@ def deal_subflows(
     dst_idx: np.ndarray,
     nsub: np.ndarray,
     sub_base: np.ndarray,
-) -> np.ndarray:
+) -> tuple[np.ndarray, np.ndarray]:
     """Deterministic hash deal of pairs onto their group's sub-flows.
 
-    Returns [F] int32 sub-flow ids. O(F), no sort; the same hash both
-    here and in the C++ kernel so engines agree bit-for-bit."""
+    Returns ([F] int32 sub-flow ids, [S] int32 pairs dealt onto each
+    sub-flow), S = ``max(sub_base + nsub)``. O(F), no sort; the same
+    hash both here and in the C++ kernel so engines agree bit-for-bit,
+    and the kernel counts a sub-flow's members where it deals them."""
     lib = _load()
     inv = np.ascontiguousarray(inv, np.int32)
     src_idx = np.ascontiguousarray(src_idx, np.int32)
@@ -306,16 +319,19 @@ def deal_subflows(
     nsub = np.ascontiguousarray(nsub, np.int32)
     sub_base = np.ascontiguousarray(sub_base, np.int64)
     f = len(inv)
+    n_sub = _n_subflows(nsub, sub_base)
     if lib is None:  # numpy fallback, identical hash
         h = (
             src_idx.astype(np.uint32) * np.uint32(2654435761)
         ) ^ (dst_idx.astype(np.uint32) * np.uint32(0x85EBCA77))
-        return (
+        out = (
             sub_base[inv] + (h % nsub[inv].astype(np.uint32)).astype(np.int64)
         ).astype(np.int32)
+        return out, np.bincount(out, minlength=n_sub).astype(np.int32)
     out = np.empty(f, np.int32)
-    lib.deal_subflows(inv, src_idx, dst_idx, nsub, sub_base, f, out)
-    return out
+    members = np.zeros(n_sub, np.int32)
+    lib.deal_subflows(inv, src_idx, dst_idx, nsub, sub_base, f, out, members)
+    return out, members
 
 
 def scatter_members(

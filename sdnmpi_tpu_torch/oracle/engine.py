@@ -399,12 +399,14 @@ class _Phase(NamedTuple):
 
 class _SubflowBatch(NamedTuple):
     """A collective batch's sub-flows (:func:`_group_and_deal`): the S =
-    ``n_sub`` sub-flows' switches and weights, and each of the F pairs'
-    sub-flow (-1 where an endpoint does not resolve)."""
+    ``n_sub`` sub-flows' switches, weights and the pairs the deal put on
+    each, and each of the F pairs' sub-flow (-1 where an endpoint does
+    not resolve)."""
 
     sub_src: np.ndarray  # [S] int32
     sub_dst: np.ndarray  # [S] int32
     sub_w: np.ndarray  # [S] f32: members / nsub
+    sub_members: np.ndarray  # [S] int32: pairs dealt onto the sub-flow
     pair_sub: np.ndarray  # [F] int32
     n_sub: int
 
@@ -423,7 +425,9 @@ def _group_and_deal(src_idx, dst_idx, edge, v: int, ways: int, rank: bool,
     each group's members onto its sub-flows: by endpoint hash
     (``native.deal_subflows*``, the reference's hash), or with ``rank``
     round-robin by their rank in the group, so every sub-flow carries
-    exactly its weight (the phase-grain scanner's deal)."""
+    exactly its weight (the phase-grain scanner's deal). The hash deal
+    counts each sub-flow's members as it deals them; the rank deal's
+    counts follow from the group sizes."""
     from sdnmpi_tpu_torch import native
 
     vv = v * v
@@ -468,17 +472,21 @@ def _group_and_deal(src_idx, dst_idx, edge, v: int, ways: int, rank: bool,
         pos = np.arange(len(g_ord), dtype=np.int64) - starts[g_ord]
         dealt = np.empty(len(g_ord), np.int32)
         dealt[order] = (sub_base[g_ord] + pos % nsub[g_ord]).astype(np.int32)
+        # sub-flow j of a group of c members over n takes ranks j, j + n, ...
+        n_rep = np.repeat(nsub, nsub).astype(np.int64)
+        j = np.arange(n_sub, dtype=np.int64) - np.repeat(sub_base, nsub)
+        members = ((np.repeat(counts, nsub) - j + n_rep - 1) // n_rep).astype(np.int32)
     elif fused is not None:  # the hash deal in one keyed pass over the pairs
-        dealt = native.deal_subflows_keyed(
+        dealt, members = native.deal_subflows_keyed(
             key, src_idx, dst_idx, lookup, nsub, sub_base)
     else:
         pairs = (src_idx, dst_idx) if ok is None else (src_idx[ok], dst_idx[ok])
-        dealt = native.deal_subflows(inv, *pairs, nsub, sub_base)
+        dealt, members = native.deal_subflows(inv, *pairs, nsub, sub_base)
     pair_sub = dealt
     if ok is not None:
         pair_sub = np.full(len(src_idx), -1, np.int32)
         pair_sub[ok] = dealt
-    return _SubflowBatch(sub_src, sub_dst, sub_w, pair_sub, n_sub)
+    return _SubflowBatch(sub_src, sub_dst, sub_w, members, pair_sub, n_sub)
 
 
 class RouteOracle:
@@ -1941,11 +1949,9 @@ class RouteOracle:
                         b.pair_sub, final_port, od, op, ln, endpoint_port=fport
                     )
                     rs.stage("congestion")
-                    # routed members per sub-flow: shift ids by 1 so unresolved
-                    # pairs (-1) land in bin 0, then zero unroutable sub-flows
-                    counts_sub = np.bincount(
-                        b.pair_sub.astype(np.int64) + 1, minlength=b.n_sub + 1
-                    )[1:].astype(np.float32)
+                    # routed members per sub-flow: the deal's counts, less
+                    # the unroutable sub-flows'
+                    counts_sub = b.sub_members.astype(np.float32)
                     counts_sub[ln == 0] = 0.0
                     routes.max_congestion = float(
                         link_loads(paths, counts_sub, t.v).max(initial=0.0)
