@@ -11,8 +11,35 @@
 // grouping pair. Wire formats mirror protocol/announcement.py
 // (reference: sdnmpi/protocol/announcement.py:3-18).
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <thread>
+#include <vector>
+
+// Run body(begin, end) over the rows [0, f), split across the host's
+// cores (at most 8) where the batch holds enough cells to pay for the
+// threads. Each row is written by one thread alone, so the split
+// changes no output; a thread that cannot start runs its rows here.
+template <class Body>
+static void for_rows(int64_t f, int64_t cells_per_row, Body body) {
+  const int64_t min_cells = int64_t(1) << 20;  // ~1 ms of work a thread
+  int64_t n = std::min<int64_t>(std::thread::hardware_concurrency(), 8);
+  n = std::min<int64_t>(n, f * cells_per_row / min_cells);
+  if (n <= 1) { body(int64_t(0), f); return; }
+  const int64_t step = (f + n - 1) / n;
+  std::vector<std::thread> pool;
+  for (int64_t b = step; b < f; b += step) {
+    const int64_t e = std::min(f, b + step);
+    try {
+      pool.emplace_back(body, b, e);
+    } catch (...) {
+      body(b, e);
+    }
+  }
+  body(int64_t(0), std::min(f, step));
+  for (auto& th : pool) th.join();
+}
 
 extern "C" {
 
@@ -37,7 +64,8 @@ void decode_slots(const int8_t* slots, const int32_t* order,
                   int32_t complete, int32_t* nodes) {
   if (l == 0) return;
   const int64_t out_l = complete ? l + 2 : l;
-  for (int64_t i = 0; i < f; ++i) {
+  for_rows(f, out_l, [=](int64_t begin, int64_t end) {
+  for (int64_t i = begin; i < end; ++i) {
     const int8_t* srow = slots + i * l;
     int32_t* nrow = nodes + i * out_l;
     bool valid = (srow[0] >= 0) || (src[i] >= 0 && src[i] == dst[i]);
@@ -69,6 +97,7 @@ void decode_slots(const int8_t* slots, const int32_t* order,
       }
     }
   }
+  });
 }
 
 // Accumulate per-link loads from node paths: load[a, b] += w per hop.
@@ -102,34 +131,38 @@ void materialize_fdbs(const int32_t* paths, const int32_t* port,
                       int64_t f, int64_t l, int64_t v,
                       int64_t* out_dpid, int32_t* out_port_arr,
                       int32_t* out_len) {
-  for (int64_t i = 0; i < f; ++i) {
+  for_rows(f, l, [=](int64_t begin, int64_t end) {
+  for (int64_t i = begin; i < end; ++i) {
     const int32_t* row = paths + i * l;
     int64_t* od = out_dpid + i * l;
     int32_t* op = out_port_arr + i * l;
-    for (int64_t h = 0; h < l; ++h) { od[h] = -1; op[h] = -1; }
     int64_t n = 0;
     while (n < l && row[n] >= 0) ++n;
     out_len[i] = 0;
-    if (n == 0) continue;
-    const int32_t last = row[n - 1];
-    if (dstsw[i] >= 0 && last != dstsw[i]) continue;
+    bool ok = n > 0 && (dstsw[i] < 0 || row[n - 1] == dstsw[i]);
     // last line of defense before flow install: every consecutive hop
     // must be a real link (port >= 0), or a malformed/discontinuous
     // stitched path that happens to end at dst would install a garbage
-    // port (mirrors decode_slots' adjacency guard)
-    bool contiguous = true;
-    for (int64_t h = 0; h + 1 < n; ++h) {
-      if (port[(int64_t)row[h] * v + row[h + 1]] < 0) { contiguous = false; break; }
-    }
-    if (!contiguous) continue;
-    for (int64_t h = 0; h + 1 < n; ++h) {
+    // port (mirrors decode_slots' adjacency guard); one pass checks and
+    // writes, and a row that fails is padded whole
+    int64_t h = 0;
+    for (; ok && h + 1 < n; ++h) {
+      const int32_t p = port[(int64_t)row[h] * v + row[h + 1]];
+      if (p < 0) { ok = false; break; }
       od[h] = dpids[row[h]];
-      op[h] = port[(int64_t)row[h] * v + row[h + 1]];
+      op[h] = p;
     }
-    od[n - 1] = dpids[last];
-    op[n - 1] = final_port[i];
-    out_len[i] = (int32_t)n;
+    if (ok) {
+      od[n - 1] = dpids[row[n - 1]];
+      op[n - 1] = final_port[i];
+      out_len[i] = (int32_t)n;
+      h = n;
+    } else {
+      h = 0;
+    }
+    for (; h < l; ++h) { od[h] = -1; op[h] = -1; }
   }
+  });
 }
 
 // Fused per-pair grouping: endpoint -> edge-switch LUT gathers, the

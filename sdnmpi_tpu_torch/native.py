@@ -53,7 +53,7 @@ def _build() -> None:
     tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            [cxx, "-O3", "-fPIC", "-shared", "-std=c++17", "-o", str(tmp),
+            [cxx, "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-o", str(tmp),
              str(_SRC)],
             capture_output=True, timeout=120, check=True,
         )
@@ -118,6 +118,35 @@ def _load() -> Optional[ctypes.CDLL]:
         logging.getLogger("native").debug("native load failed (%s)", exc)
         _lib = None
     return _lib
+
+
+#: glibc's ``mallopt`` parameters (malloc.h)
+_M_TRIM_THRESHOLD, _M_TOP_PAD, _M_MMAP_MAX = -1, -2, -4
+_heap_kept = False
+
+
+def keep_freed_heap() -> bool:
+    """Have glibc keep freed blocks in the process heap for the next
+    allocation: no block is mapped on its own (each freed large array
+    was unmapped, and its successor's first touch faulted every page in
+    again) and the heap's top is never handed back. A collective's
+    per-call arrays (hundreds of MB at a 1,024-router rack) then land on
+    pages the process already holds. Idempotent; False where the C
+    library has no ``mallopt``."""
+    global _heap_kept
+    if _heap_kept:
+        return True
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return False
+    mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    _heap_kept = all([  # a list: every option is set, whatever one returns
+        mallopt(_M_MMAP_MAX, 0),
+        mallopt(_M_TRIM_THRESHOLD, 2**31 - 1),
+        mallopt(_M_TOP_PAD, 256 << 20),
+    ])
+    return _heap_kept
 
 
 def available() -> bool:
@@ -217,10 +246,10 @@ def materialize_fdbs(
     final_port = np.ascontiguousarray(final_port, np.int32)
     f, l = paths.shape
     v = port.shape[0]
-    out_dpid = np.full((f, l), -1, np.int64)
-    out_port = np.full((f, l), -1, np.int32)
-    out_len = np.zeros(f, np.int32)
     if lib is None:
+        out_dpid = np.full((f, l), -1, np.int64)
+        out_port = np.full((f, l), -1, np.int32)
+        out_len = np.zeros(f, np.int32)
         for i in range(f):
             row = paths[i][paths[i] >= 0]
             if len(row) == 0:
@@ -238,6 +267,10 @@ def materialize_fdbs(
             out_port[i, len(row) - 1] = final_port[i]
             out_len[i] = len(row)
         return out_dpid, out_port, out_len
+    # the library writes every cell, -1 past a row's hops
+    out_dpid = np.empty((f, l), np.int64)
+    out_port = np.empty((f, l), np.int32)
+    out_len = np.empty(f, np.int32)
     lib.materialize_fdbs(
         paths, port, dpids, dst_switch, final_port, f, l, v,
         out_dpid, out_port, out_len,

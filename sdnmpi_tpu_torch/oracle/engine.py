@@ -67,6 +67,7 @@ from sdnmpi_tpu_torch.oracle.congestion import (
     route_flows_balanced_phases,
     scan_form,
 )
+from sdnmpi_tpu_torch.oracle.dag import sampled_hops
 from sdnmpi_tpu_torch.utils.metrics import REGISTRY
 from sdnmpi_tpu_torch.utils.tracing import NULL_STAGES, STATS, Stages, start_child_span
 
@@ -85,6 +86,20 @@ _m_ugal_subflows = REGISTRY.counter(
 _m_ugal_detours = REGISTRY.counter(
     "oracle_ugal_detours_total",
     "sub-flows the UGAL program sent through a Valiant intermediate",
+)
+# the flat DAG leg's slot streams (_dag_paths_dispatch): decisions over
+# slots is the share of K2's output, the copy home and the decode that is
+# not padding
+_m_dag_subflows = REGISTRY.counter(
+    "oracle_dag_subflows_total", "sub-flows the DAG leg's kernel K2 sampled"
+)
+_m_dag_slots = REGISTRY.counter(
+    "oracle_dag_slots_total",
+    "slot cells of the DAG leg's streams: sub-flows x sampled hops",
+)
+_m_dag_decisions = REGISTRY.counter(
+    "oracle_dag_decisions_total",
+    "slot cells of the DAG leg's streams that hold a hop (the rest are pads)",
 )
 _m_disc_congestion = REGISTRY.gauge(
     "congestion_discrete_max",
@@ -452,8 +467,12 @@ def _group_and_deal(src_idx, dst_idx, edge, v: int, ways: int, rank: bool,
     sub_base = np.zeros(len(uniq), np.int64)
     np.cumsum(nsub[:-1], out=sub_base[1:])
     n_sub = int(nsub.sum())
-    sub_src, sub_dst = np.repeat(g_src, nsub), np.repeat(g_dst, nsub)
-    sub_w = np.repeat((counts / nsub).astype(np.float32), nsub)
+    sub_w = (counts / nsub).astype(np.float32)
+    if n_sub == len(uniq):  # one sub-flow a group (a torus's pair a router pair)
+        sub_src, sub_dst = g_src, g_dst
+    else:
+        sub_src, sub_dst = np.repeat(g_src, nsub), np.repeat(g_dst, nsub)
+        sub_w = np.repeat(sub_w, nsub)
 
     stages.stage("deal")
     if fused is not None:
@@ -523,6 +542,12 @@ class RouteOracle:
     ) -> None:
         log = logging.getLogger(__name__)
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            from sdnmpi_tpu_torch import native
+
+            # the host stages around the card allocate their arrays
+            # anew each collective: keep freed pages for the next one
+            native.keep_freed_heap()
         if shard_oracle and not mesh_devices:
             log.warning("shard_oracle needs mesh_devices > 0; staying single-device")
             shard_oracle = False
@@ -1101,6 +1126,7 @@ class RouteOracle:
         n_pairs: int,
         results: list,
         detour: Optional[np.ndarray] = None,
+        dag_max_len: int = 0,
     ):
         """Per-sub-flow node rows ``[S, L]`` -> the whole window as a
         :class:`~sdnmpi_tpu_torch.oracle.batch.WindowRoutes`. Each pair is
@@ -1110,11 +1136,15 @@ class RouteOracle:
         merged in. ``max_congestion`` is the max discrete link load of the
         installed pairs (each adds 1 to every link of its sub-flow's path);
         ``n_detours`` counts the installed pairs whose sub-flow is marked
-        in ``detour`` ([S] bool, the adaptive policy's)."""
+        in ``detour`` ([S] bool, the adaptive policy's). ``dag_max_len`` > 0
+        marks paths the DAG leg sampled at that hop budget, whose slot
+        cells that hold a hop are counted (:meth:`_count_dag_decisions`)."""
         from sdnmpi_tpu_torch.oracle.adaptive import link_loads
         from sdnmpi_tpu_torch.oracle.batch import WindowRoutes
 
         od, op, ln = self._subflow_fdbs(t, group_subs, paths)
+        if dag_max_len:
+            self._count_dag_decisions(ln, dag_max_len)
         g_of_pair = np.full(n_pairs, -1, np.int64)
         fport = np.full(n_pairs, -1, np.int32)
         for key, members in groups.items():
@@ -1431,7 +1461,8 @@ class RouteOracle:
 
         def reap():
             wr = self._materialize_window(
-                t, groups, group_subs, paths_reap(), n_pairs, results
+                t, groups, group_subs, paths_reap(), n_pairs, results,
+                dag_max_len=max_len if used_dag else 0,
             )
             self._note_congestion(wr.max_congestion, dag=used_dag)
             return wr
@@ -1654,10 +1685,16 @@ class RouteOracle:
         back a *reap* closure that copies the slots back and decodes them:
         ``[S, max_len]`` int32 node paths, -1 padded. A staged caller
         passes the reap its :class:`~sdnmpi_tpu_torch.utils.tracing.Stages`
-        (the collective's reap: ``wait``, then ``decode``)."""
+        (the collective's reap: ``wait``, then ``decode``). The batch's
+        sub-flows and slot cells are counted here; the caller counts the
+        cells that hold a hop from the paths' lengths
+        (:meth:`_count_dag_decisions`)."""
+        from sdnmpi_tpu_torch import native
         from sdnmpi_tpu_torch.oracle.batch import pad_flow_batch
         from sdnmpi_tpu_torch.oracle.dag import make_dst_nodes, route_collective
 
+        _m_dag_subflows.inc(len(src_idx))
+        _m_dag_slots.inc(len(src_idx) * sampled_hops(max_len))
         li, lj = np.nonzero(t.host_adj() > 0)
         put = self._put
         if isinstance(base, torch.Tensor):
@@ -1680,8 +1717,9 @@ class RouteOracle:
                             else None for q in range(self.mesh_devices)]
         else:
             adj_eff, dist_eff = t.adj, self._dist_d
-        traffic = np.zeros((v_eff, v_eff), np.float32)
-        np.add.at(traffic, (dst_idx, src_idx), sub_w)
+        # traffic[d, s] += w in the batch's order, as np.add.at sums it,
+        # by the library's scatter over one-hop (dst, src) rows
+        traffic = native.link_loads(np.stack([dst_idx, src_idx], axis=1), sub_w, v_eff)
         # the destination set restricts the balancing products and the
         # sampler's distance table; where its 128 pad floor reaches V it
         # would do more work than the full contraction, so skip it
@@ -1744,6 +1782,14 @@ class RouteOracle:
             return self._decode(slots[: len(src_idx)], src_idx, dst_idx)
 
         return reap
+
+    @staticmethod
+    def _count_dag_decisions(hop_len: np.ndarray, max_len: int) -> None:
+        """Count the slot cells of a DAG batch's streams that hold a hop:
+        a path of n switches took n - 1 hops, each a cell but the forced
+        last one past the stream's end (``dag.sampled_hops``)."""
+        cells = np.minimum(hop_len, sampled_hops(max_len) + 1).sum(dtype=np.int64)
+        _m_dag_decisions.inc(int(cells) - int(np.count_nonzero(hop_len)))
 
     def _decode(self, slots, src_idx, dst_idx):
         """Slot decode of the DAG path (C++ when built)."""
@@ -1919,6 +1965,7 @@ class RouteOracle:
             # the policy's leg opens its own first stage; paths_reap(stages)
             # brings the [S, L] node paths home, -1 padded
             inter = None  # the UGAL leg's per-sub-flow intermediate
+            dag_leg = False  # its slot cells are counted in the reap
             if scans is not None:
                 paths_reap = self._scan_leg(scans, b, base, max_len, st)
             elif policy == "shortest":
@@ -1935,6 +1982,7 @@ class RouteOracle:
                 st.stage("enqueue")
                 paths_reap = self._dag_paths_dispatch(
                     t, b.sub_src, b.sub_dst, b.sub_w, base, max_len, rounds)
+                dag_leg = True
             st.done()
 
             def reap():
@@ -1953,6 +2001,8 @@ class RouteOracle:
                     # the unroutable sub-flows'
                     counts_sub = b.sub_members.astype(np.float32)
                     counts_sub[ln == 0] = 0.0
+                    if dag_leg:
+                        self._count_dag_decisions(ln, max_len)
                     routes.max_congestion = float(
                         link_loads(paths, counts_sub, t.v).max(initial=0.0)
                     )

@@ -12,6 +12,9 @@ restore across them. One test runs the mirror over a real WebSocket.
 import asyncio
 import importlib
 import json
+import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -28,6 +31,9 @@ from tests.test_torch_control import (
     launch_all,
     send_vmac,
 )
+
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def api(S, name):
@@ -119,41 +125,55 @@ def test_mirror_streams_match_the_reference():
     assert got["dead_dropped"]
 
 
+def _pulls(S):
+    """The ``telemetry`` and ``timeline`` pulls of one package's
+    controller after two Monitor passes, with every instrument of the
+    package registered."""
+    api(S, "telemetry")._import_instrumented()
+    fabric, ctl, _ = build(S, diamond)
+    rpc = api(S, "rpc").RPCInterface(ctl.bus, ctl.config)
+    client = FakeClient()
+    rpc.attach_client(client)
+    launch_all(S, fabric, [MAC[1], MAC[4]])
+    fabric.hosts[MAC[1]].send(ip_packet(S, MAC[1], MAC[4]))
+    ctl.monitor.poll(now=0.0)
+    ctl.monitor.poll(now=1.0)
+    tel = rpc.handle_request({"jsonrpc": "2.0", "id": 1, "method": "telemetry"})
+    tl = rpc.handle_request({"jsonrpc": "2.0", "id": 2, "method": "timeline",
+                             "params": ["desired_flows"]})
+    pushed = [m for m in client.messages if m["method"] == "update_telemetry"]
+    return {
+        "telemetry": sorted(tel["result"]),
+        "counters": sorted(tel["result"]["counters"]),
+        "timeline": [v for _, v in tl["result"]["series"]["desired_flows"]],
+        "n_rows": tl["result"]["n_rows"],
+        "pushed": len(pushed),
+    }
+
+
 def test_telemetry_and_timeline_requests_name_a11():
     """The ``telemetry`` and ``timeline`` pulls answer with the
     reference's payloads (the registry snapshot's sections, the
     timeline's series after two Monitor passes), and ``rpc_telemetry``
-    broadcasts one ``update_telemetry`` per pass to attached clients."""
-    def pulls(S):
-        # every instrument of each package registered, whatever this
-        # process imported before
-        api(S, "telemetry")._import_instrumented()
-        fabric, ctl, _ = build(S, diamond)
-        rpc = api(S, "rpc").RPCInterface(ctl.bus, ctl.config)
-        client = FakeClient()
-        rpc.attach_client(client)
-        launch_all(S, fabric, [MAC[1], MAC[4]])
-        fabric.hosts[MAC[1]].send(ip_packet(S, MAC[1], MAC[4]))
-        ctl.monitor.poll(now=0.0)
-        ctl.monitor.poll(now=1.0)
-        tel = rpc.handle_request({"jsonrpc": "2.0", "id": 1, "method": "telemetry"})
-        tl = rpc.handle_request({"jsonrpc": "2.0", "id": 2, "method": "timeline",
-                                 "params": ["desired_flows"]})
-        pushed = [m for m in client.messages if m["method"] == "update_telemetry"]
-        return {
-            "telemetry": sorted(tel["result"]),
-            "counters": sorted(tel["result"]["counters"]),
-            "timeline": [v for _, v in tl["result"]["series"]["desired_flows"]],
-            "n_rows": tl["result"]["n_rows"],
-            "pushed": len(pushed),
-        }
+    broadcasts one ``update_telemetry`` per pass to attached clients.
 
-    ref, got = pulls(REF), pulls(PORT)
+    Both packages' pulls run in one fresh interpreter: a registry holds
+    whatever earlier tests of its process put there (labeled series
+    such as the tenant byte counters exist once fed), so pulls taken in
+    a test worker would depend on the tests that ran before them."""
+    code = ("import json, jax\n"
+            "jax.config.update('jax_platforms', 'cpu')\n"
+            "from tests.test_torch_api import PORT, REF, _pulls\n"
+            "print(json.dumps([_pulls(REF), _pulls(PORT)]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ref, got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["n_rows"] == ref["n_rows"] == 2 and got["pushed"] == ref["pushed"] == 2
     assert got["timeline"] == ref["timeline"]
     assert got["telemetry"] == ref["telemetry"]
     # every counter the port's snapshot carries, the reference's carries,
-    # but the port's own UGAL counters
+    # but the port's own (the UGAL and DAG-leg counters)
     assert set(got["counters"]) - set(PORT_ONLY) <= set(ref["counters"])
 
 

@@ -219,6 +219,110 @@ def test_native_fallbacks_match_library(monkeypatch):
             np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("fault", ["none", "gap", "wrong_end", "empty"])
+def test_fdbs_refuse_bad_rows_as_the_fallback_does(monkeypatch, fault):
+    """The library's one-pass fdb fill pads a row it refuses whole, as
+    the numpy fallback leaves it: a hop that is no link, a path that
+    ends off its destination switch, an empty row."""
+    if not native.available():
+        pytest.skip("no C++ compiler for the native codecs")
+    rng = np.random.default_rng(13)
+    v, f, width = 12, 200, 7
+    port = np.where(rng.random((v, v)) < 0.5, rng.integers(1, 9, (v, v)), -1).astype(np.int32)
+    np.fill_diagonal(port, -1)
+    # walks over the port table's links, of 1 to ``width`` switches
+    paths = np.full((f, width), -1, np.int32)
+    for i in range(f):
+        node = rng.integers(v)
+        for h in range(rng.integers(1, width + 1)):
+            paths[i, h] = node
+            nxt = np.flatnonzero(port[node] >= 0)
+            if not len(nxt):
+                break
+            node = rng.choice(nxt)
+    lengths = (paths >= 0).sum(axis=1)
+    dst = paths[np.arange(f), lengths - 1].copy()
+    dst[::7] = -1  # any endpoint
+    bad = rng.random(f) < 0.3
+    if fault == "gap":  # a hop onto a switch with no link from the last
+        for i in np.flatnonzero(bad & (lengths > 1)):
+            h = rng.integers(1, lengths[i])
+            miss = np.flatnonzero(port[paths[i, h - 1]] < 0)
+            paths[i, h] = rng.choice(miss)
+    elif fault == "wrong_end":
+        dst[bad] = (dst[bad] + 1) % v
+    elif fault == "empty":
+        paths[bad] = -1
+    dpids = np.arange(v, dtype=np.int64) + 1000
+    final = rng.integers(1, 5, f).astype(np.int32)
+    got = native.materialize_fdbs(paths, port, dpids, dst, final)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    want = native.materialize_fdbs(paths, port, dpids, dst, final)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    if fault != "none":
+        assert (got[2][bad] == 0).any()
+
+
+def test_rows_split_over_threads_change_no_output():
+    """A batch large enough for the library to split its rows over host
+    threads decodes and fills fdbs exactly as the same rows do in
+    slices too small to split."""
+    if not native.available():
+        pytest.skip("no C++ compiler for the native codecs")
+    adj, _, _, _, edges, _ = _collective("random40", 6)
+    rng = np.random.default_rng(19)
+    f, step = 400_000, 40_000  # 4.8M cells at once, 480k a slice
+    src = rng.choice(edges, f).astype(np.int32)
+    dst = rng.choice(edges, f).astype(np.int32)
+    slots = rng.integers(-1, 3, (f, 10)).astype(np.int8)
+    order = native.neighbor_order(adj)
+    port = np.where(adj > 0, 7, -1).astype(np.int32)
+    dpids = np.arange(adj.shape[0], dtype=np.int64) + 100
+    final = np.full(f, 3, np.int32)
+
+    def run(s):
+        paths = native.decode_slots(slots[s], order, src[s], dst[s], complete=True)
+        return (paths, *native.materialize_fdbs(paths, port, dpids, dst[s], final[s]))
+
+    whole = run(slice(None))
+    parts = [run(slice(i, i + step)) for i in range(0, f, step)]
+    for k, got in enumerate(whole):
+        np.testing.assert_array_equal(got, np.concatenate([p[k] for p in parts]))
+    assert (whole[3] > 0).any()
+
+
+def test_one_hop_loads_sum_as_add_at_does():
+    """The DAG leg's traffic matrix, summed by the library's link-load
+    scatter over one-hop (dst, src) rows, is bit-equal to ``np.add.at``
+    over the same batch, repeated entries included."""
+    if not native.available():
+        pytest.skip("no C++ compiler for the native codecs")
+    rng = np.random.default_rng(17)
+    v, f = 40, 5000
+    dst = rng.integers(0, v, f).astype(np.int32)
+    src = rng.integers(0, v, f).astype(np.int32)
+    w = (rng.random(f) * 3).astype(np.float32)
+    want = np.zeros((v, v), np.float32)
+    np.add.at(want, (dst, src), w)
+    np.testing.assert_array_equal(native.link_loads(np.stack([dst, src], axis=1), w, v), want)
+
+
+def test_freed_heap_is_kept_once_asked():
+    """``keep_freed_heap`` sets glibc's heap options once and says so;
+    asked again it changes nothing. It runs in a fresh interpreter: the
+    options hold for the whole process."""
+    import subprocess
+    import sys
+
+    code = ("from sdnmpi_tpu_torch import native; "
+            "print(native.keep_freed_heap(), native.keep_freed_heap())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=120).stdout.split()
+    assert out == ["True", "True"]
+
+
 def test_host_helpers_match():
     rng = np.random.default_rng(11)
     src_sw = rng.integers(0, 30, 500).astype(np.int32)

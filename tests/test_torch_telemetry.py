@@ -4,8 +4,9 @@ package's.
 Every instrument the port registers exists in the reference's registry
 under the same name, kind and label (so the README's metrics reference,
 generated from the reference, covers both packages), and the owner
-table assigns it the same subsystem, except the two counters of the
-port's UGAL program, which the reference does not have. The Prometheus text of the same
+table assigns it the same subsystem, except the counters of the port's
+UGAL program and of its flat DAG leg's slot streams, which the
+reference does not have. The Prometheus text of the same
 snapshot, and the Chrome trace of the same span records and counter
 tracks, are equal. Both controllers' ``telemetry()`` snapshots carry
 the same sections, and ``--metrics-dump`` / ``--trace-dump`` write them
@@ -41,8 +42,11 @@ def rows(S):
 
 
 #: the port's instruments the reference lacks: the UGAL program's
-#: counters, which only the port's adaptive leg feeds
-PORT_ONLY = {"oracle_ugal_detours_total": "counter", "oracle_ugal_subflows_total": "counter"}
+#: counters, which only the port's adaptive leg feeds, and the flat DAG
+#: leg's slot-stream counters
+PORT_ONLY = {"oracle_ugal_detours_total": "counter", "oracle_ugal_subflows_total": "counter",
+             "oracle_dag_subflows_total": "counter", "oracle_dag_slots_total": "counter",
+             "oracle_dag_decisions_total": "counter"}
 
 
 def test_every_port_instrument_is_a_reference_instrument():
